@@ -1,0 +1,12 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro`` for NVIDIA Hopper.
+
+The JAX package ``repro`` stays the reference; this package reimplements
+its serving main path (dense GQA decoder, chunked streamed prefill, per-slot
+decode, paged KV block pool) with plain PyTorch tensor code and hand-written
+CUDA kernels for ``sm_90a`` in place of the Pallas TPU kernels.
+
+The package imports ``torch`` and never ``jax`` or anything of ``repro``.
+Entry points (``models.model.init_params``, ``runtime.server.Server``,
+``launch/serve.py``) run on ``cuda`` unless the caller passes
+``device="cpu"``; without a GPU they raise instead of falling back.
+"""

@@ -1,0 +1,50 @@
+"""Reference parameters → port parameters.
+
+Takes the reference's parameter pytree with numpy leaves (``layers`` leaves
+stacked on a leading layer axis by ``lax.scan``) and returns the port's
+dict of tensors with ``layers`` as a list of per-layer dicts.  bf16 leaves
+arrive as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy``
+rejects; they go across bit for bit through a 16-bit integer view.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike
+
+
+def to_tensor(a: Any, device: DeviceLike = "cpu") -> torch.Tensor:
+    """One numpy leaf → tensor of the same dtype and bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _tree(node: Any, device: DeviceLike) -> Any:
+    if isinstance(node, dict):
+        return {k: _tree(v, device) for k, v in node.items()}
+    return to_tensor(node, device)
+
+
+def _unstack(node: Any, i: int) -> Any:
+    if isinstance(node, dict):
+        return {k: _unstack(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
+
+
+def params_from_reference(tree: Dict[str, Any],
+                          device: DeviceLike = "cpu") -> Dict[str, Any]:
+    """The reference's dense-family parameter pytree (numpy leaves) → the
+    port's parameters on ``device``."""
+    out = {k: _tree(v, device) for k, v in tree.items() if k != "layers"}
+    stacked = tree["layers"]
+    n_layers = np.asarray(stacked["ln1"]["scale"]).shape[0]
+    out["layers"] = [_tree(_unstack(stacked, i), device)
+                     for i in range(n_layers)]
+    return out

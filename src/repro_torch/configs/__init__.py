@@ -1,0 +1,30 @@
+"""Architecture registry of the port: ``--arch <id>`` resolves here.
+
+The two dense GQA archs are ported; the reference's other eight land with
+their families.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs.base import (
+    ChunkCarrySpec,
+    ModelConfig,
+    chunk_carry_spec,
+    serving_features,
+)
+from repro_torch.configs.h2o_danube_1p8b import config as _h2o_danube
+from repro_torch.configs.smollm_360m import config as _smollm
+
+_CONFIGS = {c.name: c for c in (_smollm, _h2o_danube)}
+
+ARCH_NAMES = tuple(_CONFIGS)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _CONFIGS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_CONFIGS)}")
+    return _CONFIGS[name]
+
+
+__all__ = ["ARCH_NAMES", "ChunkCarrySpec", "ModelConfig", "chunk_carry_spec",
+           "get_config", "serving_features"]

@@ -1,0 +1,140 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel source ``csrc/<name>.cu`` has a plain C interface and is
+compiled by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
+``ctypes``.  Libraries land in ``build/repro_torch_kernels/`` at the root of
+the checkout, named by a hash of the sources and flags, so a changed source
+rebuilds and an unchanged one loads at once.  Nothing builds at import:
+the first launch on a CUDA tensor builds, and :func:`build` lets a caller
+build several sources at once, one ``nvcc`` process each, all in parallel.
+
+There is no interpret mode and no override: a kernel's wrapper runs the
+plain PyTorch version for CPU tensors and launches the kernel (or raises)
+for CUDA tensors — the tensor's device alone decides.
+
+Every C entry point returns ``cudaGetLastError()`` right after its launch;
+:meth:`CudaKernel.check` raises on a nonzero code, so a refused launch
+(too many threads, too much shared memory) cannot pass unnoticed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+#: root of the checkout (``src/repro_torch/kernels/common.py`` → 3 up)
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
+KERNELS_DIR = Path(__file__).resolve().parent
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin); the CUDA kernels are "
+            "built from source at first use")
+    return path
+
+
+def source_of(name: str) -> Path:
+    """``name`` → ``kernels/<name>/csrc/<name>.cu``."""
+    return KERNELS_DIR / name / "csrc" / f"{name}.cu"
+
+
+def library_path(src: Path) -> Path:
+    """Where the library of ``src`` lives: keyed by the bytes of every
+    source in its ``csrc/`` directory and by the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(src.parent.iterdir()):
+        if f.suffix in (".cu", ".cuh", ".h"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, float]:
+    """Build the libraries of ``names`` that are missing, one ``nvcc`` per
+    source, all started together.  Returns wall seconds per name built
+    (0.0 when the library was already there).  Raises with ``nvcc``'s
+    output when a build fails.  ``ptxas``'s register and shared-memory
+    report is kept beside each library as ``<lib>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    started: Dict[str, tuple] = {}
+    secs: Dict[str, float] = {}
+    for name in names:
+        src = source_of(name)
+        out = library_path(src)
+        if out.exists():
+            secs[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, tmp, out, time.perf_counter())
+    errors: List[str] = []
+    for name, (proc, tmp, out, t0) in started.items():
+        log, _ = proc.communicate()
+        secs[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name} (rc {proc.returncode}):\n"
+                          f"{log}")
+            continue
+        Path(str(out) + ".log").write_text(log)
+        os.replace(tmp, out)          # atomic: a reader never sees half a lib
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return secs
+
+
+class CudaKernel:
+    """One kernel library: loaded lazily, with a launch count.
+
+    ``launches`` is incremented by the kernel's wrapper exactly where it
+    launches the kernel, and nowhere else — a run can read it to show that
+    its work went through the kernel and not the plain version.
+    """
+
+    def __init__(self, name: str, entry: str, argtypes: List[type]):
+        self.name, self.entry, self.argtypes = name, entry, argtypes
+        self.launches = 0
+        self._fn = None
+
+    def fn(self):
+        """The C entry point, building and loading the library on first use."""
+        if self._fn is None:
+            build([self.name])
+            lib = ctypes.CDLL(str(library_path(source_of(self.name))))
+            fn = getattr(lib, self.entry)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def check(self, rc: int):
+        if rc != 0:
+            raise RuntimeError(
+                f"{self.name}: CUDA launch failed with cudaError {rc}")
+
+    def ptxas_report(self) -> str:
+        log = Path(str(library_path(source_of(self.name))) + ".log")
+        return log.read_text() if log.exists() else ""
+
+
+__all__ = ["BUILD_DIR", "CudaKernel", "NVCC_FLAGS", "build", "library_path",
+           "nvcc_path", "source_of"]

@@ -1,0 +1,94 @@
+"""Serving launcher of the port: ``python -m repro_torch.launch.serve``.
+
+Continuous batching with chunked streamed prefill on one GPU, random
+weights from seed 0.  The default is the arch's ``reduced()`` config,
+as in the reference launcher; ``--full`` serves the full-width config in
+bf16.  ``--prefill-chunk 0`` admits with bulk per-request prefill.
+``--device cpu`` runs on the CPU (with the kernels' plain versions);
+without it the launcher needs a CUDA device and fails if there is none.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--arch", default="smollm-360m")
+    p.add_argument("--full", action="store_true",
+                   help="serve the full-width config (default: reduced())")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; required to exist)")
+    p.add_argument("--requests", type=int, default=16)
+    p.add_argument("--prompt-len", type=int, default=16)
+    p.add_argument("--max-new", type=int, default=24)
+    p.add_argument("--max-batch", type=int, default=4)
+    p.add_argument("--max-seq", type=int, default=256)
+    p.add_argument("--prefill-chunk", type=int, default=8,
+                   help="tokens per admitted prefill chunk (0: bulk "
+                        "per-request admission)")
+    p.add_argument("--arrive-every", type=int, default=0,
+                   help="submit one request every N scheduler steps "
+                        "(0: all up front)")
+    p.add_argument("--paged", action="store_true",
+                   help="paged KV block pool + prefix cache")
+    p.add_argument("--block-size", type=int, default=16,
+                   help="KV positions per pool block (--paged only)")
+    p.add_argument("--dump-tokens", default=None, metavar="PATH",
+                   help="write {rid: out_tokens} JSON")
+    args = p.parse_args(argv)
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.server import Server, ServerConfig, drive_arrivals
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
+    params = init_params(cfg, seed=0, device=device)
+    srv = Server(cfg, params, ServerConfig(
+        max_batch=args.max_batch, max_seq=args.max_seq,
+        max_new_tokens=args.max_new,
+        prefill_chunk=args.prefill_chunk or None,
+        paged=args.paged, block_size=args.block_size), device=device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=args.prompt_len)
+               for _ in range(args.requests)]
+    if args.arrive_every:
+        steps = drive_arrivals(srv, prompts, args.arrive_every)
+    else:
+        for pr in prompts:
+            srv.submit(pr)
+        steps = srv.run()
+
+    stats = srv.stats()
+    mode = str(stats["admission_mode"])
+    if args.paged:
+        mode += f"+paged(blk{args.block_size})"
+    print(f"[serve:{mode}] {cfg.name} on {device}: {stats['requests']} "
+          f"requests, {stats['tokens']} tokens in {steps} steps; "
+          f"{stats['throughput_tok_s']:.1f} tok/s, "
+          f"prefill {stats['prefill_tok_s']:.1f} tok/s, "
+          f"decode {stats['decode_tok_s']:.1f} tok/s, "
+          f"ttft {stats['mean_ttft_s']*1e3:.1f} ms, "
+          f"itl {stats['mean_itl_s']*1e3:.2f} ms")
+    if args.paged:
+        print(f"[serve:{mode}] prefix hits {stats['prefix_hits']:.0f} / "
+              f"misses {stats['prefix_misses']:.0f}, "
+              f"pool evictions {stats['pool_evictions']:.0f}, "
+              f"free blocks {stats['pool_free_blocks']:.0f}")
+    if args.dump_tokens:
+        with open(args.dump_tokens, "w") as f:
+            json.dump({str(r.rid): r.out_tokens for r in srv.done}, f,
+                      sort_keys=True)
+    return srv
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,199 @@
+"""Serving decode: the K/V ring cache, the paged block pool and one decode step.
+
+The counterpart of the dense GQA subset of ``repro.models.decode``.  The
+layouts are the reference's:
+
+* contiguous cache ``k``/``v`` (L, B, Hkv, S_buf, hd) in the param dtype,
+  with per-row ``pos`` (B,) and ``slot_pos`` (B, S_buf) (−1 = empty); ring
+  slot ``p % S_buf`` holds position ``p``;
+* paged cache ``kp``/``vp`` (L, N_blocks, Hkv, blk, hd) plus the per-slot
+  table ``block_ids`` (B, S_buf/blk); blocks ``[0, B)`` are the rows'
+  parking blocks.
+
+Where the reference returns a new cache from a donated one, the port
+updates the cache tensors in place and returns the same dict.  Decode
+attention is plain tensor code (a jnp einsum in the reference).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, serving_features
+from repro_torch.models import layers as L
+from repro_torch.models.model import _lm_logits
+
+Params = Dict[str, Any]
+Cache = Dict[str, Any]
+
+
+def kv_buf_len(cfg: ModelConfig, max_seq: int) -> int:
+    """Ring extent of the K/V cache: the SWA window caps it."""
+    return min(max_seq, cfg.window) if cfg.window else max_seq
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device) -> Cache:
+    dt = L.pdtype(cfg)
+    sb = kv_buf_len(cfg, max_seq)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, sb, cfg.resolved_head_dim)
+    return {
+        "pos": torch.zeros(batch, dtype=torch.int32, device=device),
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "slot_pos": torch.full((batch, sb), -1, dtype=torch.int32,
+                               device=device),
+    }
+
+
+def supports_paged(cfg: ModelConfig) -> bool:
+    return serving_features(cfg)["paged"]
+
+
+def paged_slot_blocks(cfg: ModelConfig, max_seq: int, block_size: int) -> int:
+    """Blocks per slot; ``block_size`` must divide the ring extent."""
+    sb = kv_buf_len(cfg, max_seq)
+    if sb % block_size:
+        raise ValueError(
+            f"block_size {block_size} must divide kv_buf_len {sb}")
+    return sb // block_size
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                     block_size: int, n_blocks: int, device) -> Cache:
+    """Shared block pool + per-slot block tables, every row parked on its
+    own block ``b``."""
+    if not supports_paged(cfg):
+        raise ValueError(f"{cfg.name} has no paged-cache layout")
+    sb = kv_buf_len(cfg, max_seq)
+    npb = paged_slot_blocks(cfg, max_seq, block_size)
+    if n_blocks < batch:
+        raise ValueError(f"n_blocks {n_blocks} < batch {batch}: every row "
+                         f"needs a parking block")
+    shape = (cfg.n_layers, n_blocks, cfg.n_kv_heads, block_size,
+             cfg.resolved_head_dim)
+    rows = torch.arange(batch, dtype=torch.int32, device=device)
+    return {
+        "pos": torch.zeros(batch, dtype=torch.int32, device=device),
+        "slot_pos": torch.full((batch, sb), -1, dtype=torch.int32,
+                               device=device),
+        "kp": torch.zeros(shape, dtype=L.pdtype(cfg), device=device),
+        "vp": torch.zeros(shape, dtype=L.pdtype(cfg), device=device),
+        "block_ids": rows[:, None].expand(batch, npb).contiguous(),
+    }
+
+
+def gather_blocks(pool: torch.Tensor, block_ids: torch.Tensor) -> torch.Tensor:
+    """pool (N, Hkv, blk, hd) + table (B, npb) → the contiguous-layout copy
+    (B, Hkv, npb·blk, hd) — exactly the contiguous ring's values."""
+    g = pool[block_ids.long()]                      # (B, npb, Hkv, blk, hd)
+    b, npb, hkv, blk, hd = g.shape
+    return g.transpose(1, 2).reshape(b, hkv, npb * blk, hd)
+
+
+def scatter_block_rows(pool: torch.Tensor, block_ids: torch.Tensor,
+                       new: torch.Tensor, slot: torch.Tensor) -> None:
+    """Write each row's new K/V (B, Hkv, hd) at ring slot ``slot`` (B,) into
+    its pool block, in place (the reference returns an updated pool)."""
+    blk = pool.shape[2]
+    slot = slot.long()
+    bid = block_ids.long().gather(1, (slot // blk)[:, None])[:, 0]
+    pool[bid, :, slot % blk, :] = new.to(pool.dtype)
+
+
+def _valid_slots(slot_pos: torch.Tensor, pos: torch.Tensor,
+                 window: Optional[int]) -> torch.Tensor:
+    """Per-row key validity: ``slot_pos`` (B, S_buf) against ``pos`` (B,)."""
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    if window is not None:
+        valid &= slot_pos > (pos - window)[:, None]
+    return valid
+
+
+def _row_update(buf: torch.Tensor, new: torch.Tensor,
+                slot: torch.Tensor) -> None:
+    """Write ``new`` (B, Hkv, hd) into ``buf`` (B, Hkv, S_buf, hd) at the
+    per-row ring slot ``slot`` (B,), in place."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    buf[rows, :, slot.long(), :] = new.to(buf.dtype)
+
+
+def _masked_softmax_attend(scores: torch.Tensor, vcache: torch.Tensor,
+                           slot_pos: torch.Tensor, pos: torch.Tensor,
+                           window: Optional[int]) -> torch.Tensor:
+    """scores (B, Hkv, G, S_buf) fp32; vcache (B, Hkv, S_buf, hd)."""
+    valid = _valid_slots(slot_pos, pos, window)
+    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.where(scores <= -1e29, torch.zeros_like(scores),
+                    torch.exp(scores - m))
+    p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return torch.einsum("bkgs,bksd->bkgd", p, vcache.float())
+
+
+def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     kc: torch.Tensor, vc: torch.Tensor,
+                     slot_pos: torch.Tensor, pos: torch.Tensor,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """x (B, D) one token per row at ``pos`` (B,).  Writes the row's K/V
+    into ``kc``/``vc`` (B, Hkv, S_buf, hd) in place; returns (B, D)."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    hkv, hq = cfg.n_kv_heads, cfg.n_heads
+    cd = L.cdtype(cfg)
+    xc = x.to(cd)
+    q = (xc @ p["wq"].to(cd)).reshape(b, hq, hd)
+    k = (xc @ p["wk"].to(cd)).reshape(b, hkv, hd)
+    v = (xc @ p["wv"].to(cd)).reshape(b, hkv, hd)
+    posv = pos[:, None, None]
+    q = L.apply_rope(q[:, :, None, :], posv, cfg.rope_theta)[:, :, 0]
+    k = L.apply_rope(k[:, :, None, :], posv, cfg.rope_theta)[:, :, 0]
+
+    slot = pos % kc.shape[2]
+    _row_update(kc, k, slot)
+    _row_update(vc, v, slot)
+    qg = q.reshape(b, hkv, hq // hkv, hd).float() * hd ** -0.5
+    scores = torch.einsum("bkgd,bksd->bkgs", qg, kc.float())
+    out = _masked_softmax_attend(scores, vc, slot_pos, pos, window)
+    out = out.reshape(b, hq * hd).to(cd)
+    return (out @ p["wo"].to(cd)).to(x.dtype)
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
+                tokens: torch.Tensor) -> Tuple[Cache, torch.Tensor]:
+    """tokens (B,) → (cache, logits (B, V) fp32).  Every row advances at
+    its own ``pos``; the cache is updated in place."""
+    pos = cache["pos"]
+    b = tokens.shape[0]
+    rows = torch.arange(b, device=tokens.device)
+    x = params["embed"][tokens]                              # (B, D)
+    sb = cache["slot_pos"].shape[1]
+    slot = (pos % sb).long()
+    cache["slot_pos"][rows, slot] = pos
+    slot_pos = cache["slot_pos"]
+    paged = "kp" in cache
+
+    for li, lp in enumerate(params["layers"]):
+        if paged:
+            # gather the block-table view, run the identical contiguous
+            # attention on it, scatter only the new row back into the pool
+            bids = cache["block_ids"]
+            kc = gather_blocks(cache["kp"][li], bids)
+            vc = gather_blocks(cache["vp"][li], bids)
+        else:
+            kc, vc = cache["k"][li], cache["v"][li]
+        normed = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
+        x = x + attention_decode(cfg, lp["attn"], normed, kc, vc, slot_pos,
+                                 pos, window=cfg.window)
+        if paged:
+            scatter_block_rows(cache["kp"][li], bids, kc[rows, :, slot, :],
+                               slot)
+            scatter_block_rows(cache["vp"][li], bids, vc[rows, :, slot, :],
+                               slot)
+        x = x + L.mlp(cfg, lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps))
+
+    cache["pos"] = pos + 1
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return cache, _lm_logits(cfg, params, x[:, None, :])[:, 0]

@@ -1,0 +1,241 @@
+"""Prefill into the K/V ring cache: bulk, chunked, and to paged blocks.
+
+The counterpart of the GQA ``ring`` carry of ``repro.models.prefill``.
+Ring fill: the cache keeps the last ``sb`` positions, position ``p`` at
+slot ``p % sb``; for a prompt shorter than ``sb`` the tail slots stay empty
+(``slot_pos = −1``).
+
+Chunked prefill writes each chunk's K/V into a full-length scratch and
+attends the chunk's rows against it at ``q_offset = lo`` — the flash
+kernel takes that offset, so on the card bulk and chunked prefill both run
+through it (the reference gates chunks to its blockwise jnp path, whose
+result, ``blockwise_attention(q_offset=lo)``, is what is computed here).
+Scratch updates are in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, chunk_carry_spec
+from repro_torch.models import layers as L
+from repro_torch.models.decode import kv_buf_len
+from repro_torch.models.model import _embed, _lm_logits
+
+Params = Dict[str, Any]
+Cache = Dict[str, Any]
+
+
+def _slot_map(s: int, sb: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (pos_for_slot (sb,) int32 with −1 empty, gather_idx (sb,))."""
+    j = torch.arange(sb, device=device)
+    if s >= sb:
+        pos = s - sb + torch.remainder(j - s, sb)
+        return pos.to(torch.int32), pos
+    pos = torch.where(j < s, j, -1)
+    return pos.to(torch.int32), pos.clamp_min(0)
+
+
+def _ring_fill(seq_t: torch.Tensor, sb: int, seq_axis: int) -> torch.Tensor:
+    """Scatter a (..., S, ...) sequence tensor into its ring-buffer layout."""
+    s = seq_t.shape[seq_axis]
+    slot_pos, idx = _slot_map(s, sb, seq_t.device)
+    filled = seq_t.index_select(seq_axis, idx)
+    if s < sb:
+        # zero the empty tail so the cache holds no garbage (masked anyway)
+        shape = [1] * seq_t.ndim
+        shape[seq_axis] = sb
+        filled = torch.where((slot_pos >= 0).reshape(shape), filled,
+                             torch.zeros((), dtype=filled.dtype,
+                                         device=filled.device))
+    return filled
+
+
+def _prefill_gqa(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                 positions: torch.Tensor, sb: int):
+    dt = L.pdtype(cfg)
+    ks, vs = [], []
+    for lp in params["layers"]:
+        normed = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
+        a, (k, v) = L.attention(cfg, lp["attn"], normed, positions,
+                                return_kv=True)
+        x = x + a
+        x = x + L.mlp(cfg, lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps))
+        ks.append(_ring_fill(k, sb, seq_axis=2).to(dt))
+        vs.append(_ring_fill(v, sb, seq_axis=2).to(dt))
+    slot_pos, _ = _slot_map(x.shape[1], sb, x.device)
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs),
+               "slot_pos": slot_pos}
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            cache_len: Optional[int] = None) -> Tuple[Cache, torch.Tensor]:
+    """Run the prompt (B, S), build the decode cache, return next-token
+    logits (B, V).  ``cache_len``: ring capacity (default: prompt length)."""
+    x = _embed(params, tokens)
+    s_total = x.shape[1]
+    sb = kv_buf_len(cfg, cache_len or s_total)
+    positions = torch.arange(s_total, device=x.device)
+    x, cache = _prefill_gqa(cfg, params, x, positions, sb)
+    return (_finish_cache(cache, tokens.shape[0], s_total),
+            _chunk_logits(cfg, params, x))
+
+
+def _finish_cache(cache: Cache, batch: int, s_total: int) -> Cache:
+    """Stamp the per-slot position bookkeeping (every row at ``s_total``)."""
+    dev = cache["slot_pos"].device
+    cache["pos"] = torch.full((batch,), s_total, dtype=torch.int32, device=dev)
+    cache["slot_pos"] = cache["slot_pos"].expand(
+        batch, cache["slot_pos"].shape[-1]).contiguous()
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# chunked streamed prefill
+# ---------------------------------------------------------------------------
+
+
+def chunk_support(cfg: ModelConfig) -> Tuple[bool, str]:
+    """Whether streamed prefill can run, with the reason if not.  The
+    flash kernel takes ``q_offset``, so the ported ``ring`` carry always
+    chunks; the other carry kinds are not ported yet."""
+    kind = chunk_carry_spec(cfg).kind
+    if kind != "ring" or cfg.family != "dense":
+        return False, f"the {kind!r} chunk carry of {cfg.family} is not ported"
+    return True, ""
+
+
+def chunk_slices(total: int, n: int) -> List[Tuple[int, int]]:
+    """``n`` nearly equal, order-preserving ``(lo, hi)`` cuts of ``total``
+    (copy of ``repro.core.pipeline.chunk_slices``)."""
+    cuts = [round(i * total / n) for i in range(n + 1)]
+    return [(lo, hi) for lo, hi in zip(cuts, cuts[1:]) if hi > lo]
+
+
+def prefill_chunk_cuts(s_total: int, chunk_len: Optional[int] = None,
+                       n_chunks: Optional[int] = None, *,
+                       multiple: int = 1) -> List[Tuple[int, int]]:
+    """``(lo, hi)`` chunk boundaries over a prompt of ``s_total``:
+    fixed-size chunks (``chunk_len``, ragged tail) or near-equal cuts
+    (``n_chunks``); interior cuts land on multiples of ``multiple``."""
+    m = max(1, int(multiple))
+    if chunk_len:
+        c = -(-max(1, int(chunk_len)) // m) * m
+        return [(lo, min(lo + c, s_total)) for lo in range(0, s_total, c)]
+    cuts = chunk_slices(s_total, max(1, int(n_chunks or 1)))
+    if m > 1 and len(cuts) > 1:
+        snapped = sorted({(hi // m) * m for _, hi in cuts[:-1]})
+        edges = [0] + [b for b in snapped if 0 < b < s_total] + [s_total]
+        cuts = list(zip(edges[:-1], edges[1:]))
+    return cuts
+
+
+def init_prefill_scratch(cfg: ModelConfig, batch: int, prompt_len: int,
+                         device) -> Cache:
+    """Full-length K/V scratch (L, B, Hkv, S, hd) in the compute dtype (the
+    cast to the cache's param dtype happens at the ring fill, as in bulk)."""
+    ok, why = chunk_support(cfg)
+    if not ok:
+        raise ValueError(f"{cfg.name}: {why}")
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, prompt_len,
+             cfg.resolved_head_dim)
+    cd = L.cdtype(cfg)
+    return {"k": torch.zeros(shape, dtype=cd, device=device),
+            "v": torch.zeros(shape, dtype=cd, device=device),
+            "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+
+
+def _chunk_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     kbuf: torch.Tensor, vbuf: torch.Tensor,
+                     lo: int) -> torch.Tensor:
+    """``layers.attention`` for chunk rows at ``[lo, lo+C)``: the chunk's
+    K/V are written into the scratch in place, and q attends against the
+    whole scratch at ``q_offset = lo``."""
+    c = x.shape[1]
+    positions = lo + torch.arange(c, device=x.device)
+    q, k, v = L.qkv_proj(cfg, p, x, positions)
+    kbuf[:, :, lo:lo + c] = k
+    vbuf[:, :, lo:lo + c] = v
+    out = L.attention_core(q, kbuf, vbuf, causal=True, window=cfg.window,
+                           q_offset=lo)
+    return L.out_proj(cfg, p, out, x.dtype)
+
+
+def _chunk_logits(cfg: ModelConfig, params: Params,
+                  h: torch.Tensor) -> torch.Tensor:
+    x = L.rms_norm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
+    return _lm_logits(cfg, params, x)[:, 0]
+
+
+def prefill_chunk(cfg: ModelConfig, params: Params, scratch: Cache,
+                  tokens: torch.Tensor, lo: int) -> Tuple[Cache, torch.Tensor]:
+    """One incremental prefill chunk: ``tokens`` (B, C) are the prompt rows
+    ``[lo, lo+C)``.  Updates ``scratch`` in place; returns it and the
+    chunk's next-token logits (meaningful after the final chunk)."""
+    h = _embed(params, tokens)
+    for li, lp in enumerate(params["layers"]):
+        normed = L.rms_norm(lp["ln1"], h, cfg.norm_eps)
+        h = h + _chunk_attention(cfg, lp["attn"], normed, scratch["k"][li],
+                                 scratch["v"][li], lo)
+        h = h + L.mlp(cfg, lp["mlp"], L.rms_norm(lp["ln2"], h, cfg.norm_eps))
+    scratch["pos"] = torch.full_like(scratch["pos"], lo + tokens.shape[1])
+    return scratch, _chunk_logits(cfg, params, h)
+
+
+def scratch_to_cache(cfg: ModelConfig, scratch: Cache,
+                     cache_len: Optional[int] = None) -> Cache:
+    """A completed prefill scratch → the decode-cache layout of
+    :func:`prefill` (ring fill, cast to the param dtype)."""
+    dt = L.pdtype(cfg)
+    batch, s = scratch["k"].shape[1], scratch["k"].shape[3]
+    sb = kv_buf_len(cfg, cache_len or s)
+    cache = {"k": _ring_fill(scratch["k"], sb, seq_axis=3).to(dt),
+             "v": _ring_fill(scratch["v"], sb, seq_axis=3).to(dt),
+             "slot_pos": _slot_map(s, sb, scratch["k"].device)[0]}
+    return _finish_cache(cache, batch, s)
+
+
+# ---------------------------------------------------------------------------
+# paged KV block pool: slot cache <-> pool blocks
+# ---------------------------------------------------------------------------
+
+
+def cache_to_blocks(cfg: ModelConfig, slot_cache: Cache, block_size: int):
+    """A batch-1 ring cache → ``(blocks_k, blocks_v, slot_pos_row,
+    pos_row)`` with blocks (L, sb/blk, Hkv, blk, hd): a reshape of the ring
+    layout, so the block-table gather gives the contiguous cache back."""
+    k = slot_cache["k"]
+    nl, b1, hkv, sb, hd = k.shape
+    if b1 != 1:
+        raise ValueError(f"cache_to_blocks takes a batch-1 cache, got {b1}")
+    if sb % block_size:
+        raise ValueError(
+            f"block_size {block_size} must divide the ring extent {sb}")
+    npb = sb // block_size
+
+    def split(a):
+        return a[:, 0].reshape(nl, hkv, npb, block_size, hd).transpose(1, 2)
+
+    return (split(k), split(slot_cache["v"]),
+            slot_cache["slot_pos"][0], slot_cache["pos"][0])
+
+
+def scratch_to_blocks(cfg: ModelConfig, scratch: Cache, block_size: int,
+                      cache_len: Optional[int] = None):
+    """:func:`scratch_to_cache` composed with :func:`cache_to_blocks`."""
+    return cache_to_blocks(cfg, scratch_to_cache(cfg, scratch, cache_len),
+                           block_size)
+
+
+def seed_scratch_from_blocks(cfg: ModelConfig, scratch: Cache,
+                             blocks_k: torch.Tensor,
+                             blocks_v: torch.Tensor) -> Cache:
+    """Restore positions ``[0, m·blk)`` of a fresh scratch from ``m`` cached
+    prefix blocks (L, m, Hkv, blk, hd), in place — the prefix-cache hit."""
+    nl, m, hkv, blk, hd = blocks_k.shape
+    for name, blocks in (("k", blocks_k), ("v", blocks_v)):
+        flat = blocks.transpose(1, 2).reshape(nl, hkv, m * blk, hd)
+        scratch[name][:, :, :, :m * blk] = flat[:, None]
+    return scratch

@@ -1,0 +1,104 @@
+"""The port's configs, import boundary and device policy.
+
+* every config field equals the reference's, full and ``reduced()``;
+* ``repro_torch`` imports neither jax nor anything of ``repro``;
+* entry points default to the GPU and raise when there is none.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as ref_base
+from repro.configs import get_config as ref_get_config
+from repro_torch.configs import ARCH_NAMES, base, get_config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("name", ["smollm-360m", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("reduced", [False, True])
+def test_config_fields_equal_reference(name, reduced):
+    ours, ref = get_config(name), ref_get_config(name)
+    if reduced:
+        ours, ref = ours.reduced(), ref.reduced()
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert ours.resolved_head_dim == ref.resolved_head_dim
+    assert dataclasses.asdict(base.chunk_carry_spec(ours)) == \
+        dataclasses.asdict(ref_base.chunk_carry_spec(ref))
+    assert base.serving_features(ours) == ref_base.serving_features(ref)
+
+
+def test_registry_names_and_unknown_arch():
+    assert set(ARCH_NAMES) == {"smollm-360m", "h2o-danube-1.8b"}
+    with pytest.raises(KeyError):
+        get_config("mamba2-2.7b")
+
+
+def test_package_imports_no_jax_and_no_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len([n for n in sys.modules\n"
+        "                 if n.startswith('repro_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[1]) >= 15, out.stdout
+
+
+class TestDevicePolicy:
+    """With no GPU, entry points raise unless the caller asks for the CPU."""
+
+    @pytest.fixture(autouse=True)
+    def _no_gpu(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def test_init_params_raises_without_device(self):
+        from repro_torch.models.model import init_params
+
+        cfg = get_config("smollm-360m").reduced()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_params(cfg, seed=0)
+        params = init_params(cfg, seed=0, device="cpu")
+        assert params["embed"].device.type == "cpu"
+
+    def test_server_raises_without_device(self):
+        from repro_torch.models.model import init_params
+        from repro_torch.runtime.server import Server
+
+        cfg = get_config("smollm-360m").reduced()
+        params = init_params(cfg, seed=0, device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Server(cfg, params)
+        assert Server(cfg, params, device="cpu").device.type == "cpu"
+
+    def test_launcher_raises_without_device(self):
+        from repro_torch.launch import serve
+
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--requests", "1"])
+
+    def test_kernel_wrapper_rejects_other_devices(self):
+        from repro_torch.kernels.flash_attention import FLASH, flash_attention
+
+        q = torch.zeros(1, 2, 4, 16, device="meta")
+        before = FLASH.launches
+        with pytest.raises(ValueError, match="device"):
+            flash_attention(q, q, q)
+        x = torch.from_numpy(
+            np.random.default_rng(0).standard_normal((1, 2, 4, 16),
+                                                     dtype=np.float32))
+        flash_attention(x, x, x)         # CPU: the plain version
+        assert FLASH.launches == before
