@@ -1,9 +1,11 @@
 """repro_torch — the PyTorch/CUDA port of ``repro`` for NVIDIA Hopper.
 
 The JAX package ``repro`` stays the reference; this package reimplements
-its serving main path (dense GQA decoder, chunked streamed prefill, per-slot
-decode, paged KV block pool) with plain PyTorch tensor code and hand-written
-CUDA kernels for ``sm_90a`` in place of the Pallas TPU kernels.
+its serving main path (dense GQA decoder and pure-SSM Mamba-2, chunked
+streamed prefill, per-slot decode, paged KV block pool for the dense
+family) with plain PyTorch tensor code and hand-written CUDA kernels for
+``sm_90a`` in place of the Pallas TPU kernels (flash attention, the SSD
+chunked scan).
 
 The package imports ``torch`` and never ``jax`` or anything of ``repro``.
 Entry points (``models.model.init_params``, ``runtime.server.Server``,

@@ -40,11 +40,15 @@ def _unstack(node: Any, i: int) -> Any:
 
 def params_from_reference(tree: Dict[str, Any],
                           device: DeviceLike = "cpu") -> Dict[str, Any]:
-    """The reference's dense-family parameter pytree (numpy leaves) → the
-    port's parameters on ``device``."""
+    """The reference's parameter pytree (numpy leaves) → the port's
+    parameters on ``device``.  The layer count is the leading axis of any
+    leaf of ``layers`` (``ln1`` in the dense family, ``ln`` in the SSM)."""
     out = {k: _tree(v, device) for k, v in tree.items() if k != "layers"}
     stacked = tree["layers"]
-    n_layers = np.asarray(stacked["ln1"]["scale"]).shape[0]
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    n_layers = np.asarray(leaf).shape[0]
     out["layers"] = [_tree(_unstack(stacked, i), device)
                      for i in range(n_layers)]
     return out

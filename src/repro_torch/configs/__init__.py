@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-The two dense GQA archs are ported; the reference's other eight land with
-their families.
+The two dense GQA archs and the pure-SSM mamba2 are ported; the
+reference's other seven land with their families.
 """
 
 from __future__ import annotations
@@ -13,9 +13,10 @@ from repro_torch.configs.base import (
     serving_features,
 )
 from repro_torch.configs.h2o_danube_1p8b import config as _h2o_danube
+from repro_torch.configs.mamba2_2p7b import config as _mamba2
 from repro_torch.configs.smollm_360m import config as _smollm
 
-_CONFIGS = {c.name: c for c in (_smollm, _h2o_danube)}
+_CONFIGS = {c.name: c for c in (_smollm, _h2o_danube, _mamba2)}
 
 ARCH_NAMES = tuple(_CONFIGS)
 

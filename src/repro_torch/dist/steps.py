@@ -30,13 +30,14 @@ def serve_step(cfg: ModelConfig, params: Params, cache: Cache,
 
 
 def slot_write(cache: Cache, slot_cache: Cache, i: int) -> Cache:
-    """Write a batch-1 cache into row ``i`` of the contiguous batched cache
-    (``build_slot_write_step``): ``k``/``v`` carry the batch on axis 1,
-    ``slot_pos``/``pos`` on axis 0."""
-    for name in ("k", "v"):
-        cache[name][:, i] = slot_cache[name][:, 0]
-    cache["slot_pos"][i] = slot_cache["slot_pos"][0]
-    cache["pos"][i] = slot_cache["pos"][0]
+    """Write every leaf of a batch-1 cache into row ``i`` of the contiguous
+    batched cache, in place (``build_slot_write_step``): the per-row
+    bookkeeping ``pos``/``slot_pos`` carries the batch on axis 0, the
+    (L, B, ...) layer stacks (``k``/``v``, ``ssm_state``/``conv_state``)
+    on axis 1."""
+    for name, leaf in cache.items():
+        axis = 0 if name in ("pos", "slot_pos") else 1
+        leaf.select(axis, i).copy_(slot_cache[name].select(axis, 0))
     return cache
 
 

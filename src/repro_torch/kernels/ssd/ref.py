@@ -1,0 +1,119 @@
+"""Plain PyTorch versions of the SSD scan (Mamba-2's state-space duality).
+
+* :func:`ssd_plain` — the chunked math of the reference's ``ssd_jnp``
+  (``repro.models.layers``), the oracle of ``csrc/ssd.cu``: the CPU tests
+  run it, and on the card ``chip_smoke.py`` holds the kernel to it.
+* :func:`ssd_decode_step` — the single-token recurrence of serving decode
+  (plain tensor code in the reference too).
+* :func:`ssd_sequential` — the step-by-step recurrence, the definition both
+  chunked forms must match; for tests only.
+
+Shapes: x (B, S, H, P); dt (B, S, H) positive; a (H,) negative; b/c
+(B, S, G, N) with head ``h`` in group ``h // (H // G)``; d (H,); state
+(B, H, N, P) fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def ssd_plain(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    d: torch.Tensor,
+    *,
+    chunk: int = 128,
+    init_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan from ``init_state`` (zeros when ``None``).  S is
+    padded to a chunk multiple with dt = 0 and x = 0 rows, which is exact
+    (decay 1, no injection).  Returns (y in x's dtype, final fp32 state)."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    hpg = h // g
+    pad = (-s) % chunk
+    if pad:
+        x, b, c = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, b, c))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    af = a.float()
+    state = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, :, :, None]
+    ys = []
+    for lo in range(0, x.shape[1], chunk):
+        xf = x[:, lo:lo + chunk].float()
+        dtf = dt[:, lo:lo + chunk].float()
+        cum = torch.cumsum(dtf * af, dim=1)                     # (B, L, H)
+        total = cum[:, -1]                                      # (B, H)
+        bh = b[:, lo:lo + chunk].repeat_interleave(hpg, dim=2).float()
+        ch = c[:, lo:lo + chunk].repeat_interleave(hpg, dim=2).float()
+        seg = cum[:, :, None, :] - cum[:, None, :, :]           # (B, L, L, H)
+        seg = torch.where(causal, seg, torch.full_like(seg, -1e30))
+        scores = torch.einsum("blhn,bmhn->blmh", ch, bh)
+        w = scores * torch.exp(seg) * dtf[:, None, :, :]
+        y = torch.einsum("blmh,bmhp->blhp", w, xf)
+        y = y + torch.exp(cum)[..., None] * torch.einsum(
+            "blhn,bhnp->blhp", ch, state)
+        decay_end = torch.exp(total[:, None] - cum) * dtf       # (B, L, H)
+        state = torch.exp(total)[..., None, None] * state + torch.einsum(
+            "blhn,blhp->bhnp", bh * decay_end[..., None], xf)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :s]
+    y = y + d.float()[None, None, :, None] * x[:, :s].float()
+    return y.to(x.dtype), state
+
+
+def ssd_decode_step(
+    state: torch.Tensor,   # (B, H, N, P) fp32
+    xt: torch.Tensor,      # (B, H, P)
+    dtt: torch.Tensor,     # (B, H)
+    a: torch.Tensor,       # (H,)
+    bt: torch.Tensor,      # (B, G, N)
+    ct: torch.Tensor,      # (B, G, N)
+    d: torch.Tensor,       # (H,)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token of the recurrence.  Returns (state, y_t in xt's dtype)."""
+    hpg = state.shape[1] // bt.shape[1]
+    bh = bt.repeat_interleave(hpg, dim=1).float()               # (B, H, N)
+    ch = ct.repeat_interleave(hpg, dim=1).float()
+    decay = torch.exp(a.float()[None, :] * dtt)                 # (B, H)
+    state = decay[..., None, None] * state + (
+        dtt[..., None, None] * bh[..., :, None] * xt.float()[..., None, :])
+    y = torch.einsum("bhn,bhnp->bhp", ch, state) + d[None, :, None] * xt
+    return state, y.to(xt.dtype)
+
+
+def ssd_sequential(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    d: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence one step at a time from a zero state (the reference's
+    ``ssd_ref``).  Returns (y in x's dtype, final fp32 state)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[3]
+    hpg = h // b.shape[2]
+    bh = b.repeat_interleave(hpg, dim=2).float()
+    ch = c.repeat_interleave(hpg, dim=2).float()
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    state = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(af[None, :] * dtf[:, t])               # (B, H)
+        state = decay[..., None, None] * state + (
+            dtf[:, t, :, None, None] * bh[:, t, :, :, None]
+            * xf[:, t, :, None, :])
+        ys.append(torch.einsum("bhn,bhnp->bhp", ch[:, t], state))
+    y = torch.stack(ys, dim=1) + d.float()[None, None, :, None] * xf
+    return y.to(x.dtype), state

@@ -1,18 +1,23 @@
-"""Serving decode: the K/V ring cache, the paged block pool and one decode step.
+"""Serving decode: the K/V ring cache, the paged block pool, the SSM state
+cache and one decode step.
 
-The counterpart of the dense GQA subset of ``repro.models.decode``.  The
-layouts are the reference's:
+The counterpart of the dense GQA and ``ssm`` subset of
+``repro.models.decode``.  The layouts are the reference's:
 
 * contiguous cache ``k``/``v`` (L, B, Hkv, S_buf, hd) in the param dtype,
   with per-row ``pos`` (B,) and ``slot_pos`` (B, S_buf) (−1 = empty); ring
   slot ``p % S_buf`` holds position ``p``;
 * paged cache ``kp``/``vp`` (L, N_blocks, Hkv, blk, hd) plus the per-slot
   table ``block_ids`` (B, S_buf/blk); blocks ``[0, B)`` are the rows'
-  parking blocks.
+  parking blocks;
+* SSM cache ``ssm_state`` (L, B, H, N, P) fp32 and ``conv_state``
+  (L, B, conv−1, C) of raw pre-conv rows in the param dtype, with ``pos``:
+  constant size, whatever the sequence length (no paged layout).
 
 Where the reference returns a new cache from a donated one, the port
 updates the cache tensors in place and returns the same dict.  Decode
-attention is plain tensor code (a jnp einsum in the reference).
+attention and the one-token SSD recurrence are plain tensor code (jnp in
+the reference too).
 """
 
 from __future__ import annotations
@@ -20,8 +25,10 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, serving_features
+from repro_torch.kernels.ssd import ssd_decode_step
 from repro_torch.models import layers as L
 from repro_torch.models.model import _lm_logits
 
@@ -34,8 +41,25 @@ def kv_buf_len(cfg: ModelConfig, max_seq: int) -> int:
     return min(max_seq, cfg.window) if cfg.window else max_seq
 
 
+def ssm_cache(cfg: ModelConfig, batch: int, device) -> Cache:
+    """Zero SSD state (fp32, as the scan accumulates) and conv tail."""
+    conv_ch = (cfg.ssm_heads * cfg.ssm_head_dim
+               + 2 * cfg.ssm_groups * cfg.ssm_state)
+    return {
+        "ssm_state": torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_state,
+             cfg.ssm_head_dim), dtype=torch.float32, device=device),
+        "conv_state": torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_conv - 1, conv_ch),
+            dtype=L.pdtype(cfg), device=device),
+    }
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device) -> Cache:
+    if cfg.family == "ssm":
+        return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
+                **ssm_cache(cfg, batch, device)}
     dt = L.pdtype(cfg)
     sb = kv_buf_len(cfg, max_seq)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, sb, cfg.resolved_head_dim)
@@ -161,14 +185,54 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return (out @ p["wo"].to(cd)).to(x.dtype)
 
 
-def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
-                tokens: torch.Tensor) -> Tuple[Cache, torch.Tensor]:
-    """tokens (B,) → (cache, logits (B, V) fp32).  Every row advances at
-    its own ``pos``; the cache is updated in place."""
-    pos = cache["pos"]
-    b = tokens.shape[0]
-    rows = torch.arange(b, device=tokens.device)
-    x = params["embed"][tokens]                              # (B, D)
+def mamba2_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                  ssm_state: torch.Tensor, conv_state: torch.Tensor):
+    """One Mamba-2 token.  x (B, D); ssm_state (B, H, N, P) fp32;
+    conv_state (B, conv−1, C).  Returns (out (B, D), ssm_state,
+    conv_state), the states new tensors."""
+    b = x.shape[0]
+    h, pd = cfg.ssm_heads, cfg.ssm_head_dim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    d_in = h * pd
+    cd = L.cdtype(cfg)
+    zxbcdt = x.to(cd) @ p["in_proj"].to(cd)
+    z = zxbcdt[:, :d_in]
+    xbc_new = zxbcdt[:, d_in:2 * d_in + 2 * g * n]
+    dt_raw = zxbcdt[:, 2 * d_in + 2 * g * n:]
+
+    # the conv window is [conv_state ; xbc_new]: one VALID output row
+    win = torch.cat([conv_state.to(cd), xbc_new[:, None, :]], dim=1)
+    conv_out = F.silu(L.causal_conv1d(win, p["conv_w"].to(cd),
+                                      p["conv_b"].to(cd), pad=False)[:, 0])
+    xs = conv_out[:, :d_in].reshape(b, h, pd)
+    bmat = conv_out[:, d_in:d_in + g * n].reshape(b, g, n)
+    cmat = conv_out[:, d_in + g * n:].reshape(b, g, n)
+    dtv = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    a = -torch.exp(p["a_log"].float())
+
+    ssm_state, y = ssd_decode_step(ssm_state, xs, dtv, a, bmat, cmat,
+                                   p["d_skip"].float())
+    y = y.reshape(b, d_in).to(cd)
+    y = L.rms_norm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)
+    return (y @ p["out_proj"].to(cd)).to(x.dtype), ssm_state, win[:, 1:]
+
+
+def _decode_ssm(cfg: ModelConfig, params: Params, cache: Cache,
+                x: torch.Tensor) -> torch.Tensor:
+    for li, lp in enumerate(params["layers"]):
+        normed = L.rms_norm(lp["ln"], x, cfg.norm_eps)
+        o, st, cv = mamba2_decode(cfg, lp["mamba"], normed,
+                                  cache["ssm_state"][li],
+                                  cache["conv_state"][li])
+        cache["ssm_state"][li] = st
+        cache["conv_state"][li] = cv
+        x = x + o
+    return x
+
+
+def _decode_gqa(cfg: ModelConfig, params: Params, cache: Cache,
+                x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    rows = torch.arange(x.shape[0], device=x.device)
     sb = cache["slot_pos"].shape[1]
     slot = (pos % sb).long()
     cache["slot_pos"][rows, slot] = pos
@@ -193,7 +257,19 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
             scatter_block_rows(cache["vp"][li], bids, vc[rows, :, slot, :],
                                slot)
         x = x + L.mlp(cfg, lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps))
+    return x
 
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
+                tokens: torch.Tensor) -> Tuple[Cache, torch.Tensor]:
+    """tokens (B,) → (cache, logits (B, V) fp32).  Every row advances at
+    its own ``pos``; the cache is updated in place."""
+    pos = cache["pos"]
+    x = params["embed"][tokens]                              # (B, D)
+    if cfg.family == "ssm":
+        x = _decode_ssm(cfg, params, cache, x)
+    else:
+        x = _decode_gqa(cfg, params, cache, x, pos)
     cache["pos"] = pos + 1
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return cache, _lm_logits(cfg, params, x[:, None, :])[:, 0]

@@ -1,16 +1,16 @@
-"""Dense-decoder layers: RMSNorm, RoPE, GQA attention and the gated MLP.
+"""Layers: RMSNorm, RoPE, GQA attention, the gated MLP and the Mamba-2 block.
 
-The counterpart of the dense subset of ``repro.models.layers``.  Parameters
-are plain dicts of tensors laid out as the reference's (weights
+The counterpart of the dense and SSM subset of ``repro.models.layers``.
+Parameters are plain dicts of tensors laid out as the reference's (weights
 ``(d_in, d_out)``), and attention tensors are ``(B, H, S, D)``.  Attention
 has one path: :func:`attention_core` calls the flash-attention wrapper,
-which launches the CUDA kernel for CUDA tensors and runs its plain version
-for CPU tensors.
+and the Mamba-2 block's scan calls the SSD wrapper; each launches its CUDA
+kernel for CUDA tensors and runs its plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype_of
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd import ssd, ssd_chunk_fed
 
 Params = Dict[str, Any]
 
@@ -118,3 +119,105 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         up = _act(cfg.activation, up)
     return (up @ p["w_down"].to(cd)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) block
+# ---------------------------------------------------------------------------
+
+
+def chunk_slices(total: int, n: int) -> List[Tuple[int, int]]:
+    """``n`` nearly equal, order-preserving ``(lo, hi)`` cuts of ``total``
+    (copy of ``repro.core.pipeline.chunk_slices``)."""
+    cuts = [round(i * total / n) for i in range(n + 1)]
+    return [(lo, hi) for lo, hi in zip(cuts, cuts[1:]) if hi > lo]
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  pad: bool = True) -> torch.Tensor:
+    """Depthwise causal conv over the sequence.  x (B, S, C); w (K, C).
+
+    The K shifted products are summed in fp32 and rounded once to x's
+    dtype.  ``pad=False`` skips the leading (K−1) zero rows: the caller has
+    prepended the raw rows that precede this slice (the chunked-prefill
+    resume, and decode's (K)-row window, which gives one output row)."""
+    k = w.shape[0]
+    xp = F.pad(x, (0, 0, k - 1, 0)) if pad else x
+    s_out = xp.shape[1] - k + 1
+    wf = w.float()
+    out = xp[:, 0:s_out].float() * wf[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s_out].float() * wf[i]
+    return out.to(x.dtype) + b
+
+
+def mamba2_block(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                 return_state: bool = False,
+                 init_state: Optional[torch.Tensor] = None,
+                 conv_state: Optional[torch.Tensor] = None):
+    """x (B, S, D) → (B, S, D): in_proj → causal conv → SSD scan → gated
+    RMSNorm → out_proj.  ``return_state`` also returns the decode cache
+    contents: (final SSD state (B, H, N, P) fp32, conv tail (B, conv−1, C)
+    of raw pre-conv rows).
+
+    ``init_state``/``conv_state`` resume a mid-sequence forward (the
+    chunked-prefill carry): the state seeds the scan, and the (conv−1) raw
+    rows preceding this slice are prepended so the conv runs over the rows
+    the bulk conv would see.  With ``cfg.ssm_stream_segments > 1`` the scan
+    is fed in segments cut on ``ssm_chunk`` boundaries
+    (:func:`~repro_torch.kernels.ssd.ssd_chunk_fed`)."""
+    b, s, _ = x.shape
+    h, p, g, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
+    d_in = h * p
+    cd = cdtype(cfg)
+    zxbcdt = x.to(cd) @ params["in_proj"].to(cd)
+    z = zxbcdt[..., :d_in]
+    xbc = zxbcdt[..., d_in:2 * d_in + 2 * g * n]
+    dt_raw = zxbcdt[..., 2 * d_in + 2 * g * n:]
+    conv_w, conv_b = params["conv_w"].to(cd), params["conv_b"].to(cd)
+
+    tail_len = cfg.ssm_conv - 1
+    if conv_state is not None:
+        if conv_state.shape[1] != tail_len:
+            raise ValueError(f"conv_state rows {conv_state.shape[1]} != "
+                             f"conv - 1 = {tail_len}")
+        ext = torch.cat([conv_state.to(cd), xbc], dim=1)
+        conv_tail = ext[:, ext.shape[1] - tail_len:]
+        xbc = causal_conv1d(ext, conv_w, conv_b, pad=False)
+    else:
+        short = max(0, tail_len - s)
+        tail_src = F.pad(xbc, (0, 0, short, 0)) if short else xbc
+        conv_tail = tail_src[:, tail_src.shape[1] - tail_len:]
+        xbc = causal_conv1d(xbc, conv_w, conv_b)
+    xbc = F.silu(xbc)
+    xs = xbc[..., :d_in].reshape(b, s, h, p)
+    bmat = xbc[..., d_in:d_in + g * n].reshape(b, s, g, n)
+    cmat = xbc[..., d_in + g * n:].reshape(b, s, g, n)
+    dtv = F.softplus(dt_raw.float() + params["dt_bias"].float())
+    a = -torch.exp(params["a_log"].float())
+    d_skip = params["d_skip"].float()
+
+    chunk = cfg.ssm_chunk
+    n_seg = int(cfg.ssm_stream_segments or 0)
+    if n_seg > 1 and s > chunk:
+        full = s // chunk
+        cuts = [(lo * chunk, hi * chunk)
+                for lo, hi in chunk_slices(full, min(n_seg, full))]
+        cuts[-1] = (cuts[-1][0], s)          # the ragged tail rides last
+
+        def fetch(k):
+            lo, hi = cuts[k]
+            return xs[:, lo:hi], dtv[:, lo:hi], bmat[:, lo:hi], cmat[:, lo:hi]
+
+        y, state = ssd_chunk_fed(fetch, len(cuts), a, d_skip, chunk=chunk,
+                                 init_state=init_state)
+    else:
+        y, state = ssd(xs, dtv, a, bmat, cmat, d_skip, chunk=chunk,
+                       init_state=init_state)
+
+    y = y.reshape(b, s, d_in).to(cd)
+    y = rms_norm(params["gate_norm"], y * F.silu(z), cfg.norm_eps)
+    out = (y @ params["out_proj"].to(cd)).to(x.dtype)
+    if return_state:
+        return out, (state, conv_tail)
+    return out

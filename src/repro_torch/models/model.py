@@ -1,6 +1,7 @@
-"""Dense-decoder assembly: init, embed, blocks, forward and the tied LM head.
+"""Model assembly: init, embed, blocks, forward and the tied LM head.
 
-The counterpart of the dense family of ``repro.models.model``.  Parameters
+The counterpart of the dense GQA and ``ssm`` (Mamba-2) families of
+``repro.models.model``.  Parameters
 are a dict like the reference's pytree, except that ``layers`` is a list
 with one dict per layer where the reference stacks a leading layer axis
 for ``lax.scan`` (``repro_torch.bridge`` converts one into the other); the
@@ -50,16 +51,52 @@ def _init_dense_layer(cfg: ModelConfig, gen, device) -> Params:
     }
 
 
+def _init_mamba2(cfg: ModelConfig, gen, device) -> Params:
+    """The reference's ``init_mamba2``: ``a_log = log(linspace(1, 16))``,
+    zero ``dt_bias``, unit ``d_skip`` (all fp32), conv weights × 0.1 and a
+    depth-scaled ``out_proj``."""
+    dt = L.pdtype(cfg)
+    h, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
+    d_in = h * cfg.ssm_head_dim
+    conv_ch = d_in + 2 * g * n
+    proj_out = 2 * d_in + 2 * g * n + h
+    depth_scale = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
+    f32 = torch.float32
+    return {
+        "in_proj": _init((cfg.d_model, proj_out), dt, gen, device),
+        "conv_w": _init((cfg.ssm_conv, conv_ch), dt, gen, device, 0.1),
+        "conv_b": torch.zeros(conv_ch, dtype=dt, device=device),
+        "dt_bias": torch.zeros(h, dtype=f32, device=device),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, h, dtype=f32,
+                                          device=device)),
+        "d_skip": torch.ones(h, dtype=f32, device=device),
+        "gate_norm": {"scale": torch.ones(d_in, dtype=dt, device=device)},
+        "out_proj": _init((d_in, cfg.d_model), dt, gen, device, depth_scale),
+    }
+
+
+def _init_ssm_layer(cfg: ModelConfig, gen, device) -> Params:
+    return {"ln": {"scale": torch.ones(cfg.d_model, dtype=L.pdtype(cfg),
+                                       device=device)},
+            "mamba": _init_mamba2(cfg, gen, device)}
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if not ((cfg.family == "dense" and cfg.attn_type == "gqa")
+            or cfg.family == "ssm"):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense GQA and ssm families are ported")
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = None) -> Params:
-    """Random dense-decoder parameters from a seeded ``torch.Generator``,
-    drawn from the reference's distributions (truncated normal × 0.02,
-    depth-scaled ``wo``/``w_down``).  The numbers differ from the
-    reference's ``jax.random`` draws; tests that compare the two pass the
-    reference's parameters through ``repro_torch.bridge`` instead."""
-    if cfg.family != "dense" or cfg.attn_type != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported")
+    """Random parameters from a seeded ``torch.Generator``, drawn from the
+    reference's distributions (truncated normal × 0.02, depth-scaled
+    output projections, the Mamba-2 block's fixed decay/skip init).  The
+    numbers differ from the reference's ``jax.random`` draws; tests that
+    compare the two pass the reference's parameters through
+    ``repro_torch.bridge`` instead."""
+    _check_ported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     dt = L.pdtype(cfg)
@@ -70,8 +107,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = _init((cfg.d_model, cfg.vocab_size), dt, gen, device)
-    p["layers"] = [_init_dense_layer(cfg, gen, device)
-                   for _ in range(cfg.n_layers)]
+    init_layer = _init_ssm_layer if cfg.family == "ssm" else _init_dense_layer
+    p["layers"] = [init_layer(cfg, gen, device) for _ in range(cfg.n_layers)]
     return p
 
 
@@ -86,13 +123,22 @@ def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return h + L.mlp(cfg, p["mlp"], L.rms_norm(p["ln2"], h, cfg.norm_eps))
 
 
+def _ssm_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return x + L.mamba2_block(cfg, p["mamba"],
+                              L.rms_norm(p["ln"], x, cfg.norm_eps))
+
+
 def forward_hidden(cfg: ModelConfig, params: Params,
                    tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) → final-norm hidden (B, S, D)."""
+    _check_ported(cfg)
     x = _embed(params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in params["layers"]:
-        x = _dense_block(cfg, lp, x, positions)
+        if cfg.family == "ssm":
+            x = _ssm_block(cfg, lp, x)
+        else:
+            x = _dense_block(cfg, lp, x, positions)
     return L.rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -125,3 +171,25 @@ def count_params(params: Any) -> int:
     if isinstance(params, dict):
         return sum(count_params(v) for v in params.values())
     return sum(count_params(v) for v in params)
+
+
+def count_params_analytic(cfg: ModelConfig) -> int:
+    """Scalars in ``init_params(cfg)`` from the config alone: the dense GQA
+    and ``ssm`` terms of ``repro.models.model.count_params_analytic``."""
+    _check_ported(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    total = v * d + d + (0 if cfg.tie_embeddings else d * v)
+    if cfg.family == "ssm":
+        d_in = cfg.ssm_heads * cfg.ssm_head_dim
+        conv_ch = d_in + 2 * cfg.ssm_groups * cfg.ssm_state
+        proj_out = 2 * d_in + 2 * cfg.ssm_groups * cfg.ssm_state \
+            + cfg.ssm_heads
+        per_layer = (d * proj_out + cfg.ssm_conv * conv_ch + conv_ch
+                     + 3 * cfg.ssm_heads + d_in + d_in * d + d)
+    else:
+        hd = cfg.resolved_head_dim
+        attn = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+                + cfg.n_heads * hd * d)
+        per_layer = (attn + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff
+                     + 2 * d)
+    return total + cfg.n_layers * per_layer

@@ -1,6 +1,7 @@
-"""Prefill into the K/V ring cache: bulk, chunked, and to paged blocks.
+"""Prefill into the decode cache: bulk, chunked, and to paged blocks.
 
-The counterpart of the GQA ``ring`` carry of ``repro.models.prefill``.
+The counterpart of the GQA ``ring`` and SSM ``state`` carries of
+``repro.models.prefill``.
 Ring fill: the cache keeps the last ``sb`` positions, position ``p`` at
 slot ``p % sb``; for a prompt shorter than ``sb`` the tail slots stay empty
 (``slot_pos = −1``).
@@ -11,6 +12,13 @@ kernel takes that offset, so on the card bulk and chunked prefill both run
 through it (the reference gates chunks to its blockwise jnp path, whose
 result, ``blockwise_attention(q_offset=lo)``, is what is computed here).
 Scratch updates are in place.
+
+The ``state`` carry of the SSM family is constant-size: per layer the SSD
+state and the (conv−1) raw pre-conv rows.  Each chunk resumes every layer
+from its pair (the SSD kernel's ``init_state`` and a conv over [tail ‖
+chunk rows]), and the finished carry is the decode cache itself.  Chunk
+cuts land on ``ssm_chunk`` multiples, so the scan walks the chunks a bulk
+prefill walks.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, chunk_carry_spec
 from repro_torch.models import layers as L
-from repro_torch.models.decode import kv_buf_len
+from repro_torch.models.decode import kv_buf_len, ssm_cache
 from repro_torch.models.model import _embed, _lm_logits
 
 Params = Dict[str, Any]
@@ -70,25 +78,54 @@ def _prefill_gqa(cfg: ModelConfig, params: Params, x: torch.Tensor,
                "slot_pos": slot_pos}
 
 
+def _ssm_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
+               states: Optional[torch.Tensor] = None,
+               tails: Optional[torch.Tensor] = None):
+    """x through the Mamba-2 layers, each resuming from its carried (SSD
+    state, conv tail) pair when ``states``/``tails`` (L, B, ...) are given
+    — updated in place — or from zeros.  Returns (x, [(state, tail)])."""
+    out = []
+    for li, lp in enumerate(params["layers"]):
+        normed = L.rms_norm(lp["ln"], x, cfg.norm_eps)
+        o, (st, cv) = L.mamba2_block(
+            cfg, lp["mamba"], normed, return_state=True,
+            init_state=None if states is None else states[li],
+            conv_state=None if tails is None else tails[li])
+        x = x + o
+        if states is not None:
+            states[li] = st
+            tails[li] = cv
+        out.append((st, cv))
+    return x, out
+
+
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             cache_len: Optional[int] = None) -> Tuple[Cache, torch.Tensor]:
     """Run the prompt (B, S), build the decode cache, return next-token
-    logits (B, V).  ``cache_len``: ring capacity (default: prompt length)."""
+    logits (B, V).  ``cache_len``: ring capacity (default: prompt length;
+    the SSM cache has none)."""
     x = _embed(params, tokens)
     s_total = x.shape[1]
-    sb = kv_buf_len(cfg, cache_len or s_total)
-    positions = torch.arange(s_total, device=x.device)
-    x, cache = _prefill_gqa(cfg, params, x, positions, sb)
-    return (_finish_cache(cache, tokens.shape[0], s_total),
+    if cfg.family == "ssm":
+        x, pairs = _ssm_stack(cfg, params, x)
+        dt = L.pdtype(cfg)
+        cache = {"ssm_state": torch.stack([st for st, _ in pairs]),
+                 "conv_state": torch.stack([cv.to(dt) for _, cv in pairs])}
+    else:
+        sb = kv_buf_len(cfg, cache_len or s_total)
+        positions = torch.arange(s_total, device=x.device)
+        x, cache = _prefill_gqa(cfg, params, x, positions, sb)
+    return (_finish_cache(cache, tokens.shape[0], s_total, x.device),
             _chunk_logits(cfg, params, x))
 
 
-def _finish_cache(cache: Cache, batch: int, s_total: int) -> Cache:
+def _finish_cache(cache: Cache, batch: int, s_total: int, device) -> Cache:
     """Stamp the per-slot position bookkeeping (every row at ``s_total``)."""
-    dev = cache["slot_pos"].device
-    cache["pos"] = torch.full((batch,), s_total, dtype=torch.int32, device=dev)
-    cache["slot_pos"] = cache["slot_pos"].expand(
-        batch, cache["slot_pos"].shape[-1]).contiguous()
+    cache["pos"] = torch.full((batch,), s_total, dtype=torch.int32,
+                              device=device)
+    if "slot_pos" in cache:
+        cache["slot_pos"] = cache["slot_pos"].expand(
+            batch, cache["slot_pos"].shape[-1]).contiguous()
     return cache
 
 
@@ -99,19 +136,13 @@ def _finish_cache(cache: Cache, batch: int, s_total: int) -> Cache:
 
 def chunk_support(cfg: ModelConfig) -> Tuple[bool, str]:
     """Whether streamed prefill can run, with the reason if not.  The
-    flash kernel takes ``q_offset``, so the ported ``ring`` carry always
-    chunks; the other carry kinds are not ported yet."""
+    flash kernel takes ``q_offset``, so the ported ``ring`` carry of the
+    dense family always chunks, and the SSM ``state`` carry has no
+    attention; the other carry kinds are not ported yet."""
     kind = chunk_carry_spec(cfg).kind
-    if kind != "ring" or cfg.family != "dense":
+    if (kind, cfg.family) not in (("ring", "dense"), ("state", "ssm")):
         return False, f"the {kind!r} chunk carry of {cfg.family} is not ported"
     return True, ""
-
-
-def chunk_slices(total: int, n: int) -> List[Tuple[int, int]]:
-    """``n`` nearly equal, order-preserving ``(lo, hi)`` cuts of ``total``
-    (copy of ``repro.core.pipeline.chunk_slices``)."""
-    cuts = [round(i * total / n) for i in range(n + 1)]
-    return [(lo, hi) for lo, hi in zip(cuts, cuts[1:]) if hi > lo]
 
 
 def prefill_chunk_cuts(s_total: int, chunk_len: Optional[int] = None,
@@ -124,7 +155,7 @@ def prefill_chunk_cuts(s_total: int, chunk_len: Optional[int] = None,
     if chunk_len:
         c = -(-max(1, int(chunk_len)) // m) * m
         return [(lo, min(lo + c, s_total)) for lo in range(0, s_total, c)]
-    cuts = chunk_slices(s_total, max(1, int(n_chunks or 1)))
+    cuts = L.chunk_slices(s_total, max(1, int(n_chunks or 1)))
     if m > 1 and len(cuts) > 1:
         snapped = sorted({(hi // m) * m for _, hi in cuts[:-1]})
         edges = [0] + [b for b in snapped if 0 < b < s_total] + [s_total]
@@ -134,17 +165,24 @@ def prefill_chunk_cuts(s_total: int, chunk_len: Optional[int] = None,
 
 def init_prefill_scratch(cfg: ModelConfig, batch: int, prompt_len: int,
                          device) -> Cache:
-    """Full-length K/V scratch (L, B, Hkv, S, hd) in the compute dtype (the
-    cast to the cache's param dtype happens at the ring fill, as in bulk)."""
+    """The carry one incremental prefill writes into: for the ``ring``
+    kind a full-length K/V scratch (L, B, Hkv, S, hd) in the compute dtype
+    (the cast to the cache's param dtype happens at the ring fill, as in
+    bulk); for the ``state`` kind the constant-size SSD state (fp32) and
+    conv tail (compute dtype), ``prompt_len`` unused."""
     ok, why = chunk_support(cfg)
     if not ok:
         raise ValueError(f"{cfg.name}: {why}")
+    cd = L.cdtype(cfg)
+    pos = {"pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+    if cfg.family == "ssm":
+        carry = ssm_cache(cfg, batch, device)
+        carry["conv_state"] = carry["conv_state"].to(cd)
+        return {**carry, **pos}
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, prompt_len,
              cfg.resolved_head_dim)
-    cd = L.cdtype(cfg)
     return {"k": torch.zeros(shape, dtype=cd, device=device),
-            "v": torch.zeros(shape, dtype=cd, device=device),
-            "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+            "v": torch.zeros(shape, dtype=cd, device=device), **pos}
 
 
 def _chunk_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -175,11 +213,16 @@ def prefill_chunk(cfg: ModelConfig, params: Params, scratch: Cache,
     ``[lo, lo+C)``.  Updates ``scratch`` in place; returns it and the
     chunk's next-token logits (meaningful after the final chunk)."""
     h = _embed(params, tokens)
-    for li, lp in enumerate(params["layers"]):
-        normed = L.rms_norm(lp["ln1"], h, cfg.norm_eps)
-        h = h + _chunk_attention(cfg, lp["attn"], normed, scratch["k"][li],
-                                 scratch["v"][li], lo)
-        h = h + L.mlp(cfg, lp["mlp"], L.rms_norm(lp["ln2"], h, cfg.norm_eps))
+    if cfg.family == "ssm":
+        h, _ = _ssm_stack(cfg, params, h, scratch["ssm_state"],
+                          scratch["conv_state"])
+    else:
+        for li, lp in enumerate(params["layers"]):
+            normed = L.rms_norm(lp["ln1"], h, cfg.norm_eps)
+            h = h + _chunk_attention(cfg, lp["attn"], normed,
+                                     scratch["k"][li], scratch["v"][li], lo)
+            h = h + L.mlp(cfg, lp["mlp"],
+                          L.rms_norm(lp["ln2"], h, cfg.norm_eps))
     scratch["pos"] = torch.full_like(scratch["pos"], lo + tokens.shape[1])
     return scratch, _chunk_logits(cfg, params, h)
 
@@ -187,14 +230,19 @@ def prefill_chunk(cfg: ModelConfig, params: Params, scratch: Cache,
 def scratch_to_cache(cfg: ModelConfig, scratch: Cache,
                      cache_len: Optional[int] = None) -> Cache:
     """A completed prefill scratch → the decode-cache layout of
-    :func:`prefill` (ring fill, cast to the param dtype)."""
+    :func:`prefill` (ring fill, cast to the param dtype).  The ``state``
+    carry already is the cache."""
     dt = L.pdtype(cfg)
+    if cfg.family == "ssm":
+        return {"ssm_state": scratch["ssm_state"],
+                "conv_state": scratch["conv_state"].to(dt),
+                "pos": scratch["pos"]}
     batch, s = scratch["k"].shape[1], scratch["k"].shape[3]
     sb = kv_buf_len(cfg, cache_len or s)
     cache = {"k": _ring_fill(scratch["k"], sb, seq_axis=3).to(dt),
              "v": _ring_fill(scratch["v"], sb, seq_axis=3).to(dt),
              "slot_pos": _slot_map(s, sb, scratch["k"].device)[0]}
-    return _finish_cache(cache, batch, s)
+    return _finish_cache(cache, batch, s, scratch["k"].device)
 
 
 # ---------------------------------------------------------------------------

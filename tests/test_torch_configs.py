@@ -21,23 +21,26 @@ from repro_torch.configs import ARCH_NAMES, base, get_config
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("name", ["smollm-360m", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("name", ["smollm-360m", "h2o-danube-1.8b",
+                                  "mamba2-2.7b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_equal_reference(name, reduced):
     ours, ref = get_config(name), ref_get_config(name)
     if reduced:
         ours, ref = ours.reduced(), ref.reduced()
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
-    assert ours.resolved_head_dim == ref.resolved_head_dim
+    if ref.head_dim or ref.n_heads:     # attention-free archs have none
+        assert ours.resolved_head_dim == ref.resolved_head_dim
     assert dataclasses.asdict(base.chunk_carry_spec(ours)) == \
         dataclasses.asdict(ref_base.chunk_carry_spec(ref))
     assert base.serving_features(ours) == ref_base.serving_features(ref)
 
 
 def test_registry_names_and_unknown_arch():
-    assert set(ARCH_NAMES) == {"smollm-360m", "h2o-danube-1.8b"}
+    assert set(ARCH_NAMES) == {"smollm-360m", "h2o-danube-1.8b",
+                               "mamba2-2.7b"}
     with pytest.raises(KeyError):
-        get_config("mamba2-2.7b")
+        get_config("zamba2-7b")
 
 
 def test_package_imports_no_jax_and_no_reference():

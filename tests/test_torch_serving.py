@@ -177,6 +177,89 @@ def test_launcher_paged_equals_contiguous(tmp_path):
     assert dumps[0] == dumps[1]
 
 
+MAMBA2_RECIPE = dict(requests=4, prompt_len=12, max_new=6, max_batch=2)
+MAMBA2_MODES = {"chunked": 4, "bulk": None}
+
+
+def _mamba2_params(cfg, seed=0):
+    """std 0.3 weight matrices as :func:`_std03_params`, but the SSD decay
+    and skip vectors (``a_log``, ``dt_bias``, ``d_skip``) keep the
+    reference's init, so the decays stay in the model's range."""
+    shapes = jax.eval_shape(lambda k: ref_init_params(cfg, k),
+                            jax.random.PRNGKey(0))
+    fixed = jax.tree.map(np.asarray, ref_init_params(cfg,
+                                                     jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        key = path[-1].key
+        if key in ("a_log", "dt_bias", "d_skip"):
+            return fixed["layers"]["mamba"][key]
+        if key == "scale":
+            return (1.0 + 0.1 * rng.standard_normal(leaf.shape)).astype(
+                np.float32)
+        return (0.3 * rng.standard_normal(leaf.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+@pytest.fixture(scope="module")
+def mamba2_reference():
+    """The CI chunk-carry recipe for mamba2 (4 requests, prompt 12,
+    max-new 6, max-batch 2, all submitted up front) through the reference
+    server, chunked (chunk 4, which rounds up to ssm_chunk 8) and bulk."""
+    cfg_ref = ref_get_config("mamba2-2.7b").reduced()
+    np_params = _mamba2_params(cfg_ref)
+    params_ref = jax.tree.map(jnp.asarray, np_params)
+    prompts = _prompts(cfg_ref, MAMBA2_RECIPE["requests"],
+                       MAMBA2_RECIPE["prompt_len"])
+    mesh = make_host_mesh(1, 1)
+    out = {}
+    for mode, chunk in MAMBA2_MODES.items():
+        srv = ref_server.Server(cfg_ref, params_ref, mesh,
+                                srv=ref_server.ServerConfig(
+                                    **_mamba2_srv_kw(chunk)))
+        for p in prompts:
+            srv.submit(p)
+        srv.run()
+        out[mode] = _tokens(srv)
+    return np_params, prompts, out
+
+
+def _mamba2_srv_kw(chunk):
+    return dict(max_batch=MAMBA2_RECIPE["max_batch"], max_seq=64,
+                max_new_tokens=MAMBA2_RECIPE["max_new"], prefill_chunk=chunk)
+
+
+@pytest.mark.parametrize("mode", list(MAMBA2_MODES))
+def test_mamba2_tokens_equal_reference(mamba2_reference, mode):
+    """The port's mamba2 server emits the reference server's tokens, and
+    chunked and bulk admission emit the same tokens in both packages."""
+    np_params, prompts, ref_tokens = mamba2_reference
+    assert ref_tokens["chunked"] == ref_tokens["bulk"]
+    cfg = get_config("mamba2-2.7b").reduced()
+    srv = server.Server(cfg, params_from_reference(np_params),
+                        server.ServerConfig(
+                            **_mamba2_srv_kw(MAMBA2_MODES[mode])),
+                        device="cpu")
+    for p in prompts:
+        srv.submit(p)
+    srv.run()
+    got = _tokens(srv)
+    assert got == ref_tokens[mode]
+    assert len(got) == MAMBA2_RECIPE["requests"]
+    assert len({tuple(t) for t in got.values()}) > 1
+    st = srv.stats()
+    assert st["admission_mode"] == ("chunked(8)" if mode == "chunked"
+                                    else "bulk")
+    # prompt 12 at an effective chunk of 8: two chunks per request
+    assert st["prefill_chunks"] == MAMBA2_RECIPE["requests"] * (
+        2 if mode == "chunked" else 1)
+    with pytest.raises(ValueError, match="paged"):
+        server.Server(cfg, params_from_reference(np_params),
+                      server.ServerConfig(paged=True), device="cpu")
+
+
 def test_block_pool_random_ops_match_reference():
     rng = np.random.default_rng(0)
     ours, ref = server.BlockPool(24, reserved=3), ref_server.BlockPool(
