@@ -40,6 +40,47 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
 5. The reduced configs in fp32: prefill logits (and mamba2's final SSD
    state) through the kernels on the card against their plain versions on
    the CPU.
+6. The fused collective matmul's three hop kernels (``cc_matmul.cu``)
+   against their plain versions at the shapes full-width h2o-danube-1.8b
+   gives them at TP 4 (B 2, 512 rows a rank, bidirectional half rings of
+   256 rows): bf16 × bf16, fp32 × fp32 (TF32 off) and the path's own
+   fp32 activations × bf16 weights, plus a ragged case; the consume
+   kernels read slot 1 of a (2, B, rows, ·) scratch through its strides.
+   Tolerance, as max error over max |plain|: 1e-5 when an operand is
+   fp32, 1e-4 for bf16 × bf16.  Time the kernel, the plain version and
+   one cuBLAS call computing the same function (named in the output).
+7. The two whole-ring kernels (``ag_matmul_ring``/``rs_matmul_ring``)
+   in four rank processes sharing the card, each mapping its ring
+   neighbours' channels, against their plain versions (the unfused
+   gather-then-matmul and matmul-then-reduce-scatter over the gloo
+   group) at every TP-4 edge shape of full-width h2o-danube-1.8b, both
+   ring directions, plus a ragged case.  Same tolerances as the hop
+   kernels.  Time the kernel and the plain version as the group's wall
+   time per call (the slowest rank, from a barrier); no single PyTorch
+   call computes a collective matmul across processes (NCCL takes one
+   card a rank), so there is no library yardstick.
+8. TP training of full-width h2o-danube-1.8b (``get_tp_preset``'s
+   transport, model axis 4): four rank processes sharing the card, bf16
+   parameters from seed 0, fp32 AdamW moments, remat full, SyntheticLM
+   batches of 2 × 2048 tokens, seq_chunk 512, warmup 1.  The fused edges
+   take the in-kernel ring (the ranks map each other's channels, the
+   reference's remote-DMA path), 3 steps; the rest of the group's traffic
+   (weight-gradient gathers, the K/V ring, the gradient all-reduce) goes
+   over gloo staged through host memory.  Held: every step's ring-kernel
+   launches equal the schedule's count and no hop kernel or plain
+   version runs; the step-0 loss is within 0.5 of ln 32000; every
+   replicated leaf is bitwise equal on the four ranks after the last
+   step; a TP 2 run of the same parameters and batch agrees at step 0
+   (loss 2e-2, grad norm 5e-2 relative).  Then step 0 again on the
+   emulated schedule (a group without peer memory: every hop over the
+   gloo wire, each arrival consumed by a hop kernel): its hop-kernel
+   launches equal the schedule's count, no ring kernel or plain version
+   runs, and its loss and grad norm agree with the in-kernel ring's
+   step 0 at 1e-6 relative (the same tile arithmetic on both paths).
+9. Reduced h2o-danube-1.8b in fp32 at TP 2 and 4, 2 steps on the card and
+   on the CPU (gloo both): loss and grad norm within 1e-4 relative, and
+   every parameter leaf by the parameter rule at 1e-4 (mean |Δ| ≤ 1e-4 ×
+   the leaf's mean magnitude, max |Δ| ≤ 2·peak_lr + 1e-4 × its max).
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Exits nonzero, printing
@@ -504,6 +545,413 @@ def phase_reduced_vs_cpu():
                 fail(f"reduced {name}: card vs CPU ssm_state differ by {err}")
 
 
+HOP_TOL = {("float32", "float32"): 1e-5, ("float32", "bfloat16"): 1e-5,
+           ("bfloat16", "bfloat16"): 1e-4}
+
+
+def hop_bound_ms(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def library_call(x, w, acc):
+    """One cuBLAS call computing the hop's function (fp32 out), and its
+    name: ``torch.mm``/``torch.addmm`` with ``out_dtype=torch.float32``
+    for bf16 operands where this torch has it, else in fp32 (a bf16 weight
+    widened beforehand, outside the timed call)."""
+    import torch
+
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    a2 = None if acc is None else acc.reshape(-1, w.shape[1]).contiguous()
+    if x.dtype == w.dtype == torch.bfloat16:
+        try:
+            if a2 is None:
+                torch.mm(x2, w, out_dtype=torch.float32)
+                return (lambda: torch.mm(x2, w, out_dtype=torch.float32),
+                        "torch.mm(x, w, out_dtype=torch.float32)")
+            torch.addmm(a2, x2, w, out_dtype=torch.float32)
+            return (lambda: torch.addmm(a2, x2, w, out_dtype=torch.float32),
+                    "torch.addmm(acc, x, w, out_dtype=torch.float32)")
+        except (TypeError, RuntimeError):
+            pass
+    xf, wf = x2.float(), w.float().contiguous()
+    if a2 is None:
+        return lambda: torch.mm(xf, wf), "torch.mm in fp32"
+    return lambda: torch.addmm(a2, xf, wf), "torch.addmm in fp32"
+
+
+def phase_cc_kernels():
+    """The three hop kernels vs their plain versions at the TP-4 shapes of
+    full-width h2o-danube-1.8b; returns each entry's main-path numbers."""
+    import torch
+
+    from repro_torch.kernels.cc_matmul import ops as cc_ops
+    from repro_torch.kernels.cc_matmul import ref as cc_ref
+
+    for line in cc_ops.MATMUL_TILE.ptxas_report().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[ptxas] {line.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (entry, label, B, M, N, K, path dtypes (x, w)); M rows a hop
+    cases = [
+        ("consume_matmul", "q edge fwd", 2, 256, 640, 2560, (bf16, bf16)),
+        ("consume_matmul", "up|gate edge fwd", 2, 256, 3456, 2560,
+         (bf16, bf16)),
+        ("consume_matmul", "o edge bwd", 2, 256, 640, 2560, (f32, bf16)),
+        ("consume_matmul", "down edge bwd", 2, 256, 1728, 2560,
+         (f32, bf16)),
+        ("matmul_tile", "o edge fwd", 2, 512, 1280, 640, (f32, bf16)),
+        ("matmul_tile", "down edge fwd", 2, 512, 1280, 1728, (f32, bf16)),
+        ("matmul_tile", "up|gate edge bwd", 2, 512, 1280, 3456,
+         (f32, bf16)),
+        ("consume_matmul_acc", "o edge fwd", 2, 512, 1280, 640,
+         (f32, bf16)),
+        ("consume_matmul_acc", "down edge fwd", 2, 512, 1280, 1728,
+         (f32, bf16)),
+        ("consume_matmul_acc", "up|gate edge bwd", 2, 512, 1280, 3456,
+         (f32, bf16)),
+    ]
+    ragged = [(e, "ragged", 2, 77, 45, 130, None) for e in
+              ("matmul_tile", "consume_matmul", "consume_matmul_acc")]
+    main_case = {"consume_matmul": "q edge fwd", "matmul_tile": "o edge fwd",
+                 "consume_matmul_acc": "o edge fwd"}
+    out = {}
+    for entry, label, bsz, m, n, k, path in cases + ragged:
+        for dx, dw in [(bf16, bf16), (f32, f32), (f32, bf16)]:
+            def randn(*shape, dtype=f32):
+                return torch.randn(shape, generator=gen,
+                                   device=dev).to(dtype)
+
+            w = randn(k, n + 8, dtype=dw)[:, :n]     # a column slice
+            acc = None
+            if entry == "consume_matmul":
+                scr = randn(2, bsz, m, k, dtype=dx)
+                args, kw, x = (scr, w), {"slot": 1}, scr[1]
+            else:
+                x = randn(bsz, 4 * m, k, dtype=dx)[:, m:2 * m]   # row block
+                args, kw = (x, w), {}
+                if entry == "consume_matmul_acc":
+                    scr = randn(2, bsz, m, n)
+                    acc = scr[1]
+                    args = (scr, x, w)
+                    kw = {"slot": 1}
+            wrapper = getattr(cc_ops, entry)
+            plain = getattr(cc_ref, entry + "_plain")
+            got = wrapper(*args, **kw)
+            torch.cuda.synchronize()
+            want = plain(*args, **kw)
+            if not torch.isfinite(got).all():
+                fail(f"{entry} {label}: non-finite output")
+            err_abs = (got - want).abs().max().item()
+            err = err_abs / want.abs().max().item()
+            names = (str(dx)[6:], str(dw)[6:])
+            tol = HOP_TOL[names]
+            flops = 2.0 * bsz * m * n * k
+            nbytes = (x.numel() * x.element_size()
+                      + w.numel() * w.element_size() + 4 * bsz * m * n
+                      + (0 if acc is None else 4 * acc.numel()))
+            bound_ms, bound_by = hop_bound_ms(flops, nbytes)
+            ms = time_ms(lambda: wrapper(*args, **kw))
+            plain_ms = time_ms(lambda: plain(*args, **kw))
+            lib_fn, lib_name = library_call(x, w, acc)
+            lib_ms = time_ms(lib_fn)
+            tag = "path" if path == (dx, dw) else "    "
+            print(f"[cc_matmul] {entry} {label} B{bsz} M{m} N{n} K{k} "
+                  f"{names[0]} x {names[1]} {tag}: max_err/max {err:.3g} "
+                  f"(tol {tol}), kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} "
+                  f"ms, {lib_name} {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                  f"({bound_by})", flush=True)
+            if not err <= tol:
+                fail(f"{entry} {label} {names}: err {err} > {tol}")
+            if label == main_case[entry] and path == (dx, dw):
+                out[entry] = dict(max_abs_err=err_abs, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=lib_ms,
+                                  library_call=lib_name,
+                                  shape=f"B{bsz} M{m} N{n} K{k} "
+                                        f"{names[0]} x {names[1]}")
+            del got, want, args, x, w, acc
+    return out
+
+
+RING_CASES = [
+    # (label, op, direction, B, b, N, K, dx, dw): b rows a rank gathers
+    # (AG, a bidirectional half) or keeps (RS); N a half of the columns
+    ("q edge fwd", "ag", 1, 2, 256, 640, 2560, "bfloat16", "bfloat16"),
+    ("up|gate edge fwd", "ag", -1, 2, 256, 3456, 2560, "bfloat16",
+     "bfloat16"),
+    ("o edge bwd", "ag", 1, 2, 256, 640, 2560, "float32", "bfloat16"),
+    ("down edge bwd", "ag", -1, 2, 256, 1728, 2560, "float32", "bfloat16"),
+    ("o edge fwd", "rs", 1, 2, 512, 1280, 640, "float32", "bfloat16"),
+    ("down edge fwd", "rs", -1, 2, 512, 1280, 1728, "float32", "bfloat16"),
+    ("up|gate edge bwd", "rs", 1, 2, 512, 1280, 3456, "float32",
+     "bfloat16"),
+    ("ragged", "ag", -1, 2, 77, 45, 130, "bfloat16", "bfloat16"),
+    ("ragged", "ag", 1, 2, 77, 45, 130, "float32", "bfloat16"),
+    ("ragged", "rs", -1, 2, 77, 45, 130, "bfloat16", "bfloat16"),
+    ("ragged", "rs", 1, 2, 77, 45, 130, "float32", "bfloat16"),
+]
+
+
+def ring_bound_ms(op, tp, bsz, b, n, k, dx, dw):
+    """Least time for one ring call of the whole group on the one card:
+    every rank's product (2·n·b·K·N each) at the bf16 peak against every
+    rank's inputs read once and outputs written once."""
+    ex = 2 if dx == "bfloat16" else 4
+    ew = 2 if dw == "bfloat16" else 4
+    rows_in, rows_out = (b, tp * b) if op == "ag" else (tp * b, b)
+    flops = tp * 2.0 * bsz * tp * b * k * n
+    nbytes = tp * (bsz * rows_in * k * ex + k * n * ew
+                   + bsz * rows_out * n * 4)
+    return hop_bound_ms(flops, nbytes)
+
+
+def phase_ring_kernels():
+    """The two whole-ring kernels vs their plain versions in four ranks on
+    the card; returns each kernel's main-path numbers."""
+    from repro_torch.dist import rank_tasks
+    from repro_torch.dist.group import RankPool
+
+    tp = 4
+    cases = [dict(op=op, direction=d, B=bsz, b=b, N=n, K=k, dx=dx, dw=dw)
+             for _, op, d, bsz, b, n, k, dx, dw in RING_CASES]
+    with RankPool(tp, device="cuda") as pool:
+        res = pool.run(rank_tasks.ring_kernels, cases)
+    main_case = {"ag": "q edge fwd", "rs": "o edge fwd"}
+    out = {}
+    for i, (label, op, d, bsz, b, n, k, dx, dw) in enumerate(RING_CASES):
+        rows = [r[i] for r in res]
+        entry = f"{op}_matmul_ring"
+        err_abs = max(r["max_abs_err"] for r in rows)
+        err = err_abs / max(r["max_plain"] for r in rows)
+        tol = HOP_TOL[(dx, dw)]
+        ms, plain_ms = rows[0]["ms"], rows[0]["plain_ms"]
+        bound_ms, bound_by = ring_bound_ms(op, tp, bsz, b, n, k, dx, dw)
+        launched = [r["launches"][entry] for r in rows]
+        print(f"[ring] {entry} {label} dir {d:+d} B{bsz} b{b} N{n} K{k} "
+              f"{dx} x {dw}, {tp} ranks: max_err/max {err:.3g} (tol {tol}),"
+              f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (gloo), bound "
+              f"{bound_ms:.5f} ms ({bound_by}), the group's wall time a "
+              f"call", flush=True)
+        if not all(r["finite"] for r in rows):
+            fail(f"{entry} {label}: non-finite output")
+        if not err <= tol:
+            fail(f"{entry} {label}: err {err} > {tol}")
+        if launched != [1] * tp or any(
+                v for name, v in rows[0]["launches"].items() if name != entry):
+            fail(f"{entry} {label}: launches {rows[0]['launches']}")
+        if label == main_case[op] and op not in out:
+            out[entry] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=None,
+                              shape=f"TP{tp} B{bsz} b{b} N{n} K{k} "
+                                    f"{dx} x {dw}, one direction")
+    return out
+
+
+def tp_launches(n_layers, tp, remat, peer):
+    """cc_matmul launches of one TP step from the schedule: per layer two
+    AG edges (q, up‖gate) and two RS edges (o, down) forward, the other op
+    at each edge in backward, the forward again under remat full; batch
+    folded into each launch.  In-kernel ring (``peer``): one ring launch
+    a direction, two counter-rotating half rings at tp > 2.  Emulated: an
+    AG at tp > 2 consumes 2 + 2(tp−1) times, an RS launches 2 tiles and
+    2(tp−1) accumulating consumes; at tp 2 one ring: tp, 1 and tp−1."""
+    bidir = tp > 2
+    calls = n_layers * (6 if remat == "full" else 4)   # per op kind
+    zero = dict.fromkeys(("matmul_tile", "consume_matmul",
+                          "consume_matmul_acc", "ag_matmul_ring",
+                          "rs_matmul_ring"), 0)
+    if peer:
+        rings = calls * (2 if bidir else 1)
+        return dict(zero, ag_matmul_ring=rings, rs_matmul_ring=rings)
+    return dict(zero,
+                consume_matmul=calls * (2 * tp if bidir else tp),
+                matmul_tile=calls * (2 if bidir else 1),
+                consume_matmul_acc=calls * (2 * (tp - 1) if bidir
+                                            else tp - 1))
+
+
+def phase_tp_train():
+    """Full-width h2o-danube-1.8b TP training at a model axis of 4 on the
+    in-kernel ring, step 0 at TP 2, and step 0 at TP 4 on the emulated
+    schedule; returns the cc_matmul launches of each path's TP-4 run (all
+    ranks, all steps)."""
+    import math
+
+    from repro_torch.configs.presets import get_tp_preset
+    from repro_torch.dist import rank_tasks
+    from repro_torch.dist.group import RankPool
+
+    preset = get_tp_preset("h2o-danube-1.8b-tp")
+    cfg = preset.config
+    kw = dict(steps=3, tp_transport=preset.tp_transport, seed=0,
+              step_overrides=dict(seq_chunk=512, warmup_steps=1),
+              data=dict(seq_len=2049, global_batch=2))
+    profile_step = 2          # the TP-4 run's last step, under the profiler
+    runs = {}
+    for tag, tp, steps, peer in (("tp4", 4, 3, True), ("tp2", 2, 1, True),
+                                 ("tp4-emulated", 4, 1, False)):
+        t0 = time.perf_counter()
+        with RankPool(tp, device="cuda", peer_memory=peer) as pool:
+            res = pool.run(rank_tasks.train, cfg.name,
+                           **dict(kw, steps=steps, profile_step=(
+                               profile_step if tag == "tp4" else None)))
+        runs[tag] = res
+        print(f"[{tag}] {cfg.name} full width, {tp} ranks on one card "
+              f"({preset.tp_transport} edges, "
+              f"{'in-kernel ring' if peer else 'emulated schedule'}), "
+              f"{res[0]['n_params']/1e6:.1f}M params a rank in "
+              f"{cfg.param_dtype}, init "
+              f"{max(r['init_seconds'] for r in res):.1f}s, pool "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        want = tp_launches(cfg.n_layers, tp, cfg.remat, peer)
+        for k in range(steps):
+            m = res[0]["metrics"][k]
+            wall = max(r["seconds"][k] for r in res)
+            staged = sum(r["stats"][k]["staged_bytes"] for r in res)
+            forwarded = sum(r["stats"][k]["peer_bytes"] for r in res)
+            wire = max(r["stats"][k]["wire_s"] for r in res)
+            hops = res[0]["stats"][k]["hops"]
+            peak = [r["peak_bytes"] / 2**30 for r in res]
+            launched = {n: v for n, v in res[0]["launches"][k].items() if v}
+            print(f"[{tag}] step {k}{' (profiled)' if tag == 'tp4' and k == profile_step else ''}: "
+                  f"{wall:.2f}s, loss {m['loss']:.6f}, "
+                  f"grad_norm {m['grad_norm']:.6f}, lr {m['lr']:.3g}; "
+                  f"cc_matmul launches a rank {launched}; {hops} ring hops "
+                  f"a rank, {forwarded / 2**30:.2f} GiB forwarded through "
+                  f"peer memory and {staged / 2**30:.2f} GiB staged "
+                  f"through the host (all ranks), {wire:.2f}s in the wire "
+                  f"(host clock, the slowest rank); peak memory a rank "
+                  f"{', '.join(f'{p:.1f}' for p in peak)} GiB", flush=True)
+            for rank, r in enumerate(res):
+                if r["launches"][k] != want:
+                    fail(f"{tag} step {k} rank {rank}: cc_matmul launches "
+                         f"{r['launches'][k]}, expected {want}")
+                if any(r["plain"][k].values()):
+                    fail(f"{tag} step {k} rank {rank}: plain versions ran "
+                         f"{r['plain'][k]}")
+                if r["metrics"][k]["loss"] != m["loss"]:
+                    fail(f"{tag} step {k}: ranks report different losses")
+        if tag == "tp4":
+            prof = [r.get("profile") for r in res]
+            wall = max(r["seconds"][profile_step] for r in res)
+            if all(p and p["kernel_ms"] > 0 for p in prof):
+                spans = sum(p["kernel_ms"] for p in prof) / 1e3
+                cc = sum(p["cc_ms"] for p in prof) / 1e3
+                # a ring kernel's span runs from its start to its end,
+                # through the time the card runs the other ranks'
+                # contexts while it waits for them: spans overlap, so
+                # no idle share follows from them
+                print(f"[tp4] step {profile_step} on the card (torch.profiler,"
+                      f" summed over the ranks): kernel spans {spans:.2f}s "
+                      f"against {wall:.2f}s wall, of which cc_matmul "
+                      f"{cc:.2f}s (ring spans include their waits for the "
+                      f"other ranks, so the card's idle share is not "
+                      f"measured) and the other kernels {spans - cc:.2f}s; "
+                      f"host<->device copies "
+                      f"{sum(p['copy_ms'] for p in prof) / 1e3:.2f}s",
+                      flush=True)
+                for name, ms, count in prof[0]["top"]:
+                    print(f"[tp4]   rank 0: {ms:9.1f} ms  x{count:<6} "
+                          f"{name[:90]}", flush=True)
+            else:
+                print("[tp4] torch.profiler saw no device time: device "
+                      "busy share not measured", flush=True)
+        if any(r["replicated"] != res[0]["replicated"] for r in res):
+            fail(f"{tag}: replicated leaves differ across ranks")
+        print(f"[{tag}] {len(res[0]['replicated'])} replicated leaves "
+              f"bitwise equal on all {tp} ranks", flush=True)
+    loss0 = runs["tp4"][0]["metrics"][0]["loss"]
+    if not (math.isfinite(loss0) and abs(loss0 - math.log(cfg.vocab_size))
+            <= 0.5):
+        fail(f"tp4 step-0 loss {loss0} not within 0.5 of "
+             f"ln {cfg.vocab_size}")
+    def rel(a, b, key):
+        return abs(a[key] - b[key]) / abs(b[key])
+
+    m4, m2 = runs["tp4"][0]["metrics"][0], runs["tp2"][0]["metrics"][0]
+    d_loss, d_norm = rel(m4, m2, "loss"), rel(m4, m2, "grad_norm")
+    print(f"[tp] step 0, TP 4 vs TP 2 (bf16): loss {m4['loss']:.6f} vs "
+          f"{m2['loss']:.6f} (rel {d_loss:.3g}, tol 2e-2), grad_norm "
+          f"{m4['grad_norm']:.6f} vs {m2['grad_norm']:.6f} (rel "
+          f"{d_norm:.3g}, tol 5e-2)", flush=True)
+    if not (d_loss <= 2e-2 and d_norm <= 5e-2):
+        fail("tp4 and tp2 disagree at step 0")
+    me = runs["tp4-emulated"][0]["metrics"][0]
+    d_loss, d_norm = rel(me, m4, "loss"), rel(me, m4, "grad_norm")
+    print(f"[tp] step 0 at TP 4, emulated schedule vs in-kernel ring: loss "
+          f"{me['loss']:.6f} vs {m4['loss']:.6f} (rel {d_loss:.3g}), "
+          f"grad_norm {me['grad_norm']:.6f} vs {m4['grad_norm']:.6f} (rel "
+          f"{d_norm:.3g}); tol 1e-6", flush=True)
+    if not (d_loss <= 1e-6 and d_norm <= 1e-6):
+        fail("the emulated schedule and the in-kernel ring disagree")
+
+    def total(tag):
+        return {name: sum(sum(step[name] for step in r["launches"])
+                          for r in runs[tag])
+                for name in runs[tag][0]["launches"][0]}
+
+    ring, emulated = total("tp4"), total("tp4-emulated")
+    return {name: ring[name] if name.endswith("_ring") else emulated[name]
+            for name in ring}
+
+
+def phase_tp_reduced():
+    """Reduced h2o-danube-1.8b in fp32 at TP 2 and 4: the card against the
+    CPU, same parameters (drawn on the CPU) and batches."""
+    import numpy as np
+
+    from repro_torch.dist import rank_tasks
+    from repro_torch.dist.group import RankPool
+    from repro_torch.dist.steps import StepConfig
+
+    peak_lr, t = StepConfig().peak_lr, 1e-4
+    kw = dict(steps=2, reduced=True, seed=0, init_device="cpu",
+              step_overrides=dict(seq_chunk=8, warmup_steps=1),
+              data=dict(seq_len=17, global_batch=2), return_params=True)
+    for tp in (2, 4):
+        with RankPool(tp, device="cuda") as pool:
+            card = pool.run(rank_tasks.train, "h2o-danube-1.8b",
+                            device="cuda", **kw)
+            cpu = pool.run(rank_tasks.train, "h2o-danube-1.8b",
+                           device="cpu", **kw)
+        worst = {"metric": 0.0, "mean": 0.0, "beyond": 0}
+        for rank, (a, b) in enumerate(zip(card, cpu)):
+            if not sum(s["ag_matmul_ring"] + s["rs_matmul_ring"]
+                       for s in a["launches"]):
+                fail(f"reduced tp{tp}: the card run launched no ring kernel")
+            for ma, mb in zip(a["metrics"], b["metrics"]):
+                for key in ("loss", "grad_norm"):
+                    rel = abs(ma[key] - mb[key]) / abs(mb[key])
+                    worst["metric"] = max(worst["metric"], rel)
+            for name, want in b["params"].items():
+                d = np.abs(a["params"][name] - want)
+                scale = np.abs(want).max()
+                worst["mean"] = max(worst["mean"], float(
+                    d.mean() / max(np.abs(want).mean(), 1e-30)))
+                worst["beyond"] += int((d > t * scale).sum())
+                if not (d.mean() <= t * np.abs(want).mean()
+                        and d.max() <= 2 * peak_lr + t * scale):
+                    fail(f"reduced tp{tp} rank {rank} {name}: card vs CPU "
+                         f"mean |d| {d.mean()}, max |d| {d.max()}")
+        print(f"[tp-reduced] h2o-danube-1.8b fp32 tp{tp}, 2 steps, card vs "
+              f"CPU: loss/grad_norm max rel {worst['metric']:.3g} (tol "
+              f"{t}); params mean |d|/mean |p| max {worst['mean']:.3g} "
+              f"(tol {t}), {worst['beyond']} elements beyond {t} x max|p|; "
+              f"losses {[round(m['loss'], 6) for m in card[0]['metrics']]}",
+              flush=True)
+        if worst["metric"] > t:
+            fail(f"reduced tp{tp}: card vs CPU metrics differ by "
+                 f"{worst['metric']}")
+
+
 def main() -> int:
     try:
         import torch
@@ -531,6 +979,11 @@ def main() -> int:
     ssd_launches = phase_serve_mamba2()
     torch.cuda.empty_cache()
     phase_reduced_vs_cpu()
+    cc_main = phase_cc_kernels()
+    torch.cuda.empty_cache()
+    cc_main.update(phase_ring_kernels())
+    cc_launches = phase_tp_train()
+    phase_tp_reduced()
     print(f"[smoke] all phases {time.perf_counter() - t_start:.1f}s",
           flush=True)
 
@@ -550,6 +1003,14 @@ def main() -> int:
              chunk128_plain_ms=ssd_chunk["plain_ms"],
              chunk128_bound_ms=ssd_chunk["bound_ms"]),
     ]
+    for entry, line in (("matmul_tile", 65), ("consume_matmul", 84),
+                        ("consume_matmul_acc", 106),
+                        ("ag_matmul_ring", 170), ("rs_matmul_ring", 223)):
+        kernels.append(dict(
+            name=f"cc_matmul.{entry}", route="cuda",
+            source="src/repro_torch/kernels/cc_matmul/csrc/cc_matmul.cu",
+            replaces=f"src/repro/kernels/cc_matmul/kernel.py:{line}",
+            launches=cc_launches[entry], **cc_main[entry]))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -52,3 +52,13 @@ def params_from_reference(tree: Dict[str, Any],
     out["layers"] = [_tree(_unstack(stacked, i), device)
                      for i in range(n_layers)]
     return out
+
+
+def shard_params(tree: Dict[str, Any], rank: int, tp: int,
+                 device: DeviceLike = "cpu") -> Dict[str, Any]:
+    """The reference's full parameter pytree (numpy leaves) → rank
+    ``rank``'s shard of it in the port's layout, under the TP placement of
+    ``repro_torch.dist.sharding``."""
+    from repro_torch.dist.sharding import shard_tree
+
+    return shard_tree(params_from_reference(tree, device), rank, tp)

@@ -1,0 +1,5 @@
+"""Training data of the port."""
+
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+__all__ = ["DataConfig", "SyntheticLM"]

@@ -1,0 +1,313 @@
+"""The TP process group: the port's counterpart of the reference's
+``model`` mesh axis (``launch/mesh.py::make_host_mesh``).
+
+Three things live here:
+
+* :class:`Group` — one rank's handle on a gloo process group: its rank,
+  the group size, its device (``cuda:0`` on the card, ``cpu`` when
+  asked), the wire every collective of the port rides, and, on the card,
+  the peer memory the ring kernels forward through (``peer``: each rank
+  maps its ring neighbours' channels, ``kernels/cc_matmul/peer.py``).  On
+  the card the wire is gloo over host memory, and the staging is
+  explicit: each message is copied from the device into a host buffer,
+  sent, received into a host buffer and copied back to the device.
+  ``stats`` counts the ring hops (over the wire or the peer memory), the
+  bytes staged through the host, the bytes forwarded through peer memory
+  and the host seconds spent in the wire (``wire_s``: from the moment the
+  device has produced the payload to the moment the arrival is back on
+  the device).
+* :func:`init_group` — joins the gloo group through ``file://`` in a
+  temporary directory, so no network is needed.
+* :class:`RankPool` — spawns N rank processes (the ``spawn`` start
+  method) that hold one group for their lifetime and run, in lockstep,
+  whatever module-level function the parent hands them.  The pool builds
+  the CUDA kernels before it starts the ranks, so N processes never race
+  to compile the same library at first use.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import queue as queue_mod
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.cc_matmul.peer import PeerMemory
+
+#: how long a collective may wait for its peers before gloo raises
+GROUP_TIMEOUT_S = 900
+
+
+def _new_stats() -> Dict[str, float]:
+    return {"hops": 0, "staged_bytes": 0, "peer_bytes": 0, "wire_s": 0.0}
+
+
+def _ready(tensors: Sequence[torch.Tensor]) -> float:
+    """Wait until the device has produced ``tensors`` (a staging copy
+    would wait for it anyway), and return the host clock: the wire's time
+    starts here, without the device work before it."""
+    for dev in {t.device for t in tensors if t.device.type == "cuda"}:
+        torch.cuda.current_stream(dev).synchronize()
+    return time.perf_counter()
+
+
+@dataclasses.dataclass
+class Group:
+    """One rank's view of the TP group (the ``model`` axis).
+
+    ``pg`` is None only for a group that never communicates (size-1 or
+    argument-checking uses); every collective needs it.  ``peer`` is the
+    :class:`PeerMemory` of a card group whose ranks map each other's
+    channels, else None."""
+
+    rank: int
+    size: int
+    device: torch.device
+    pg: Any = None
+    stats: Dict[str, float] = dataclasses.field(default_factory=_new_stats)
+    peer: Optional[PeerMemory] = None
+
+    # -- host staging ---------------------------------------------------------
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        if t.device.type == "cpu":
+            return t.detach().contiguous()
+        self.stats["staged_bytes"] += t.numel() * t.element_size()
+        return t.detach().to("cpu")
+
+    def _from_host(self, h: torch.Tensor,
+                   device: torch.device) -> torch.Tensor:
+        if device.type == "cpu":
+            return h
+        self.stats["staged_bytes"] += h.numel() * h.element_size()
+        return h.to(device)
+
+    @staticmethod
+    def _wire_view(h: torch.Tensor) -> torch.Tensor:
+        # the wire moves bytes: 16-bit floats travel as uint8 (gloo's
+        # gather has no 16-bit integer type, and not every build has bf16)
+        if h.dtype in (torch.bfloat16, torch.float16):
+            return h.view(torch.uint8)
+        return h
+
+    # -- point to point: the ring hop -----------------------------------------
+
+    def exchange(self, sends: Sequence[Tuple[torch.Tensor, int]],
+                 into: Optional[Sequence[torch.Tensor]] = None
+                 ) -> List[torch.Tensor]:
+        """One ring hop per entry, all in flight together: for each
+        ``(t, shift)`` send ``t`` to rank ``(rank + shift) % size`` and
+        receive a tensor of the same shape and dtype from rank
+        ``(rank - shift) % size`` (the reference's ``lax.ppermute`` with
+        ``_ring_perm(n, shift)``).  Returns the arrivals on the
+        device of the tensors sent, in the order of ``sends``; with
+        ``into``, each arrival is copied from its host buffer straight
+        into the given tensor (a scratch slot) and those are returned."""
+        t0 = _ready([t for t, _ in sends])
+        reqs, bufs, devices = [], [], []
+        for tag, (t, shift) in enumerate(sends):
+            devices.append(t.device)
+            h = self._to_host(t)
+            buf = torch.empty(h.shape, dtype=h.dtype)
+            reqs.append(dist.isend(self._wire_view(h),
+                                   dst=(self.rank + shift) % self.size,
+                                   group=self.pg, tag=tag))
+            reqs.append(dist.irecv(self._wire_view(buf),
+                                   src=(self.rank - shift) % self.size,
+                                   group=self.pg, tag=tag))
+            bufs.append(buf)
+            self.stats["hops"] += 1
+        for r in reqs:
+            r.wait()
+        if into is None:
+            out = [self._from_host(b, d) for b, d in zip(bufs, devices)]
+        else:
+            for dst, b in zip(into, bufs):
+                if dst.device.type != "cpu":
+                    self.stats["staged_bytes"] += b.numel() * b.element_size()
+                dst.copy_(b)
+            out = list(into)
+        self.stats["wire_s"] += time.perf_counter() - t0
+        return out
+
+    # -- plain collectives ------------------------------------------------------
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along ``dim`` in rank order (the
+        reference's ``lax.all_gather(..., tiled=True)``)."""
+        t0 = _ready([t])
+        h = self._to_host(t)
+        parts = [torch.empty_like(h) for _ in range(self.size)]
+        dist.all_gather([self._wire_view(p) for p in parts],
+                        self._wire_view(h), group=self.pg)
+        out = self._from_host(torch.cat(parts, dim=dim), t.device)
+        self.stats["wire_s"] += time.perf_counter() - t0
+        return out
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise sum of ``t`` over the group, as a new tensor on
+        this rank's device.  gloo's ring computes each element's sum once
+        and copies it, so every rank gets the same bits."""
+        t0 = _ready([t])
+        h = self._to_host(t).clone()
+        dist.all_reduce(h, group=self.pg)
+        out = self._from_host(h, t.device)
+        self.stats["wire_s"] += time.perf_counter() - t0
+        return out
+
+
+
+def init_group(rank: int, size: int, init_file: str,
+               device: DeviceLike = None,
+               peer_memory: bool = True) -> Group:
+    """Join the gloo group of ``size`` ranks rendezvousing at
+    ``init_file`` and return this rank's :class:`Group`.  ``device``
+    ``None`` means ``cuda`` (every rank shares ``cuda:0`` on a one-card
+    host); it raises without a GPU unless the caller asks for ``cpu``.
+    On the card with ``peer_memory`` (and ≥ 2 ranks) the group gets its
+    :class:`PeerMemory`, and the fused ops run the in-kernel ring; without
+    it they run the emulated schedule over the wire."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=rank,
+        world_size=size,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    peer = None
+    if peer_memory and dev.type == "cuda" and size > 1:
+        peer = PeerMemory(rank, size, dist.group.WORLD, dev)
+    return Group(rank=rank, size=size, device=dev, pg=dist.group.WORLD,
+                 peer=peer)
+
+
+def _rank_main(rank: int, size: int, init_file: str, device: str,
+               peer_memory: bool, inbox, outbox) -> None:
+    """Body of one spawned rank: join the group, then run tasks until the
+    parent sends ``None``.  A task is ``(fn, args, kwargs)``; ``fn`` is
+    called as ``fn(group, *args, **kwargs)`` and its (picklable) result is
+    sent back, or the traceback if it raised."""
+    if device == "cpu":
+        torch.set_num_threads(1)
+    else:
+        # several ranks share one card: let each allocator grow segments
+        # instead of reserving fresh blocks per size (before CUDA starts)
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+    group = init_group(rank, size, init_file, device, peer_memory)
+    try:
+        while True:
+            task = inbox.get()
+            if task is None:
+                break
+            fn, args, kwargs = task
+            try:
+                outbox.put((rank, True, fn(group, *args, **kwargs)))
+            except BaseException:       # report, and keep serving
+                outbox.put((rank, False, traceback.format_exc()))
+    finally:
+        if group.peer is not None:     # every task has synchronized
+            group.peer.close()
+        dist.destroy_process_group()
+
+
+class RankPool:
+    """``size`` spawned rank processes sharing one gloo group.
+
+    ``run(fn, *args, **kwargs)`` calls ``fn(group, *args, **kwargs)`` on
+    every rank (``fn`` must be importable at module level: the ``spawn``
+    start method pickles it by name) and returns the per-rank results in
+    rank order.  If any rank raises, the pool is shut down and the
+    traceback re-raised here: its peers may be blocked in a collective.
+    ``peer_memory`` is :func:`init_group`'s.  Use as a context manager, or
+    call :meth:`close`."""
+
+    def __init__(self, size: int, device: DeviceLike = None,
+                 peer_memory: bool = True):
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            from repro_torch.kernels import KERNEL_NAMES
+            from repro_torch.kernels.common import build
+
+            build(KERNEL_NAMES)
+        import torch.multiprocessing as mp
+
+        self.size = size
+        self._dir = tempfile.mkdtemp(prefix="repro_torch_group_")
+        ctx = mp.get_context("spawn")
+        self._inboxes = [ctx.Queue() for _ in range(size)]
+        self._outbox = ctx.Queue()
+        init_file = os.path.join(self._dir, "rendezvous")
+        self._procs = [
+            ctx.Process(target=_rank_main, daemon=True,
+                        args=(r, size, init_file, dev.type, peer_memory,
+                              self._inboxes[r], self._outbox))
+            for r in range(size)]
+        for p in self._procs:
+            p.start()
+
+    def run(self, fn: Callable, *args, **kwargs) -> List[Any]:
+        if self._procs is None:
+            raise RuntimeError("RankPool is closed")
+        for box in self._inboxes:
+            box.put((fn, args, kwargs))
+        results: List[Optional[Any]] = [None] * self.size
+        pending = set(range(self.size))
+        while pending:
+            try:
+                rank, ok, value = self._outbox.get(timeout=GROUP_TIMEOUT_S)
+            except queue_mod.Empty:
+                dead = [r for r in pending
+                        if not self._procs[r].is_alive()]
+                self.close()
+                raise RuntimeError(
+                    f"ranks {sorted(pending)} gave no result within "
+                    f"{GROUP_TIMEOUT_S}s (dead: {dead})") from None
+            if not ok:
+                self.close()
+                raise RuntimeError(f"rank {rank} raised:\n{value}")
+            results[rank] = value
+            pending.discard(rank)
+        return results
+
+    def close(self) -> None:
+        if self._procs is None:
+            return
+        for box in self._inboxes:
+            try:
+                box.put(None)
+            except (OSError, ValueError):
+                pass
+        for p in self._procs:
+            p.join(timeout=30)
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        self._procs = None
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+    def __enter__(self) -> "RankPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+__all__ = ["GROUP_TIMEOUT_S", "Group", "RankPool", "init_group"]

@@ -1,0 +1,80 @@
+"""Sequence-chunked cross-entropy over the TP group's sequence shards
+(``repro.dist.loss.chunked_ce_loss``).
+
+Each rank streams the LM head over its own rows in chunks of
+``seq_chunk`` and reduces each chunk's (B, C, V) logits to three partial
+sums: masked NLL, masked squared-logsumexp (z-loss) and the token count.
+The global token count comes from an all-reduce that carries no
+gradient; each rank divides its own sums by it.  That rank-local loss is
+what backward runs on: the ranks' losses sum to the reference's loss, and
+the TP collectives' backward combines the ranks' cotangents, so no
+all-reduce sits inside autograd (one there would multiply the gradients
+by the group size).  The loss reported in the metrics is the all-reduced
+value.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.model import forward_hidden
+
+
+def chunked_ce_loss(
+    cfg: ModelConfig,
+    params,
+    batch: Dict[str, torch.Tensor],
+    *,
+    seq_chunk: int,
+    z_loss: float = 1e-4,
+    group=None,
+    positions: Optional[torch.Tensor] = None,
+    runner: Optional[Callable] = None,
+) -> Tuple[torch.Tensor, Dict[str, float]]:
+    """batch: tokens (B, S_loc), labels (B, S_loc) with -1 = masked — this
+    rank's rows.  Returns (this rank's loss, metrics), where the metrics'
+    ``loss``, ``ce``, ``z_loss`` and ``tokens`` are the group's totals
+    (the reference's ``total`` and metrics; the dense family has no MoE
+    aux term).  ``group`` None means one rank holding the whole
+    sequence.  ``positions`` and ``runner`` (the TP block runner) are
+    ``forward_hidden``'s."""
+    hidden = forward_hidden(cfg, params, batch["tokens"], positions,
+                            runner=runner)
+    labels = batch["labels"]
+    cd = L.cdtype(cfg)
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]).to(cd)
+
+    s = labels.shape[1]
+    chunk = max(int(seq_chunk), 1)
+    nll_sum = hidden.new_zeros((), dtype=torch.float32)
+    z_sum = hidden.new_zeros((), dtype=torch.float32)
+    tokens = hidden.new_zeros((), dtype=torch.float32)
+    for start in range(0, s, chunk):
+        h_c = hidden[:, start:start + chunk]
+        lab = labels[:, start:start + chunk]
+        logits = (h_c.to(cd) @ head).float()
+        mask = (lab >= 0).float()
+        safe = lab.clamp_min(0)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, safe[..., None])[..., 0]
+        nll_sum = nll_sum + ((lse - gold) * mask).sum()
+        z_sum = z_sum + ((lse * mask) ** 2).sum()
+        tokens = tokens + mask.sum()
+
+    sums = torch.stack([nll_sum, z_sum, tokens]).detach().double().cpu()
+    if group is not None:
+        sums = group.all_reduce(sums)
+    nll_all, z_all, tok_all = sums.tolist()
+    denom = max(tok_all, 1.0)
+    loss = nll_sum / denom + z_loss * z_sum / denom
+    ce, zl = nll_all / denom, z_loss * z_all / denom
+    metrics = {"loss": ce + zl, "ce": ce, "z_loss": zl, "tokens": tok_all}
+    return loss, metrics
+
+
+__all__ = ["chunked_ce_loss"]

@@ -1,0 +1,86 @@
+"""TP placement of the dense block's parameters (the ``model``-axis part
+of ``repro.dist.sharding``'s rule table, for this port's TP path).
+
+  column shards (output dim split over the group):  ``wq``, ``w_up``,
+                                                     ``w_gate``
+  row shards (input dim split):                      ``wo``, ``w_down``
+  replicated:                                        everything else —
+      ``embed``, ``lm_head``, ``wk``/``wv``, all norms
+
+The reference makes the embedding and LM head vocab-parallel and shards
+``wk``/``wv`` by column under GSPMD; here they are whole on every rank
+(K/V are projected on the local rows and ring-gathered, as the reference's
+ART block does).  A replicated leaf's gradient is summed over the group
+before clipping; a sharded leaf's is complete already, from the fused
+ops' weight gradient.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator, Tuple
+
+import torch
+
+COL_PARALLEL = frozenset({"wq", "w_up", "w_gate"})
+ROW_PARALLEL = frozenset({"wo", "w_down"})
+
+Path = Tuple[Any, ...]
+
+
+def placement(path: Path) -> str:
+    """``"col"``, ``"row"`` or ``"rep"`` for the leaf at ``path``."""
+    name = path[-1]
+    if name in COL_PARALLEL:
+        return "col"
+    if name in ROW_PARALLEL:
+        return "row"
+    return "rep"
+
+
+def shard_leaf(t: torch.Tensor, place: str, rank: int,
+               size: int) -> torch.Tensor:
+    """This rank's part of a full leaf, as its own contiguous tensor."""
+    if place == "rep":
+        return t
+    dim = 1 if place == "col" else 0
+    n = t.shape[dim]
+    if n % size:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {size} ranks")
+    step = n // size
+    # a copy, never a view: a view would keep the whole leaf alive
+    return t.narrow(dim, rank * step, step).clone(
+        memory_format=torch.contiguous_format)
+
+
+def leaves(tree: Any, path: Path = ()) -> Iterator[Tuple[Path, torch.Tensor]]:
+    """``(path, tensor)`` of every leaf, in a fixed order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def map_leaves(fn: Callable[[Path, torch.Tensor], torch.Tensor], tree: Any,
+               path: Path = ()) -> Any:
+    """The tree with every leaf replaced by ``fn(path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_leaves(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def shard_tree(tree: Any, rank: int, size: int) -> Any:
+    """Every leaf of a full parameter tree replaced by this rank's part."""
+    return map_leaves(
+        lambda p, t: shard_leaf(t, placement(p), rank, size), tree)
+
+
+__all__ = ["COL_PARALLEL", "ROW_PARALLEL", "leaves", "map_leaves",
+           "placement", "shard_leaf", "shard_tree"]

@@ -1,0 +1,115 @@
+"""Device memory the ranks of a TP group map from each other: the
+channels the whole-ring kernels (``ag_matmul_ring``/``rs_matmul_ring`` in
+``csrc/cc_matmul.cu``) forward their slots through.
+
+The ranks are processes that share one card.  Each rank allocates one
+channel per ring direction with ``cudaMalloc``, exports it as a CUDA IPC
+handle, and maps the channel of its next rank in that direction
+(``(rank + direction) % n``): the port's counterpart of the TPU's remote
+DMA into a neighbour's VMEM.  A channel is a 256-byte header (the
+``arrive`` and ``done`` counters and the kernel's grid barrier) and two
+slots.
+
+Both counters only grow, so the host keeps, per channel, how many calls
+ran on it (``done`` advances by n a call) and how far ``arrive`` has
+counted (by the grid size for every slot forwarded).  Every rank issues
+the same ring calls in the same order, so these agree across ranks.  A
+call that needs bigger slots than the channel has re-allocates the
+channel on every rank at once (a collective over the group's gloo
+process group); the new channel starts from zero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.kernels.common import CudaKernel
+
+HEADER_BYTES = 256
+_MIN_SLOT_BYTES = 1 << 20
+
+_P, _L, _C = ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_char)
+_ALLOC = CudaKernel("cc_matmul", "repro_cc_channel_alloc",
+                    [_L, ctypes.POINTER(_P), _C])
+_OPEN = CudaKernel("cc_matmul", "repro_cc_channel_open",
+                   [_C, ctypes.POINTER(_P)])
+_CLOSE = CudaKernel("cc_matmul", "repro_cc_channel_close", [_P])
+_FREE = CudaKernel("cc_matmul", "repro_cc_channel_free", [_P])
+
+
+class Channel:
+    """One ring direction's channel as this rank sees it."""
+
+    def __init__(self, mine: int, next_: int, slot_bytes: int):
+        self.mine, self.next = mine, next_
+        self.slot_bytes = slot_bytes
+        self.calls = 0        # ring calls so far: `done` is calls × n
+        self.arrived = 0      # what this rank's `arrive` has counted
+
+
+class PeerMemory:
+    """The channels of one rank of a group whose ranks share a card."""
+
+    def __init__(self, rank: int, size: int, pg, device: torch.device):
+        if size < 2 or device.type != "cuda":
+            raise ValueError(f"peer memory needs >= 2 ranks on a card, got "
+                             f"{size} on {device}")
+        self.rank, self.size, self.pg, self.device = rank, size, pg, device
+        self.channels: Dict[int, Channel] = {}
+
+    def channel(self, direction: int, slot_bytes: int) -> Channel:
+        """The channel of ``direction`` with slots of at least
+        ``slot_bytes``; (re-)allocated on every rank at once when missing
+        or too small (all ranks ask for the same sizes in the same
+        order)."""
+        ch = self.channels.get(direction)
+        if ch is not None and ch.slot_bytes >= slot_bytes:
+            return ch
+        cap = _MIN_SLOT_BYTES
+        while cap < slot_bytes:
+            cap *= 2
+        with torch.cuda.device(self.device):
+            torch.cuda.synchronize()       # this rank's kernels are done
+            dist.barrier(group=self.pg)    # and every other rank's
+            if ch is not None:
+                _check(_CLOSE.fn()(ch.next), "close")
+                dist.barrier(group=self.pg)   # nobody maps the old ones
+                _check(_FREE.fn()(ch.mine), "free")
+            mine = ctypes.c_void_p()
+            handle = ctypes.create_string_buffer(64)
+            _check(_ALLOC.fn()(HEADER_BYTES + 2 * cap, ctypes.byref(mine),
+                               handle), "alloc")
+            mine_handle = torch.frombuffer(bytearray(handle.raw),
+                                           dtype=torch.uint8)
+            handles = [torch.empty(64, dtype=torch.uint8)
+                       for _ in range(self.size)]
+            dist.all_gather(handles, mine_handle, group=self.pg)
+            nxt = ctypes.c_void_p()
+            peer = handles[(self.rank + direction) % self.size]
+            peer_handle = ctypes.create_string_buffer(bytes(peer.tolist()), 64)
+            _check(_OPEN.fn()(peer_handle, ctypes.byref(nxt)), "open")
+        ch = Channel(mine.value, nxt.value, cap)
+        self.channels[direction] = ch
+        return ch
+
+    def close(self) -> None:
+        """Unmap the neighbours' channels and free this rank's.  Call only
+        when no rank has a ring kernel in flight (the rank pool does, after
+        its last task)."""
+        for ch in self.channels.values():
+            _CLOSE.fn()(ch.next)
+            _FREE.fn()(ch.mine)
+        self.channels = {}
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"cc_matmul peer channel {what} failed with "
+                           f"cudaError {rc}")
+
+
+__all__ = ["Channel", "HEADER_BYTES", "PeerMemory"]

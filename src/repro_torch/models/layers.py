@@ -1,11 +1,14 @@
-"""Layers: RMSNorm, RoPE, GQA attention, the gated MLP and the Mamba-2 block.
+"""Layers: norms, RoPE, GQA attention, the gated MLP and the Mamba-2 block.
 
 The counterpart of the dense and SSM subset of ``repro.models.layers``.
 Parameters are plain dicts of tensors laid out as the reference's (weights
-``(d_in, d_out)``), and attention tensors are ``(B, H, S, D)``.  Attention
-has one path: :func:`attention_core` calls the flash-attention wrapper,
-and the Mamba-2 block's scan calls the SSD wrapper; each launches its CUDA
-kernel for CUDA tensors and runs its plain version for CPU tensors.
+``(d_in, d_out)``), and attention tensors are ``(B, H, S, D)``.  Serving
+attention has one path: :func:`attention_core` calls the flash-attention
+wrapper, and the Mamba-2 block's scan calls the SSD wrapper; each launches
+its CUDA kernel for CUDA tensors and runs its plain version for CPU
+tensors.  Training attention (the TP block of ``models/artblock.py``) is
+:func:`blockwise_attention`, plain differentiable PyTorch as in the
+reference, whose flash kernel has no backward.
 """
 
 from __future__ import annotations
@@ -62,6 +65,102 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     absolute position ``q_offset + i`` (default right-aligned)."""
     return flash_attention(q, k, v, causal=causal, window=window,
                            q_offset=q_offset)
+
+
+def _block_ranges(sq: int, skv: int, q_chunk: int, kv_chunk: int,
+                  causal: bool, window: Optional[int], skip: bool,
+                  offset: int) -> List[Tuple[int, int, int]]:
+    """Static kv-block range ``[lo, hi)`` visible to each q block ``i``."""
+    n_q = -(-sq // q_chunk)
+    n_kv = -(-skv // kv_chunk)
+    out = []
+    for i in range(n_q):
+        lo, hi = 0, n_kv
+        if skip:
+            row_hi = offset + min((i + 1) * q_chunk, sq) - 1
+            row_lo = offset + i * q_chunk
+            if causal:
+                hi = min(hi, row_hi // kv_chunk + 1)
+            if window is not None:
+                lo = max(lo, (row_lo - window + 1) // kv_chunk)
+        out.append((i, lo, max(lo + 1, hi)))
+    return out
+
+
+def blockwise_attention(
+    q: torch.Tensor,       # (B, Hq, Sq, Dk)
+    k: torch.Tensor,       # (B, Hkv, Skv, Dk)
+    v: torch.Tensor,       # (B, Hkv, Skv, Dv)
+    *,
+    causal: bool,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_chunk: int = 2048,
+    kv_chunk: int = 2048,
+    causal_skip: bool = True,
+    q_offset: Optional[int] = None,
+) -> torch.Tensor:
+    """Online-softmax attention in plain, differentiable PyTorch (the
+    reference's ``layers.blockwise_attention``, which is jnp, not a Pallas
+    kernel): a Python loop over q chunks, each walking only its visible kv
+    chunks (``causal_skip``) with a running (max, normalizer, accumulator)
+    in fp32.  GQA by a (B, Hkv, group, ...) view; ``q_offset`` pins q row
+    0 at an absolute position (default right-aligned, ``skv - sq``).
+    Returns (B, Hq, Sq, Dv) in q's dtype.  The training path's attention
+    (``models/artblock.py``); the flash kernel's plain version is that
+    kernel's oracle and is not used here."""
+    b, hq, sq, dk = q.shape
+    _, hkv, skv, _ = k.shape
+    dv = v.shape[-1]
+    group = hq // hkv
+    scale = scale if scale is not None else dk ** -0.5
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    offset = skv - sq if q_offset is None else q_offset
+
+    qg = q.reshape(b, hkv, group, sq, dk).float() * scale
+    kf, vf = k.float(), v.float()
+    pad_q = (-sq) % q_chunk
+    if pad_q:
+        qg = F.pad(qg, (0, 0, 0, pad_q))
+    pad_kv = (-skv) % kv_chunk
+    if pad_kv:
+        kf = F.pad(kf, (0, 0, 0, pad_kv))
+        vf = F.pad(vf, (0, 0, 0, pad_kv))
+    n_kv = kf.shape[2] // kv_chunk
+    kb = kf.reshape(b, hkv, n_kv, kv_chunk, dk)
+    vb = vf.reshape(b, hkv, n_kv, kv_chunk, dv)
+    dev = q.device
+
+    outs = []
+    for i, lo, hi in _block_ranges(sq, skv, q_chunk, kv_chunk, causal,
+                                   window, causal_skip, offset):
+        qi = qg[:, :, :, i * q_chunk:(i + 1) * q_chunk]
+        rows = offset + i * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full(qi.shape[:-1] + (1,), -1e30, device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qi.shape[:-1] + (dv,), device=dev)
+        for j in range(lo, hi):
+            cols = j * kv_chunk + torch.arange(kv_chunk, device=dev)
+            s = torch.einsum("bkgqd,bkcd->bkgqc", qi, kb[:, :, j])
+            mask = (cols < skv)[None, :].expand(q_chunk, kv_chunk)
+            if causal:
+                mask = mask & (cols[None, :] <= rows[:, None])
+            if window is not None:
+                mask = mask & (cols[None, :] > rows[:, None] - window)
+            s = torch.where(mask, s, torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.where(s <= -1e29, torch.zeros_like(s),
+                            torch.exp(s - m_new))
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bkgqc,bkcd->bkgqd", p,
+                                             vb[:, :, j])
+            m = m_new
+        l = torch.where(l == 0.0, torch.ones_like(l), l)
+        outs.append(acc / l)
+    out = torch.cat(outs, dim=3)[:, :, :, :sq]
+    return out.reshape(b, hq, sq, dv).to(q.dtype)
 
 
 def qkv_proj(cfg: ModelConfig, p: Params, x: torch.Tensor,

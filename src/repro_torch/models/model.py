@@ -5,15 +5,17 @@ The counterpart of the dense GQA and ``ssm`` (Mamba-2) families of
 are a dict like the reference's pytree, except that ``layers`` is a list
 with one dict per layer where the reference stacks a leading layer axis
 for ``lax.scan`` (``repro_torch.bridge`` converts one into the other); the
-layer stack is a Python loop.
+layer stack is a Python loop.  In training each block runs through the
+TP block runner the step passes in and the config's ``remat`` policy.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -88,14 +90,17 @@ def _check_ported(cfg: ModelConfig) -> None:
             f"{cfg.name}: only the dense GQA and ssm families are ported")
 
 
-def init_params(cfg: ModelConfig, seed: int = 0,
-                device: DeviceLike = None) -> Params:
+def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
+                layer_fn: Optional[Callable[[Params], Params]] = None
+                ) -> Params:
     """Random parameters from a seeded ``torch.Generator``, drawn from the
     reference's distributions (truncated normal × 0.02, depth-scaled
     output projections, the Mamba-2 block's fixed decay/skip init).  The
     numbers differ from the reference's ``jax.random`` draws; tests that
     compare the two pass the reference's parameters through
-    ``repro_torch.bridge`` instead."""
+    ``repro_torch.bridge`` instead.  ``layer_fn`` transforms each layer's
+    dict as soon as it is drawn (the TP init keeps only this rank's
+    shard, so a whole model never sits on the device at once)."""
     _check_ported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -108,7 +113,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         p["lm_head"] = _init((cfg.d_model, cfg.vocab_size), dt, gen, device)
     init_layer = _init_ssm_layer if cfg.family == "ssm" else _init_dense_layer
-    p["layers"] = [init_layer(cfg, gen, device) for _ in range(cfg.n_layers)]
+    layer_fn = layer_fn or (lambda layer: layer)
+    p["layers"] = [layer_fn(init_layer(cfg, gen, device))
+                   for _ in range(cfg.n_layers)]
     return p
 
 
@@ -116,8 +123,35 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens]
 
 
+def _maybe_remat(cfg: ModelConfig, fn):
+    """Per-block activation checkpointing while gradients are recorded:
+    ``remat="full"`` keeps only each block's input and recomputes the
+    block in backward (``torch.utils.checkpoint``, non-reentrant), and
+    ``"none"`` keeps everything.  The reference's ``"dots"`` policy (keep
+    the matmul outputs) has no counterpart here and raises."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs, recompute the rest) is "
+            "not ported; use 'full' or 'none'")
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+    def remat(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+
+    return remat
+
+
 def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor,
+                 runner: Optional[Callable] = None) -> torch.Tensor:
+    if runner is not None and cfg.use_art and cfg.attn_type != "mla":
+        # every TP collective of this block is an ART ring schedule
+        # (models/artblock.py, installed by dist.steps.build_train_step)
+        return runner(cfg, p, x, positions)
     h = x + L.attention(cfg, p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
                         positions)
     return h + L.mlp(cfg, p["mlp"], L.rms_norm(p["ln2"], h, cfg.norm_eps))
@@ -128,17 +162,29 @@ def _ssm_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
                               L.rms_norm(p["ln"], x, cfg.norm_eps))
 
 
-def forward_hidden(cfg: ModelConfig, params: Params,
-                   tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) → final-norm hidden (B, S, D)."""
+def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   positions: Optional[torch.Tensor] = None, *,
+                   runner: Optional[Callable] = None) -> torch.Tensor:
+    """tokens (B, S) → final-norm hidden (B, S, D).
+
+    ``positions`` (default ``arange(S)``) is what the blocks rope with.
+    With a TP block runner (``runner(cfg, layer_params, x, positions)``,
+    training) ``tokens`` is this rank's sequence shard and ``positions``
+    the whole sequence's: rank r holds rows ``r·S_loc + arange(S_loc)``,
+    and the runner ropes after gathering.
+    Each block goes through :func:`_maybe_remat` (the per-layer
+    ``remat`` policy of the reference's scan body)."""
     _check_ported(cfg)
     x = _embed(params, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.family == "ssm":
+        block = _maybe_remat(cfg, lambda h, lp: _ssm_block(cfg, lp, h))
+    else:
+        block = _maybe_remat(
+            cfg, lambda h, lp: _dense_block(cfg, lp, h, positions, runner))
     for lp in params["layers"]:
-        if cfg.family == "ssm":
-            x = _ssm_block(cfg, lp, x)
-        else:
-            x = _dense_block(cfg, lp, x, positions)
+        x = block(x, lp)
     return L.rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 

@@ -93,6 +93,14 @@ class TestDevicePolicy:
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--requests", "1"])
 
+    def test_tp_group_raises_without_device(self):
+        from repro_torch.dist.group import RankPool, init_group
+
+        with pytest.raises(RuntimeError, match="CUDA"):
+            RankPool(2)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_group(0, 1, "/nonexistent/rendezvous")
+
     def test_kernel_wrapper_rejects_other_devices(self):
         from repro_torch.kernels.flash_attention import FLASH, flash_attention
 
@@ -105,3 +113,37 @@ class TestDevicePolicy:
                                                      dtype=np.float32))
         flash_attention(x, x, x)         # CPU: the plain version
         assert FLASH.launches == before
+
+
+def test_tp_presets_equal_reference():
+    from repro.configs import TP_PRESETS as REF_TP_PRESETS
+    from repro.configs import get_tp_preset as ref_get_tp_preset
+    from repro_torch.configs.presets import TP_PRESETS, get_tp_preset
+    from repro_torch.dist.steps import StepConfig
+
+    assert list(TP_PRESETS) == list(REF_TP_PRESETS)
+    for name, preset in TP_PRESETS.items():
+        assert dataclasses.asdict(preset) == \
+            dataclasses.asdict(REF_TP_PRESETS[name])
+    ours, ref = get_tp_preset("h2o-danube-1.8b-tp"), \
+        ref_get_tp_preset("h2o-danube-1.8b-tp")
+    assert dataclasses.asdict(ours.config) == dataclasses.asdict(ref.config)
+    assert isinstance(ours.step, StepConfig)
+    assert ours.step.transport.tp == ref.step.transport.tp == "fused"
+    with pytest.raises(KeyError):        # not a port config yet
+        get_tp_preset("nemotron-4-340b-tp")
+    with pytest.raises(KeyError):
+        get_tp_preset("smollm-360m-tp")
+
+
+@pytest.mark.parametrize("tp", [1, 2, 3, 4, 8, 16])
+def test_supports_art_tp_equals_reference(tp):
+    from repro.models.artblock import supports_art_tp as ref_supports
+    from repro_torch.models.artblock import supports_art_tp
+
+    for name in ARCH_NAMES:
+        for reduced in (False, True):
+            ours, ref = get_config(name), ref_get_config(name)
+            if reduced:
+                ours, ref = ours.reduced(), ref.reduced()
+            assert supports_art_tp(ours, tp) == ref_supports(ref, tp)

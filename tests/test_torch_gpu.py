@@ -193,3 +193,198 @@ def test_reduced_mamba2_on_card_matches_cpu(cuda):
     torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(c_gpu["ssm_state"].cpu(), c_cpu["ssm_state"],
                                rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the fused collective matmul's hop kernels (csrc/cc_matmul.cu)
+# ---------------------------------------------------------------------------
+
+#: relative to the largest output: fp32 FMAs in another order, and bf16
+#: products (exact in fp32) summed by the tensor cores in fp32
+HOP_TOL = {(torch.float32, torch.float32): 1e-5,
+           (torch.float32, torch.bfloat16): 1e-5,
+           (torch.bfloat16, torch.bfloat16): 1e-4}
+
+
+def _hop_case(entry, bsz, m, n, k, dx, dw, device, seed):
+    """Operands as the ring hands them over: x a row block of a taller
+    buffer, the scratch a (2, B, M, ·) double buffer read at slot 1, w a
+    column slice of a wider weight."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    w = randn(k, n + 5, dtype=dw)[:, 2:2 + n]
+    if entry == "matmul_tile":
+        x = randn(bsz, 3 * m, k, dtype=dx)[:, m:2 * m]
+        return (x, w), {}
+    if entry == "consume_matmul":
+        return (randn(2, bsz, m, k, dtype=dx), w), {"slot": 1}
+    x = randn(bsz, 3 * m, k, dtype=dx)[:, 2 * m:]
+    return (randn(2, bsz, m, n), x, w), {"slot": 1}
+
+
+@pytest.mark.parametrize("entry", ["matmul_tile", "consume_matmul",
+                                   "consume_matmul_acc"])
+@pytest.mark.parametrize("dx,dw", list(HOP_TOL))
+@pytest.mark.parametrize("bsz,m,n,k", [
+    (1, 64, 64, 64),          # one tile
+    (2, 77, 45, 130),         # ragged M, N and K, a batch of 2
+    (2, 256, 640, 2560),      # the h2o-danube TP-4 q edge
+    (1, 1, 3, 1),             # smaller than a tile every way
+])
+def test_hop_kernel_matches_plain(cuda, entry, dx, dw, bsz, m, n, k):
+    from repro_torch.kernels.cc_matmul import ops as cc_ops
+    from repro_torch.kernels.cc_matmul import ref as cc_ref
+
+    args, kw = _hop_case(entry, bsz, m, n, k, dx, dw, cuda, seed=m + n + k)
+    wrapper = getattr(cc_ops, entry)
+    plain = getattr(cc_ref, entry + "_plain")
+    kernel = cc_ops.HOP_KERNELS[entry]
+    before, plain_before = kernel.launches, dict(cc_ops.PLAIN_CALLS)
+    got = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert cc_ops.PLAIN_CALLS == plain_before
+    want = plain(*args, **kw)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _rel(got, want) <= HOP_TOL[(dx, dw)]
+
+
+def test_hop_kernel_two_dim_and_rejects(cuda):
+    from repro_torch.kernels.cc_matmul import (
+        consume_matmul,
+        consume_matmul_plain,
+        matmul_tile,
+    )
+
+    x = torch.randn(10, 16, device=cuda)
+    w = torch.randn(16, 12, device=cuda)
+    scr = torch.randn(2, 10, 16, device=cuda)
+    assert matmul_tile(x, w).shape == (10, 12)
+    torch.testing.assert_close(consume_matmul(scr, w, slot=0),
+                               consume_matmul_plain(scr, w, slot=0),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(TypeError):
+        matmul_tile(x.half(), w.half())
+    with pytest.raises(ValueError):
+        matmul_tile(x, w.t())                    # w's last dim strided
+    with pytest.raises(ValueError):
+        matmul_tile(x, w.cpu())
+    with pytest.raises(ValueError):
+        consume_matmul(scr, w, slot=2)
+
+
+def test_fused_ops_on_card_match_cpu(cuda):
+    """Two ranks sharing the card against two CPU ranks: the fused AG and
+    RS ops and their gradients, fp32 (TF32 off in the ranks' plain
+    GEMMs is torch's default)."""
+    from repro_torch.dist import rank_tasks
+    from repro_torch.dist.group import RankPool
+
+    rng = np.random.default_rng(0)
+    n = 2
+    cases = {"ag": (rng.standard_normal((n, 2, 32, 48)),
+                    rng.standard_normal((n, 2, 64, 40))),
+             "rs": (rng.standard_normal((n, 2, 64, 48)),
+                    rng.standard_normal((n, 2, 32, 40)))}
+    ws = rng.standard_normal((n, 48, 40)).astype(np.float32)
+    with RankPool(n, device="cuda") as pool:
+        for op, (xs, gs) in cases.items():
+            xs, gs = xs.astype(np.float32), gs.astype(np.float32)
+            card = pool.run(rank_tasks.fused_op, op, xs, ws, gs, True)
+            cpu = pool.run(rank_tasks.fused_op, op, xs, ws, gs, True,
+                           device="cpu")
+            for a, b in zip(card, cpu):
+                assert sum(a["launches"].values()) > 0
+                assert sum(a["plain"].values()) == 0
+                for key in ("out", "dx", "dw"):
+                    np.testing.assert_allclose(a[key], b[key], rtol=1e-5,
+                                               atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the whole-ring kernels (ag_matmul_ring / rs_matmul_ring): rank processes
+# sharing the card, each mapping its ring neighbours' channels
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card_pools():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.dist.group import RankPool
+
+    pools = {n: RankPool(n, device="cuda") for n in (2, 4)}
+    yield pools
+    for pool in pools.values():
+        pool.close()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("op", ["ag", "rs"])
+@pytest.mark.parametrize("dx,dw", [("bfloat16", "bfloat16"),
+                                   ("float32", "bfloat16"),
+                                   ("float32", "float32")])
+@pytest.mark.parametrize("bsz,b,nn,k", [(2, 77, 45, 130), (1, 64, 64, 64),
+                                        (1, 1, 3, 1)])
+def test_ring_kernel_matches_plain(card_pools, n, op, dx, dw, bsz, b, nn, k):
+    """Both ring directions against the unfused composition over gloo;
+    x a row block and w a column slice (strided views)."""
+    from repro_torch.dist import rank_tasks
+
+    cases = [dict(op=op, direction=d, B=bsz, b=b, N=nn, K=k, dx=dx, dw=dw)
+             for d in (1, -1)]
+    res = card_pools[n].run(rank_tasks.ring_kernels, cases, iters=1)
+    tol = HOP_TOL[(getattr(torch, dx), getattr(torch, dw))]
+    for i in range(len(cases)):
+        rows = [r[i] for r in res]
+        assert all(r["finite"] for r in rows)
+        assert all(r["launches"][f"{op}_matmul_ring"] == 1 for r in rows)
+        err = max(r["max_abs_err"] for r in rows)
+        assert err <= tol * max(r["max_plain"] for r in rows)
+
+
+def test_fused_ops_in_kernel_ring_equal_emulated(cuda):
+    """At 4 ranks, bidirectional: the fused ops and their gradients on the
+    in-kernel ring equal the emulated schedule's bit for bit (the same
+    tile arithmetic, the same add order)."""
+    from repro_torch.dist import rank_tasks
+    from repro_torch.dist.group import RankPool
+
+    rng = np.random.default_rng(1)
+    n = 4
+    cases = {"ag": (rng.standard_normal((n, 2, 24, 40)),
+                    rng.standard_normal((n, 2, 96, 36))),
+             "rs": (rng.standard_normal((n, 2, 96, 40)),
+                    rng.standard_normal((n, 2, 24, 36)))}
+    ws = rng.standard_normal((n, 40, 36)).astype(np.float32)
+    got = {}
+    for peer in (True, False):
+        with RankPool(n, device="cuda", peer_memory=peer) as pool:
+            got[peer] = {op: pool.run(rank_tasks.fused_op, op,
+                                      xs.astype(np.float32), ws,
+                                      gs.astype(np.float32), True)
+                         for op, (xs, gs) in cases.items()}
+    for op in cases:
+        for a, b in zip(got[True][op], got[False][op]):
+            assert a["launches"]["ag_matmul_ring"] == 2
+            assert a["launches"]["rs_matmul_ring"] == 2
+            assert b["launches"]["ag_matmul_ring"] == 0
+            assert sum(a["plain"].values()) == sum(b["plain"].values()) == 0
+            for key in ("out", "dx", "dw"):
+                np.testing.assert_array_equal(a[key], b[key])
+
+
+def test_ring_wrappers_need_peer_memory(cuda):
+    from repro_torch.dist.group import Group
+    from repro_torch.kernels.cc_matmul import ag_matmul_ring, rs_matmul_ring
+
+    group = Group(rank=0, size=2, device=cuda)
+    x = torch.randn(4, 8, device=cuda)
+    w = torch.randn(8, 6, device=cuda)
+    with pytest.raises(ValueError, match="peer memory"):
+        ag_matmul_ring(x, w, group)
+    with pytest.raises(ValueError, match="peer memory"):
+        rs_matmul_ring(x, w, group)
