@@ -82,6 +82,39 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    every parameter leaf by the parameter rule at 1e-4 (mean |Δ| ≤ 1e-4 ×
    the leaf's mean magnitude, max |Δ| ≤ 2·peak_lr + 1e-4 × its max).
 
+10. The DLA matmul kernel (``kernels/matmul/csrc/matmul.cu``): first the
+    entry point driven as a user calls the DLA instruction — ``matmul`` at
+    the case study's sizes (256/512/1024 square, fp32, gelu with a bias)
+    and at a dense MLP edge of full-width h2o-danube-1.8b (x 4096 × 2560
+    @ w_up 2560 × 6912, bf16 in and out, silu) — with the launch count set
+    to 0 before and read after (4 expected; no module of the reference
+    calls the kernel, so this entry point is its path).  Then every case
+    against the plain version: the reference's kernel-test shapes, the
+    case-study sizes with each of the five activations and a bias, a
+    ragged 77 × 130 × 45, a batched (3, 40, 64) and the MLP edge.
+    Tolerance, as max error over max |plain|: fp32 in and out 1e-5 (TF32
+    off), bf16 in and fp32 out 1e-4, bf16 out 1e-2.  At 1024 fp32 and at
+    the MLP edge, time the kernel, the plain version, the bound (flops at
+    the operand type's peak, bytes at 3.35 TB/s) and one PyTorch call of
+    the same function where one exists (``torch.addmm`` for none + bias,
+    ``torch._addmm_activation`` for relu/gelu + bias).
+11. The PGAS substrate on the card: the quickstart (ring PUT, ``SCALE``
+    Active Message, ART matmul) in four rank processes with peer-mapped
+    heaps, in four on the card's gloo wire (``peer_memory=False``) and in
+    four CPU ranks: bit-identical heaps, the peer run's PUT through peer
+    stores, the ART result within 2e-4 of ``M @ N``.  Then a PUT/GET sweep
+    between ranks 0 and 1 of a 2-rank group, 4 B to 2 MB in powers of two
+    and 64 MB, on a 2^24-word fp32 heap, over peer memory and over the
+    wire: the transfer alone and the whole collective call, latency and
+    bandwidth, GET over PUT; every read-back checked.
+12. The paper's Sec. V case study on the 2-rank peer group (fp32, TF32
+    off): ``art_matmul_reducescatter`` (8 chunks) and
+    ``bulk_matmul_reducescatter`` at 256/512/1024 and 8192, each within
+    2e-4 of one ``torch.matmul`` relative to the largest output, and
+    ``split_conv_allgather`` on the paper's three conv sets (64 × 64
+    fmaps) at batch 1 and 64, within 2e-4 of one ``conv2d``; the group's
+    wall time of each call.
+
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Exits nonzero, printing
 no result, when there is no CUDA device or the port cannot be imported.
@@ -952,6 +985,274 @@ def phase_tp_reduced():
                  f"{worst['metric']}")
 
 
+PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 peak outside the tensor cores
+DLA_CASE_SIZES = (256, 512, 1024)
+MLP_EDGE = (4096, 2560, 6912)   # h2o-danube-1.8b: tokens x d_model @ d_ff
+
+
+def dla_tol(din, dout) -> float:
+    if dout == "bfloat16":
+        return 1e-2
+    return 1e-4 if din == "bfloat16" else 1e-5
+
+
+def dla_bound_ms(m, k, n, din, dout, bias):
+    """Least time for one DLA call: its 2·M·K·N operations at the peak of
+    the operand type (tensor cores for bf16, the CUDA cores for fp32, no
+    TF32), or its bytes (x, w and the bias read once, the output written
+    once) at the memory rate, whichever is larger."""
+    ein = 2 if din == "bfloat16" else 4
+    eout = 2 if dout == "bfloat16" else 4
+    flops = 2.0 * m * k * n
+    nbytes = (m * k + k * n + (n if bias else 0)) * ein + m * n * eout
+    peak = PEAK_BF16_FLOPS if din == "bfloat16" else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def dla_library_call(x, w, b, act):
+    """One PyTorch call computing ``act(x @ w + b)``, or None."""
+    import torch
+
+    call, name = None, None
+    if b is not None and act == "none":
+        call, name = (lambda: torch.addmm(b, x, w)), "torch.addmm"
+    fn = getattr(torch, "_addmm_activation", None)
+    if b is not None and act in ("relu", "gelu") and fn is not None:
+        gelu = act == "gelu"
+        call = lambda: fn(b, x, w, use_gelu=gelu)
+        name = f"torch._addmm_activation(use_gelu={gelu})"
+    if call is not None:
+        try:
+            call()
+        except (RuntimeError, TypeError) as e:   # not in this build
+            print(f"[dla] {name} unavailable: {e}", flush=True)
+            return None, None
+    return call, name
+
+
+def phase_dla():
+    """The DLA matmul kernel: its entry point driven as the DLA
+    instruction, then every case against the plain version; returns the
+    ``kernels`` entry's numbers."""
+    import torch
+
+    from repro_torch.kernels.matmul import MATMUL, matmul, matmul_plain
+
+    for line in MATMUL.ptxas_report().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[ptxas] {line.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype="float32"):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            getattr(torch, dtype))
+
+    # the path: the DLA instruction as a user calls it
+    path_inputs = [(randn(s, s), randn(s, s), randn(s), "gelu", None)
+                   for s in DLA_CASE_SIZES]
+    m, k, n = MLP_EDGE
+    path_inputs.append((randn(m, k, dtype="bfloat16"),
+                        randn(k, n, dtype="bfloat16"), None, "silu", None))
+    torch.cuda.synchronize()
+    MATMUL.launches = 0
+    for x, w, b, act, od in path_inputs:
+        matmul(x, w, b, activation=act, out_dtype=od)
+    torch.cuda.synchronize()
+    path_launches = MATMUL.launches
+    print(f"[dla] the DLA instruction at {list(DLA_CASE_SIZES)} fp32 gelu + "
+          f"bias and the MLP edge {m}x{k} @ {k}x{n} bf16 silu: "
+          f"{path_launches} kernel launches", flush=True)
+    if path_launches != len(path_inputs):
+        fail(f"dla: {path_launches} launches for {len(path_inputs)} calls")
+    del path_inputs
+
+    # (label, batch, M, K, N, dtype in, dtype out, activation, bias)
+    cases = [(f"ref {mm}x{kk}x{nn}", (), mm, kk, nn, "float32", "float32",
+              "none", False)
+             for mm, kk, nn in [(128, 128, 128), (100, 200, 150),
+                                (256, 64, 512), (1, 7, 3), (384, 128, 128)]]
+    cases += [("ref acts 64x96x80", (), 64, 96, 80, "float32", "float32",
+               act, True) for act in ("none", "relu", "relu2", "silu",
+                                      "gelu")]
+    cases += [("ref dtypes 64x64x64", (), 64, 64, 64, d, "float32", "none",
+               False) for d in ("float32", "bfloat16")]
+    cases += [(f"case study {s}", (), s, s, s, "float32", "float32", act,
+               True) for s in DLA_CASE_SIZES
+              for act in ("none", "relu", "relu2", "silu", "gelu")]
+    cases += [("ragged", (), 77, 130, 45, d, od, "relu2", True)
+              for d, od in (("float32", "float32"), ("bfloat16", "float32"),
+                            ("bfloat16", "bfloat16"))]
+    cases += [("batched", (3,), 40, 64, 32, "float32", "float32", "silu",
+               True),
+              ("MLP edge", (), m, k, n, "bfloat16", "bfloat16", "silu",
+               False)]
+    timed = {("case study 1024", a) for a in ("none", "relu", "gelu")}
+    timed.add(("MLP edge", "silu"))
+    out = {}
+    for label, batch, mm, kk, nn, din, dout, act, bias in cases:
+        x = randn(*batch, mm, kk, dtype=din)
+        w = randn(kk, nn, dtype=din)
+        b = randn(nn, dtype=din) if bias else None
+        od = getattr(torch, dout)
+        got = matmul(x, w, b, activation=act, out_dtype=od)
+        torch.cuda.synchronize()
+        want = matmul_plain(x, w, b, activation=act, out_dtype=od)
+        if not torch.isfinite(got).all():
+            fail(f"dla {label} {act}: non-finite output")
+        err_abs = (got.float() - want.float()).abs().max().item()
+        err = err_abs / want.float().abs().max().item()
+        tol = dla_tol(din, dout)
+        line = (f"[dla] {label} {act}{' + bias' if bias else ''} {din} -> "
+                f"{dout}: max_err/max {err:.3g} (tol {tol})")
+        if (label, act) in timed:
+            rows = mm * (batch[0] if batch else 1)
+            ms = time_ms(lambda: matmul(x, w, b, activation=act,
+                                        out_dtype=od))
+            plain_ms = time_ms(lambda: matmul_plain(
+                x, w, b, activation=act, out_dtype=od))
+            bound_ms, bound_by = dla_bound_ms(rows, kk, nn, din, dout, bias)
+            lib_fn, lib_name = dla_library_call(x, w, b, act)
+            lib_ms = time_ms(lib_fn) if lib_fn is not None else None
+            line += (f", kernel {ms:.4f} ms ({2.0 * rows * kk * nn / ms / 1e9:.1f}"
+                     f" TFLOP/s), plain {plain_ms:.4f} ms, "
+                     + (f"{lib_name} {lib_ms:.4f} ms" if lib_fn is not None
+                        else "no single PyTorch call")
+                     + f", bound {bound_ms:.5f} ms ({bound_by})")
+            out[(label, act)] = dict(max_abs_err=err_abs, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by, library_ms=lib_ms,
+                                     library_call=lib_name)
+        print(line, flush=True)
+        if not err <= tol:
+            fail(f"dla {label} {act} {din} -> {dout}: err {err} > {tol}")
+        del x, w, b, got, want
+    main_entry = dict(out[("MLP edge", "silu")])
+    main_entry["shape"] = (f"{m}x{k} @ {k}x{n} bf16 -> bf16, silu "
+                           f"(h2o-danube-1.8b w_up)")
+    for act in ("none", "relu", "gelu"):
+        e = out[("case study 1024", act)]
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            main_entry[f"fp32_1024_{act}_{key}"] = e[key]
+    return path_launches, main_entry
+
+
+SWEEP_WORDS = [1 << i for i in range(20)] + [1 << 24]   # 4 B .. 2 MB, 64 MB
+SWEEP_HEAP_WORDS = 1 << 24                              # 64 MiB of fp32
+
+
+def phase_pgas():
+    """The quickstart on peer-mapped, wire and CPU groups, then the
+    PUT/GET sweep over peer memory and over the wire; returns the 2-rank
+    peer pool for the case study."""
+    import numpy as np
+
+    from repro_torch.dist import rank_tasks
+    from repro_torch.dist.group import RankPool
+
+    runs = {}
+    for tag, dev, peer in (("peer", "cuda", True), ("wire", "cuda", False),
+                           ("cpu", "cpu", False)):
+        t0 = time.perf_counter()
+        with RankPool(4, device=dev, peer_memory=peer) as pool:
+            runs[tag] = pool.run(rank_tasks.quickstart)
+            if peer:
+                churn = pool.run(rank_tasks.heap_churn, 4, 1 << 20)
+        print(f"[pgas] quickstart, 4 ranks, {tag}: ART max |err| "
+              f"{max(r['art_err'] for r in runs[tag]):.3g} (tol 2e-4), "
+              f"{sum(r['peer_bytes'] for r in runs[tag])} bytes through peer "
+              f"memory, pool {time.perf_counter() - t0:.1f}s", flush=True)
+        if not all(r["art_err"] < 2e-4 for r in runs[tag]):
+            fail(f"pgas quickstart {tag}: ART error")
+    if not (all(r["peer"] for r in runs["peer"])
+            and sum(r["peer_bytes"] for r in runs["peer"]) > 0):
+        fail("pgas quickstart: the peer run did not store through peer "
+             "memory")
+    for tag in ("peer", "wire"):
+        for rank, (a, b) in enumerate(zip(runs[tag], runs["cpu"])):
+            if not (np.array_equal(a["heap"], b["heap"]) and np.array_equal(
+                    a["heap_after_put"], b["heap_after_put"])):
+                fail(f"pgas quickstart: {tag} heap of rank {rank} differs "
+                     f"from the CPU run's")
+    if not np.all(runs["peer"][2]["heap"][16:32] == 20.0):
+        fail("pgas quickstart: SCALE result on rank 2")
+    if any(r != {"partitions": [1] * 4, "read_back": True} for r in churn):
+        fail(f"pgas: four heaps one after another on a peer pool: {churn} "
+             f"(each dropped heap's partition must be freed by the next "
+             f"mapping)")
+    print("[pgas] four 4 MiB heaps one after another on the peer pool: "
+          "one partition held at each mapping, every ring PUT read back",
+          flush=True)
+    print("[pgas] quickstart heaps bit-identical: peer-mapped == card wire "
+          "== CPU", flush=True)
+
+    sweeps = {}
+    pools = {}
+    for tag, peer in (("peer", True), ("wire", False)):
+        pools[tag] = RankPool(2, device="cuda", peer_memory=peer)
+        sweeps[tag] = pools[tag].run(rank_tasks.put_get_sweep, SWEEP_WORDS,
+                                     SWEEP_HEAP_WORDS)[0]
+    pools["wire"].close()
+    print("[pgas] PUT/GET rank 0 <-> rank 1 of 2, fp32 heap of 2^24 words; "
+          "alone = the transfer (peer: one copy, CUDA events on rank 0; "
+          "wire: one Group.permute, staging included, host clock); call = "
+          "the collective put/get with its barriers (host clock)", flush=True)
+    for tag in ("peer", "wire"):
+        for r in sweeps[tag]:
+            if not r["read_back"]:
+                fail(f"pgas sweep {tag} {r['bytes']} B: read-back differs")
+            b = r["bytes"]
+            print(f"[pgas] {tag:4} {b:>9} B: PUT alone "
+                  f"{r['put_alone_s'] * 1e6:10.2f} us "
+                  f"{b / r['put_alone_s'] / 1e9:9.4g} GB/s, call "
+                  f"{r['put_s'] * 1e6:10.2f} us {b / r['put_s'] / 1e9:9.4g} "
+                  f"GB/s | GET alone {r['get_alone_s'] * 1e6:10.2f} us "
+                  f"{b / r['get_alone_s'] / 1e9:9.4g} GB/s, call "
+                  f"{r['get_s'] * 1e6:10.2f} us {b / r['get_s'] / 1e9:9.4g} "
+                  f"GB/s | GET/PUT alone "
+                  f"{r['get_alone_s'] / r['put_alone_s']:.3f}, call "
+                  f"{r['get_s'] / r['put_s']:.3f}", flush=True)
+    Path(ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "pgas_sweep.json").write_text(json.dumps(sweeps))
+    return pools["peer"]
+
+
+CASE_SIZES = (256, 512, 1024, 8192)
+CONV_SETS = ((256, 3), (192, 5), (128, 7))
+
+
+def phase_case_study(pool):
+    """The paper's Sec. V on the 2-rank peer group (fp32, TF32 off)."""
+    from repro_torch.dist import rank_tasks
+
+    with pool:
+        res = pool.run(rank_tasks.case_study, CASE_SIZES, 8, CONV_SETS, 64,
+                       (1, 64))
+    for rows in zip(*(r["matmul"] for r in res)):
+        art = max(r["art_err"] for r in rows)
+        bulk = max(r["bulk_err"] for r in rows)
+        print(f"[case] matmul {rows[0]['size']} fp32, 2 ranks: ART (8 chunks)"
+              f" {rows[0]['art_ms']:.3f} ms, bulk {rows[0]['bulk_ms']:.3f} ms"
+              f" (the group's wall time a call); max_err/max ART {art:.3g}, "
+              f"bulk {bulk:.3g} (tol 2e-4)", flush=True)
+        if not (art <= 2e-4 and bulk <= 2e-4 and all(
+                r["art_finite"] and r["bulk_finite"] for r in rows)):
+            fail(f"case study matmul {rows[0]['size']}: errors {art}, {bulk}")
+    for rows in zip(*(r["conv"] for r in res)):
+        err = max(r["err"] for r in rows)
+        r0 = rows[0]
+        print(f"[case] conv {r0['cout']} kernels {r0['k']}x{r0['k']} on "
+              f"64x64, batch {r0['batch']}, 2 ranks: {r0['ms']:.3f} ms; "
+              f"max_err/max {err:.3g} (tol 2e-4)", flush=True)
+        if not (err <= 2e-4 and all(r["finite"] for r in rows)):
+            fail(f"case study conv {r0['cout']}x{r0['k']} batch "
+                 f"{r0['batch']}: err {err}")
+
+
 def main() -> int:
     try:
         import torch
@@ -984,6 +1285,9 @@ def main() -> int:
     cc_main.update(phase_ring_kernels())
     cc_launches = phase_tp_train()
     phase_tp_reduced()
+    dla_launches, dla_main = phase_dla()
+    torch.cuda.empty_cache()
+    phase_case_study(phase_pgas())
     print(f"[smoke] all phases {time.perf_counter() - t_start:.1f}s",
           flush=True)
 
@@ -1011,6 +1315,11 @@ def main() -> int:
             source="src/repro_torch/kernels/cc_matmul/csrc/cc_matmul.cu",
             replaces=f"src/repro/kernels/cc_matmul/kernel.py:{line}",
             launches=cc_launches[entry], **cc_main[entry]))
+    kernels.append(dict(
+        name="matmul", route="cuda",
+        source="src/repro_torch/kernels/matmul/csrc/matmul.cu",
+        replaces="src/repro/kernels/matmul/kernel.py:69",
+        launches=dla_launches, **dla_main))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,28 +1,34 @@
-"""Conduit: one collective API over the TP group, with named transports
-(the subset of ``repro.core.conduit`` that TP training over the fused
-ring needs).
+"""Conduit: one collective API over a group, with named transports
+(``repro.core.conduit``).
 
 A :class:`Conduit` binds a :class:`~repro_torch.dist.group.Group` — the
 port's stand-in for the reference's mesh axis — to a transport name, an
 ART chunk size and a link model.  Ported transports:
 
+``xla``
+    The reference's XLA built-ins, here the group's builtin gloo
+    collectives (``Group.all_gather``, ``all_reduce``, ``broadcast``,
+    ``all_to_all``, and ``reduce_scatter`` as each foreign block sent
+    straight to its owner since gloo has no reduce-scatter; barrier as the
+    all-reduced count).
 ``ring``
-    The unidirectional PUT ring for ``all_gather`` and ``reduce_scatter``:
-    n−1 neighbour hops (``Group.exchange`` with shift +1, the reference's
-    ``lax.ppermute`` over ``_ring_perm(n, 1)``).  Both are differentiable:
-    the gradient of the ring gather is the ring reduce-scatter of the
-    cotangent, and the other way round.
+    The paper-faithful unidirectional PUT rings for all six ops: n−1
+    neighbour hops (``Group.exchange``/``Group.permute`` in place of
+    ``lax.ppermute``), every hop split into ``chunk_bytes`` pieces that
+    ride the same ring order.  all_gather and reduce_scatter are
+    differentiable: the gradient of the ring gather is the ring
+    reduce-scatter of the cotangent, and the other way round.
 ``fused``
     With a resident weight ``w`` the fused collective matmuls of
     ``kernels/cc_matmul`` (the hop consumed by a CUDA kernel); without one
     the bare collective delegates to the ``ring`` wire, as in the
     reference.
 
-The reference's other names (``xla``, ``bidir`` and the ``all_reduce``,
-``all_to_all``, ``broadcast`` and ``barrier`` transports) are known to
-:func:`transports`, so a policy that names them validates as in the
-reference, but calling one raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.  So does ``transport="auto"``: its pricing
+Every op can also run streamed (:meth:`Conduit.streamed`, the consumer
+pipeline of ``core/pipeline.py``).  The reference's ``bidir`` transports
+are known to :func:`transports`, so a policy that names them validates as
+in the reference, but calling one raises ``NotImplementedError`` naming
+the ROADMAP item that ports it.  So does ``transport="auto"``: its pricing
 (``auto_select``, ``matmul_edge_estimate``) is not ported, and no other
 schedule stands in for it.
 """
@@ -35,6 +41,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import netmodel as nm
+from repro_torch.core import pipeline as pl
 
 OPS = (
     "all_gather",
@@ -62,8 +69,7 @@ _KNOWN: Dict[str, Tuple[str, ...]] = {
 
 #: where the port of each unported piece is queued
 ROADMAP_SUBSTRATE = ("ROADMAP queue 1 item 6 (PGAS substrate over "
-                     "torch.distributed: xla/bidir transports, all_reduce, "
-                     "all_to_all, broadcast, barrier)")
+                     "torch.distributed: the bidir transports)")
 ROADMAP_AUTO = ("ROADMAP queue 1 item 7 (distributed steps: the `auto` "
                 "transport policy and matmul_edge_estimate pricing)")
 ROADMAP_OVERLAP = ("ROADMAP queue 1 item 7 (distributed steps: the "
@@ -109,19 +115,8 @@ def resolve(op: str, name: str) -> Callable:
 # ---------------------------------------------------------------------------
 
 
-def _n_chunks(total_bytes: int, chunk_bytes: Optional[int],
-              limit: int) -> int:
-    """⌈total / chunk⌉ clamped to ``[1, limit]``; ``None`` means bulk."""
-    if not chunk_bytes or total_bytes <= chunk_bytes:
-        return 1
-    return max(1, min(limit, -(-total_bytes // chunk_bytes)))
-
-
-def _col_pieces(flat: torch.Tensor, c: int):
-    """``c`` nearly equal, order-preserving column slices of a 2-D view."""
-    f = flat.shape[-1]
-    cuts = [round(i * f / c) for i in range(c + 1)]
-    return [(lo, hi) for lo, hi in zip(cuts, cuts[1:]) if hi > lo]
+def _ring_perm(n: int, shift: int = 1):
+    return [(i, (i + shift) % n) for i in range(n)]
 
 
 def ring_all_gather(x: torch.Tensor, group, dim: int,
@@ -137,9 +132,9 @@ def ring_all_gather(x: torch.Tensor, group, dim: int,
     b = xm.shape[0]
     flat = xm.reshape(b, -1)
     out = flat.new_empty((n * b, flat.shape[1]))
-    c = _n_chunks(flat.numel() * flat.element_size(), chunk_bytes,
-                  flat.shape[1])
-    pieces = _col_pieces(flat, c)
+    c = pl.n_chunks(flat.numel() * flat.element_size(), chunk_bytes,
+                    flat.shape[1])
+    pieces = pl.chunk_slices(flat.shape[1], c)
     out[my * b:(my + 1) * b] = flat
     cur = [flat[:, lo:hi] for lo, hi in pieces]
     for hop in range(1, n):
@@ -164,9 +159,9 @@ def ring_reduce_scatter(x: torch.Tensor, group, dim: int,
                          f"does not split over {n} ranks")
     b = xm.shape[0] // n
     flat = xm.reshape(n * b, -1)
-    c = _n_chunks(b * flat.shape[1] * flat.element_size(), chunk_bytes,
-                  flat.shape[1])
-    pieces = _col_pieces(flat, c)
+    c = pl.n_chunks(b * flat.shape[1] * flat.element_size(), chunk_bytes,
+                    flat.shape[1])
+    pieces = pl.chunk_slices(flat.shape[1], c)
 
     def block(owner_offset: int, lo: int, hi: int) -> torch.Tensor:
         start = ((my + owner_offset) % n) * b
@@ -213,6 +208,146 @@ def _all_gather_ring(x, *, axis, chunk_bytes=None, dim: int = 0):
 @register("reduce_scatter", "ring")
 def _reduce_scatter_ring(x, *, axis, chunk_bytes=None, dim: int = 0):
     return _RingReduceScatter.apply(x, axis, dim, chunk_bytes)
+
+
+@register("barrier", "ring")
+def _barrier_ring(*, axis, chunk_bytes=None) -> torch.Tensor:
+    """A ones-token relayed n−1 hops: each arrival is one more
+    participant; returns the group size as an int32 scalar."""
+    group = axis
+    n = group.size
+    one = torch.ones((), dtype=torch.int32, device=group.device)
+    if n == 1:
+        return one
+    acc = one
+
+    def body(hop, arrived):
+        nonlocal acc
+        ((token,),) = arrived
+        acc = acc + token
+        return ((token,),), acc
+
+    return pl.ring_pipeline(((one,),), (_ring_perm(n, 1),), group, n - 1,
+                            body)
+
+
+@register("broadcast", "ring")
+def _broadcast_ring(x, *, root: int, axis, chunk_bytes=None):
+    """Root's value propagates around the ring, one PUT a hop (n−1 hops);
+    non-root inputs are ignored, as in shmem_broadcast."""
+    group = axis
+    n, my = group.size, group.rank
+    if n == 1:
+        return x
+
+    def piece(flat):
+        cur = flat.clone() if my == root else torch.zeros_like(flat)
+        have = torch.tensor(my == root, device=flat.device)
+
+        def body(hop, arrived):
+            nonlocal cur, have
+            ((cur_prev, have_prev),) = arrived
+            cur = torch.where(~have & have_prev, cur_prev, cur)
+            have = have | have_prev
+            return ((cur, have),), cur
+
+        return pl.ring_pipeline(((cur, have),), (_ring_perm(n, 1),), group,
+                                n - 1, body)
+
+    flat = x.reshape(1, -1)
+    c = pl.n_chunks(x.numel() * x.element_size(), chunk_bytes,
+                    max(1, flat.shape[-1]))
+    if c == 1:
+        out = piece(flat.contiguous())
+    else:
+        out = torch.cat([piece(p.contiguous()) for p in pl.split(flat, c, axis=-1)],
+                        -1)
+    return out.reshape(x.shape)
+
+
+@register("all_reduce", "ring")
+def _all_reduce_ring(x, *, axis, chunk_bytes=None):
+    """Ring reduce-scatter + ring all-gather over the flattened payload,
+    zero-padded to a multiple of n (2·(n−1)/n·|x| wire bytes a rank)."""
+    group = axis
+    n = group.size
+    if n == 1:
+        return x
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    reduced = ring_reduce_scatter(flat, group, 0, chunk_bytes)
+    gathered = ring_all_gather(reduced, group, 0, chunk_bytes)
+    return gathered[:x.numel()].reshape(x.shape)
+
+
+@register("all_to_all", "ring")
+def _all_to_all_ring(x, *, axis, chunk_bytes=None):
+    """All-to-all as n−1 single-block ring permutes: ``x`` (n·g, ...) with
+    rows [q·g, (q+1)·g) destined for rank q; returns the same shape with
+    slot q holding what rank q sent here."""
+    group = axis
+    n, my = group.size, group.rank
+    if n == 1:
+        return x
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} does not "
+                         f"split over {n} ranks")
+
+    def piece(x2d):  # (n, Fi) -> (n, Fi)
+        out = torch.zeros_like(x2d)
+        out[my] = x2d[my]
+        for shift in range(1, n):
+            block = x2d[(my + shift) % n].contiguous()
+            (arrived,) = group.exchange([(block, shift)])
+            out[(my - shift) % n] = arrived
+        return out
+
+    hop_bytes = (x.numel() // n) * x.element_size()
+    flat = x.reshape(n, -1)
+    c = pl.n_chunks(hop_bytes, chunk_bytes, flat.shape[-1])
+    if c == 1:
+        out = piece(flat)
+    else:
+        out = torch.cat([piece(p) for p in pl.split(flat, c, axis=-1)], -1)
+    return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# xla transports — the group's builtin gloo collectives
+# ---------------------------------------------------------------------------
+
+
+@register("barrier", "xla")
+def _barrier_xla(*, axis, chunk_bytes=None) -> torch.Tensor:
+    one = torch.ones((), dtype=torch.int32, device=axis.device)
+    return axis.all_reduce(one)
+
+
+@register("broadcast", "xla")
+def _broadcast_xla(x, *, root: int, axis, chunk_bytes=None):
+    return axis.broadcast(x, root)
+
+
+@register("all_gather", "xla")
+def _all_gather_xla(x, *, axis, chunk_bytes=None, dim: int = 0):
+    return axis.all_gather(x, dim)
+
+
+@register("reduce_scatter", "xla")
+def _reduce_scatter_xla(x, *, axis, chunk_bytes=None, dim: int = 0):
+    return axis.reduce_scatter(x, dim)
+
+
+@register("all_reduce", "xla")
+def _all_reduce_xla(x, *, axis, chunk_bytes=None):
+    return axis.all_reduce(x)
+
+
+@register("all_to_all", "xla")
+def _all_to_all_xla(x, *, axis, chunk_bytes=None):
+    return axis.all_to_all(x)
 
 
 @register("all_gather", "fused")
@@ -295,7 +430,7 @@ class Conduit:
     """
 
     axis: object
-    transport: str = "auto"    # "ring" | "fused" (ported) | others raise
+    transport: str = "auto"    # "ring" | "xla" | "fused"; bidir/auto raise
     chunk_bytes: Optional[int] = None
     link: str = "qsfp"         # key into LINKS
 
@@ -316,6 +451,34 @@ class Conduit:
     def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """``n`` blocks along ``dim`` → block q summed onto rank q."""
         return self._call("reduce_scatter", x, dim=dim)
+
+    def barrier(self) -> torch.Tensor:
+        """Full-group rendezvous; returns the group size on every rank."""
+        return resolve("barrier", self._resolve())(
+            axis=self.axis, chunk_bytes=self.chunk_bytes)
+
+    def broadcast(self, x: torch.Tensor, root: int) -> torch.Tensor:
+        """Rank ``root``'s ``x`` delivered to every rank."""
+        return self._call("broadcast", x, root=root)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise sum of ``x`` across the group, on every rank."""
+        return self._call("all_reduce", x)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Tiled exchange: dim 0 a multiple of n; block q of ``x`` goes to
+        rank q, returns the blocks the peers addressed here."""
+        return self._call("all_to_all", x)
+
+    def streamed(self, op: str, payloads, *, work=None, **kw):
+        """Per-chunk schedule of ``op`` instead of one bulk call: chunk k's
+        collective is issued while ``work(k−1, arrived)`` digests the
+        previous arrival (``pipeline.streamed``).  Returns the per-chunk
+        results, in order; each is bit-identical to the matching slice of
+        the bulk call when the split is orthogonal to the op's
+        rank-blocking layout (see the reference's docstring)."""
+        return pl.streamed(len(payloads),
+                           lambda k: self._call(op, payloads[k], **kw), work)
 
     def matmul_bidirectional(self, size_bytes: int) -> bool:
         """Whether the fused ring-matmul schedules counter-rotate:

@@ -16,6 +16,10 @@ Three things live here:
   and the host seconds spent in the wire (``wire_s``: from the moment the
   device has produced the payload to the moment the arrival is back on
   the device).
+  :meth:`Group.permute` is the reference's ``lax.ppermute`` with any
+  static ``(src, dst)`` list; :meth:`Group.permute_start` starts one and
+  returns a :class:`Pending` to wait on, so a caller can compute while
+  the message is in flight (the ART overlap).
 * :func:`init_group` — joins the gloo group through ``file://`` in a
   temporary directory, so no network is needed.
 * :class:`RankPool` — spawns N rank processes (the ``spawn`` start
@@ -60,6 +64,27 @@ def _ready(tensors: Sequence[torch.Tensor]) -> float:
     return time.perf_counter()
 
 
+#: gloo tags of :meth:`Group.permute_start`, above :meth:`Group.exchange`'s
+#: (which tags by position, from 0)
+_PERMUTE_TAG0, _PERMUTE_TAGS = 1 << 20, 1 << 20
+
+
+class Pending:
+    """Messages in flight: :meth:`wait` blocks until they have arrived
+    and returns what ``finish`` makes of them (once; later calls return
+    the same)."""
+
+    def __init__(self, finish: Callable[[], Any]):
+        self._finish: Optional[Callable[[], Any]] = finish
+        self._out: Any = None
+
+    def wait(self) -> Any:
+        if self._finish is not None:
+            self._out = self._finish()
+            self._finish = None
+        return self._out
+
+
 @dataclasses.dataclass
 class Group:
     """One rank's view of the TP group (the ``model`` axis).
@@ -75,6 +100,7 @@ class Group:
     pg: Any = None
     stats: Dict[str, float] = dataclasses.field(default_factory=_new_stats)
     peer: Optional[PeerMemory] = None
+    _permutes: int = dataclasses.field(default=0, repr=False)
 
     # -- host staging ---------------------------------------------------------
 
@@ -94,8 +120,9 @@ class Group:
     @staticmethod
     def _wire_view(h: torch.Tensor) -> torch.Tensor:
         # the wire moves bytes: 16-bit floats travel as uint8 (gloo's
-        # gather has no 16-bit integer type, and not every build has bf16)
-        if h.dtype in (torch.bfloat16, torch.float16):
+        # gather has no 16-bit integer type, and not every build has bf16;
+        # nor has it bool)
+        if h.dtype in (torch.bfloat16, torch.float16, torch.bool):
             return h.view(torch.uint8)
         return h
 
@@ -139,6 +166,79 @@ class Group:
         self.stats["wire_s"] += time.perf_counter() - t0
         return out
 
+    # -- point to point: any static permutation --------------------------------
+
+    def _check_perm(self, perm: Sequence[Tuple[int, int]]) -> None:
+        srcs = [s for s, _ in perm]
+        dsts = [d for _, d in perm]
+        if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+            raise ValueError(f"permute: {list(perm)} repeats a source or a "
+                             f"destination")
+        if any(not 0 <= r < self.size for r in srcs + dsts):
+            raise ValueError(f"permute: {list(perm)} names a rank outside "
+                             f"0..{self.size - 1}")
+
+    def permute_start(self, tensors: Sequence[torch.Tensor],
+                      perm: Sequence[Tuple[int, int]]) -> Pending:
+        """Start the reference's ``lax.ppermute`` of each of ``tensors``
+        over the static ``(src, dst)`` list ``perm``: the rank that is a
+        source sends its tensor to its destination, the rank that is a
+        destination receives a tensor of the same shape and dtype from its
+        source, and a rank that is no destination gets zeros.  A source or
+        a destination named twice raises, as in JAX.  Every rank of the
+        group calls it, in the same order (SPMD), whether it takes part
+        or not.  The payloads are copied when the call is made, so the
+        caller may change them at once.  Returns a :class:`Pending` whose
+        ``wait()`` gives the arrivals on the tensors' devices, in order."""
+        perm = [(int(s), int(d)) for s, d in perm]
+        self._check_perm(perm)
+        dst = next((d for s, d in perm if s == self.rank), None)
+        src = next((s for s, d in perm if d == self.rank), None)
+        t0 = _ready(tensors)
+        tag0 = _PERMUTE_TAG0 + (self._permutes % _PERMUTE_TAGS)
+        self._permutes += len(tensors)
+        reqs, sent, bufs = [], [], []
+        for i, t in enumerate(tensors):
+            if dst is not None and dst != self.rank:
+                h = self._to_host(t)
+                if h.data_ptr() == t.data_ptr():
+                    h = h.clone()      # the caller may write t before wait
+                sent.append(h)
+                reqs.append(dist.isend(self._wire_view(h), dst=dst,
+                                       group=self.pg, tag=tag0 + i))
+                self.stats["hops"] += 1
+            if src is None:
+                bufs.append(None)
+            elif src == self.rank:
+                bufs.append(t.detach().clone())
+            else:
+                buf = torch.empty(tuple(t.shape), dtype=t.dtype)
+                reqs.append(dist.irecv(self._wire_view(buf), src=src,
+                                       group=self.pg, tag=tag0 + i))
+                bufs.append(buf)
+
+        def finish() -> List[torch.Tensor]:
+            for r in reqs:
+                r.wait()
+            out = []
+            for t, b in zip(tensors, bufs):
+                if b is None:
+                    out.append(torch.zeros_like(t))
+                elif b.device == t.device:
+                    out.append(b)
+                else:
+                    out.append(self._from_host(b, t.device))
+            del sent[:]
+            self.stats["wire_s"] += time.perf_counter() - t0
+            return out
+
+        return Pending(finish)
+
+    def permute(self, t: torch.Tensor,
+                perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """:meth:`permute_start` of one tensor, waited on."""
+        return self.permute_start([t], perm).wait()[0]
+
     # -- plain collectives ------------------------------------------------------
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -163,6 +263,72 @@ class Group:
         out = self._from_host(h, t.device)
         self.stats["wire_s"] += time.perf_counter() - t0
         return out
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Block q of ``t`` along ``dim`` summed over the group onto rank q
+        (the reference's ``lax.psum_scatter(..., tiled=True)``).  Only the
+        n−1 blocks other ranks own leave the rank, each straight to its
+        owner and all in flight at once, as ART's chunks travel; the owner
+        adds the arrivals to its own block in rank order."""
+        n, me = self.size, self.rank
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of "
+                             f"{tuple(t.shape)} does not split over {n} "
+                             f"ranks")
+        t0 = _ready([t])
+        blocks = t.detach().chunk(n, dim)
+        tag = _PERMUTE_TAG0 + (self._permutes % _PERMUTE_TAGS)
+        self._permutes += 1
+        reqs, sent, bufs = [], [], {}
+        for q in range(n):
+            if q == me:
+                continue
+            h = self._to_host(blocks[q].contiguous())
+            sent.append(h)
+            reqs.append(dist.isend(self._wire_view(h), dst=q, group=self.pg,
+                                   tag=tag))
+            bufs[q] = torch.empty(tuple(blocks[me].shape), dtype=t.dtype)
+            reqs.append(dist.irecv(self._wire_view(bufs[q]), src=q,
+                                   group=self.pg, tag=tag))
+        for r in reqs:
+            r.wait()
+        out = torch.zeros(tuple(blocks[me].shape), dtype=t.dtype,
+                          device=t.device)
+        for q in range(n):
+            out += blocks[me] if q == me else self._from_host(bufs[q],
+                                                              t.device)
+        self.stats["wire_s"] += time.perf_counter() - t0
+        return out
+
+    def broadcast(self, t: torch.Tensor, root: int) -> torch.Tensor:
+        """Rank ``root``'s ``t`` on every rank, as a new tensor."""
+        t0 = _ready([t])
+        h = self._to_host(t).clone()
+        dist.broadcast(self._wire_view(h), src=root, group=self.pg)
+        out = self._from_host(h, t.device)
+        self.stats["wire_s"] += time.perf_counter() - t0
+        return out
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """Tiled all-to-all over dim 0 (a multiple of the group size):
+        block q of ``t`` goes to rank q, and block q of the result is what
+        rank q sent here (the reference's ``lax.all_to_all(..., tiled=True)``
+        with split and concat axis 0)."""
+        if t.shape[0] % self.size:
+            raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} does "
+                             f"not split over {self.size} ranks")
+        t0 = _ready([t])
+        h = self._to_host(t).contiguous()
+        out = torch.empty_like(h)
+        dist.all_to_all_single(self._wire_view(out), self._wire_view(h),
+                               group=self.pg)
+        out = self._from_host(out, t.device)
+        self.stats["wire_s"] += time.perf_counter() - t0
+        return out
+
+    def barrier(self) -> None:
+        """Every rank of the group reaches this point before any leaves."""
+        dist.barrier(group=self.pg)
 
 
 
@@ -310,4 +476,5 @@ class RankPool:
             pass
 
 
-__all__ = ["GROUP_TIMEOUT_S", "Group", "RankPool", "init_group"]
+__all__ = ["GROUP_TIMEOUT_S", "Group", "Pending", "RankPool",
+           "init_group"]

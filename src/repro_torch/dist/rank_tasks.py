@@ -16,6 +16,20 @@ reference.
 * :func:`train` — the TP train step of ``dist/steps.py`` for a few steps,
   with per-step metrics, hop-kernel launches, wire and staging counts,
   step times and peak device memory.
+
+The PGAS substrate (``core/pgas.py``, ``core/am.py``, ``core/art.py``):
+
+* :func:`pgas_program` — a list of one-sided operations (PUT, GET, the
+  AM classes, the symbol closures) on a symmetric heap; returns the heap
+  and what each GET or medium AM delivered.
+* :func:`quickstart` — the quickstart's ring PUT, ``SCALE`` Active Message
+  and ART matmul.
+* :func:`put_get_sweep` — PUT and GET between ranks 0 and 1 over a range
+  of sizes, timed and read back.
+* :func:`case_study` — the paper's Sec. V: ART ≡ bulk ≡ ``M @ N`` and the
+  kernel-split convolution, timed.
+* :func:`art_op`, :func:`art_send_op`, :func:`collective_op` — one ART
+  entry point or conduit collective on per-rank inputs.
 """
 
 from __future__ import annotations
@@ -23,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -328,5 +342,459 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
     return result
 
 
-__all__ = ["fused_op", "ring_collectives", "ring_kernels", "ring_op",
+# ---------------------------------------------------------------------------
+# the PGAS substrate
+# ---------------------------------------------------------------------------
+
+
+def scale_handler(heap, args, payload):
+    """The quickstart's ``SCALE`` request handler (the DLA pattern: an AM
+    invoking a compute handler): 16 words at ``args[0]`` times
+    ``args[1]``, stored at ``args[2]``."""
+    from repro_torch.core.am import make_args
+    from repro_torch.core.pgas import _start
+
+    src = _start(args[0], 16, heap.numel())
+    dst = _start(args[2], 16, heap.numel())
+    inbox = heap[src:src + 16].clone()
+    heap[dst:dst + 16] = inbox * float(int(args[1]))
+    return heap, 0, make_args(), torch.zeros_like(payload)
+
+
+def accum_handler(heap, args, payload):
+    """``ACCUM`` request handler: adds the payload into the heap at
+    ``args[0]``."""
+    from repro_torch.core.am import make_args
+    from repro_torch.core.pgas import _start
+
+    n = payload.numel()
+    s = _start(args[0], n, heap.numel())
+    heap[s:s + n] += payload.reshape(-1).to(heap.dtype)
+    return heap, 0, make_args(), torch.zeros_like(payload)
+
+
+def am_registry():
+    """The built-ins, then ``SCALE`` (opcode 2) and ``ACCUM`` (opcode 3)."""
+    from repro_torch.core.am import HandlerRegistry
+
+    reg = HandlerRegistry()
+    reg.register_request("SCALE", scale_handler)
+    reg.register_request("ACCUM", accum_handler)
+    return reg
+
+
+def _heap_on(group, heap, device):
+    """A zeroed partition: the group's (mapped on a card group with peer
+    memory), or a plain one on ``device`` when given."""
+    from repro_torch.core.pgas import GlobalAddressSpace
+
+    if device is not None:
+        return heap.zeros_local(device)
+    return GlobalAddressSpace(group, heap).zeros_local()
+
+
+def pgas_program(group, size: int, symbols: Sequence, ops: Sequence,
+                 init: Optional[np.ndarray] = None,
+                 device: Optional[str] = None) -> Dict[str, Any]:
+    """Run ``ops`` on a symmetric heap of ``size`` fp32 words with
+    ``symbols`` (``(name, words)`` in allocation order), starting from
+    ``init[rank]`` (zeros when ``None``).  Each op is a tuple whose first
+    entry names it; per-rank payloads are arrays indexed by rank:
+
+    ``("put", payloads, offset, perm)``, ``("put_slice", src, length,
+    offset, perm)`` (the payload is a slice of the sender's own heap),
+    ``("put_ring", payloads, offset, shift)``, ``("get", offset, size,
+    perm)``, ``("write_symbol", name, payloads, perm)``, ``("write_block",
+    name, block_words, payloads, bid, perm)``, ``("read_symbol", name,
+    perm)``, ``("gasnet_put", payloads, offset, perm)``, ``("gasnet_get",
+    src, dst, size, perm)``, ``("am", opcode, args, payloads, perm)``,
+    ``("am_short", handler, args, perm)``, ``("am_medium", handler, args,
+    payloads, perm)``, ``("am_long", handler, args, payloads, offset,
+    perm)``.
+
+    Returns the final heap and, in order, what each GET, read and medium
+    AM delivered (fp32 numpy)."""
+    from repro_torch.core import am, pgas
+
+    heap = pgas.SymmetricHeap(size)
+    for name, words in symbols:
+        heap.alloc(name, words)
+    gas = pgas.GlobalAddressSpace(group, heap)
+    h = _heap_on(group, heap, device)
+    if init is not None:
+        h.copy_(_tensor(init[group.rank], h.device))
+    reg = am_registry()
+    my, kw = group.rank, dict(group=group)
+
+    def mine(payloads):
+        return _tensor(payloads[my], h.device)
+
+    outs = []
+    for op in ops:
+        kind, rest = op[0], op[1:]
+        if kind == "put":
+            payloads, off, perm = rest
+            pgas.put(h, mine(payloads), off, perm=perm, **kw)
+        elif kind == "put_slice":
+            src, length, off, perm = rest
+            pgas.put(h, h[src:src + length], off, perm=perm, **kw)
+        elif kind == "put_ring":
+            payloads, off, shift = rest
+            pgas.put_ring(h, mine(payloads), off, shift=shift, **kw)
+        elif kind == "get":
+            off, n, perm = rest
+            outs.append(pgas.get(h, off, n, perm=perm, **kw))
+        elif kind == "write_symbol":
+            name, payloads, perm = rest
+            gas.write_symbol(name, perm=perm)(h, mine(payloads))
+        elif kind == "write_block":
+            name, block_words, payloads, bid, perm = rest
+            gas.write_block(name, block_words, perm=perm)(h, mine(payloads),
+                                                          bid)
+        elif kind == "read_symbol":
+            name, perm = rest
+            outs.append(gas.read_symbol(name, perm=perm)(h)[1])
+        elif kind == "gasnet_put":
+            payloads, off, perm = rest
+            am.gasnet_put(reg, h, mine(payloads), off, perm=perm, **kw)
+        elif kind == "gasnet_get":
+            src, dst, n, perm = rest
+            am.gasnet_get(reg, h, src, dst, n, perm=perm, **kw)
+        elif kind == "am":
+            opcode, args, payloads, perm = rest
+            am.am_request(reg, h, opcode, am.make_args(*args),
+                          mine(payloads), perm=perm, **kw)
+        elif kind == "am_short":
+            name, args, perm = rest
+            am.am_request_short(reg, h, reg.request_opcode(name),
+                                am.make_args(*args), perm=perm, **kw)
+        elif kind == "am_medium":
+            name, args, payloads, perm = rest
+            _, scratch = am.am_request_medium(
+                reg, h, reg.request_opcode(name), am.make_args(*args),
+                mine(payloads), perm=perm, **kw)
+            outs.append(scratch)
+        elif kind == "am_long":
+            name, args, payloads, off, perm = rest
+            am.am_request_long(reg, h, reg.request_opcode(name),
+                               am.make_args(*args), mine(payloads), off,
+                               perm=perm, **kw)
+        else:
+            raise ValueError(f"unknown PGAS op {kind!r}")
+    _sync(h.device)
+    return {"heap": _numpy(h), "outputs": [_numpy(o) for o in outs],
+            "device": str(h.device), "peer": group.peer is not None
+            and h.device.type == "cuda"}
+
+
+def heap_churn(group, programs: int, words: int) -> Dict[str, Any]:
+    """``programs`` heaps of ``words`` fp32 words, one after the other on
+    the group's device, each filled by a ring PUT, read back and dropped.
+    Returns, after each mapping, how many partitions the group's peer
+    memory holds (the next mapping frees the heap gone before it, so 1
+    each time on a peer group), and whether every read-back held."""
+    from repro_torch.core import pgas
+
+    gas = pgas.GlobalAddressSpace(group, pgas.SymmetricHeap(words))
+    held, ok = [], True
+    for i in range(programs):
+        h = gas.zeros_local()
+        if group.peer is not None:
+            held.append(len(group.peer.partitions))
+        pgas.put_ring(h, torch.full((words,), i + 1.0, device=h.device), 0,
+                      group=group)
+        ok = ok and bool((h == i + 1.0).all())
+        del h
+    return {"partitions": held, "read_back": ok}
+
+
+def quickstart_inputs(seed: int = 0):
+    """The quickstart's ART operands: M (64, 32) and N (32, 64), fp32,
+    from a seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((64, 32)).astype(np.float32),
+            rng.standard_normal((32, 64)).astype(np.float32))
+
+
+def quickstart(group, seed: int = 0, device: Optional[str] = None
+               ) -> Dict[str, Any]:
+    """The quickstart on this rank (every rank runs it): a 64-word heap
+    with ``inbox`` and ``result`` (16 words each); a ring PUT of
+    ``rank + 1`` into the next rank's inbox; a short ``SCALE`` AM from
+    rank 0 to rank 2 (inbox × 10 into result); the ART matmul of M and N
+    split over the group (4 chunks).  Returns the heap after the PUT and
+    at the end, this rank's ART column block, and its max error against
+    the same block of ``M @ N`` in float64 on the host."""
+    from repro_torch.core import am, art, pgas
+
+    heap = pgas.SymmetricHeap(64)
+    heap.alloc("inbox", 16)
+    heap.alloc("result", 16)
+    gas = pgas.GlobalAddressSpace(group, heap)
+    h = _heap_on(group, heap, device)
+    n, my = group.size, group.rank
+
+    def ring_put(h):
+        payload = torch.full((16,), my + 1.0, device=h.device)
+        return pgas.put(h, payload, heap.addr("inbox"), group=group,
+                        perm=[(i, (i + 1) % n) for i in range(n)])
+
+    gas.run(ring_put)(h)
+    after_put = _numpy(h.clone())
+
+    reg = am.HandlerRegistry()
+    scale = reg.register_request("SCALE", scale_handler)
+
+    def send_compute(h):
+        args = am.make_args(heap.addr("inbox"), 10, heap.addr("result"))
+        return am.am_request_short(reg, h, scale, args, group=group,
+                                   perm=[(0, 2)])
+
+    gas.run(send_compute)(h)
+
+    m, nn = quickstart_inputs(seed)
+    k = m.shape[1] // n
+    c = nn.shape[1] // n
+    got = art.art_matmul_reducescatter(
+        _tensor(m[:, my * k:(my + 1) * k], h.device),
+        _tensor(nn[my * k:(my + 1) * k], h.device), group=group,
+        n_chunks=4)
+    want = (m.astype(np.float64) @ nn.astype(np.float64))[
+        :, my * c:(my + 1) * c]
+    art_np = _numpy(got)
+    return {"heap_after_put": after_put, "heap": _numpy(h), "art": art_np,
+            "art_err": float(np.abs(art_np - want).max()),
+            "peer_bytes": group.stats["peer_bytes"],
+            "device": str(h.device),
+            "peer": group.peer is not None and h.device.type == "cuda"}
+
+
+def put_get_sweep(group, sizes_words: Sequence[int], heap_words: int,
+                  iters: int = 20, store_iters: int = 50
+                  ) -> List[Dict[str, Any]]:
+    """PUT from rank 0 into rank 1's heap, then GET of it back by rank 0,
+    at each size, on a ``heap_words`` fp32 heap (the other ranks take
+    part in the collectives and move nothing).  Per size: the whole
+    collective call (barriers included, host clock on rank 0, each call
+    ending in its own synchronise and barrier), and the transfer alone —
+    on peer memory the one copy into (PUT) or out of (GET) the peer's
+    partition, by CUDA events on rank 0, the rank that issues it; over the
+    wire one ``Group.permute`` of the payload (staging included, host
+    clock on the receiving rank).  Every PUT is read back on rank 1 and
+    every GET checked on rank 0.  Rank 0 returns the rows; the others an
+    empty list."""
+    from repro_torch.core import pgas
+    from repro_torch.core.pgas import _settle
+
+    heap = pgas.SymmetricHeap(heap_words)
+    h = _heap_on(group, heap, None)
+    dev, my = h.device, group.rank
+    peer = pgas._peer_views(group, h)
+    put_perm, get_perm = [(0, 1)], [(0, 1)]   # get: (requester, source)
+    rows = []
+    for i, words in enumerate(sizes_words):
+        payload = (torch.arange(words, device=dev, dtype=torch.float32)
+                   % 997 + i + 0.5)
+        n_calls = iters if words * 4 <= (1 << 21) else max(3, iters // 4)
+
+        def timed_calls(fn):
+            _settle(group, dev)
+            t = time.perf_counter()
+            for _ in range(n_calls):
+                out = fn()
+            _sync(dev)
+            return (time.perf_counter() - t) / n_calls, out
+
+        put_s, _ = timed_calls(lambda: pgas.put(
+            h, payload, 0, group=group, perm=put_perm))
+        ok_put = bool(torch.equal(h[:words], payload)) if my == 1 else True
+        get_s, got = timed_calls(lambda: pgas.get(
+            h, 0, words, group=group, perm=get_perm))
+        ok_get = bool(torch.equal(got, payload)) if my == 0 else True
+        if peer is not None:
+            put_alone = _event_s(dev, store_iters, lambda: peer[1][:words]
+                                 .copy_(payload)) if my == 0 else 0.0
+            buf = torch.empty_like(payload)
+            get_alone = _event_s(dev, store_iters, lambda: buf.copy_(
+                peer[1][:words])) if my == 0 else 0.0
+            _settle(group, dev)
+        else:
+            put_alone = _permute_s(group, payload, put_perm, n_calls, 1)
+            get_alone = _permute_s(group, payload, [(1, 0)], n_calls, 0)
+        oks = group.all_reduce(torch.tensor([int(ok_put and ok_get)],
+                                            dtype=torch.int32))
+        alone = torch.tensor([put_alone, get_alone], dtype=torch.float64)
+        alone = group.all_reduce(alone)      # only one rank's is nonzero
+        rows.append(dict(words=int(words), bytes=int(words) * 4,
+                         put_s=put_s, get_s=get_s,
+                         put_alone_s=float(alone[0]),
+                         get_alone_s=float(alone[1]),
+                         read_back=int(oks.item()) == group.size))
+    return rows if my == 0 else []
+
+
+def _event_s(dev, iters: int, fn) -> float:
+    """Seconds a call of ``fn`` takes on the card: CUDA events around
+    ``iters`` calls after a warm-up, averaged."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / iters
+
+
+def _permute_s(group, payload, perm, iters: int, receiver: int) -> float:
+    """Seconds one ``Group.permute`` of ``payload`` over ``perm`` takes,
+    on the receiving rank's host clock (staging and a synchronise
+    included); 0 on the other ranks."""
+    from repro_torch.core.pgas import _settle
+
+    _settle(group, payload.device)
+    t = time.perf_counter()
+    for _ in range(iters):
+        group.permute(payload, perm)
+        _sync(payload.device)
+    s = (time.perf_counter() - t) / iters
+    return s if group.rank == receiver else 0.0
+
+
+def case_study(group, sizes: Sequence[int], n_chunks: int,
+               conv_sets: Sequence[Tuple[int, int]] = (), fmap: int = 64,
+               batches: Sequence[int] = (1,), seed: int = 0,
+               iters: int = 3) -> Dict[str, Any]:
+    """The paper's Sec. V on this rank: for each size, M and N (fp32,
+    drawn from ``seed`` on the group's device, the same on every rank),
+    this rank's column block of M and row block of N through
+    :func:`art_matmul_reducescatter` (``n_chunks``) and
+    :func:`bulk_matmul_reducescatter`, each against this rank's block of
+    one ``torch.matmul`` of M and N (max error over max |want|) and timed
+    (the group's wall time a call, the slowest rank).  Then
+    :func:`split_conv_allgather` for each ``(Cout, k)`` set (Cin = Cout,
+    ``fmap``² images, VALID) at each batch, against one ``conv2d`` of all
+    the kernels.  TF32 off."""
+    from repro_torch.core import art
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, n, my = group.device, group.size, group.rank
+    out: Dict[str, Any] = {"matmul": [], "conv": []}
+    for size in sizes:
+        gen = torch.Generator(device=dev).manual_seed(seed + size)
+        m = torch.randn((size, size), generator=gen, device=dev)
+        nn = torch.randn((size, size), generator=gen, device=dev)
+        k = size // n
+        m_cols = m[:, my * k:(my + 1) * k].contiguous()
+        n_rows = nn[my * k:(my + 1) * k].contiguous()
+        want = torch.matmul(m, nn)[:, my * k:(my + 1) * k]
+        del m, nn
+        row = {"size": size}
+        for name, fn in (
+                ("art", lambda: art.art_matmul_reducescatter(
+                    m_cols, n_rows, group=group, n_chunks=n_chunks)),
+                ("bulk", lambda: art.bulk_matmul_reducescatter(
+                    m_cols, n_rows, group=group))):
+            got = fn()
+            _sync(dev)
+            row[name + "_err"] = float((got - want).abs().max()
+                                       / want.abs().max())
+            row[name + "_finite"] = bool(torch.isfinite(got).all())
+            row[name + "_ms"] = _group_ms(group, fn, iters)
+            del got
+        out["matmul"].append(row)
+        del m_cols, n_rows, want
+    for cout, ksz in conv_sets:
+        for bsz in batches:
+            gen = torch.Generator(device=dev).manual_seed(seed + cout + bsz)
+            imgs = torch.randn((bsz, fmap, fmap, cout), generator=gen,
+                               device=dev)
+            kern = torch.randn((ksz, ksz, cout, cout), generator=gen,
+                               device=dev) / (ksz * ksz * cout) ** 0.5
+            c = cout // n
+            mine = kern[..., my * c:(my + 1) * c].contiguous()
+            want = torch.nn.functional.conv2d(
+                imgs.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1)
+            ).permute(0, 2, 3, 1)
+
+            def fn():
+                return art.split_conv_allgather(imgs, mine, group=group)
+
+            got = fn()
+            _sync(dev)
+            out["conv"].append(dict(
+                cout=cout, k=ksz, batch=bsz,
+                err=float((got - want).abs().max() / want.abs().max()),
+                finite=bool(torch.isfinite(got).all()),
+                ms=_group_ms(group, fn, iters)))
+            del imgs, kern, mine, want, got
+    return out
+
+
+def permute_op(group, xs: np.ndarray, perm) -> np.ndarray:
+    """``Group.permute`` of ``xs[rank]`` over ``perm``."""
+    return _numpy(group.permute(_tensor(xs[group.rank], group.device),
+                                perm))
+
+
+def art_op(group, op: str, a: np.ndarray, b: np.ndarray,
+           n_chunks: int = 1) -> np.ndarray:
+    """Rank r runs one case-study entry point on ``a[r]``, ``b[r]``:
+    ``"art"`` (``art_matmul_reducescatter``), ``"bulk"`` or ``"conv"``
+    (``split_conv_allgather``; ``b[r]`` is the rank's kernel group)."""
+    from repro_torch.core import art
+
+    x, y = _tensor(a[group.rank], group.device), _tensor(b[group.rank],
+                                                         group.device)
+    if op == "art":
+        out = art.art_matmul_reducescatter(x, y, group=group,
+                                           n_chunks=n_chunks)
+    elif op == "bulk":
+        out = art.bulk_matmul_reducescatter(x, y, group=group)
+    else:
+        out = art.split_conv_allgather(x, y, group=group)
+    return _numpy(out)
+
+
+def art_send_op(group, chunks: np.ndarray, shift: int,
+                accumulate: bool) -> np.ndarray:
+    """``art_send`` with ``compute_chunk(k) = chunks[rank][k]``."""
+    from repro_torch.core import art
+
+    mine = _tensor(chunks[group.rank], group.device)
+    run = art.art_send(lambda k: mine[k].clone(), mine.shape[0],
+                       group=group, shift=shift, accumulate=accumulate)
+    return _numpy(run())
+
+
+def collective_op(group, transport: str, op: str, xs: Optional[np.ndarray],
+                  chunk_bytes: Optional[int] = None, root: int = 0,
+                  streamed: int = 0, dim: int = 0) -> Any:
+    """Rank r runs ``Conduit(group, transport, chunk_bytes).<op>`` on
+    ``xs[r]`` (``barrier`` takes none, ``broadcast`` the ``root``); with
+    ``streamed`` > 0, the op runs through ``Conduit.streamed`` on that
+    many pieces of ``xs[r]`` split along ``dim``, and the per-piece
+    results are returned as a list."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.conduit import Conduit
+
+    c = Conduit(axis=group, transport=transport, chunk_bytes=chunk_bytes)
+    if op == "barrier":
+        return _numpy(c.barrier())
+    x = _tensor(xs[group.rank], group.device)
+    kw = {"root": root} if op == "broadcast" else {}
+    if streamed:
+        return [_numpy(t) for t in c.streamed(op, pl.split(x, streamed,
+                                                           dim), **kw)]
+    return _numpy(getattr(c, op)(x, **kw))
+
+
+__all__ = ["accum_handler", "am_registry", "art_op", "art_send_op",
+           "case_study", "collective_op", "fused_op", "permute_op",
+           "pgas_program",
+           "put_get_sweep", "quickstart", "quickstart_inputs",
+           "ring_collectives", "ring_kernels", "ring_op", "scale_handler",
            "train"]

@@ -17,12 +17,18 @@ the same ring calls in the same order, so these agree across ranks.  A
 call that needs bigger slots than the channel has re-allocates the
 channel on every rank at once (a collective over the group's gloo
 process group); the new channel starts from zero.
+
+The same memory serves the PGAS heap (``core/pgas.py``):
+:meth:`PeerMemory.map_partition` gives each rank a partition that every
+other rank maps, so a PUT is a store into the destination's partition,
+and :meth:`PeerMemory.release_partitions` unmaps and frees partitions
+nobody uses any more.  Which ones those are is the heap's business.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -60,6 +66,9 @@ class PeerMemory:
                              f"{size} on {device}")
         self.rank, self.size, self.pg, self.device = rank, size, pg, device
         self.channels: Dict[int, Channel] = {}
+        #: every partition of :meth:`map_partition` not yet released, as
+        #: pointers by rank, keyed by this rank's pointer
+        self.partitions: Dict[int, List[int]] = {}
 
     def channel(self, direction: int, slot_bytes: int) -> Channel:
         """The channel of ``direction`` with slots of at least
@@ -96,20 +105,68 @@ class PeerMemory:
         self.channels[direction] = ch
         return ch
 
+    def map_partition(self, nbytes: int) -> List[int]:
+        """Allocate ``nbytes`` of zeroed device memory on this rank, export
+        it, and map every other rank's allocation of the same call.
+        Returns the device pointers by rank (this rank's own at its
+        index).  Collective: every rank calls it in the same order with
+        the same size.  Raises if an allocation or a mapping fails."""
+        with torch.cuda.device(self.device):
+            mine = ctypes.c_void_p()
+            handle = ctypes.create_string_buffer(64)
+            _check(_ALLOC.fn()(nbytes, ctypes.byref(mine), handle), "alloc")
+            mine_handle = torch.frombuffer(bytearray(handle.raw),
+                                           dtype=torch.uint8)
+            handles = [torch.empty(64, dtype=torch.uint8)
+                       for _ in range(self.size)]
+            dist.all_gather(handles, mine_handle, group=self.pg)
+            ptrs = []
+            for r, h in enumerate(handles):
+                if r == self.rank:
+                    ptrs.append(mine.value)
+                    continue
+                ptr = ctypes.c_void_p()
+                peer_handle = ctypes.create_string_buffer(bytes(h.tolist()),
+                                                          64)
+                _check(_OPEN.fn()(peer_handle, ctypes.byref(ptr)), "open")
+                ptrs.append(ptr.value)
+        self.partitions[mine.value] = ptrs
+        return ptrs
+
+    def release_partitions(self, parts: Sequence[List[int]]) -> None:
+        """Unmap the peers' allocations of each of ``parts`` (pointers by
+        rank, as :meth:`map_partition` returned them) and free this
+        rank's.  Collective: every rank calls it with the same partitions,
+        once no rank reads or writes them any more."""
+        if not parts:
+            return
+        torch.cuda.synchronize(self.device)
+        for ptrs in parts:
+            for r, ptr in enumerate(ptrs):
+                if r != self.rank:
+                    _CLOSE.fn()(ptr)
+        dist.barrier(group=self.pg)        # no rank maps them any more
+        for ptrs in parts:
+            _FREE.fn()(self.partitions.pop(ptrs[self.rank])[self.rank])
+
     def close(self) -> None:
-        """Unmap the neighbours' channels and free this rank's.  Call only
-        when no rank has a ring kernel in flight (the rank pool does, after
-        its last task)."""
+        """Unmap the peers' channels and partitions and free this rank's.
+        Call only when no rank has a ring kernel in flight or a store
+        pending (the rank pool does, after its last task)."""
         for ch in self.channels.values():
             _CLOSE.fn()(ch.next)
             _FREE.fn()(ch.mine)
         self.channels = {}
+        for ptrs in self.partitions.values():
+            for r, ptr in enumerate(ptrs):
+                (_FREE if r == self.rank else _CLOSE).fn()(ptr)
+        self.partitions = {}
 
 
 def _check(rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"cc_matmul peer channel {what} failed with "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"peer memory {what} failed with cudaError "
+                           f"{rc}")
 
 
 __all__ = ["Channel", "HEADER_BYTES", "PeerMemory"]

@@ -7,7 +7,11 @@ inside the fixture, never at import).  On the card run them with
 Flash-attention tolerances are those of the reference's kernel tests: fp32
 2e-4 with TF32 off (set here), bf16 3e-2.  SSD tolerances are relative to
 the largest output: y 1e-4 in fp32 and 2e-2 in bf16 (y is written in
-bf16), the fp32 state 1e-4 in both.
+bf16), the fp32 state 1e-4 in both.  DLA matmul tolerances are relative
+to the largest output: fp32 in and out 1e-5, bf16 in and fp32 out 1e-4,
+a bf16 output 1e-2.  The PGAS tests hold peer-mapped heaps (PUT/GET as
+stores into the peers' partitions) to the card's gloo wire and to CPU
+ranks bit for bit.
 """
 
 import numpy as np
@@ -388,3 +392,158 @@ def test_ring_wrappers_need_peer_memory(cuda):
         ag_matmul_ring(x, w, group)
     with pytest.raises(ValueError, match="peer memory"):
         rs_matmul_ring(x, w, group)
+
+
+# ---------------------------------------------------------------------------
+# the DLA matmul kernel (csrc/matmul.cu)
+# ---------------------------------------------------------------------------
+
+
+def _dla_tol(din, dout):
+    """Relative to the largest output: fp32 FMAs in another order (TF32
+    off); bf16 products, exact in fp32, summed in fp32 by the tensor
+    cores; a bf16 output rounds once more."""
+    if dout == torch.bfloat16:
+        return 1e-2
+    return 1e-4 if din == torch.bfloat16 else 1e-5
+
+
+@pytest.mark.parametrize("din,dout", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("act", ["none", "relu", "relu2", "silu", "gelu"])
+@pytest.mark.parametrize("batch,m,k,n,bias", [
+    ((), 128, 128, 128, False), ((), 100, 200, 150, True),
+    ((), 1, 7, 3, True), ((), 77, 130, 45, True), ((3,), 40, 64, 32, True),
+    ((), 512, 512, 512, True),
+])
+def test_dla_kernel_matches_plain(cuda, din, dout, act, batch, m, k, n,
+                                  bias):
+    from repro_torch.kernels.matmul import MATMUL, PLAIN_CALLS, matmul
+    from repro_torch.kernels.matmul import matmul_plain
+
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(*batch, m, k, generator=g, device=cuda).to(din)
+    w = torch.randn(k, n + 3, generator=g, device=cuda).to(din)[:, :n]
+    b = torch.randn(n, generator=g, device=cuda).to(din) if bias else None
+    before, plain = MATMUL.launches, PLAIN_CALLS["matmul"]
+    got = matmul(x, w, b, activation=act, out_dtype=dout)
+    torch.cuda.synchronize()
+    assert MATMUL.launches == before + 1 and PLAIN_CALLS["matmul"] == plain
+    want = matmul_plain(x, w, b, activation=act, out_dtype=dout)
+    assert got.dtype == dout and got.shape == want.shape
+    assert _rel(got.float(), want.float()) <= _dla_tol(din, dout)
+
+
+def test_dla_kernel_rejects(cuda):
+    from repro_torch.kernels.matmul import matmul, matmul_plain
+
+    x = torch.randn(10, 16, device=cuda)
+    w = torch.randn(16, 12, device=cuda)
+    with pytest.raises(TypeError):
+        matmul(x, w.bfloat16())
+    with pytest.raises(TypeError):
+        matmul(x.half(), w.half())
+    with pytest.raises(ValueError):
+        matmul(x, w, torch.zeros(11, device=cuda))
+    with pytest.raises(ValueError):
+        matmul(x, w.cpu())
+    wt = torch.randn(12, 16, device=cuda).t()     # unit row stride: copied
+    torch.testing.assert_close(matmul(x, wt), matmul_plain(x, wt),
+                               rtol=1e-5, atol=1e-4)
+    assert matmul(x[:0], w).shape == (0, 12)
+
+
+# ---------------------------------------------------------------------------
+# the PGAS substrate on the card: peer-mapped heaps against the wire
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def pgas_pools():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (peer memory is the card's)")
+    from repro_torch.dist.group import RankPool
+
+    pools = {"peer": RankPool(4, device="cuda"),
+             "wire": RankPool(4, device="cuda", peer_memory=False),
+             "cpu": RankPool(4, device="cpu")}
+    yield pools
+    for pool in pools.values():
+        pool.close()
+
+
+def _pgas_ops(n, rng):
+    def pay(words):
+        return rng.standard_normal((n, words)).astype(np.float32)
+
+    ring = [(i, (i + 1) % n) for i in range(n)]
+    return [("put", pay(16), 5, [(0, 2)]), ("put_ring", pay(16), 30, 1),
+            ("put_slice", 30, 16, 34, ring), ("get", 34, 16, ring),
+            ("get", 90, 16, [(1, 2), (2, 3)]),
+            ("write_block", "blocks", 8, pay(8), 5, [(0, 1)]),
+            ("read_symbol", "blocks", [(3, 1)]),
+            ("gasnet_put", pay(8), 70, [(1, 3)]),
+            ("gasnet_get", 70, 0, 8, [(0, 3)]),
+            ("am_short", "SCALE", (0, 3, 50), [(2, 0)]),
+            ("am_medium", "ACCUM", (10,), pay(16), [(0, 1), (1, 0)]),
+            ("am_long", "SCALE", (0, 2, 60), pay(16), 20, [(3, 2)])]
+
+
+def test_peer_heaps_equal_wire_and_cpu(pgas_pools):
+    """The same one-sided program through peer stores, the card's gloo
+    wire and CPU ranks: bit-identical heaps and deliveries."""
+    from repro_torch.dist import rank_tasks
+
+    rng = np.random.default_rng(0)
+    ops = _pgas_ops(4, rng)
+    init = rng.standard_normal((4, 96)).astype(np.float32)
+    res = {k: p.run(rank_tasks.pgas_program, 96, [("blocks", 32)], ops,
+                    init) for k, p in pgas_pools.items()}
+    assert all(r["peer"] for r in res["peer"])
+    assert not any(r["peer"] for r in res["wire"] + res["cpu"])
+    for tag in ("peer", "wire"):
+        for a, b in zip(res[tag], res["cpu"]):
+            np.testing.assert_array_equal(a["heap"], b["heap"])
+            for x, y in zip(a["outputs"], b["outputs"]):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_quickstart_peer_equals_wire_and_cpu(pgas_pools):
+    from repro_torch.dist import rank_tasks
+
+    res = {k: p.run(rank_tasks.quickstart) for k, p in pgas_pools.items()}
+    for tag in ("peer", "wire"):
+        for a, b in zip(res[tag], res["cpu"]):
+            np.testing.assert_array_equal(a["heap"], b["heap"])
+            assert a["art_err"] < 2e-4
+    assert np.all(res["peer"][2]["heap"][16:32] == 20.0)
+
+
+def test_put_get_sweep_reads_back(pgas_pools):
+    from repro_torch.dist import rank_tasks
+
+    for tag in ("peer", "wire"):
+        rows = pgas_pools[tag].run(rank_tasks.put_get_sweep,
+                                   [1, 1000, 1 << 16], 1 << 17, 2, 2)[0]
+        assert [r["read_back"] for r in rows] == [True] * 3
+
+
+def test_dropped_heaps_are_freed(pgas_pools):
+    """A heap's partition is unmapped and freed once the heap has gone on
+    every rank: a pool that runs program after program holds one."""
+    from repro_torch.dist import rank_tasks
+
+    for r in pgas_pools["peer"].run(rank_tasks.heap_churn, 4, 1 << 20):
+        assert r == {"partitions": [1] * 4, "read_back": True}
+
+
+def test_unmapped_heap_on_a_peer_group_raises(cuda):
+    from repro_torch.dist import rank_tasks
+    from repro_torch.dist.group import RankPool
+
+    with RankPool(2, device="cuda") as pool:
+        with pytest.raises(RuntimeError, match="mapped"):
+            pool.run(rank_tasks.pgas_program, 16, [],
+                     [("put", np.ones((2, 4), np.float32), 0, [(0, 1)])],
+                     device="cuda")
