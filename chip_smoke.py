@@ -9,11 +9,20 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
 2. Hold each kernel to its plain PyTorch version on the card at the main
    paths' shapes.
    Flash attention: smollm-360m heads 15/5 at D 64, h2o-danube-1.8b heads
-   32/8 at D 80; bf16 and fp32; bulk S = 1000 and 2048, a 128-row chunk at
-   q_offset 1024 of 2048, a 256 window at 2048.  Tolerances: max abs
-   error 2e-4 in fp32 (TF32 off), 3e-2 in bf16.  Time the kernel, the plain
-   version and ``scaled_dot_product_attention`` (the library yardstick;
-   the port never calls it) at the bulk smollm shape.
+   32/8 at D 80; bf16 and fp32; bulk S = 1000 and 2048, 128-row chunks at
+   q_offset 0, 128, 896, 1024 and 1920 of a 2048 scratch, a ragged 100-row
+   chunk at 896, a 256 window at 2048 and at the chunk at 1024.
+   Tolerances: max abs error 2e-4 in fp32 (TF32 off), 3e-2 in bf16 at
+   bulk, the chunk at 1024 and the window at 2048; bf16 at the other
+   chunks, and every bf16 case against the split-and-merge plain version
+   at the kernel's split plan, to 1e-2 of the largest plain output.  At
+   bulk-2048 and chunk-128@1024 of both models in bf16, time the kernel,
+   the plain version, the bound and ``scaled_dot_product_attention`` over
+   the same visible columns (the library yardstick, bottom-right causal
+   for a chunk; the port never calls it), and name the kernel SDPA ran.
+   Times are CUDA events around back-to-back calls, host launch cost
+   included; the kernel's and the yardstick's device times
+   (torch.profiler) are printed beside them.
    SSD scan: mamba2-2.7b heads (H 80, P 64, N 128, G 1, chunk 128) at
    S 2048, ragged S 1000, a 128-row chunk with a carried state and B 2 at
    S 384 with a state, plus one zamba2 shape (H 112, N 64, S 512); bf16
@@ -48,7 +57,10 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    kernels read slot 1 of a (2, B, rows, ·) scratch through its strides.
    Tolerance, as max error over max |plain|: 1e-5 when an operand is
    fp32, 1e-4 for bf16 × bf16.  Time the kernel, the plain version and
-   one cuBLAS call computing the same function (named in the output).
+   one cuBLAS call computing the same function (named in the output), and
+   at the main-path shapes their device times (torch.profiler); the
+   kernels line carries ``consume_matmul`` at the q edge and at the
+   up|gate edge.
 7. The two whole-ring kernels (``ag_matmul_ring``/``rs_matmul_ring``)
    in four rank processes sharing the card, each mapping its ring
    neighbours' channels, against their plain versions (the unfused
@@ -135,6 +147,10 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bandwidth
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+# bf16 flash at the chunk offsets added with split-KV, and every bf16 case
+# against the split-and-merge plain version: max error over max |plain|
+# (one bf16 rounding step of the largest output is at most 2^-7 of it)
+BF16_SPLIT_REL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -158,10 +174,37 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20):
+    """Device time of one call: the durations of the kernels it launched,
+    from torch.profiler (CUPTI), the host's launch cost excluded.  Beside
+    ``time_ms`` (CUDA events around back-to-back calls), which for calls
+    of a few microseconds measures the host.  None when the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        total += getattr(e, "cuda_time_total", 0.0) if t is None else t
+    return total / iters / 1e3 if total > 0 else None
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def attention_bound_ms(q, k, causal, window, q_offset):
     """Least time for the attention call: the larger of its visible
-    operations at the bf16 peak and its bytes (q, k, v in, out once) at the
-    memory rate.  Visible (row, col) pairs are counted for these inputs."""
+    operations at the bf16 peak and its bytes (q, the k/v rows it can see
+    and out, once each) at the memory rate.  Visible (row, col) pairs are
+    counted for these inputs."""
     import torch
 
     b, hq, sq, d = q.shape
@@ -172,7 +215,9 @@ def attention_bound_ms(q, k, causal, window, q_offset):
     lo = (rows - window + 1).clamp_min(0) if window else torch.zeros_like(rows)
     pairs = int((hi - lo).clamp_min(0).sum())
     flops = 4.0 * d * pairs * hq * b
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    cols = max(0, int(hi.max()) - int(lo.min()))   # k/v rows read
+    nbytes = (2 * q.numel() + 2 * b * k.shape[1] * cols * d) \
+        * q.element_size()
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -188,33 +233,89 @@ def phase_build():
           f"total {time.perf_counter() - t0:.1f}s", flush=True)
 
 
-def phase_kernels():
-    """Kernel vs plain on the card; returns the main-path case's numbers."""
+def sdpa_yardstick(q, k, v, window, q_offset):
+    """One ``scaled_dot_product_attention`` call over the same visible
+    columns (the library yardstick; the port never calls it): bottom-right
+    causal alignment for a chunk (``is_causal`` is top-left when Sq < Skv),
+    an explicit mask for a window.  Returns the call and the name of the
+    kernel it ran, read from the profiler."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    sq = q.shape[2]
+    end = q_offset + sq
+    kk, vv = k[:, :, :end], v[:, :, :end]
+    if window:
+        rows = q_offset + torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(end, device=q.device)[None, :]
+        mask = (cols <= rows) & (cols > rows - window)
+    elif q_offset:
+        mask = causal_lower_right(sq, end)
+    else:
+        mask = None
+
+    def call():
+        return F.scaled_dot_product_attention(
+            q, kk, vv, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+
+    call()
+    name = "unknown"
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if "memcpy" not in e.key.lower()
+                 and "memset" not in e.key.lower()]
+        name = max(names, key=len)[:60] if names else name
+    except Exception as e:            # the profiler is only a label here
+        name = f"profiler unavailable ({type(e).__name__})"
+    return call, name
+
+
+def phase_kernels():
+    """Kernel vs plain on the card; returns the main-path shapes' numbers
+    (bulk-2048 and chunk-128@1024 of smollm-360m in bf16)."""
+    import torch
 
     from repro_torch.kernels.flash_attention import (
         FLASH,
         attention_plain,
+        attention_split_plain,
         flash_attention,
+        kv_split_plan,
     )
 
     for line in FLASH.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "smem" in line:
             print(f"[ptxas] {line.strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     heads = {"smollm-360m": (15, 5, 64), "h2o-danube-1.8b": (32, 8, 80)}
+    # (label, Sq, Skv, q_offset, window); the first four at TOL, the rest
+    # (in bf16) at BF16_SPLIT_REL
+    held_abs = 4
     cases = [("bulk-1000", 1000, 1000, None, None),
              ("bulk-2048", 2048, 2048, None, None),
              ("chunk-128@1024", 128, 2048, 1024, None),
-             ("window-256", 2048, 2048, None, 256)]
-    main = None
+             ("window-256", 2048, 2048, None, 256),
+             ("chunk-128@0", 128, 2048, 0, None),
+             ("chunk-128@128", 128, 2048, 128, None),
+             ("chunk-128@896", 128, 2048, 896, None),
+             ("chunk-128@1920", 128, 2048, 1920, None),
+             ("chunk-100@896", 100, 2048, 896, None),
+             ("window-256 chunk-128@1024", 128, 2048, 1024, 256)]
+    timed = ("bulk-2048", "chunk-128@1024")
+    main = {}
     for arch, (hq, hkv, d) in heads.items():
         for dtype in (torch.bfloat16, torch.float32):
-            for label, sq, skv, q_offset, window in cases:
+            for i, (label, sq, skv, q_offset, window) in enumerate(cases):
                 q = torch.randn(1, hq, sq, d, generator=gen, device=dev)
                 k = torch.randn(1, hkv, skv, d, generator=gen, device=dev)
                 v = torch.randn(1, hkv, skv, d, generator=gen, device=dev)
@@ -226,34 +327,69 @@ def phase_kernels():
                 if not torch.isfinite(got).all():
                     fail(f"flash {arch} {label} {dtype}: non-finite output")
                 err = (got.float() - want.float()).abs().max().item()
+                rel = err / want.float().abs().max().item()
                 tol = TOL[str(dtype).split(".")[1]]
+                offset = skv - sq if q_offset is None else q_offset
+                if dtype == torch.bfloat16 and i >= held_abs:
+                    held = (f"max_abs_err {err:.3g}, max_err/max {rel:.3g} "
+                            f"(tol {BF16_SPLIT_REL})")
+                    bad = rel > BF16_SPLIT_REL
+                else:
+                    held = f"max_abs_err {err:.3g} (tol {tol})"
+                    bad = err > tol
+                if dtype == torch.bfloat16:
+                    plan = kv_split_plan(sq, skv, offset, True, window, hq)
+                    split = attention_split_plain(q, k, v, plan, **kw).float()
+                    rel_split = ((got.float() - split).abs().max()
+                                 / split.abs().max()).item()
+                    held += (f", vs split plain max_err/max {rel_split:.3g} "
+                             f"(tol {BF16_SPLIT_REL}), plan {plan.splits} "
+                             f"split(s) x {plan.tiles_per_split} kv tiles")
+                    if rel_split > BF16_SPLIT_REL:
+                        fail(f"flash {arch} {label}: max_err/max vs split "
+                             f"plain {rel_split} > {BF16_SPLIT_REL}")
                 ms = time_ms(lambda: flash_attention(q, k, v, **kw), iters=10)
-                print(f"[flash] {arch} {label} {str(dtype)[6:]}: "
-                      f"max_abs_err {err:.3g} (tol {tol}), {ms:.4f} ms",
-                      flush=True)
-                if err > tol:
-                    fail(f"flash {arch} {label} {dtype}: err {err} > {tol}")
-                if (arch, label, dtype) == ("smollm-360m", "bulk-2048",
-                                            torch.bfloat16):
+                print(f"[flash] {arch} {label} {str(dtype)[6:]}: {held}, "
+                      f"{ms:.4f} ms", flush=True)
+                if bad:
+                    fail(f"flash {arch} {label} {dtype}: {held}")
+                if label in timed and dtype == torch.bfloat16:
                     kernel_ms = time_ms(
                         lambda: flash_attention(q, k, v, **kw))
                     plain_ms = time_ms(
                         lambda: attention_plain(q, k, v, **kw))
-                    library_ms = time_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            q, k, v, is_causal=True, enable_gqa=True))
+                    lib, lib_name = sdpa_yardstick(q, k, v, window, offset)
+                    library_ms = time_ms(lib)
+                    dev_ms = device_ms(
+                        lambda: flash_attention(q, k, v, **kw))
+                    lib_dev_ms = device_ms(lib)
                     bound_ms, bound_by = attention_bound_ms(
-                        q, k, True, window, 0)
-                    main = dict(max_abs_err=err, ms=kernel_ms,
-                                plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, library_ms=library_ms)
-                    print(f"[flash] main-path shape (B1 Hq15/Hkv5 S2048 D64 "
-                          f"causal bf16): kernel {kernel_ms:.4f} ms, plain "
-                          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-                          f"bound {bound_ms:.5f} ms ({bound_by})",
-                          flush=True)
+                        q, k, True, window, offset)
+                    main[(arch, label)] = dict(
+                        max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=library_ms, device_ms=dev_ms,
+                        library_device_ms=lib_dev_ms)
+                    print(f"[flash] timed {arch} {label} (B1 Hq{hq}/Hkv{hkv}"
+                          f" Sq{sq} Skv{skv} q_offset {offset} D{d} causal "
+                          f"bf16, plan {plan.splits} x "
+                          f"{plan.tiles_per_split}): kernel {kernel_ms:.4f} "
+                          f"ms, plain {plain_ms:.4f} ms, sdpa "
+                          f"{library_ms:.4f} ms ({lib_name}), bound "
+                          f"{bound_ms:.5f} ms ({bound_by}); on the device "
+                          f"(torch.profiler) kernel {fmt_ms(dev_ms)}, sdpa "
+                          f"{fmt_ms(lib_dev_ms)}", flush=True)
                 del q, k, v, got, want
-    return main
+    out = dict(main[("smollm-360m", "bulk-2048")])
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+            "library_device_ms")
+    for arch, label, tag in (
+            ("smollm-360m", "chunk-128@1024", "chunk"),
+            ("h2o-danube-1.8b", "bulk-2048", "h2o_bulk"),
+            ("h2o-danube-1.8b", "chunk-128@1024", "h2o_chunk")):
+        out.update({f"{tag}_{key}": main[(arch, label)][key]
+                    for key in keys})
+    return out
 
 
 def ssd_bound_ms(x, b, chunk, with_init):
@@ -693,23 +829,40 @@ def phase_cc_kernels():
             plain_ms = time_ms(lambda: plain(*args, **kw))
             lib_fn, lib_name = library_call(x, w, acc)
             lib_ms = time_ms(lib_fn)
+            timed = (path == (dx, dw) and (label == main_case[entry] or (
+                entry, label) == ("consume_matmul", "up|gate edge fwd")))
+            dev_ms = device_ms(lambda: wrapper(*args, **kw)) if timed \
+                else None
+            lib_dev_ms = device_ms(lib_fn) if timed else None
             tag = "path" if path == (dx, dw) else "    "
             print(f"[cc_matmul] {entry} {label} B{bsz} M{m} N{n} K{k} "
                   f"{names[0]} x {names[1]} {tag}: max_err/max {err:.3g} "
                   f"(tol {tol}), kernel {ms:.4f} ms "
                   f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} "
                   f"ms, {lib_name} {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                  f"({bound_by})", flush=True)
+                  f"({bound_by})" + (
+                      f"; on the device (torch.profiler) kernel "
+                      f"{fmt_ms(dev_ms)}, library {fmt_ms(lib_dev_ms)}"
+                      if timed else ""), flush=True)
             if not err <= tol:
                 fail(f"{entry} {label} {names}: err {err} > {tol}")
             if label == main_case[entry] and path == (dx, dw):
                 out[entry] = dict(max_abs_err=err_abs, ms=ms,
                                   plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, library_ms=lib_ms,
-                                  library_call=lib_name,
+                                  library_call=lib_name, device_ms=dev_ms,
+                                  library_device_ms=lib_dev_ms,
                                   shape=f"B{bsz} M{m} N{n} K{k} "
                                         f"{names[0]} x {names[1]}")
+            if (entry, label) == ("consume_matmul", "up|gate edge fwd") \
+                    and path == (dx, dw):
+                upgate = dict(upgate_ms=ms, upgate_plain_ms=plain_ms,
+                              upgate_bound_ms=bound_ms,
+                              upgate_library_ms=lib_ms,
+                              upgate_device_ms=dev_ms,
+                              upgate_library_device_ms=lib_dev_ms)
             del got, want, args, x, w, acc
+    out["consume_matmul"].update(upgate)
     return out
 
 

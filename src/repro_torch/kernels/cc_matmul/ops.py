@@ -60,7 +60,7 @@ from repro_torch.kernels.cc_matmul.ref import (
     matmul_reducescatter_ref,
     matmul_tile_plain,
 )
-from repro_torch.kernels.common import CudaKernel
+from repro_torch.kernels.common import CudaKernel, current_stream
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -159,11 +159,6 @@ def _check(fn: str, x3: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"{fn}: batch {x3.shape[0]} exceeds the grid")
 
 
-def _stream(dev: torch.device) -> int:
-    with torch.cuda.device(dev):
-        return torch.cuda.current_stream().cuda_stream
-
-
 def _out(x3: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.empty((x3.shape[0], x3.shape[1], w.shape[1]),
                        dtype=torch.float32, device=x3.device)
@@ -185,7 +180,8 @@ def matmul_tile(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     fn = MATMUL_TILE.fn()
     rc = fn(_DTYPES[x3.dtype], _DTYPES[w.dtype], x3.data_ptr(), w.data_ptr(),
             out.data_ptr(), bsz, m, w.shape[1], k,
-            x3.stride(0), x3.stride(1), w.stride(0), _stream(x3.device))
+            x3.stride(0), x3.stride(1), w.stride(0),
+            current_stream(x3.device))
     MATMUL_TILE.check(rc)
     MATMUL_TILE.launches += 1
     return out[0] if x.dim() == 2 else out
@@ -211,7 +207,7 @@ def consume_matmul(scratch: torch.Tensor, w: torch.Tensor, *,
     rc = fn(_DTYPES[x3.dtype], _DTYPES[w.dtype], scratch.data_ptr(), slot,
             w.data_ptr(), out.data_ptr(), bsz, m, w.shape[1], k,
             scratch.stride(0), x3.stride(0), x3.stride(1), w.stride(0),
-            _stream(x3.device))
+            current_stream(x3.device))
     CONSUME_MATMUL.check(rc)
     CONSUME_MATMUL.launches += 1
     return out[0] if scratch.dim() == 3 else out
@@ -240,7 +236,8 @@ def consume_matmul_acc(scratch: torch.Tensor, x: torch.Tensor,
     rc = fn(_DTYPES[x3.dtype], _DTYPES[w.dtype], scratch.data_ptr(), slot,
             x3.data_ptr(), w.data_ptr(), out.data_ptr(), bsz, m, w.shape[1],
             k, scratch.stride(0), acc3.stride(0), acc3.stride(1),
-            x3.stride(0), x3.stride(1), w.stride(0), _stream(x3.device))
+            x3.stride(0), x3.stride(1), w.stride(0),
+            current_stream(x3.device))
     CONSUME_MATMUL_ACC.check(rc)
     CONSUME_MATMUL_ACC.launches += 1
     return out[0] if x.dim() == 2 else out
@@ -283,7 +280,7 @@ def _ring_launch(kernel: CudaKernel, ch, group, direction: int,
     rc = kernel.fn()(*args, ch.mine, ch.next, ch.slot_bytes, n, group.rank,
                      direction, ch.calls * n, ch.arrived,
                      int(RING_TIMEOUT_S * 1e9), ctypes.byref(grid),
-                     _stream(group.device))
+                     current_stream(group.device))
     kernel.check(rc)
     ch.calls += 1
     ch.arrived += grid.value * (n - 1)

@@ -2,11 +2,16 @@
 
 Each kernel source ``csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
-``ctypes``.  Libraries land in ``build/repro_torch_kernels/`` at the root of
-the checkout, named by a hash of the sources and flags, so a changed source
-rebuilds and an unchanged one loads at once.  Nothing builds at import:
-the first launch on a CUDA tensor builds, and :func:`build` lets a caller
-build several sources at once, one ``nvcc`` process each, all in parallel.
+``ctypes``.  Headers shared by several kernels (``kernels/include/``, e.g.
+``hopper.cuh``: cp.async, wgmma and its descriptors) are found through
+``-I``; no header from outside the checkout is used (no CUTLASS).
+Libraries land in ``build/repro_torch_kernels/`` at the root of the
+checkout, named by a hash of the flags, of every source in the kernel's
+``csrc/`` and of every header it includes from the checkout, so a changed
+source or header rebuilds and an unchanged one loads at once.  Nothing
+builds at import: the first launch on a CUDA tensor builds, and
+:func:`build` lets a caller build several sources at once, one ``nvcc``
+process each, all in parallel.
 
 There is no interpret mode and no override: a kernel's wrapper runs the
 plain PyTorch version for CPU tensors and launches the kernel (or raises)
@@ -22,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,6 +38,7 @@ from typing import Dict, Iterable, List
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 KERNELS_DIR = Path(__file__).resolve().parent
+INCLUDE_DIR = KERNELS_DIR / "include"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,14 +62,41 @@ def source_of(name: str) -> Path:
     return KERNELS_DIR / name / "csrc" / f"{name}.cu"
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def included_headers(src: Path) -> List[Path]:
+    """Every header ``src`` includes with quotes, directly or through
+    another header, found beside the including file or in
+    :data:`INCLUDE_DIR` (the ``-I`` of the build)."""
+    seen: List[Path] = []
+    todo = [src]
+    while todo:
+        f = todo.pop()
+        for name in _INCLUDE.findall(f.read_text()):
+            for d in (f.parent, INCLUDE_DIR):
+                h = (d / name).resolve()
+                if h.exists():
+                    if h not in seen:
+                        seen.append(h)
+                        todo.append(h)
+                    break
+            else:
+                raise FileNotFoundError(f"{f}: #include \"{name}\" not "
+                                        f"found beside it or in {INCLUDE_DIR}")
+    return sorted(seen)
+
+
 def library_path(src: Path) -> Path:
-    """Where the library of ``src`` lives: keyed by the bytes of every
-    source in its ``csrc/`` directory and by the compiler flags."""
+    """Where the library of ``src`` lives: keyed by the compiler flags and
+    the bytes of every source in its ``csrc/`` directory and of every
+    header it includes."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(src.parent.iterdir()):
-        if f.suffix in (".cu", ".cuh", ".h"):
-            h.update(f.name.encode())
-            h.update(f.read_bytes())
+    files = [f for f in sorted(src.parent.iterdir())
+             if f.suffix in (".cu", ".cuh", ".h")]
+    for f in files + [f for f in included_headers(src) if f not in files]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -83,7 +117,8 @@ def build(names: Iterable[str]) -> Dict[str, float]:
             secs[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+               str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, tmp, out, time.perf_counter())
@@ -100,6 +135,29 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return secs
+
+
+def current_stream(device) -> int:
+    """The ``cudaStream_t`` of ``device``'s current stream, as an int:
+    PyTorch's raw-stream query (``torch.cuda.current_stream`` builds a
+    Stream object, several microseconds a launch)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(
+        device.index if device.index is not None
+        else torch.cuda.current_device())
+
+
+def launch_on(device, fn, args) -> int:
+    """``fn(*args, stream)`` with ``device`` current and its current
+    stream: the launch of a C entry point.  The device is switched only
+    when it is not current already (a switch costs more than the launch)."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, current_stream(device))
+    with torch.cuda.device(device):
+        return fn(*args, current_stream(device))
 
 
 class CudaKernel:
@@ -136,5 +194,6 @@ class CudaKernel:
         return log.read_text() if log.exists() else ""
 
 
-__all__ = ["BUILD_DIR", "CudaKernel", "NVCC_FLAGS", "build", "library_path",
+__all__ = ["BUILD_DIR", "CudaKernel", "INCLUDE_DIR", "NVCC_FLAGS", "build",
+           "current_stream", "included_headers", "launch_on", "library_path",
            "nvcc_path", "source_of"]

@@ -1,4 +1,16 @@
-from repro_torch.kernels.flash_attention.ops import FLASH, flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_plain
+from repro_torch.kernels.flash_attention.ops import (
+    FLASH,
+    KvSplitPlan,
+    flash_attention,
+    kv_split_plan,
+    split_ranges,
+    visible_tiles,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    attention_plain,
+    attention_split_plain,
+)
 
-__all__ = ["FLASH", "attention_plain", "flash_attention"]
+__all__ = ["FLASH", "KvSplitPlan", "attention_plain",
+           "attention_split_plain", "flash_attention", "kv_split_plan",
+           "split_ranges", "visible_tiles"]

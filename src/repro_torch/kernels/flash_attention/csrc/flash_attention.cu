@@ -4,129 +4,162 @@
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention/kernel.py
 // (flash_attention_pallas / _attn_kernel).  It computes the same function:
 // out[b, h, i] = softmax_j(scale * q[b, h, i] . k[b, h / group, j]) v[...]
-// over the visible columns j, in fp32, written in q's type, with rows that
-// see no column at all written as 0.  Unlike the Pallas kernel, q row i
-// sits at absolute position q_offset + i (the Pallas kernel hard-codes 0),
-// which is what lets chunked prefill attend a mid-sequence chunk against
-// the full-length K/V scratch through this kernel.
+// over the visible columns j, with fp32 statistics, written in q's type,
+// with rows that see no column at all written as 0.  Unlike the Pallas
+// kernel, q row i sits at absolute position q_offset + i (the Pallas kernel
+// hard-codes 0), which is what lets chunked prefill attend a mid-sequence
+// chunk against the full-length K/V scratch through this kernel.
 //
-// Design (the simple first version):
-//  * One block per (b * Hq + h, tile of BLOCK_Q = 64 q rows); each of its
-//    64 threads owns one q row and keeps q, the running max m, the
-//    normaliser l and acc[D] in fp32 registers.  The loop over kv tiles
-//    inside the block replaces the Pallas kernel's sequential kv grid axis.
-//  * K and V tiles of BLOCK_KV = 32 rows are staged in shared memory as
-//    fp32; every thread of a warp reads the same K/V element at the same
-//    time, so the reads are broadcasts.
-//  * Tiles wholly above the causal limit or below the window are never
-//    visited (the _block_ranges rule of repro/models/layers.py), so chunk 0
-//    of a long prompt does not scan the zero rows of the scratch.  The
-//    ragged edge (col >= Skv) is masked here; the wrapper pads nothing.
+// What bounds it on this card: the bulk 2048-token causal prefill of
+// smollm-360m does ~8.1 GFLOP of visible work on ~10.5 MB, so it is
+// compute-bound (~8 us at 989 TFLOP/s bf16).  A 128-row prefill chunk has
+// little work per (head, q tile) and is bound by how many SMs it keeps
+// busy: 2 q tiles x 15 heads is 30 blocks for 132 SMs.
 //
-// What bounds it on this card: at the serving shapes attention is
-// compute-bound (the bulk 2048-token causal prefill of smollm-360m does
-// ~8.1 GFLOP on ~10.5 MB: ~8 us at 989 TFLOP/s bf16).  This version does
-// its arithmetic on the fp32 CUDA cores, one shared-memory read per four
-// FMAs, with 2 warps per block — it is far from that bound by design.
-// Reaching it needs wgmma on tensor cores with TMA-fed K/V tiles, which is
-// later work; the plain version in ref.py is the oracle it is held to.
+// bf16 (the serving path), designed for those two bounds:
+//  * One warpgroup (128 threads) per 64 q rows of one head.  S = Q K^T and
+//    O += P V both run on the tensor cores with wgmma (m64n64k16 and
+//    m64nDk16, fp32 accumulators in registers).  Q and K are K-major
+//    operands in shared memory; P is rounded to bf16 in registers and fed
+//    as the A operand; V is an MN-major B operand read in place (no
+//    transpose pass).  The row max and normaliser stay in fp32 registers,
+//    reduced over the 4 lanes that share a row of the accumulator.
+//  * K/V tiles of 64 rows arrive by 16-byte cp.async copies into a ring of
+//    two shared-memory stages: tile t + 1 lands while tile t multiplies.
+//    Strides come from the view (q as a transposed projection, k/v as
+//    layer slices of the scratch): any multiple of 16 bytes works, which
+//    the wrapper checks.  Tiles use the 128-byte swizzle (hopper.cuh):
+//    8 threads copy one 128-byte line and store without bank conflicts.
+//    Head dims 80 and 96 fill part of a second 64-column atom: 16 and 32
+//    columns, so their K/V tiles take 16 KB of shared memory for 10 and 12
+//    KB of data, and no product is padded.  Rows past Skv or Sq are
+//    zero-filled by the copy.
+//  * Split-KV: when (q tiles x Hq) is below a wave of 132 SMs, the
+//    visible kv tiles of each q tile are cut into `splits` ranges of
+//    `tiles_per_split` (ops.kv_split_plan, which depends only on the
+//    visible column range and Hq, not on the batch).  Each split writes its unnormalised O, its row
+//    max and its row sum in fp32; flash_merge combines the splits in split
+//    order (no atomics), so a chunk sums in the same order whatever the
+//    cache layout.
+//  * Masks as before: tiles wholly above the causal limit or below the
+//    window are not visited (the _block_ranges rule of
+//    repro/models/layers.py); the ragged edge (col >= Skv) is masked here.
+//  * Heavy q tiles first: under a causal mask the last q tile of a head
+//    walks the most kv tiles, so the grid starts those.
+//  What holds it back now (PERF.md): within a block the two products and
+//  the softmax run one after another (QK^T, wait, softmax, PV, wait); a
+//  TMA fill of the same tiles and a three-stage ring measured no faster,
+//  and issuing the next tile's QK^T under this tile's softmax measured
+//  slower (ptxas serialises the wgmmas).  Two consumer warpgroups taking
+//  turns on the tensor cores is the next step.
+//
+// fp32 keeps the CUDA-core kernel (flash_fwd_f32): the reference's full-fp32
+// dot, which tensor cores would turn into TF32.  One thread per q row with
+// q and acc[D] in registers, K/V tiles of 32 rows staged in shared memory;
+// far from the bound by design, and not the serving path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BLOCK_Q = 64;
-constexpr int BLOCK_KV = 32;
-constexpr float NEG_INF = -1.0e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using bf16 = __nv_bfloat16;
+using ll = long long;
 
 struct Args {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* part_o;   // splits > 1: (splits, B * Hq, Sq, D) unnormalised O
+  float* part_ml;  // splits > 1: (splits, B * Hq, Sq, 2) row max, row sum
   int hq, hkv, sq, skv;
-  long long q_sb, q_sh, q_ss;  // element strides of q over (b, h, s)
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
+  ll q_sb, q_sh, q_ss;  // element strides of q over (b, h, s)
+  ll k_sb, k_sh, k_ss;
+  ll v_sb, v_sh, v_ss;
   int q_offset;  // absolute position of q row 0
   int causal;
   int window;    // <= 0: no window
   float scale;
+  int splits, tiles_per_split;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(BLOCK_Q) flash_fwd(const Args a) {
+// kv tiles [t_lo, t_hi) of `tile` columns that hold a column visible to
+// some row of the q rows [i0, i1) (ops.visible_tiles is the same rule)
+__device__ __forceinline__ void visible_tiles(const Args& a, int i0, int i1,
+                                              int tile, int& t_lo,
+                                              int& t_hi) {
+  const ll r_lo = (ll)a.q_offset + i0;
+  const ll r_hi = (ll)a.q_offset + i1 - 1;
+  ll c_hi = a.skv;
+  if (a.causal) c_hi = min(c_hi, r_hi + 1);
+  ll c_lo = 0;
+  if (a.window > 0) c_lo = max(0LL, r_lo - a.window + 1);
+  t_lo = (int)(c_lo / tile);
+  t_hi = c_hi > c_lo ? (int)((c_hi + tile - 1) / tile) : t_lo;
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores, full-fp32 products
+// ---------------------------------------------------------------------------
+
+constexpr int F32_Q = 64;
+constexpr int F32_KV = 32;
+constexpr float NEG_BIG = -1.0e30f;
+
+template <int D>
+__global__ void __launch_bounds__(F32_Q) flash_fwd_f32(const Args a) {
   static_assert(D % 4 == 0, "head dim must be a multiple of 4");
-  __shared__ __align__(16) float ks[BLOCK_KV][D];
-  __shared__ __align__(16) float vs[BLOCK_KV][D];
+  __shared__ __align__(16) float ks[F32_KV][D];
+  __shared__ __align__(16) float vs[F32_KV][D];
 
   const int bh = blockIdx.y;
   const int b = bh / a.hq;
   const int h = bh % a.hq;
   const int kvh = h / (a.hq / a.hkv);
-  const int i0 = blockIdx.x * BLOCK_Q;
+  const int i0 = blockIdx.x * F32_Q;
   const int i = i0 + threadIdx.x;
   const bool live = i < a.sq;
-  const long long row = (long long)a.q_offset + i;
+  const ll row = (ll)a.q_offset + i;
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* k = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const float* v = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
   float qr[D];
   float acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = live ? to_f32(q[(long long)i * a.q_ss + d]) * a.scale : 0.f;
+    qr[d] = live ? q[(ll)i * a.q_ss + d] * a.scale : 0.f;
     acc[d] = 0.f;
   }
-  float m = NEG_INF;
+  float m = NEG_BIG;
   float l = 0.f;
 
-  // kv columns visible to some row of this tile: [c_lo, c_hi)
-  const long long r_lo = (long long)a.q_offset + i0;
-  const long long r_hi = (long long)a.q_offset + min(i0 + BLOCK_Q, a.sq) - 1;
-  long long c_hi = a.skv;
-  if (a.causal) c_hi = min(c_hi, r_hi + 1);
-  long long c_lo = 0;
-  if (a.window > 0) c_lo = max(0LL, r_lo - a.window + 1);
-  const int t_lo = (int)(c_lo / BLOCK_KV);
-  const int t_hi = c_hi > c_lo ? (int)((c_hi + BLOCK_KV - 1) / BLOCK_KV) : t_lo;
+  int t_lo, t_hi;
+  visible_tiles(a, i0, min(i0 + F32_Q, a.sq), F32_KV, t_lo, t_hi);
 
   for (int t = t_lo; t < t_hi; ++t) {
-    const int c0 = t * BLOCK_KV;
+    const int c0 = t * F32_KV;
     __syncthreads();  // every row is done with the previous tile
-    for (int idx = threadIdx.x; idx < BLOCK_KV * D; idx += BLOCK_Q) {
+    for (int idx = threadIdx.x; idx < F32_KV * D; idx += F32_Q) {
       const int j = idx / D;
       const int d = idx % D;
       const int c = c0 + j;
       const bool in = c < a.skv;
-      ks[j][d] = in ? to_f32(k[(long long)c * a.k_ss + d]) : 0.f;
-      vs[j][d] = in ? to_f32(v[(long long)c * a.v_ss + d]) : 0.f;
+      ks[j][d] = in ? k[(ll)c * a.k_ss + d] : 0.f;
+      vs[j][d] = in ? v[(ll)c * a.v_ss + d] : 0.f;
     }
     __syncthreads();
     if (!live) continue;
 
-    float s[BLOCK_KV];
-    float tile_max = NEG_INF;
+    float s[F32_KV];
+    float tile_max = NEG_BIG;
 #pragma unroll
-    for (int j = 0; j < BLOCK_KV; ++j) {
-      const long long c = c0 + j;
+    for (int j = 0; j < F32_KV; ++j) {
+      const ll c = c0 + j;
       bool vis = c < a.skv;
       if (a.causal) vis = vis && c <= row;
       if (a.window > 0) vis = vis && c > row - a.window;
@@ -140,18 +173,18 @@ __global__ void __launch_bounds__(BLOCK_Q) flash_fwd(const Args a) {
         dot += qr[4 * d4 + 2] * kk.z;
         dot += qr[4 * d4 + 3] * kk.w;
       }
-      s[j] = vis ? dot : NEG_INF;
+      s[j] = vis ? dot : NEG_BIG;
       tile_max = fmaxf(tile_max, s[j]);
     }
     const float m_new = fmaxf(m, tile_max);
-    if (m_new <= 0.5f * NEG_INF) continue;  // nothing visible to this row yet
+    if (m_new <= 0.5f * NEG_BIG) continue;  // nothing visible to this row yet
     const float alpha = expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
     for (int d = 0; d < D; ++d) acc[d] *= alpha;
 #pragma unroll
-    for (int j = 0; j < BLOCK_KV; ++j) {
-      const float p = s[j] <= 0.5f * NEG_INF ? 0.f : expf(s[j] - m_new);
+    for (int j = 0; j < F32_KV; ++j) {
+      const float p = s[j] <= 0.5f * NEG_BIG ? 0.f : expf(s[j] - m_new);
       psum += p;
       const float4* vr = reinterpret_cast<const float4*>(vs[j]);
 #pragma unroll
@@ -169,53 +202,346 @@ __global__ void __launch_bounds__(BLOCK_Q) flash_fwd(const Args a) {
 
   if (!live) return;
   const float denom = l == 0.f ? 1.f : l;  // a row that saw nothing -> 0
-  T* o = static_cast<T*>(a.o) + (((long long)b * a.hq + h) * a.sq + i) * D;
+  float* o = static_cast<float*>(a.o) + (((ll)b * a.hq + h) * a.sq + i) * D;
 #pragma unroll
-  for (int d = 0; d < D; ++d) o[d] = from_f32<T>(acc[d] / denom);
+  for (int d = 0; d < D; ++d) o[d] = acc[d] / denom;
 }
 
-template <typename T, int D>
-cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
-  const dim3 grid((a.sq + BLOCK_Q - 1) / BLOCK_Q, batch * a.hq);
-  flash_fwd<T, D><<<grid, BLOCK_Q, 0, stream>>>(a);
+// ---------------------------------------------------------------------------
+// bf16: wgmma on the tensor cores, cp.async K/V ring, split-KV
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 64;       // q rows a block (one warpgroup)
+constexpr int BKV = 64;      // kv rows a tile
+constexpr int THREADS = 128;
+constexpr int STAGES = 2;    // K/V ring depth (3 measured no faster)
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr int smem_bytes() {   // Q, then K and V a stage, and alignment
+  return 1024 + (1 + 2 * STAGES) * hopper::tile_bytes<BKV, D>();
+}
+
+// this thread's 16-byte chunks of a 64 x D tile: tile row, element offset
+// (row * stride + column) and place in the swizzled tile of each, fixed
+// for the block, so a tile costs a few instructions a chunk
+template <int D>
+struct TileChunks {
+  static constexpr int N = 64 * D / 8 / THREADS;   // D / 16
+  int row[N];
+  ll off[N];
+  uint32_t dst[N];
+  __device__ TileChunks(ll ss) {
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      int c8;
+      hopper::tile_chunk<D>(threadIdx.x + u * THREADS, row[u], c8);
+      off[u] = (ll)row[u] * ss + 8 * c8;
+      dst[u] = hopper::swz_offset<BKV>(row[u], c8);
+    }
+  }
+};
+
+// rows [row0, row0 + 64) of a (rows, D) bf16 matrix with row stride `ss`
+// into a 64 x D tile at `dst`; rows >= `rows` are zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          ll ss, const TileChunks<D>& c,
+                                          int row0, int rows) {
+  const bf16* base = src + (ll)row0 * ss;
+#pragma unroll
+  for (int u = 0; u < TileChunks<D>::N; ++u) {
+    const bool in = row0 + c.row[u] < rows;
+    hopper::cp_async16(dst + c.dst[u], in ? base + c.off[u] : src,
+                       in ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const Args a) {
+  using MMA_S = hopper::Wgmma<BKV>;
+  using MMA_O = hopper::Wgmma<D>;
+  constexpr int TILE = hopper::tile_bytes<BKV, D>();   // one 64 x D tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s_q = hopper::align1024(hopper::smem_u32(smem));
+  const uint32_t s_kv = s_q + TILE;   // stage s: K at 2s, V at 2s + 1
+
+  // heads on x, q tiles on y: the scheduler starts every head's last
+  // (under a causal mask the longest) q tile first
+  const int bh = blockIdx.x;
+  const int b = bh / a.hq;
+  const int h = bh % a.hq;
+  const int kvh = h / (a.hq / a.hkv);
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int split = blockIdx.z;
+
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+
+  int t_lo, t_hi;
+  visible_tiles(a, i0, min(i0 + BQ, a.sq), BKV, t_lo, t_hi);
+  int t_begin = t_lo, t_end = t_hi;
+  if (a.splits > 1) {
+    t_begin = min(t_lo + split * a.tiles_per_split, t_hi);
+    t_end = min(t_begin + a.tiles_per_split, t_hi);
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, qd = lane % 4;
+  // this thread's two rows (absolute positions) of the accumulators
+  const ll row_abs[2] = {(ll)a.q_offset + i0 + 16 * warp + g,
+                         (ll)a.q_offset + i0 + 16 * warp + g + 8};
+  const float sl2 = a.scale * LOG2E;
+
+  // Q with the first kv tile, then the next STAGES - 2 tiles, a commit
+  // group each
+  const TileChunks<D> cq(a.q_ss), ck(a.k_ss), cv(a.v_ss);
+  load_tile<D>(s_q, q, a.q_ss, cq, i0, a.sq);
+#pragma unroll
+  for (int u = 0; u < STAGES - 1; ++u) {
+    const int t = t_begin + u;
+    if (t < t_end) {
+      load_tile<D>(s_kv + 2 * u * TILE, k, a.k_ss, ck, t * BKV, a.skv);
+      load_tile<D>(s_kv + (2 * u + 1) * TILE, v, a.v_ss, cv, t * BKV, a.skv);
+    }
+    hopper::cp_async_commit();
+  }
+
+  float o[MMA_O::REGS];
+#pragma unroll
+  for (int r = 0; r < MMA_O::REGS; ++r) o[r] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};   // running max, log2 domain
+  float l[2] = {0.f, 0.f};               // this thread's share of the sum
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int st = (t - t_begin) % STAGES;
+    const uint32_t s_k = s_kv + 2 * st * TILE;
+    const uint32_t s_v = s_k + TILE;
+    hopper::cp_async_wait<STAGES - 2>();
+    hopper::fence_proxy_async();
+    __syncthreads();   // tile t landed for all; tile t - 1 no longer read
+    const int tn = t + STAGES - 1;   // into the stage tile t - 1 left
+    if (tn < t_end) {
+      const uint32_t n_k = s_kv + 2 * ((tn - t_begin) % STAGES) * TILE;
+      load_tile<D>(n_k, k, a.k_ss, ck, tn * BKV, a.skv);
+      load_tile<D>(n_k + TILE, v, a.v_ss, cv, tn * BKV, a.skv);
+    }
+    hopper::cp_async_commit();
+
+    // S = Q K^T (64 x 64, fp32)
+    float s[MMA_S::REGS];
+#pragma unroll
+    for (int r = 0; r < MMA_S::REGS; ++r) s[r] = 0.f;
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      MMA_S::template ss<0, 0>(s, hopper::desc_k_major<BQ>(s_q, ks),
+                               hopper::desc_k_major<BKV>(s_k, ks), ks > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+
+    // online softmax over this tile, rows g and g + 8 of the warp's 16;
+    // only tiles that cross the ragged edge, the causal diagonal or the
+    // window's edge for some row of the block are masked
+    const int c0 = t * BKV;
+    const ll first = (ll)a.q_offset + i0, last = first + BQ - 1;
+    const bool mask = c0 + BKV > a.skv || (a.causal && c0 + BKV - 1 > first) ||
+                      (a.window > 0 && c0 <= last - a.window);
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const ll row = row_abs[i];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const ll c = c0 + 8 * j + 2 * qd + e;
+          bool vis = true;
+          if (mask) {
+            vis = c < a.skv;
+            if (a.causal) vis = vis && c <= row;
+            if (a.window > 0) vis = vis && c > row - a.window;
+          }
+          float& x = s[4 * j + 2 * i + e];
+          x = vis ? x * sl2 : -INFINITY;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      alpha[i] = exp2f(m[i] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * i + e];
+          x = exp2f(x - m_use);
+          sum += x;
+        }
+      l[i] = l[i] * alpha[i] + sum;
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        o[4 * j + 2 * i] *= alpha[i];
+        o[4 * j + 2 * i + 1] *= alpha[i];
+      }
+
+    // O += P V: P as the bf16 A fragment of each k16 step (kv cols 16 ks..)
+    uint32_t p[BKV / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < BKV / 16; ++ks) {
+      p[ks][0] = hopper::pack_bf16(s[8 * ks], s[8 * ks + 1]);
+      p[ks][1] = hopper::pack_bf16(s[8 * ks + 2], s[8 * ks + 3]);
+      p[ks][2] = hopper::pack_bf16(s[8 * ks + 4], s[8 * ks + 5]);
+      p[ks][3] = hopper::pack_bf16(s[8 * ks + 6], s[8 * ks + 7]);
+    }
+    hopper::fence_regs(o);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BKV / 16; ++ks)
+      MMA_O::template rs<1>(o, p[ks], hopper::desc_mn_major<BKV>(s_v, ks),
+                            1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+  }
+  hopper::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const int bh_rows = gridDim.x;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = i0 + 16 * warp + g + 8 * i;
+    if (r >= a.sq) continue;
+    const ll orow = ((ll)bh * a.sq + r) * D;
+    if (a.splits == 1) {
+      const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // saw nothing -> 0
+      bf16* out = static_cast<bf16*>(a.o) + orow;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const __nv_bfloat162 v2 = __floats2bfloat162_rn(
+            o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + 2 * qd) = v2;
+      }
+    } else {
+      const ll prow = ((ll)split * bh_rows + bh) * a.sq + r;
+      float* po = a.part_o + prow * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(po + 8 * j + 2 * qd) =
+            make_float2(o[4 * j + 2 * i], o[4 * j + 2 * i + 1]);
+      if (qd == 0)
+        *reinterpret_cast<float2*>(a.part_ml + 2 * prow) =
+            make_float2(m[i], l[i]);
+    }
+  }
+}
+
+// out = sum_s O_s 2^(m_s - M) / sum_s l_s 2^(m_s - M), M = max_s m_s, the
+// splits taken in order; a row no split saw is 0
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_merge(const float* __restrict__ part_o, const float* __restrict__ ml,
+            bf16* __restrict__ out, ll rows, int splits) {
+  const ll idx = (ll)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows * (D / 2)) return;
+  const ll row = idx / (D / 2);
+  const int col = 2 * (int)(idx % (D / 2));
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, ml[2 * (s * rows + row)]);
+  float sum = 0.f, o0 = 0.f, o1 = 0.f;
+  if (mx != -INFINITY) {
+    for (int s = 0; s < splits; ++s) {
+      const ll pr = s * rows + row;
+      const float w = exp2f(ml[2 * pr] - mx);
+      const float2 po = *reinterpret_cast<const float2*>(part_o + pr * D + col);
+      sum += ml[2 * pr + 1] * w;
+      o0 += po.x * w;
+      o1 += po.y * w;
+    }
+  }
+  const float inv = sum > 0.f ? 1.f / sum : 0.f;
+  *reinterpret_cast<__nv_bfloat162*>(out + row * D + col) =
+      __floats2bfloat162_rn(o0 * inv, o1 * inv);
+}
+
+template <int D>
+cudaError_t launch_f32(const Args& a, int batch, cudaStream_t stream) {
+  const dim3 grid((a.sq + F32_Q - 1) / F32_Q, batch * a.hq);
+  flash_fwd_f32<D><<<grid, F32_Q, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dim(int head_dim, const Args& a, int batch,
-                         cudaStream_t stream) {
+template <int D>
+cudaError_t launch_bf16(const Args& a, int batch, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D>();
+  cudaError_t e = hopper::set_smem((const void*)flash_fwd_bf16<D>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(batch * a.hq, (a.sq + BQ - 1) / BQ, a.splits);
+  flash_fwd_bf16<D><<<grid, THREADS, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.splits == 1) return e;
+  const ll rows = (ll)batch * a.hq * a.sq;
+  const ll n = rows * (D / 2);
+  flash_merge<D><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      a.part_o, a.part_ml, static_cast<bf16*>(a.o), rows, a.splits);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int dtype, int head_dim, const Args& a, int batch,
+                     cudaStream_t st) {
+#define REPRO_FLASH_DIM(D)                                        \
+  case D:                                                         \
+    return dtype == 0 ? launch_f32<D>(a, batch, st)               \
+                      : launch_bf16<D>(a, batch, st);
   switch (head_dim) {
-    case 16: return launch<T, 16>(a, batch, stream);
-    case 32: return launch<T, 32>(a, batch, stream);
-    case 64: return launch<T, 64>(a, batch, stream);
-    case 80: return launch<T, 80>(a, batch, stream);
-    case 96: return launch<T, 96>(a, batch, stream);
-    case 128: return launch<T, 128>(a, batch, stream);
+    REPRO_FLASH_DIM(16)
+    REPRO_FLASH_DIM(32)
+    REPRO_FLASH_DIM(64)
+    REPRO_FLASH_DIM(80)
+    REPRO_FLASH_DIM(96)
+    REPRO_FLASH_DIM(128)
     default: return cudaErrorInvalidValue;
   }
+#undef REPRO_FLASH_DIM
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Output o is contiguous (B, Hq, Sq, D).
-// Returns cudaGetLastError() after the launch (0 on success).
+// dtype: 0 = float32 (CUDA cores; splits must be 1), 1 = bfloat16 (wgmma).
+// Output o is contiguous (B, Hq, Sq, D).  With splits > 1 (bf16 only),
+// part_o (splits, B * Hq, Sq, D) and part_ml (splits, B * Hq, Sq, 2) are
+// fp32 scratch and a merge kernel follows on the same stream.  Returns
+// cudaGetLastError() after the launches (0 on success).
 extern "C" int repro_flash_attention_fwd(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
     void* o, int batch, int hq, int hkv, int sq, int skv,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
-    int q_offset, int causal, int window, float scale, void* stream) {
-  Args a{q, k, v, o, hq, hkv, sq, skv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
-         v_sb, v_sh, v_ss, q_offset, causal, window, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = dispatch_dim<float>(head_dim, a, batch, st);
-  } else if (dtype == 1) {
-    err = dispatch_dim<__nv_bfloat16>(head_dim, a, batch, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+    int q_offset, int causal, int window, float scale, int splits,
+    int tiles_per_split, float* part_o, float* part_ml, void* stream) {
+  if ((dtype != 0 && dtype != 1) || splits < 1 ||
+      (splits > 1 && (dtype != 1 || tiles_per_split < 1 || !part_o ||
+                      !part_ml)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{q,    k,    v,    o,    part_o, part_ml, hq,     hkv,
+         sq,   skv,  q_sb, q_sh, q_ss,   k_sb,    k_sh,   k_ss,
+         v_sb, v_sh, v_ss, q_offset,     causal,  window, scale,
+         splits, tiles_per_split};
+  return static_cast<int>(
+      dispatch(dtype, head_dim, a, batch, static_cast<cudaStream_t>(stream)));
 }

@@ -5,16 +5,29 @@ tolerance 1e-5: the reference kernels and the plain version sum the same
 terms in a different order (tiled online softmax vs one dense softmax).
 The CUDA kernel itself is held to the plain version on the card, by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+
+The bf16 kernel's split-KV plan (``kv_split_plan``) is held here as a pure
+function, and its split-and-merge arithmetic (``attention_split_plain``)
+against the reference at the same 1e-5.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels.flash_attention import attention_ref, flash_attention
 from repro.models.layers import blockwise_attention
-from repro_torch.kernels.flash_attention import attention_plain
+from repro_torch.kernels.flash_attention import (
+    KvSplitPlan,
+    attention_plain,
+    attention_split_plain,
+    kv_split_plan,
+    split_ranges,
+)
+from repro_torch.kernels.flash_attention.ops import BLOCK_KV, BLOCK_Q
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -89,3 +102,90 @@ def test_bf16_out_in_q_dtype():
     ref = attention_plain(tq.float(), tk.float(), tv.float())
     np.testing.assert_allclose(out.float().numpy(), ref.numpy(),
                                rtol=3e-2, atol=3e-2)
+
+
+def _visible(i0, i1, skv, q_offset, causal, window):
+    """Columns visible to some row of [i0, i1), by brute force."""
+    rows = q_offset + np.arange(i0, i1)[:, None]
+    cols = np.arange(skv)[None, :]
+    mask = np.ones((i1 - i0, skv), bool)
+    if causal:
+        mask &= cols <= rows
+    if window:
+        mask &= cols > rows - window
+    return np.flatnonzero(mask.any(0))
+
+
+@settings(max_examples=150, deadline=None)
+@given(sq=st.integers(1, 300), extra=st.integers(0, 700),
+       q_offset=st.integers(0, 900), causal=st.booleans(),
+       window=st.one_of(st.none(), st.integers(1, 400)),
+       hq=st.sampled_from([1, 3, 15, 32]))
+def test_kv_split_plan_covers_visible_tiles(sq, extra, q_offset, causal,
+                                            window, hq):
+    """Each q tile's splits cover every kv tile holding a column visible to
+    the tile's rows exactly once, and no tile wholly masked; the plan does
+    not change with Skv beyond the visible range."""
+    skv = q_offset + sq + extra
+    plan = kv_split_plan(sq, skv, q_offset, causal, window, hq)
+    assert plan.splits >= 1 and plan.tiles_per_split >= 1
+    for qt in range(-(-sq // BLOCK_Q)):
+        i0, i1 = qt * BLOCK_Q, min((qt + 1) * BLOCK_Q, sq)
+        want = sorted(set(_visible(i0, i1, skv, q_offset, causal, window)
+                          // BLOCK_KV))
+        got = [t for lo, hi in split_ranges(plan, qt, sq, skv, q_offset,
+                                            causal, window)
+               for t in range(lo, hi)]
+        assert got == want          # each visible tile once, in order
+    if causal:                      # the visible range ends at the last row
+        for longer in (skv + 1, skv + 517):
+            assert kv_split_plan(sq, longer, q_offset, causal, window,
+                                 hq) == plan
+
+
+def test_kv_split_plan_fills_a_wave():
+    """A prefill chunk (2 q tiles x 15 heads) splits to about a wave of
+    SMs; a bulk prefill (32 q tiles x 15 heads) does not split."""
+    assert kv_split_plan(2048, 2048, 0, True, None, 15).splits == 1
+    chunk = kv_split_plan(128, 2048, 1024, True, None, 15)
+    assert chunk == KvSplitPlan(5, 4)
+    assert 30 * chunk.splits >= 132
+    assert kv_split_plan(128, 2048, 0, True, None, 15).splits == 1
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,q_offset,window", [
+    (1, 2, 2, 128, 128, 16, None, None),    # group 1, bulk
+    (1, 6, 2, 100, 100, 64, None, None),    # group 3, ragged bulk
+    (1, 6, 2, 128, 512, 64, 256, None),     # a chunk mid-sequence
+    (1, 6, 2, 128, 512, 64, 0, None),       # the first chunk
+    (1, 3, 1, 100, 512, 16, 300, None),     # a ragged chunk
+    (1, 8, 2, 128, 512, 80, 256, 64),       # D 80, windowed chunk
+    (2, 6, 2, 64, 320, 80, 200, None),      # batch 2, ragged Skv
+])
+@pytest.mark.parametrize("forced", [False, True])
+def test_split_plain_matches_ref(b, hq, hkv, sq, skv, d, q_offset, window,
+                                 forced):
+    """The split-and-merge arithmetic at the plan the wrapper would pick
+    (or one kv tile a split) against the reference's dense oracle: the
+    chunk's rows placed at q_offset in a full-length q."""
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, seed=sq + d)
+    off = skv - sq if q_offset is None else q_offset
+    plan = kv_split_plan(sq, skv, off, True, window, hq)
+    if forced:
+        longest = max(hi - lo for qt in range(-(-sq // BLOCK_Q))
+                      for lo, hi in split_ranges(KvSplitPlan(1, 1), qt, sq,
+                                                 skv, off, True, window))
+        plan = KvSplitPlan(longest, 1)
+    ours = attention_split_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), plan,
+        causal=True, window=window, q_offset=q_offset).numpy()
+    np.testing.assert_allclose(
+        ours, _plain(q, k, v, causal=True, window=window, q_offset=q_offset),
+        **TOL)
+    q_full = np.random.default_rng(1).standard_normal(
+        (b, hq, skv, d), dtype=np.float32)
+    q_full[:, :, off:off + sq] = q
+    ref = np.asarray(attention_ref(jnp.asarray(q_full), jnp.asarray(k),
+                                   jnp.asarray(v), causal=True,
+                                   window=window))[:, :, off:off + sq]
+    np.testing.assert_allclose(ours, ref, **TOL)

@@ -5,13 +5,16 @@ inside the fixture, never at import).  On the card run them with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 
 Flash-attention tolerances are those of the reference's kernel tests: fp32
-2e-4 with TF32 off (set here), bf16 3e-2.  SSD tolerances are relative to
-the largest output: y 1e-4 in fp32 and 2e-2 in bf16 (y is written in
-bf16), the fp32 state 1e-4 in both.  DLA matmul tolerances are relative
-to the largest output: fp32 in and out 1e-5, bf16 in and fp32 out 1e-4,
-a bf16 output 1e-2.  The PGAS tests hold peer-mapped heaps (PUT/GET as
-stores into the peers' partitions) to the card's gloo wire and to CPU
-ranks bit for bit.
+2e-4 with TF32 off (set here), bf16 3e-2.  The bf16 chunks of a long cache
+(split over kv) are held tighter, to 1e-2 of the largest plain output (one
+bf16 rounding step of that output is at most 2^-7 of it), against the
+plain version and against the split-and-merge plain version.  SSD
+tolerances are relative to the largest output: y 1e-4 in fp32 and 2e-2 in
+bf16 (y is written in bf16), the fp32 state 1e-4 in both.  DLA matmul
+tolerances are relative to the largest output: fp32 in and out 1e-5, bf16
+in and fp32 out 1e-4, a bf16 output 1e-2.  The PGAS tests hold
+peer-mapped heaps (PUT/GET as stores into the peers' partitions) to the
+card's gloo wire and to CPU ranks bit for bit.
 """
 
 import numpy as np
@@ -28,6 +31,7 @@ from repro_torch.kernels.ssd import SSD, ssd, ssd_plain
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+BF16_SPLIT_REL = 1e-2       # max |error| over max |plain|, split bf16 chunks
 
 
 @pytest.fixture
@@ -65,6 +69,53 @@ def test_kernel_matches_plain(cuda, dtype, d, sq, skv, q_offset, window):
     assert err <= TOL[dtype], err
 
 
+def _split_rel_err(got, q, k, v, **kw):
+    """max |got − want| / max |want| against the plain version and against
+    the split-and-merge plain version at the kernel's plan (bf16)."""
+    from repro_torch.kernels.flash_attention import (
+        attention_split_plain,
+        kv_split_plan,
+    )
+
+    sq, skv = q.shape[2], k.shape[2]
+    off = skv - sq if kw.get("q_offset") is None else kw["q_offset"]
+    plan = kv_split_plan(sq, skv, off, True, kw.get("window"), q.shape[1])
+    errs = []
+    for want in (attention_plain(q, k, v, **kw),
+                 attention_split_plain(q, k, v, plan, **kw)):
+        want = want.float()
+        errs.append(((got.float() - want).abs().max()
+                     / want.abs().max()).item())
+    return errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128])
+@pytest.mark.parametrize("sq,skv,q_offset,window", [
+    (128, 1024, 512, None),      # a chunk the bf16 kernel splits over kv
+    (100, 1024, 0, None),        # a ragged first chunk
+    (128, 1024, 768, 200),       # a windowed chunk, split
+])
+def test_split_chunks_match_plain(cuda, dtype, d, sq, skv, q_offset,
+                                  window):
+    """Chunks of a long cache: fp32 at 2e-4; bf16 (split over kv) to the
+    plain and the split-and-merge plain versions at BF16_SPLIT_REL."""
+    q, k, v = _qkv((2, 6, sq, d), (2, 2, skv, d), dtype, cuda, seed=d + sq)
+    kw = dict(window=window, q_offset=q_offset)
+    before = FLASH.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FLASH.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        want = attention_plain(q, k, v, **kw)
+        err = (got - want).abs().max().item()
+        assert err <= TOL[dtype], err
+    else:
+        errs = _split_rel_err(got, q, k, v, **kw)
+        assert max(errs) <= BF16_SPLIT_REL, errs
+
+
 def test_strided_inputs_and_empty_rows(cuda):
     """q as a transposed projection view; rows that see no key output 0."""
     x = torch.randn(1, 50, 4, 64, device=cuda)
@@ -78,6 +129,25 @@ def test_strided_inputs_and_empty_rows(cuda):
     assert torch.count_nonzero(empty).item() == 0
 
 
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("lo", [0, 128, 384])
+def test_bf16_model_views_match_split_plain(cuda, d, lo):
+    """bf16 as the model calls it: q a transposed projection, k/v layer
+    slices of a (L, B, Hkv, S, D) scratch; held to the plain version and
+    to the split-and-merge plain version at the kernel's plan, at
+    BF16_SPLIT_REL."""
+    g = torch.Generator(device=cuda).manual_seed(d + lo)
+    proj = torch.randn(2, 128, 6 * d, generator=g, device=cuda).bfloat16()
+    q = proj.view(2, 128, 6, d).transpose(1, 2)          # (2, 6, 128, d)
+    scratch = torch.randn(3, 2, 2, 512, d, generator=g,
+                          device=cuda).bfloat16()
+    k, v = scratch[1], scratch[2]
+    got = flash_attention(q, k, v, q_offset=lo)
+    torch.cuda.synchronize()
+    errs = _split_rel_err(got, q, k, v, q_offset=lo)
+    assert max(errs) <= BF16_SPLIT_REL, errs
+
+
 def test_wrapper_rejects(cuda):
     q = torch.randn(1, 2, 8, 64, device=cuda)
     with pytest.raises(TypeError):
@@ -89,6 +159,17 @@ def test_wrapper_rejects(cuda):
     with pytest.raises(ValueError):
         t = q.transpose(2, 3)                     # head dim not contiguous
         flash_attention(t, t, t)
+    # bf16 takes 16-byte copies: a base or a stride off 16 bytes raises,
+    # it never falls back to another kernel or to the plain version
+    before = FLASH.launches
+    buf = torch.randn(2 * 8 * 64 + 1, device=cuda).bfloat16()
+    off = buf[1:].view(1, 2, 8, 64)               # base 2 bytes off
+    with pytest.raises(ValueError):
+        flash_attention(off, off, off)
+    wide = torch.randn(1, 2, 8, 68, device=cuda).bfloat16()[..., :64]
+    with pytest.raises(ValueError):               # row stride 136 bytes
+        flash_attention(wide, wide, wide)
+    assert FLASH.launches == before
 
 
 def test_reduced_model_on_card_matches_cpu(cuda):
@@ -236,6 +317,7 @@ def _hop_case(entry, bsz, m, n, k, dx, dw, device, seed):
     (1, 64, 64, 64),          # one tile
     (2, 77, 45, 130),         # ragged M, N and K, a batch of 2
     (2, 256, 640, 2560),      # the h2o-danube TP-4 q edge
+    (2, 256, 3456, 2560),     # the up|gate edge (128 x 128 bf16 tiles)
     (1, 1, 3, 1),             # smaller than a tile every way
 ])
 def test_hop_kernel_matches_plain(cuda, entry, dx, dw, bsz, m, n, k):
@@ -332,7 +414,7 @@ def card_pools():
                                    ("float32", "bfloat16"),
                                    ("float32", "float32")])
 @pytest.mark.parametrize("bsz,b,nn,k", [(2, 77, 45, 130), (1, 64, 64, 64),
-                                        (1, 1, 3, 1)])
+                                        (1, 1, 3, 1), (2, 256, 3072, 256)])
 def test_ring_kernel_matches_plain(card_pools, n, op, dx, dw, bsz, b, nn, k):
     """Both ring directions against the unfused composition over gloo;
     x a row block and w a column slice (strided views)."""
