@@ -11,9 +11,11 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    Flash attention: smollm-360m heads 15/5 at D 64, h2o-danube-1.8b heads
    32/8 at D 80; bf16 and fp32; bulk S = 1000 and 2048, 128-row chunks at
    q_offset 0, 128, 896, 1024 and 1920 of a 2048 scratch, a ragged 100-row
-   chunk at 896, a 256 window at 2048 and at the chunk at 1024.
+   chunk at 896, a 256 window at 2048 and at the chunk at 1024, and a
+   window of 0 at 2048 (only None means no window: no row sees a column,
+   every output 0).
    Tolerances: max abs error 2e-4 in fp32 (TF32 off), 3e-2 in bf16 at
-   bulk, the chunk at 1024 and the window at 2048; bf16 at the other
+   bulk, the chunk at 1024 and the windows at 2048; bf16 at the other
    chunks, and every bf16 case against the split-and-merge plain version
    at the kernel's split plan, to 1e-2 of the largest plain output.  At
    bulk-2048 and chunk-128@1024 of both models in bf16, time the kernel,
@@ -58,9 +60,13 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    Tolerance, as max error over max |plain|: 1e-5 when an operand is
    fp32, 1e-4 for bf16 × bf16.  Time the kernel, the plain version and
    one cuBLAS call computing the same function (named in the output), and
-   at the main-path shapes their device times (torch.profiler); the
-   kernels line carries ``consume_matmul`` at the q edge and at the
-   up|gate edge.
+   for every case in the path's own types their device times
+   (torch.profiler).  The bound takes the operations at the bf16
+   tensor-core peak for bf16 × bf16, at the CUDA cores' fp32 peak when an
+   operand is fp32 (no TF32).  The kernels line carries
+   ``consume_matmul`` at the q edge and at the up|gate edge (bf16) and,
+   as ``fp32_*``, fp32 × bf16 at the o edge backward (the q edge's
+   shape).
 7. The two whole-ring kernels (``ag_matmul_ring``/``rs_matmul_ring``)
    in four rank processes sharing the card, each mapping its ring
    neighbours' channels, against their plain versions (the unfused
@@ -109,7 +115,11 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
     the MLP edge, time the kernel, the plain version, the bound (flops at
     the operand type's peak, bytes at 3.35 TB/s) and one PyTorch call of
     the same function where one exists (``torch.addmm`` for none + bias,
-    ``torch._addmm_activation`` for relu/gelu + bias).
+    ``torch._addmm_activation`` for relu/gelu + bias), with the kernel's
+    and the call's device times, by CUDA events queued behind a busy card
+    (``queued_ms``: this late in the run torch.profiler drops launches);
+    beside the MLP edge ``torch.mm`` in bf16, a floor that computes less
+    (no bias, no silu).
 11. The PGAS substrate on the card: the quickstart (ring PUT, ``SCALE``
     Active Message, ART matmul) in four rank processes with peer-mapped
     heaps, in four on the card's gloo wire (``peer_memory=False``) and in
@@ -145,6 +155,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
+PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 peak outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bandwidth
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 # bf16 flash at the chunk offsets added with split-KV, and every bf16 case
@@ -196,6 +207,30 @@ def device_ms(fn, iters: int = 20):
     return total / iters / 1e3 if total > 0 else None
 
 
+def queued_ms(fn, iters: int = 20) -> float:
+    """Device time of one call without the profiler: CUDA events recorded
+    right before and after each call, queued behind a kernel that keeps
+    the card busy (``torch.cuda._sleep``) while the host enqueues them, so
+    the span between them is the call's kernels alone.  The DLA phase
+    times by it: after the rank-pool phases torch.profiler recorded none,
+    or only some, of the launches there."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        torch.cuda._sleep(400_000)          # ~0.2 ms of busy card
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
 def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
 
@@ -212,7 +247,8 @@ def attention_bound_ms(q, k, causal, window, q_offset):
     rows = q_offset + torch.arange(sq, dtype=torch.int64)
     hi = torch.minimum(rows + 1, torch.tensor(skv)) if causal \
         else torch.full_like(rows, skv)
-    lo = (rows - window + 1).clamp_min(0) if window else torch.zeros_like(rows)
+    lo = (rows - window + 1).clamp_min(0) if window is not None \
+        else torch.zeros_like(rows)
     pairs = int((hi - lo).clamp_min(0).sum())
     flops = 4.0 * d * pairs * hq * b
     cols = max(0, int(hi.max()) - int(lo.min()))   # k/v rows read
@@ -246,7 +282,7 @@ def sdpa_yardstick(q, k, v, window, q_offset):
     sq = q.shape[2]
     end = q_offset + sq
     kk, vv = k[:, :, :end], v[:, :, :end]
-    if window:
+    if window is not None:
         rows = q_offset + torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(end, device=q.device)[None, :]
         mask = (cols <= rows) & (cols > rows - window)
@@ -298,13 +334,15 @@ def phase_kernels():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     heads = {"smollm-360m": (15, 5, 64), "h2o-danube-1.8b": (32, 8, 80)}
-    # (label, Sq, Skv, q_offset, window); the first four at TOL, the rest
-    # (in bf16) at BF16_SPLIT_REL
-    held_abs = 4
+    # (label, Sq, Skv, q_offset, window); the first five at TOL, the rest
+    # (in bf16) at BF16_SPLIT_REL.  window-0: no row sees a column, every
+    # output 0 (only None means no window)
+    held_abs = 5
     cases = [("bulk-1000", 1000, 1000, None, None),
              ("bulk-2048", 2048, 2048, None, None),
              ("chunk-128@1024", 128, 2048, 1024, None),
              ("window-256", 2048, 2048, None, 256),
+             ("window-0", 2048, 2048, None, 0),
              ("chunk-128@0", 128, 2048, 0, None),
              ("chunk-128@128", 128, 2048, 128, None),
              ("chunk-128@896", 128, 2048, 896, None),
@@ -327,7 +365,7 @@ def phase_kernels():
                 if not torch.isfinite(got).all():
                     fail(f"flash {arch} {label} {dtype}: non-finite output")
                 err = (got.float() - want.float()).abs().max().item()
-                rel = err / want.float().abs().max().item()
+                rel = err / max(want.float().abs().max().item(), 1e-30)
                 tol = TOL[str(dtype).split(".")[1]]
                 offset = skv - sq if q_offset is None else q_offset
                 if dtype == torch.bfloat16 and i >= held_abs:
@@ -341,7 +379,7 @@ def phase_kernels():
                     plan = kv_split_plan(sq, skv, offset, True, window, hq)
                     split = attention_split_plain(q, k, v, plan, **kw).float()
                     rel_split = ((got.float() - split).abs().max()
-                                 / split.abs().max()).item()
+                                 / split.abs().max().clamp_min(1e-30)).item()
                     held += (f", vs split plain max_err/max {rel_split:.3g} "
                              f"(tol {BF16_SPLIT_REL}), plan {plan.splits} "
                              f"split(s) x {plan.tiles_per_split} kv tiles")
@@ -718,8 +756,13 @@ HOP_TOL = {("float32", "float32"): 1e-5, ("float32", "bfloat16"): 1e-5,
            ("bfloat16", "bfloat16"): 1e-4}
 
 
-def hop_bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def hop_bound_ms(flops, nbytes, dx, dw):
+    """Least time for a product of operand types dx, dw (names): its
+    operations at the bf16 tensor-core peak for bf16 x bf16, else at the
+    CUDA cores' fp32 peak (the kernels run an fp32 operand in full fp32,
+    no TF32), or its bytes at the memory rate, whichever is larger."""
+    peak = PEAK_BF16_FLOPS if dx == dw == "bfloat16" else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -824,13 +867,12 @@ def phase_cc_kernels():
             nbytes = (x.numel() * x.element_size()
                       + w.numel() * w.element_size() + 4 * bsz * m * n
                       + (0 if acc is None else 4 * acc.numel()))
-            bound_ms, bound_by = hop_bound_ms(flops, nbytes)
+            bound_ms, bound_by = hop_bound_ms(flops, nbytes, *names)
             ms = time_ms(lambda: wrapper(*args, **kw))
             plain_ms = time_ms(lambda: plain(*args, **kw))
             lib_fn, lib_name = library_call(x, w, acc)
             lib_ms = time_ms(lib_fn)
-            timed = (path == (dx, dw) and (label == main_case[entry] or (
-                entry, label) == ("consume_matmul", "up|gate edge fwd")))
+            timed = path == (dx, dw)
             dev_ms = device_ms(lambda: wrapper(*args, **kw)) if timed \
                 else None
             lib_dev_ms = device_ms(lib_fn) if timed else None
@@ -854,6 +896,15 @@ def phase_cc_kernels():
                                   library_device_ms=lib_dev_ms,
                                   shape=f"B{bsz} M{m} N{n} K{k} "
                                         f"{names[0]} x {names[1]}")
+            if (entry, label) == ("consume_matmul", "o edge bwd") \
+                    and path == (dx, dw):
+                fp32 = dict(fp32_max_abs_err=err_abs, fp32_ms=ms,
+                            fp32_plain_ms=plain_ms, fp32_bound_ms=bound_ms,
+                            fp32_library_ms=lib_ms,
+                            fp32_device_ms=dev_ms,
+                            fp32_library_device_ms=lib_dev_ms,
+                            fp32_shape=f"B{bsz} M{m} N{n} K{k} float32 x "
+                                       f"bfloat16")
             if (entry, label) == ("consume_matmul", "up|gate edge fwd") \
                     and path == (dx, dw):
                 upgate = dict(upgate_ms=ms, upgate_plain_ms=plain_ms,
@@ -863,6 +914,7 @@ def phase_cc_kernels():
                               upgate_library_device_ms=lib_dev_ms)
             del got, want, args, x, w, acc
     out["consume_matmul"].update(upgate)
+    out["consume_matmul"].update(fp32)
     return out
 
 
@@ -887,15 +939,16 @@ RING_CASES = [
 
 def ring_bound_ms(op, tp, bsz, b, n, k, dx, dw):
     """Least time for one ring call of the whole group on the one card:
-    every rank's product (2·n·b·K·N each) at the bf16 peak against every
-    rank's inputs read once and outputs written once."""
+    every rank's product (2·n·b·K·N each) at the peak of the operand types
+    (``hop_bound_ms``) against every rank's inputs read once and outputs
+    written once."""
     ex = 2 if dx == "bfloat16" else 4
     ew = 2 if dw == "bfloat16" else 4
     rows_in, rows_out = (b, tp * b) if op == "ag" else (tp * b, b)
     flops = tp * 2.0 * bsz * tp * b * k * n
     nbytes = tp * (bsz * rows_in * k * ex + k * n * ew
                    + bsz * rows_out * n * 4)
-    return hop_bound_ms(flops, nbytes)
+    return hop_bound_ms(flops, nbytes, dx, dw)
 
 
 def phase_ring_kernels():
@@ -1138,7 +1191,6 @@ def phase_tp_reduced():
                  f"{worst['metric']}")
 
 
-PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 peak outside the tensor cores
 DLA_CASE_SIZES = (256, 512, 1024)
 MLP_EDGE = (4096, 2560, 6912)   # h2o-danube-1.8b: tokens x d_model @ d_ff
 
@@ -1271,15 +1323,32 @@ def phase_dla():
             bound_ms, bound_by = dla_bound_ms(rows, kk, nn, din, dout, bias)
             lib_fn, lib_name = dla_library_call(x, w, b, act)
             lib_ms = time_ms(lib_fn) if lib_fn is not None else None
+            dev_ms = queued_ms(lambda: matmul(x, w, b, activation=act,
+                                              out_dtype=od))
+            lib_dev_ms = queued_ms(lib_fn) if lib_fn is not None else None
             line += (f", kernel {ms:.4f} ms ({2.0 * rows * kk * nn / ms / 1e9:.1f}"
                      f" TFLOP/s), plain {plain_ms:.4f} ms, "
                      + (f"{lib_name} {lib_ms:.4f} ms" if lib_fn is not None
                         else "no single PyTorch call")
-                     + f", bound {bound_ms:.5f} ms ({bound_by})")
+                     + f", bound {bound_ms:.5f} ms ({bound_by}); on the "
+                     f"device (queued CUDA events) kernel {fmt_ms(dev_ms)}, "
+                     f"library {fmt_ms(lib_dev_ms)}")
             out[(label, act)] = dict(max_abs_err=err_abs, ms=ms,
                                      plain_ms=plain_ms, bound_ms=bound_ms,
                                      bound_by=bound_by, library_ms=lib_ms,
-                                     library_call=lib_name)
+                                     library_call=lib_name,
+                                     device_ms=dev_ms,
+                                     library_device_ms=lib_dev_ms)
+            if label == "MLP edge":
+                # a floor, not the same function: torch.mm in bf16 computes
+                # the product alone (no bias, no silu)
+                floor = lambda: torch.mm(x, w)
+                out["floor"] = dict(ms=time_ms(floor),
+                                    device_ms=queued_ms(floor))
+                line += (f"; torch.mm(x, w) in bf16, a floor that computes "
+                         f"less (no bias, no silu): "
+                         f"{out['floor']['ms']:.4f} ms, on the device "
+                         f"{fmt_ms(out['floor']['device_ms'])}")
         print(line, flush=True)
         if not err <= tol:
             fail(f"dla {label} {act} {din} -> {dout}: err {err} > {tol}")
@@ -1287,9 +1356,12 @@ def phase_dla():
     main_entry = dict(out[("MLP edge", "silu")])
     main_entry["shape"] = (f"{m}x{k} @ {k}x{n} bf16 -> bf16, silu "
                            f"(h2o-danube-1.8b w_up)")
+    main_entry["bf16_mm_floor_ms"] = out["floor"]["ms"]
+    main_entry["bf16_mm_floor_device_ms"] = out["floor"]["device_ms"]
     for act in ("none", "relu", "gelu"):
         e = out[("case study 1024", act)]
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+                    "library_device_ms"):
             main_entry[f"fp32_1024_{act}_{key}"] = e[key]
     return path_launches, main_entry
 

@@ -81,7 +81,8 @@ struct Args {
   ll v_sb, v_sh, v_ss;
   int q_offset;  // absolute position of q row 0
   int causal;
-  int window;    // <= 0: no window
+  int has_window;  // 0: no window (the caller's None)
+  int window;      // with has_window (any int, 0 too): c > row - window
   float scale;
   int splits, tiles_per_split;
 };
@@ -96,7 +97,9 @@ __device__ __forceinline__ void visible_tiles(const Args& a, int i0, int i1,
   ll c_hi = a.skv;
   if (a.causal) c_hi = min(c_hi, r_hi + 1);
   ll c_lo = 0;
-  if (a.window > 0) c_lo = max(0LL, r_lo - a.window + 1);
+  if (a.has_window) c_lo = max(0LL, r_lo - a.window + 1);
+  // causal under a window below 1: no row sees any column
+  if (a.causal && a.has_window && a.window < 1) c_hi = c_lo;
   t_lo = (int)(c_lo / tile);
   t_hi = c_hi > c_lo ? (int)((c_hi + tile - 1) / tile) : t_lo;
 }
@@ -162,7 +165,7 @@ __global__ void __launch_bounds__(F32_Q) flash_fwd_f32(const Args a) {
       const ll c = c0 + j;
       bool vis = c < a.skv;
       if (a.causal) vis = vis && c <= row;
-      if (a.window > 0) vis = vis && c > row - a.window;
+      if (a.has_window) vis = vis && c > row - a.window;
       const float4* kr = reinterpret_cast<const float4*>(ks[j]);
       float dot = 0.f;
 #pragma unroll
@@ -349,7 +352,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const Args a) {
     const int c0 = t * BKV;
     const ll first = (ll)a.q_offset + i0, last = first + BQ - 1;
     const bool mask = c0 + BKV > a.skv || (a.causal && c0 + BKV - 1 > first) ||
-                      (a.window > 0 && c0 <= last - a.window);
+                      (a.has_window && c0 <= last - a.window);
     float alpha[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -364,7 +367,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const Args a) {
           if (mask) {
             vis = c < a.skv;
             if (a.causal) vis = vis && c <= row;
-            if (a.window > 0) vis = vis && c > row - a.window;
+            if (a.has_window) vis = vis && c > row - a.window;
           }
           float& x = s[4 * j + 2 * i + e];
           x = vis ? x * sl2 : -INFINITY;
@@ -532,16 +535,17 @@ extern "C" int repro_flash_attention_fwd(
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
-    int q_offset, int causal, int window, float scale, int splits,
-    int tiles_per_split, float* part_o, float* part_ml, void* stream) {
+    int q_offset, int causal, int has_window, int window, float scale,
+    int splits, int tiles_per_split, float* part_o, float* part_ml,
+    void* stream) {
   if ((dtype != 0 && dtype != 1) || splits < 1 ||
       (splits > 1 && (dtype != 1 || tiles_per_split < 1 || !part_o ||
                       !part_ml)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,    k,    v,    o,    part_o, part_ml, hq,     hkv,
          sq,   skv,  q_sb, q_sh, q_ss,   k_sb,    k_sh,   k_ss,
-         v_sb, v_sh, v_ss, q_offset,     causal,  window, scale,
-         splits, tiles_per_split};
+         v_sb, v_sh, v_ss, q_offset,     causal,  has_window,
+         window, scale,  splits, tiles_per_split};
   return static_cast<int>(
       dispatch(dtype, head_dim, a, batch, static_cast<cudaStream_t>(stream)));
 }

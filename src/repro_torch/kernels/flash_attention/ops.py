@@ -43,7 +43,7 @@ FLASH = CudaKernel(
     "flash_attention", "repro_flash_attention_fwd",
     [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
      _L, _L, _L, _L, _L, _L, _L, _L, _L,
-     _I, _I, _I, _F, _I, _I, _P, _P, _P])
+     _I, _I, _I, _I, _F, _I, _I, _P, _P, _P])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,10 +64,13 @@ _ONE = KvSplitPlan(1, 1)
 def visible_tiles(i0: int, i1: int, skv: int, q_offset: int, causal: bool,
                   window: Optional[int]) -> Tuple[int, int]:
     """kv tiles ``[t_lo, t_hi)`` holding a column visible to some q row in
-    ``[i0, i1)`` (the kernel's ``visible_tiles``)."""
+    ``[i0, i1)`` (the kernel's ``visible_tiles``).  Only ``None`` means no
+    window: under a causal mask a window below 1 shows no column."""
     r_lo, r_hi = q_offset + i0, q_offset + i1 - 1
     c_hi = min(skv, r_hi + 1) if causal else skv
-    c_lo = max(0, r_lo - window + 1) if window else 0
+    c_lo = max(0, r_lo - window + 1) if window is not None else 0
+    if causal and window is not None and window < 1:
+        c_hi = c_lo
     t_lo = c_lo // BLOCK_KV
     t_hi = -(-c_hi // BLOCK_KV) if c_hi > c_lo else t_lo
     return t_lo, t_hi
@@ -184,7 +187,7 @@ def flash_attention(
     FLASH.check(launch_on(dev, FLASH.fn(), (
         _DTYPES[dtype], d, qp, kp, vp, out.data_ptr(), b, hq, hkv, sq, skv,
         qt[0], qt[1], qt[2], kt[0], kt[1], kt[2], vt[0], vt[1], vt[2],
-        offset, int(causal), int(window or 0), scale, plan.splits,
-        plan.tiles_per_split, part_o, part_ml)))
+        offset, int(causal), int(window is not None), int(window or 0),
+        scale, plan.splits, plan.tiles_per_split, part_o, part_ml)))
     FLASH.launches += 1
     return out

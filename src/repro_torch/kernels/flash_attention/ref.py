@@ -22,7 +22,7 @@ def _mask(rows: torch.Tensor, cols: torch.Tensor, skv: int, causal: bool,
     mask = (cols < skv).expand(rows.shape[0], cols.shape[1])
     if causal:
         mask = mask & (cols <= rows)
-    if window:
+    if window is not None:
         mask = mask & (cols > rows - window)
     return mask
 

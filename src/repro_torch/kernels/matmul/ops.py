@@ -9,8 +9,10 @@ one where the kernel launches and nowhere else.
 
 Differences from the reference's wrapper, all in what it needs to be told:
 
-* no ``block_m``/``block_n``/``block_k``: the kernel's 64 × 64 output tile
-  and its K step are fixed, and the ragged edges of M, N and K are masked
+* no ``block_m``/``block_n``/``block_k``: the kernel picks its output
+  tile from the shape (the main loops and the tile choice of
+  ``kernels/include/gemm.cuh``, shared with the collective-matmul kernels:
+  32 × 32 to 128 × 128), and the ragged edges of M, N and K are masked
   inside the kernel, so nothing is padded (the reference pads to block
   multiples and crops);
 * no ``interpret``: the CPU path is the plain version.
@@ -19,9 +21,11 @@ Batch dims of ``x`` fold into M (one weight shared across the batch, as
 in the reference).  Rows may be strided (``x.stride(-1) == 1`` and
 ``w.stride(-1) == 1`` with any row pitch, e.g. a column slice of a wider
 weight); anything else is made contiguous first.  The kernel takes fp32 ×
-fp32 (fp32 FMAs, no TF32: the reference's fp32 dot is full fp32) or bf16 ×
-bf16 (tensor cores, fp32 accumulation), a bias in either type, and writes
-fp32 or bf16.
+fp32 (fp32 FMAs on the CUDA cores, no TF32: the reference's fp32 dot is full
+fp32) or bf16 × bf16 (``wgmma`` on the tensor cores, fp32 accumulation), a
+bias in either type, and writes fp32 or bf16.  Without bias and activation
+and with an fp32 output its product is bitwise that of
+``cc_matmul.ops.matmul_tile`` on the same operands.
 """
 
 from __future__ import annotations
@@ -42,6 +46,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 MATMUL = CudaKernel(
     "matmul", "repro_matmul",
     [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _L, _L, _P])
+
+#: the columns of the kernel's widest output tile by operand type (fp32 32
+#: or 64, bf16 64 or 128): past 65535 tiles of it the kernel always takes
+#: that tile, whose count along N must fit in grid.y
+_TILE_COLS = {torch.float32: 64, torch.bfloat16: 128}
 
 #: runs of the plain version (the CPU path); a card run expects none
 PLAIN_CALLS = {"matmul": 0}
@@ -80,8 +89,8 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"matmul: bias {tuple(bias.shape)} for N = {n}")
     if any(t.device != x.device for t in (w, bias) if t is not None):
         raise ValueError("matmul: x, w and bias on different devices")
-    if -(-m // 64) > 65535:
-        raise ValueError(f"matmul: M = {m} rows exceed the grid")
+    if -(-n // _TILE_COLS[x.dtype]) > 65535:
+        raise ValueError(f"matmul: N = {n} columns exceed the grid")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out

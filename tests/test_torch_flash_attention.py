@@ -111,7 +111,7 @@ def _visible(i0, i1, skv, q_offset, causal, window):
     mask = np.ones((i1 - i0, skv), bool)
     if causal:
         mask &= cols <= rows
-    if window:
+    if window is not None:
         mask &= cols > rows - window
     return np.flatnonzero(mask.any(0))
 
@@ -119,7 +119,7 @@ def _visible(i0, i1, skv, q_offset, causal, window):
 @settings(max_examples=150, deadline=None)
 @given(sq=st.integers(1, 300), extra=st.integers(0, 700),
        q_offset=st.integers(0, 900), causal=st.booleans(),
-       window=st.one_of(st.none(), st.integers(1, 400)),
+       window=st.one_of(st.none(), st.integers(0, 400)),
        hq=st.sampled_from([1, 3, 15, 32]))
 def test_kv_split_plan_covers_visible_tiles(sq, extra, q_offset, causal,
                                             window, hq):
@@ -161,6 +161,8 @@ def test_kv_split_plan_fills_a_wave():
     (1, 3, 1, 100, 512, 16, 300, None),     # a ragged chunk
     (1, 8, 2, 128, 512, 80, 256, 64),       # D 80, windowed chunk
     (2, 6, 2, 64, 320, 80, 200, None),      # batch 2, ragged Skv
+    (1, 6, 2, 128, 128, 64, None, 0),       # window 0: no row sees a column
+    (1, 6, 2, 128, 512, 64, 256, 0),        # window 0, a chunk
 ])
 @pytest.mark.parametrize("forced", [False, True])
 def test_split_plain_matches_ref(b, hq, hkv, sq, skv, d, q_offset, window,
@@ -175,7 +177,7 @@ def test_split_plain_matches_ref(b, hq, hkv, sq, skv, d, q_offset, window,
         longest = max(hi - lo for qt in range(-(-sq // BLOCK_Q))
                       for lo, hi in split_ranges(KvSplitPlan(1, 1), qt, sq,
                                                  skv, off, True, window))
-        plan = KvSplitPlan(longest, 1)
+        plan = KvSplitPlan(max(longest, 1), 1)   # window 0: none visible
     ours = attention_split_plain(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), plan,
         causal=True, window=window, q_offset=q_offset).numpy()
@@ -189,3 +191,20 @@ def test_split_plain_matches_ref(b, hq, hkv, sq, skv, d, q_offset, window,
                                    jnp.asarray(v), causal=True,
                                    window=window))[:, :, off:off + sq]
     np.testing.assert_allclose(ours, ref, **TOL)
+
+
+def test_window_zero_sees_nothing_like_ref():
+    """Only ``None`` means no window: at ``window=0`` (causal, Sq == Skv,
+    q offset 0) every row sees no column, and both plain versions output
+    zeros as the reference does."""
+    q, k, v = _qkv(1, 6, 2, 100, 100, 16, seed=7)
+    ref = np.asarray(attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=True, window=0))
+    assert not ref.any()
+    kw = dict(causal=True, window=0, q_offset=0)
+    plan = kv_split_plan(100, 100, 0, True, 0, 6)
+    assert plan == KvSplitPlan(1, 1)
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    for ours in (attention_plain(tq, tk, tv, **kw).numpy(),
+                 attention_split_plain(tq, tk, tv, plan, **kw).numpy()):
+        np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-6)

@@ -56,6 +56,7 @@ def _qkv(shape_q, shape_kv, dtype, device, seed):
     (128, 128, None, 40),        # aligned, windowed
     (24, 300, 200, None),        # a mid-sequence chunk
     (40, 300, 150, 33),          # a windowed chunk
+    (128, 128, None, 0),         # window 0: no row sees a column (zeros)
 ])
 def test_kernel_matches_plain(cuda, dtype, d, sq, skv, q_offset, window):
     q, k, v = _qkv((2, 6, sq, d), (2, 2, skv, d), dtype, cuda, seed=d + sq)
@@ -338,6 +339,49 @@ def test_hop_kernel_matches_plain(cuda, entry, dx, dw, bsz, m, n, k):
     assert _rel(got, want) <= HOP_TOL[(dx, dw)]
 
 
+@pytest.mark.parametrize("dx,dw", [(torch.float32, torch.float32),
+                                   (torch.float32, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("m,k,n", [(256, 2560, 1728), (512, 640, 1024)])
+def test_fp32_loop_same_sums_in_every_tile(cuda, dx, dw, m, k, n):
+    """The fp32 loop sums each output in an order set by K alone.  The
+    down edge backward (2 x 256 x 2560 @ 2560 x 1728: 32 x 64 tiles of 8
+    k-groups, 16-byte copies) against a 128-column slice of the same w
+    (32 x 32 tiles), aligned and not (L2-only scalar loads); at K 640
+    (2 x 512 x 640 @ 640 x 1024: 64 x 64 tiles of 4 groups) against 32 x
+    64 tiles likewise.  Equal bit for bit."""
+    from repro_torch.kernels.cc_matmul import matmul_tile
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2, m, k, generator=g, device=cuda).to(dx)
+    w = torch.randn(k, n, generator=g, device=cuda).to(dw)
+    full = matmul_tile(x, w)
+    for lo in (0, 2):            # w's rows 16-byte aligned, then not
+        part = matmul_tile(x, w[:, lo:lo + 128])
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[..., lo:lo + 128]), lo
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 2560, 640), (77, 130, 45),
+                                   (512, 640, 1280)])
+def test_dla_and_hops_share_the_loop(cuda, m, k, n):
+    """The DLA matmul without bias or activation, fp32 out, is bitwise the
+    hop kernels' product: fp32 against ``matmul_tile``, bf16 operands
+    against ``consume_matmul``."""
+    from repro_torch.kernels.cc_matmul import consume_matmul, matmul_tile
+    from repro_torch.kernels.matmul import matmul
+
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=cuda)
+    w = torch.randn(k, n, generator=g, device=cuda)
+    assert torch.equal(matmul(x, w), matmul_tile(x, w))
+    xb, wb = x.bfloat16(), w.bfloat16()
+    scratch = torch.stack([torch.zeros_like(xb), xb])
+    got = matmul(xb, wb, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, consume_matmul(scratch, wb, slot=1))
+
+
 def test_hop_kernel_two_dim_and_rejects(cuda):
     from repro_torch.kernels.cc_matmul import (
         consume_matmul,
@@ -498,6 +542,7 @@ def _dla_tol(din, dout):
     ((), 128, 128, 128, False), ((), 100, 200, 150, True),
     ((), 1, 7, 3, True), ((), 77, 130, 45, True), ((3,), 40, 64, 32, True),
     ((), 512, 512, 512, True),
+    ((2,), 256, 2560, 640, False),   # the hop tests' q-edge shape
 ])
 def test_dla_kernel_matches_plain(cuda, din, dout, act, batch, m, k, n,
                                   bias):
