@@ -29,9 +29,14 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    S 2048, ragged S 1000, a 128-row chunk with a carried state and B 2 at
    S 384 with a state, plus one zamba2 shape (H 112, N 64, S 512); bf16
    and fp32.  Tolerances, as max error over max |plain|: y 1e-4 in fp32
-   and 2e-2 in bf16, the final state 1e-4.  Time the kernel and the plain
-   version at S 2048 and at the 128-row chunk (no single PyTorch call
-   computes the scan, so there is no library yardstick).
+   and 2e-2 in bf16, the final state 1e-4.  Every case is timed by CUDA
+   events and by device time (torch.profiler, the sum of the call's CUDA
+   kernels, each timed apart; fails unless a call is three kernels for
+   more than one chunk and one for a single chunk) beside
+   its bound (operations at the bf16 tensor-core peak for bf16, at the
+   CUDA cores' fp32 peak for fp32); the plain version is timed at S 2048
+   and at the 128-row chunk in bf16 (no single PyTorch call computes the
+   scan, so there is no library yardstick).
 3. Serve full-width smollm-360m in bf16 (random weights from a seed): 8
    requests with prompts of 256–1024 tokens, 32 new tokens each, batch 4,
    max_seq 2048, prefill chunks of 128, one arrival every 2 steps —
@@ -146,6 +151,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -185,12 +191,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20):
-    """Device time of one call: the durations of the kernels it launched,
-    from torch.profiler (CUPTI), the host's launch cost excluded.  Beside
-    ``time_ms`` (CUDA events around back-to-back calls), which for calls
-    of a few microseconds measures the host.  None when the profiler
-    records no device time."""
+def device_kernels(fn, iters: int = 20):
+    """Device time of one call from torch.profiler (CUPTI), the host's
+    launch cost excluded: (ms a call, device events a call, [(kernel,
+    ms a call)] in launch order).  Every kernel, copy or fill on the card
+    is an event, so a call that gains one shows it.  (None, 0, []) when
+    the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -200,11 +206,32 @@ def device_ms(fn, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        total += getattr(e, "cuda_time_total", 0.0) if t is None else t
-    return total / iters / 1e3 if total > 0 else None
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    total = sum(e.time_range.elapsed_us() for e in events)
+    if total <= 0:
+        return None, 0, []
+    per_call = len(events) / iters
+    split = []
+    if per_call.is_integer():
+        per_call = int(per_call)
+        for i in range(per_call):
+            name = events[i].name.replace("(anonymous namespace)::", "")
+            name = re.match(r"(?:void\s+)?([\w:]*)", name).group(1)
+            split.append((name.split("::")[-1] or events[i].name, sum(
+                e.time_range.elapsed_us() for e in events[i::per_call])
+                / iters / 1e3))
+    return total / iters / 1e3, per_call, split
+
+
+def device_ms(fn, iters: int = 20):
+    """Device time of one call: the durations of the kernels it launched,
+    from torch.profiler (CUPTI), the host's launch cost excluded.  Beside
+    ``time_ms`` (CUDA events around back-to-back calls), which for calls
+    of a few microseconds measures the host.  None when the profiler
+    records no device time."""
+    return device_kernels(fn, iters)[0]
 
 
 def queued_ms(fn, iters: int = 20) -> float:
@@ -431,37 +458,46 @@ def phase_kernels():
 
 
 def ssd_bound_ms(x, b, chunk, with_init):
-    """Least time for the SSD call: the larger of its operations at the
-    bf16 peak (C·Bᵀ once per group, the other three products per head, for
-    the rows of each chunk) and its bytes (x, dt, B, C and the state in,
-    y and the state out, once each) at the memory rate."""
+    """Least time for the SSD call: the larger of its operations (C·Bᵀ
+    once per group, the other three products per head, for the rows of
+    each chunk; C·Bᵀ and W·X over the causal triangle only, i ≥ j, as the
+    scan needs them) at the bf16 tensor-core peak, or at the CUDA cores' fp32
+    peak for fp32 inputs (the kernel runs no TF32), and its bytes (x, dt,
+    B, C and the state in, y and the state out, once each) at the memory
+    rate."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     flops = 0.0
     for lo in range(0, s, chunk):
         r = min(chunk, s - lo)
-        flops += bsz * (2.0 * r * r * n * g
-                        + h * (2.0 * r * r * p + 2 * 2.0 * r * n * p))
+        flops += bsz * (r * (r + 1.0) * n * g      # C·Bᵀ, the causal half
+                        + h * (r * (r + 1.0) * p     # W·X, the causal half
+                               + 2 * 2.0 * r * n * p))
     state_bytes = bsz * h * n * p * 4
     nbytes = (2 * x.numel() * x.element_size() + bsz * s * h * 4
               + 2 * b.numel() * b.element_size()
               + (2 if with_init else 1) * state_bytes + 2 * h * 4)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    peak = PEAK_FP32_FLOPS if x.element_size() == 4 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
 def phase_ssd_kernels():
     """SSD kernel vs ``ssd_plain`` on the card at the mamba2-2.7b head
-    shapes and one zamba2 shape; returns the numbers of the main-path
-    shapes (S 2048 bulk, and the 128-row prefill chunk with a state)."""
+    shapes and one zamba2 shape; returns every case's numbers by (label,
+    dtype name)."""
     import torch
 
     from repro_torch.kernels.ssd import SSD, ssd, ssd_plain
 
-    for line in SSD.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+    report = SSD.ptxas_report().splitlines()
+    for line in report:
+        if "C7519" not in line and ("registers" in line or "spill" in line
+                                    or "smem" in line):
             print(f"[ptxas] {line.strip()}")
+    print(f"[ptxas] ssd: {sum('C7519' in line for line in report)} wgmma "
+          f"register fences inserted by ptxas (C7519)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -503,18 +539,30 @@ def phase_ssd_kernels():
                   f"(tol {tol_y}), state {err_s:.3g} (tol 1e-4)", flush=True)
             if err_y > tol_y or err_s > 1e-4:
                 fail(f"ssd {label} {dtype}: errors {err_y}, {err_s}")
+            kernel_ms = time_ms(lambda: ssd(*args, **kw))
+            dev_ms, n_kernels, split = device_kernels(
+                lambda: ssd(*args, **kw))
+            want_kernels = 1 if s <= chunk else 3
+            if n_kernels != want_kernels:
+                fail(f"ssd {label} {name}: {n_kernels} device events a "
+                     f"call, expected {want_kernels} CUDA kernels")
+            bound_ms, bound_by = ssd_bound_ms(x, b, chunk, with_init)
+            rec = dict(max_abs_err=(y.float() - y_want.float()).abs().max()
+                       .item(), ms=kernel_ms, device_ms=dev_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       cuda_kernels_a_call=n_kernels,
+                       kernel_device_ms=[[k, t] for k, t in split])
             if dtype == torch.bfloat16 and label in (
                     "mamba2 S2048", "mamba2 chunk128+state"):
-                kernel_ms = time_ms(lambda: ssd(*args, **kw))
-                plain_ms = time_ms(lambda: ssd_plain(*args, **kw), iters=5)
-                bound_ms, bound_by = ssd_bound_ms(x, b, chunk, with_init)
-                out[label] = dict(
-                    max_abs_err=(y.float() - y_want.float()).abs().max()
-                    .item(), ms=kernel_ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by)
-                print(f"[ssd] {label} bf16: kernel {kernel_ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                      f"({bound_by})", flush=True)
+                rec["plain_ms"] = time_ms(lambda: ssd_plain(*args, **kw),
+                                          iters=5)
+            out[(label, name)] = rec
+            print(f"[ssd] {label} {name}: kernel {kernel_ms:.4f} ms by "
+                  f"events, {fmt_ms(dev_ms)} on the device "
+                  f"({n_kernels} CUDA kernels a call: "
+                  + " + ".join(f"{k} {t:.4f}" for k, t in split) + "), "
+                  f"plain {fmt_ms(rec.get('plain_ms'))}, bound "
+                  f"{bound_ms:.5f} ms ({bound_by})", flush=True)
             del x, b, c, y, st, y_want, st_want
     return out
 
@@ -1516,7 +1564,10 @@ def main() -> int:
     print(f"[smoke] all phases {time.perf_counter() - t_start:.1f}s",
           flush=True)
 
-    ssd_chunk = ssd_cases["mamba2 chunk128+state"]
+    ssd_bulk = ssd_cases[("mamba2 S2048", "bfloat16")]
+    ssd_chunk = ssd_cases[("mamba2 chunk128+state", "bfloat16")]
+    ssd_f32 = ssd_cases[("mamba2 S2048", "float32")]
+    ssd_z = ssd_cases[("zamba2 S512", "bfloat16")]
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/"
@@ -1526,11 +1577,21 @@ def main() -> int:
         dict(name="ssd", route="cuda",
              source="src/repro_torch/kernels/ssd/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd/kernel.py:96",
-             launches=ssd_launches, **ssd_cases["mamba2 S2048"],
-             library_ms=None,
+             launches=ssd_launches, max_abs_err=ssd_bulk["max_abs_err"],
+             ms=ssd_bulk["ms"], plain_ms=ssd_bulk["plain_ms"],
+             bound_ms=ssd_bulk["bound_ms"], bound_by=ssd_bulk["bound_by"],
+             library_ms=None, device_ms=ssd_bulk["device_ms"],
+             cuda_kernels_a_call=ssd_bulk["cuda_kernels_a_call"],
+             kernel_device_ms=ssd_bulk["kernel_device_ms"],
              chunk128_ms=ssd_chunk["ms"],
              chunk128_plain_ms=ssd_chunk["plain_ms"],
-             chunk128_bound_ms=ssd_chunk["bound_ms"]),
+             chunk128_bound_ms=ssd_chunk["bound_ms"],
+             chunk128_device_ms=ssd_chunk["device_ms"],
+             chunk128_cuda_kernels_a_call=ssd_chunk["cuda_kernels_a_call"],
+             fp32_ms=ssd_f32["ms"], fp32_device_ms=ssd_f32["device_ms"],
+             fp32_bound_ms=ssd_f32["bound_ms"],
+             zamba2_ms=ssd_z["ms"], zamba2_device_ms=ssd_z["device_ms"],
+             zamba2_bound_ms=ssd_z["bound_ms"]),
     ]
     for entry, line in (("matmul_tile", 65), ("consume_matmul", 84),
                         ("consume_matmul_acc", 106),

@@ -172,16 +172,24 @@ class CudaKernel:
         self.name, self.entry, self.argtypes = name, entry, argtypes
         self.launches = 0
         self._fn = None
+        self._lib = None
+
+    def symbol(self, entry: str, argtypes: List[type]):
+        """C entry point ``entry`` of the library (an ``int`` result),
+        building and loading the library on first use."""
+        if self._lib is None:
+            build([self.name])
+            self._lib = ctypes.CDLL(str(library_path(source_of(self.name))))
+        fn = getattr(self._lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
 
     def fn(self):
-        """The C entry point, building and loading the library on first use."""
+        """The launch entry point, building and loading the library on
+        first use."""
         if self._fn is None:
-            build([self.name])
-            lib = ctypes.CDLL(str(library_path(source_of(self.name))))
-            fn = getattr(lib, self.entry)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = self.symbol(self.entry, self.argtypes)
         return self._fn
 
     def check(self, rc: int):

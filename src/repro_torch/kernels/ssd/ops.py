@@ -1,9 +1,11 @@
 """SSD scan wrapper: the CUDA kernel for CUDA tensors, the plain version for
 CPU tensors, and nothing in between.
 
-``ssd`` checks device, dtypes, shapes and strides, allocates y and the
-final state with ``torch.empty`` and launches ``csrc/ssd.cu`` on the
-current stream.  x, b and c may be strided views (the model passes slices
+``ssd`` checks device, dtypes, shapes and strides, picks the head and P
+tiles of a block (:func:`ssd_plan`), allocates y, the final state and,
+for more than one chunk, the chunk-state scratch with ``torch.empty``
+(nothing syncs the host), and launches ``csrc/ssd.cu`` on the current
+stream.  x, b and c may be strided views (the model passes slices
 of the conv output, whose row stride is the conv width) as long as their
 last dim is contiguous; a ragged S is handled inside the kernel, so
 nothing is padded or copied.  ``ssd_chunk_fed`` runs the scan over a
@@ -14,30 +16,93 @@ next through ``init_state``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.common import CudaKernel
+from repro_torch.kernels.common import CudaKernel, launch_on
 from repro_torch.kernels.ssd.ref import ssd_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: dynamic shared memory one block may take on Hopper (227 KB)
 SMEM_LIMIT = 232_448
+#: the longest chunk the kernel takes (two 64-row tiles a block)
+MAX_CHUNK = 128
+MODE_STATE, MODE_OUT, MODE_BOTH = 1, 2, 3
+#: P tiles the plan tries
+_P_TILES = (64, 32)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SSD = CudaKernel(
     "ssd", "repro_ssd_fwd",
-    [_I] + [_P] * 9 + [_I] * 7 + [_L] * 12 + [_P])
+    [_I] + [_P] * 12 + [_I] * 10 + [_L] * 12 + [_P])
 
 
-def smem_bytes(chunk: int, n: int, p: int) -> int:
-    """Shared memory of one block, as ``make_layout`` in ``csrc/ssd.cu``
-    lays it out: fp32 B and C (chunk × (n+4)), X (chunk × (p+4)), the
-    state (n × (p+4)), a weight strip (min(chunk, 32) × (chunk+4)) and
-    three chunk-length vectors."""
-    return 4 * (2 * chunk * (n + 4) + chunk * (p + 4) + n * (p + 4)
-                + min(chunk, 32) * (chunk + 4) + 3 * chunk)
+def block_smem(chunk: int, n: int, pt: int, ht: int, dtype, nc: int) -> int:
+    """The most shared memory one block of ``ssd_chunks`` takes in the
+    modes a call of ``nc`` chunks launches (one chunk: both at once; more:
+    state, then out), as the kernel lays it out: the library's own
+    ``repro_ssd_smem_bytes(dtype, mode, chunk, n, pt, ht)``."""
+    smem = SSD.symbol("repro_ssd_smem_bytes", [_I] * 6)
+    modes = (MODE_BOTH,) if nc == 1 else (MODE_STATE, MODE_OUT)
+    return max(smem(_DTYPES[dtype], m, chunk, n, pt, ht) for m in modes)
+
+
+_SMS = {}
+
+
+def _sm_count(device) -> int:
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+#: shared memory of one SM (228 KB), of which each block also takes 1 KB
+SM_SMEM = 233_472
+
+
+@functools.lru_cache(maxsize=512)
+def ssd_plan(bsz: int, s: int, h: int, g: int, n: int, p: int, chunk: int,
+             dtype, sms: int = 132) -> Optional[Tuple[int, int]]:
+    """(heads a block, P columns a block) for a call: the plan whose grid
+    takes the least modelled time, waves × (heads + 1) × (P columns + 32)
+    (a block's time grows with its heads, plus its C·Bᵀ, and with its P
+    tile, plus its B/C loads), where a wave is as many blocks as fit on the
+    card at once (bf16: two an SM where shared memory allows; fp32: one) and
+    the blocks fit in shared memory in every mode the call launches (one
+    chunk: both at once; more: state, then out).  Ties go to the larger P
+    tile, then the larger head tile.  None when nothing fits."""
+    nc = -(-s // chunk)
+    hpg = h // g
+    best = None
+    for pt in _P_TILES:
+        if pt == 64 and p <= 32:
+            continue
+        for ht in range(1, min(hpg, 32) + 1):
+            smem = block_smem(chunk, n, pt, ht, dtype, nc)
+            if smem > SMEM_LIMIT:
+                continue
+            occ = min(2 if dtype == torch.bfloat16 else 1,
+                      SM_SMEM // (smem + 1024))
+            blocks = bsz * nc * g * -(-hpg // ht) * -(-p // pt)
+            waves = -(-blocks // (sms * occ))
+            key = (waves * (ht + 1) * (pt + 32), -pt, -ht)
+            if best is None or key < best[0]:
+                best = (key, ht, pt)
+    return None if best is None else best[1:]
+
+
+def _aligned16(*ts: torch.Tensor) -> bool:
+    """Base and strides of every view a multiple of 16 bytes: the kernel
+    copies them by TMA (bf16, chunk 64 or 128) or 16-byte cp.async, else
+    element by element."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st * t.element_size() % 16 == 0
+                       for st, sz in zip(t.stride()[:-1], t.shape[:-1])
+                       if sz > 1)
+               for t in ts)
 
 
 def ssd(
@@ -52,7 +117,10 @@ def ssd(
     init_state: Optional[torch.Tensor] = None,   # (B, H, N, P) fp32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan.  Returns (y (B, S, H, P) in x's dtype, final state
-    (B, H, N, P) fp32).  See :func:`~repro_torch.kernels.ssd.ref.ssd_plain`."""
+    (B, H, N, P) fp32).  See :func:`~repro_torch.kernels.ssd.ref.ssd_plain`.
+    On the card a call of more than one chunk runs three CUDA kernels
+    (chunk-local states, the ordered state pass, outputs) and counts one
+    launch."""
     if x.device.type == "cpu":
         return ssd_plain(x, dt, a, b, c, d, chunk=chunk,
                          init_state=init_state)
@@ -73,10 +141,9 @@ def ssd(
     if chunk <= 0 or chunk % 4 or n % 8 or p % 4:
         raise ValueError(f"ssd: chunk {chunk} and head dim {p} must be "
                          f"multiples of 4, state size {n} of 8")
-    if smem_bytes(chunk, n, p) > SMEM_LIMIT:
-        raise ValueError(f"ssd: chunk {chunk}, state {n}, head dim {p} need "
-                         f"{smem_bytes(chunk, n, p)} B of shared memory, "
-                         f"more than {SMEM_LIMIT}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"ssd: chunk {chunk} > {MAX_CHUNK}: the kernel "
+                         f"takes a chunk in at most two 64-row tiles")
     if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
         raise TypeError(f"ssd: x/b/c dtypes {x.dtype}, {b.dtype}, {c.dtype}; "
                         f"supported: float32 or bfloat16, alike")
@@ -88,6 +155,14 @@ def ssd(
         raise ValueError("ssd: inputs on different devices")
     if x.stride(3) != 1 or b.stride(3) != 1 or c.stride(3) != 1:
         raise ValueError("ssd: the last dim of x, b and c must be contiguous")
+    nc = -(-s // chunk)
+    plan = ssd_plan(bsz, s, h, g, n, p, chunk, x.dtype, _sm_count(x.device))
+    if plan is None:
+        raise ValueError(
+            f"ssd: chunk {chunk}, state {n}, head dim {p} in {x.dtype} need "
+            f"{block_smem(chunk, n, 32, 1, x.dtype, nc)} B of "
+            f"shared memory, more than {SMEM_LIMIT}")
+    ht, pt = plan
     a, d = a.contiguous(), d.contiguous()
     if init_state is not None:
         if init_state.shape != (bsz, h, n, p) \
@@ -100,17 +175,23 @@ def ssd(
                 f"{init_state.dtype} {tuple(init_state.shape)}")
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
-    fn = SSD.fn()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(_DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-                b.data_ptr(), c.data_ptr(), d.data_ptr(),
-                None if init_state is None else init_state.data_ptr(),
-                y.data_ptr(), state.data_ptr(), bsz, s, h, g, n, p, chunk,
-                x.stride(0), x.stride(1), x.stride(2),
-                dt.stride(0), dt.stride(1), dt.stride(2),
-                b.stride(0), b.stride(1), b.stride(2),
-                c.stride(0), c.stride(1), c.stride(2), stream)
+    local = s_in = total = None
+    if nc > 1:      # chunk-local states, entering states, chunk totals
+        local = torch.empty((bsz, nc, h, n, p), dtype=torch.float32,
+                            device=x.device)
+        s_in = torch.empty((bsz, nc, h, n, p), dtype=x.dtype, device=x.device)
+        total = torch.empty((bsz, nc, h), dtype=torch.float32,
+                            device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    rc = launch_on(x.device, SSD.fn(), (
+        _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+        b.data_ptr(), c.data_ptr(), d.data_ptr(), ptr(init_state),
+        y.data_ptr(), state.data_ptr(), ptr(local), ptr(s_in), ptr(total),
+        bsz, s, h, g, n, p, chunk, ht, pt, int(_aligned16(x, b, c)),
+        x.stride(0), x.stride(1), x.stride(2),
+        dt.stride(0), dt.stride(1), dt.stride(2),
+        b.stride(0), b.stride(1), b.stride(2),
+        c.stride(0), c.stride(1), c.stride(2)))
     SSD.check(rc)
     SSD.launches += 1
     return y, state

@@ -3,6 +3,9 @@
 * :func:`ssd_plain` — the chunked math of the reference's ``ssd_jnp``
   (``repro.models.layers``), the oracle of ``csrc/ssd.cu``: the CPU tests
   run it, and on the card ``chip_smoke.py`` holds the kernel to it.
+* :func:`ssd_split` — the same scan split as ``csrc/ssd.cu`` splits it:
+  every chunk's local state from a zero state, one ordered pass over the
+  chunks, then each chunk's y from the state that entered it.
 * :func:`ssd_decode_step` — the single-token recurrence of serving decode
   (plain tensor code in the reference too).
 * :func:`ssd_sequential` — the step-by-step recurrence, the definition both
@@ -67,6 +70,60 @@ def ssd_plain(
             "blhn,blhp->bhnp", bh * decay_end[..., None], xf)
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :s]
+    y = y + d.float()[None, None, :, None] * x[:, :s].float()
+    return y.to(x.dtype), state
+
+
+def ssd_split(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    d: torch.Tensor,
+    *,
+    chunk: int = 128,
+    init_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan in the kernel's decomposition.  Every chunk k, at
+    once: cum, total_k, u = exp(total_k - cum) dt and the local state
+    local_k = (B u)^T X.  Then in chunk order: s_in[k] = state, state =
+    exp(total_k) state + local_k.  Then every chunk at once: y = W X +
+    exp(cum) (C s_in[k]) + d X.  ``local``, ``s_in`` and ``total`` are
+    what the kernel keeps in its scratch (it stores ``s_in`` in x's dtype).
+    Returns (y in x's dtype, final fp32 state)."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    hpg = h // g
+    pad = (-s) % chunk
+    if pad:
+        x, b, c = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, b, c))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    nc = x.shape[1] // chunk
+    xf = x.float().reshape(bsz, nc, chunk, h, p)
+    dtf = dt.float().reshape(bsz, nc, chunk, h)
+    bh = b.repeat_interleave(hpg, dim=2).float().reshape(bsz, nc, chunk, h, n)
+    ch = c.repeat_interleave(hpg, dim=2).float().reshape(bsz, nc, chunk, h, n)
+    cum = torch.cumsum(dtf * a.float(), dim=2)                 # (B, nc, L, H)
+    total = cum[:, :, -1]                                       # (B, nc, H)
+    u = torch.exp(total[:, :, None] - cum) * dtf
+    local = torch.einsum("bklhn,bklhp->bkhnp", bh * u[..., None], xf)
+    state = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    s_in = []
+    for k in range(nc):                                         # the pass
+        s_in.append(state)
+        state = torch.exp(total[:, k])[..., None, None] * state + local[:, k]
+    s_in = torch.stack(s_in, dim=1)                             # (B, nc, H, N, P)
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (B, nc, L, L, H)
+    seg = torch.where(causal, seg, torch.full_like(seg, -1e30))
+    w = (torch.einsum("bklhn,bkmhn->bklmh", ch, bh) * torch.exp(seg)
+         * dtf[:, :, None, :, :])
+    y = torch.einsum("bklmh,bkmhp->bklhp", w, xf) + torch.exp(cum)[
+        ..., None] * torch.einsum("bklhn,bkhnp->bklhp", ch, s_in)
+    y = y.reshape(bsz, nc * chunk, h, p)[:, :s]
     y = y + d.float()[None, None, :, None] * x[:, :s].float()
     return y.to(x.dtype), state
 

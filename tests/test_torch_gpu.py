@@ -195,11 +195,12 @@ def test_reduced_model_on_card_matches_cpu(cuda):
                                    rtol=1e-4, atol=1e-4)
 
 
-def _ssd_inputs(bsz, s, h, g, n, p, dtype, device, seed, init):
+def _ssd_inputs(bsz, s, h, g, n, p, dtype, device, seed, init, pad=8):
     """x, B and C as strided views of one conv-output-like buffer, as the
-    model passes them; dt, a and d drawn as the model makes them."""
+    model passes them (``pad`` more columns: with 8 every row starts on 16
+    bytes); dt, a and d drawn as the model makes them."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    width = h * p + 2 * g * n + 8
+    width = h * p + 2 * g * n + pad
     buf = torch.randn(bsz, s, width, generator=gen, device=device).to(dtype)
     x = buf[..., :h * p].reshape(bsz, s, h, p)
     b = buf[..., h * p:h * p + g * n].reshape(bsz, s, g, n)
@@ -254,11 +255,49 @@ def test_ssd_wrapper_rejects(cuda):
         ssd(x, dt, a, b[..., :12], c[..., :12], d, chunk=8)   # n % 8
     big, _ = _ssd_inputs(1, 16, 2, 1, 128, 64, torch.float32, cuda, 0,
                          False)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd(*big, chunk=256)              # more than two 64-row tiles
+    big, _ = _ssd_inputs(1, 16, 2, 1, 256, 64, torch.float32, cuda, 0,
+                         False)
     with pytest.raises(ValueError, match="shared memory"):
-        ssd(*big, chunk=256)              # 411 KB > 227 KB
+        ssd(*big, chunk=128)              # fp32 C and B tiles: 266 KB
     with pytest.raises(ValueError):                       # state shape
         ssd(x, dt, a, b, c, d, chunk=8,
             init_state=torch.zeros(1, 2, 16, 8, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,s,h,g,n,p,init,plan,pad", [
+    (1, 2048, 80, 1, 128, 64, True, None, 8),  # 16 chunks: the state chain
+    (1, 2100, 8, 1, 128, 64, True, None, 8),   # 17 chunks, the last ragged
+    (1, 128, 80, 1, 128, 64, True, None, 8),   # the serving chunk, a state
+    (1, 256, 7, 1, 128, 64, False, (4, 32), 8),  # 7 heads: tiles of 4, 3
+    (2, 300, 10, 2, 128, 64, True, (3, 32), 8),  # 2 groups of 5: 3, 2
+    (1, 200, 4, 1, 64, 64, True, None, 2),     # rows off 16 bytes
+])
+def test_ssd_kernel_chunks_tiles_and_fills(cuda, monkeypatch, dtype, bsz, s,
+                                           h, g, n, p, init, plan, pad):
+    """The chunk-parallel kernel at chunk 128 against the plain version:
+    many chunks through the ordered state pass, the one-launch serving
+    chunk, head tiles that do not divide the heads, several heads a group,
+    and views whose rows start off 16 bytes (the element fill instead of
+    TMA or cp.async).  ``plan`` forces the heads and P columns of a
+    block."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    if plan is not None:
+        monkeypatch.setattr(ssd_ops, "ssd_plan", lambda *a, **k: plan)
+    args, state = _ssd_inputs(bsz, s, h, g, n, p, dtype, cuda, seed=s + h,
+                              init=init, pad=pad)
+    x, _, _, b, c, _ = args
+    assert ssd_ops._aligned16(x, b, c) == (pad * x.element_size() % 16 == 0)
+    before = SSD.launches
+    y, st = ssd(*args, chunk=128, init_state=state)
+    torch.cuda.synchronize()
+    assert SSD.launches == before + 1
+    y_want, st_want = ssd_plain(*args, chunk=128, init_state=state)
+    assert _rel(y, y_want) <= (1e-4 if dtype == torch.float32 else 2e-2)
+    assert _rel(st, st_want) <= 1e-4
 
 
 def test_reduced_mamba2_on_card_matches_cpu(cuda):
