@@ -105,7 +105,27 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    every parameter leaf by the parameter rule at 1e-4 (mean |Δ| ≤ 1e-4 ×
    the leaf's mean magnitude, max |Δ| ≤ 2·peak_lr + 1e-4 × its max).
 
-10. The DLA matmul kernel (``kernels/matmul/csrc/matmul.cu``): first the
+10. One-GPU training of full-width smollm-360m through the Trainer (32
+    layers, bf16 parameters from seed 0, fp32 AdamW masters and moments,
+    remat full): SyntheticLM batches of 8 × 2048 tokens in 2 microbatches,
+    seq_chunk 512, 4 steps with a checkpoint at step 2; the final
+    checkpoint is dropped and a fresh Trainer restores step 2 and runs
+    steps 2–3 again; then one more step under torch.profiler.  The steps
+    run under torch's deterministic algorithms (without the fill of
+    uninitialized memory).  Held: the step-0 loss
+    within 0.5 of ln 49152; every loss and grad norm finite; the resumed
+    steps' loss and grad norm equal to the uninterrupted run's (bitwise
+    expected; the stated tolerance is 1e-4 relative for the loss and 1e-3
+    for the grad norm); no kernel of the port launched during training
+    (counted by the wrappers) and no flash or SSD device event in the
+    profiled step.  Printed: each step's wall time, tokens/s and peak
+    memory, the profiled step's ten device ops that take the most time
+    and the device's idle share of the step, beside the card's name and
+    power limit.  Then reduced smollm-360m in fp32, 2 tp-1 steps
+    (microbatches 2) on the card and on the CPU from the same parameters:
+    loss and grad norm within 1e-4 relative, every parameter leaf by the
+    parameter rule at 1e-4.
+11. The DLA matmul kernel (``kernels/matmul/csrc/matmul.cu``): first the
     entry point driven as a user calls the DLA instruction — ``matmul`` at
     the case study's sizes (256/512/1024 square, fp32, gelu with a bias)
     and at a dense MLP edge of full-width h2o-danube-1.8b (x 4096 × 2560
@@ -125,7 +145,7 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
     (``queued_ms``: this late in the run torch.profiler drops launches);
     beside the MLP edge ``torch.mm`` in bf16, a floor that computes less
     (no bias, no silu).
-11. The PGAS substrate on the card: the quickstart (ring PUT, ``SCALE``
+12. The PGAS substrate on the card: the quickstart (ring PUT, ``SCALE``
     Active Message, ART matmul) in four rank processes with peer-mapped
     heaps, in four on the card's gloo wire (``peer_memory=False``) and in
     four CPU ranks: bit-identical heaps, the peer run's PUT through peer
@@ -134,7 +154,7 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
     and 64 MB, on a 2^24-word fp32 heap, over peer memory and over the
     wire: the transfer alone and the whole collective call, latency and
     bandwidth, GET over PUT; every read-back checked.
-12. The paper's Sec. V case study on the 2-rank peer group (fp32, TF32
+13. The paper's Sec. V case study on the 2-rank peer group (fp32, TF32
     off): ``art_matmul_reducescatter`` (8 chunks) and
     ``bulk_matmul_reducescatter`` at 256/512/1024 and 8192, each within
     2e-4 of one ``torch.matmul`` relative to the largest output, and
@@ -168,6 +188,17 @@ TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 # against the split-and-merge plain version: max error over max |plain|
 # (one bf16 rounding step of the largest output is at most 2^-7 of it)
 BF16_SPLIT_REL = 1e-2
+
+
+def card_name_and_limit() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
 
 
 def fail(msg: str) -> None:
@@ -1239,6 +1270,274 @@ def phase_tp_reduced():
                  f"{worst['metric']}")
 
 
+#: the one-GPU training phase: full-width smollm-360m
+TRAIN_ARCH = "smollm-360m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_CHUNK = 8, 2048, 2, 512
+TRAIN_STEPS, TRAIN_CKPT_AT = 4, 2
+# a resumed step against the uninterrupted one when the two are not
+# bitwise equal (the step runs under torch's deterministic algorithms, so
+# they should be): relative
+RESUME_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
+#: device kernels of the forward-only kernels, which training must not run
+FORWARD_ONLY = re.compile(r"flash_fwd|flash_merge|ssd_chunks|ssd_pass")
+
+
+def kernel_counts():
+    """Launch counts of every kernel family of the port."""
+    from repro_torch.kernels.cc_matmul import ops as cc_ops
+    from repro_torch.kernels.flash_attention import FLASH
+    from repro_torch.kernels.matmul import MATMUL
+    from repro_torch.kernels.ssd import SSD
+
+    return dict(cc_ops.launches(), flash_attention=FLASH.launches,
+                ssd=SSD.launches, matmul=MATMUL.launches)
+
+
+def reset_kernel_counts():
+    from repro_torch.kernels.cc_matmul import ops as cc_ops
+    from repro_torch.kernels.flash_attention import FLASH
+    from repro_torch.kernels.matmul import MATMUL
+    from repro_torch.kernels.ssd import SSD
+
+    cc_ops.reset_counts()
+    FLASH.launches = SSD.launches = MATMUL.launches = 0
+
+
+def profile_train_step(step_fn, params, opt, batch, step):
+    """One train step under torch.profiler: (top ten device ops by self
+    device time [(name, ms, count)], the device's idle share of the
+    step's window, the step's wall ms, device events of the forward-only
+    kernels).  The window runs from the step's start on the host to the
+    later of its end and the last device event; busy is the union of the
+    device events inside it (kernels, copies, fills)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke_train_step"):
+            t0 = time.perf_counter()
+            params, opt, _ = step_fn(params, opt, batch, step)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    win = [e for e in events if e.name == "smoke_train_step"
+           and e.device_type == torch.autograd.DeviceType.CPU]
+    # the annotation's own range is filed under the card too: not work
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.name != "smoke_train_step"]
+    if not win or not dev:
+        return [], None, wall_ms, 0
+    lo = win[0].time_range.start
+    spans = sorted((max(e.time_range.start, lo), e.time_range.end)
+                   for e in dev if e.time_range.end > lo)
+    hi = max(win[0].time_range.end, spans[-1][1])
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for a, b in spans:
+        if cur_hi is None or a > cur_hi:
+            if cur_hi is not None:
+                busy += cur_hi - cur_lo
+            cur_lo, cur_hi = a, b
+        else:
+            cur_hi = max(cur_hi, b)
+    busy += cur_hi - cur_lo
+    rows = {}
+    for e in dev:
+        ms, n = rows.get(e.name, (0.0, 0))
+        rows[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(((k, ms, n) for k, (ms, n) in rows.items()),
+                 key=lambda r: -r[1])[:10]
+    forward_only = sum(1 for e in dev if FORWARD_ONLY.search(e.name))
+    return top, 1.0 - busy / (hi - lo), wall_ms, forward_only
+
+
+def phase_train_1gpu(smi_line):
+    """Full-width smollm-360m trained on one card through the Trainer:
+    4 steps with a checkpoint at step 2, then a fresh Trainer restores
+    step 2 and runs steps 2-3 again; one more step under torch.profiler;
+    then reduced smollm in fp32, 2 tp-1 steps on the card and on the CPU."""
+    import math
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist import sharding
+    from repro_torch.dist.group import Group
+    from repro_torch.dist.steps import (
+        StepConfig,
+        build_init,
+        build_train_step,
+        init_opt,
+    )
+    from repro_torch.models.model import params_to
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    scfg = StepConfig(microbatches=TRAIN_MICRO, seq_chunk=TRAIN_CHUNK,
+                      warmup_steps=1, total_steps=100)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ + 1,
+                                  global_batch=TRAIN_BATCH))
+    ckpt_dir = ROOT / "build" / "smoke_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tag = f"[train-1gpu] ({smi_line})"
+
+    def on_step(step, m):
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        print(f"{tag} step {step - 1}: {m['step_time_s']:.3f} s, "
+              f"{m['tokens'] / m['step_time_s']:.1f} tokens/s, loss "
+              f"{m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, lr "
+              f"{m['lr']:.3g}; peak memory {peak:.2f} GiB", flush=True)
+
+    def trainer(total):
+        return Trainer(cfg, scfg, TrainerConfig(
+            total_steps=total, ckpt_dir=str(ckpt_dir),
+            ckpt_interval=TRAIN_CKPT_AT, keep_last=10, log_interval=1000),
+            data, device="cuda", log_fn=lambda line: print(
+                f"{tag} {line}", flush=True))
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # deterministic kernels (the embedding's gradient sums in a fixed
+    # order), without the NaN fill of every torch.empty that the mode
+    # turns on by default: nothing on this path reads memory it did not
+    # write, and the fill took ~12% of a step on an H100
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            reset_kernel_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run = trainer(TRAIN_STEPS)
+            params, opt, _ = run.train(on_step=on_step)
+            counts = kernel_counts()
+            print(f"{tag} {cfg.name} full width ({cfg.n_layers} layers, "
+                  f"{sum(t.numel() for _, t in sharding.leaves(params)) / 1e6:.1f}"
+                  f"M parameters in {cfg.param_dtype}, fp32 AdamW masters "
+                  f"and moments, remat {cfg.remat}), batches of "
+                  f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} "
+                  f"microbatches, seq_chunk {TRAIN_CHUNK}: {TRAIN_STEPS} "
+                  f"steps with checkpoints in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            if any(counts.values()):
+                fail(f"train-1gpu: kernels launched during training: "
+                     f"{counts}")
+            # the run stops after its step-2 checkpoint: drop the final one
+            shutil.rmtree(ckpt_dir / f"step_{TRAIN_STEPS:08d}")
+            resumed = trainer(TRAIN_STEPS)
+            p_res, o_res, _ = resumed.train(on_step=on_step)
+            if [h["step"] for h in resumed.history] != list(
+                    range(TRAIN_CKPT_AT + 1, TRAIN_STEPS + 1)):
+                fail(f"train-1gpu: the resumed run took steps "
+                     f"{[h['step'] for h in resumed.history]}")
+            same_params = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                sharding.leaves((params, opt["master"], opt["mu"],
+                                 opt["nu"])),
+                sharding.leaves((p_res, o_res["master"], o_res["mu"],
+                                 o_res["nu"]))))
+            del p_res, o_res, resumed.step_fn
+            top, idle, wall_ms, forward_only = profile_train_step(
+                run.step_fn, params, opt, data.global_batch(TRAIN_STEPS),
+                TRAIN_STEPS)
+            counts = kernel_counts()
+        notes = sorted({str(w.message).split(".")[0] for w in caught})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for line in notes:
+        print(f"{tag} warning under deterministic algorithms: "
+              f"{line[:160]}", flush=True)
+
+    hist = run.history
+    loss0 = hist[0]["loss"]
+    print(f"{tag} step-0 loss {loss0:.6f} vs ln {cfg.vocab_size} = "
+          f"{math.log(cfg.vocab_size):.6f} (tol 0.5)", flush=True)
+    if not (math.isfinite(loss0)
+            and abs(loss0 - math.log(cfg.vocab_size)) <= 0.5):
+        fail(f"train-1gpu: step-0 loss {loss0} not within 0.5 of "
+             f"ln {cfg.vocab_size}")
+    for h in hist:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            fail(f"train-1gpu: step {h['step'] - 1} not finite: {h}")
+    bitwise = True
+    for a, b in zip(resumed.history, hist[TRAIN_CKPT_AT:]):
+        for key, tol in RESUME_TOL.items():
+            rel = abs(a[key] - b[key]) / abs(b[key])
+            bitwise = bitwise and a[key] == b[key]
+            print(f"{tag} step {a['step'] - 1} resumed vs uninterrupted "
+                  f"{key}: {a[key]!r} vs {b[key]!r} (rel {rel:.3g}; tol "
+                  f"bitwise, else {tol})", flush=True)
+            if not (math.isfinite(a[key]) and rel <= tol):
+                fail(f"train-1gpu: resumed step {a['step'] - 1} {key} "
+                     f"{a[key]} vs {b[key]}")
+    print(f"{tag} resumed run bitwise equal to the uninterrupted one: "
+          f"metrics {bitwise}, final parameters and AdamW state "
+          f"{same_params}", flush=True)
+    if forward_only or any(counts.values()):
+        fail(f"train-1gpu: a training step ran forward-only kernels "
+             f"({forward_only} device events, counts {counts})")
+    print(f"{tag} profiled step {TRAIN_STEPS}: {wall_ms:.1f} ms wall, "
+          f"device idle share "
+          f"{'not measured' if idle is None else f'{idle:.4f}'}; "
+          f"flash/SSD device events 0, kernel counts {counts}", flush=True)
+    for name, ms, n in top:
+        print(f"{tag}   {ms:9.3f} ms  x{n:<5} {name[:100]}", flush=True)
+    if not top:
+        print(f"{tag} torch.profiler saw no device time: top ops and idle "
+              f"share not measured", flush=True)
+    del params, opt, run
+    torch.cuda.empty_cache()
+
+    # reduced smollm in fp32: the card against the CPU
+    rcfg = cfg.reduced()
+    rscfg = StepConfig(microbatches=2, seq_chunk=8, warmup_steps=1)
+    rdata = SyntheticLM(DataConfig(vocab_size=rcfg.vocab_size, seq_len=65,
+                                   global_batch=4))
+    cpu = Group(rank=0, size=1, device=torch.device("cpu"))
+    card = Group(rank=0, size=1, device=torch.device("cuda"))
+    p_cpu, o_cpu = build_init(rcfg, cpu, rscfg)(0)
+    p_gpu = params_to(p_cpu, "cuda")
+    o_gpu = init_opt(p_gpu, rscfg)
+    step_cpu = build_train_step(rcfg, cpu, rscfg)
+    step_gpu = build_train_step(rcfg, card, rscfg)
+    t = 1e-4
+    worst = 0.0
+    for k in range(2):
+        batch = rdata.global_batch(k)
+        p_cpu, o_cpu, m_cpu = step_cpu(p_cpu, o_cpu, batch, k)
+        p_gpu, o_gpu, m_gpu = step_gpu(p_gpu, o_gpu, batch, k)
+        for key in ("loss", "grad_norm"):
+            worst = max(worst, abs(m_gpu[key] - m_cpu[key])
+                        / abs(m_cpu[key]))
+    worst_mean = 0.0
+    for (path, a), (_, b) in zip(sharding.leaves(p_gpu),
+                                 sharding.leaves(p_cpu)):
+        a, b = a.cpu().numpy(), b.numpy()
+        d = np.abs(a - b)
+        worst_mean = max(worst_mean, float(d.mean()
+                                           / max(np.abs(b).mean(), 1e-30)))
+        if not (d.mean() <= t * np.abs(b).mean()
+                and d.max() <= 2 * rscfg.peak_lr + t * np.abs(b).max()):
+            fail(f"train-1gpu reduced {path}: card vs CPU mean |d| "
+                 f"{d.mean()}, max |d| {d.max()}")
+    print(f"[train-1gpu] reduced {rcfg.name} fp32, 2 tp-1 steps "
+          f"(microbatches 2), card vs CPU: loss/grad_norm max rel "
+          f"{worst:.3g} (tol {t}); params mean |d|/mean |p| max "
+          f"{worst_mean:.3g} (tol {t})", flush=True)
+    if worst > t:
+        fail(f"train-1gpu reduced: card vs CPU metrics differ by {worst}")
+
+
 DLA_CASE_SIZES = (256, 512, 1024)
 MLP_EDGE = (4096, 2560, 6912)   # h2o-danube-1.8b: tokens x d_model @ d_ff
 
@@ -1558,6 +1857,9 @@ def main() -> int:
     cc_main.update(phase_ring_kernels())
     cc_launches = phase_tp_train()
     phase_tp_reduced()
+    torch.cuda.empty_cache()
+    phase_train_1gpu(card_name_and_limit())
+    torch.cuda.empty_cache()
     dla_launches, dla_main = phase_dla()
     torch.cuda.empty_cache()
     phase_case_study(phase_pgas())
@@ -1607,13 +1909,7 @@ def main() -> int:
         replaces="src/repro/kernels/matmul/kernel.py:69",
         launches=dla_launches, **dla_main))
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_name_and_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

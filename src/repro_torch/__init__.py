@@ -3,12 +3,15 @@
 The JAX package ``repro`` stays the reference; this package reimplements
 its serving main path (dense GQA decoder and pure-SSM Mamba-2, chunked
 streamed prefill, per-slot decode, paged KV block pool for the dense
-family) with plain PyTorch tensor code and hand-written CUDA kernels for
-``sm_90a`` in place of the Pallas TPU kernels (flash attention, the SSD
-chunked scan).
+family), dense training on one device (``runtime/trainer.py``) and
+tensor-parallel over rank processes, and the PGAS substrate, with plain
+PyTorch tensor code and hand-written CUDA kernels for ``sm_90a`` in place
+of the Pallas TPU kernels (flash attention, the SSD chunked scan, the DLA
+matmul, the collective matmuls).
 
 The package imports ``torch`` and never ``jax`` or anything of ``repro``.
 Entry points (``models.model.init_params``, ``runtime.server.Server``,
-``launch/serve.py``) run on ``cuda`` unless the caller passes
-``device="cpu"``; without a GPU they raise instead of falling back.
+``runtime.trainer.Trainer``, ``launch/serve.py``, ``launch/train.py``) run
+on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU they
+raise instead of falling back.
 """

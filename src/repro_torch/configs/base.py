@@ -76,9 +76,10 @@ class ModelConfig:
     # -- numerics / implementation ------------------------------------------------
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    # the reference's attention-impl knobs; the port has one attention path
-    # (the flash kernel on the card, its plain version on the CPU) and keeps
-    # these only so configs compare field for field
+    # the reference's attention-impl knobs.  The port serves through the
+    # flash kernel (its plain version on the CPU) and trains through
+    # blockwise attention, which reads the chunks and the causal skip;
+    # attn_impl is kept so configs compare field for field
     attn_impl: str = "auto"
     attn_q_chunk: int = 2048
     attn_kv_chunk: int = 2048

@@ -9,17 +9,22 @@ step (``build_prefill_chunk_step``) is ``models.prefill.prefill_chunk``
 itself.
 
 Training: :class:`TransportPolicy`, :class:`StepConfig`,
-:func:`build_init` and :func:`build_train_step` for the path the
-reference takes with ``TransportPolicy(tp="fused")`` on a ``(1, tp)``
-mesh — every dense block's TP edges on the fused ring of
-``kernels/cc_matmul``, the group standing in for the ``model`` axis.
-Only that path is ported: a single microbatch, no data axis, tp ≥ 2 and
-``tp="fused"``; the others raise, each naming its ROADMAP item.
+:func:`build_init` and :func:`build_train_step`, the group standing in
+for the ``model`` axis.  At tp 1 (``Group(rank=0, size=1, device=…)``,
+no process pool) it is the reference's one-device step: the dense block
+attends through ``layers.blockwise_attention``, as the reference does off
+the TPU.  At tp ≥ 2 it is the path the reference takes with
+``TransportPolicy(tp="fused")`` on a ``(1, tp)`` mesh: every dense
+block's TP edges on the fused ring of ``kernels/cc_matmul``.  Both take
+fp32 microbatch accumulation, into flat buckets with
+``grad_bucket_bytes``.  A data axis, the other TP transports and SSM
+training raise, each naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -31,12 +36,12 @@ from repro_torch.core.conduit import (
     Conduit,
     transports as conduit_transports,
 )
-from repro_torch.dist import sharding
+from repro_torch.dist import bucketing, sharding
 from repro_torch.dist.loss import chunked_ce_loss
 from repro_torch.models import artblock
 from repro_torch.models import layers as L
 from repro_torch.models.decode import decode_step
-from repro_torch.models.model import init_params
+from repro_torch.models.model import dense_block, init_params
 from repro_torch.optim import (
     AdamWConfig,
     adamw_init,
@@ -96,15 +101,13 @@ def park_row(cache: Cache, i: int) -> Cache:
 
 
 # ---------------------------------------------------------------------------
-# TP training over the fused ring
+# training: tp 1, and TP over the fused ring
 # ---------------------------------------------------------------------------
 
-ROADMAP_SINGLE = ("ROADMAP queue 1 item 3 (training on one GPU: the dense "
-                  "path needs a flash-attention backward kernel)")
 ROADMAP_DATA = ("ROADMAP queue 1 item 7 (distributed steps: a data axis "
                 "with gradient sync)")
-ROADMAP_MICRO = ("ROADMAP queue 1 item 7 (distributed steps: microbatch "
-                 "accumulation and gradient bucketing)")
+ROADMAP_SSM_TRAIN = ("ROADMAP queue 1 item 5.1 (SSM training: the SSD "
+                     "kernel has no backward)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,48 +186,52 @@ def _art_runner(cfg: ModelConfig, policy: TransportPolicy,
     return runner
 
 
-def _check_tp_path(cfg: ModelConfig, group, scfg: StepConfig,
-                   data_axis: int) -> TransportPolicy:
-    policy = scfg.resolved_transport()
-    if group.size < 2:
-        raise NotImplementedError(
-            f"training at tp={group.size} is not ported: {ROADMAP_SINGLE}")
+def _check_path(cfg: ModelConfig, group, scfg: StepConfig,
+                data_axis: int) -> Callable:
+    """The block runner of this group's train step, or the raise that
+    names the ROADMAP item of a path not ported."""
     if data_axis != 1:
         raise NotImplementedError(
             f"data axis {data_axis} is not ported: {ROADMAP_DATA}")
-    if scfg.microbatches > 1:
+    if cfg.family == "ssm":
         raise NotImplementedError(
-            f"microbatches={scfg.microbatches} is not ported: "
-            f"{ROADMAP_MICRO}")
-    if scfg.grad_bucket_bytes:
-        raise NotImplementedError(
-            f"grad_bucket_bytes={scfg.grad_bucket_bytes} is not ported: "
-            f"{ROADMAP_MICRO}")
+            f"training {cfg.name} is not ported: {ROADMAP_SSM_TRAIN}")
+    if scfg.microbatches < 1:
+        raise ValueError(f"microbatches={scfg.microbatches} < 1")
+    if group.size == 1:
+        if cfg.family != "dense":
+            raise ValueError(f"{cfg.name}: the tp-1 step trains the dense "
+                             f"family")
+        # the model's own block, attending through blockwise attention at
+        # the config's chunks (the reference's one-device step off the
+        # TPU): never the flash kernel, which has no backward
+        return functools.partial(dense_block, core=L.blockwise_core(cfg))
+    policy = scfg.resolved_transport()
     if policy.tp == "auto":
         raise NotImplementedError(
             f"TransportPolicy.tp='auto' is not ported: {ROADMAP_AUTO}")
-    if policy.tp != "fused":
+    if policy.tp != "fused" or not cfg.use_art:
         raise NotImplementedError(
-            f"TransportPolicy.tp={policy.tp!r} is not ported (only "
-            f"'fused' is): {ROADMAP_OVERLAP}")
+            f"TransportPolicy.tp={policy.tp!r} with use_art={cfg.use_art} "
+            f"is not ported (only 'fused' ART-TP is): {ROADMAP_OVERLAP}")
     if cfg.family != "dense" or not artblock.supports_art_tp(cfg,
                                                              group.size):
         raise ValueError(f"{cfg.name} cannot run the ART-TP block at "
                          f"tp={group.size}")
-    return policy
+    return _art_runner(cfg, policy, group)
 
 
 def build_init(cfg: ModelConfig, group, scfg: StepConfig
                ) -> Callable[[int], Tuple[Dict[str, Any], Dict[str, Any]]]:
     """``init_fn(seed) -> (params, opt_state)`` on this rank's device:
     every leaf drawn as ``models.model.init_params(cfg, seed)`` draws it
-    (so every rank and every group size sees the same full model), then
-    cut to this rank's shard (``dist/sharding.py``) layer by layer."""
+    (so every rank and every group size sees the same full model), then,
+    at tp ≥ 2, cut to this rank's shard (``dist/sharding.py``) layer by
+    layer."""
     def init_fn(seed: int = 0):
-        params = init_params(
-            cfg, seed, group.device,
-            layer_fn=lambda layer: sharding.shard_tree(layer, group.rank,
-                                                       group.size))
+        layer_fn = None if group.size == 1 else (
+            lambda layer: sharding.shard_tree(layer, group.rank, group.size))
+        params = init_params(cfg, seed, group.device, layer_fn=layer_fn)
         return params, init_opt(params, scfg)
 
     return init_fn
@@ -236,28 +243,47 @@ def init_opt(params: Dict[str, Any], scfg: StepConfig) -> Dict[str, Any]:
                       _adamw_config(scfg))
 
 
+def _microbatches(batch: Dict[str, torch.Tensor],
+                  n_micro: int) -> List[Dict[str, torch.Tensor]]:
+    """The batch's rows cut into ``n_micro`` consecutive microbatches (the
+    reference's reshape to ``(n_micro, B / n_micro, ...)``)."""
+    b = batch["tokens"].shape[0]
+    if b % n_micro:
+        raise ValueError(f"batch {b} does not split into {n_micro} "
+                         f"microbatches")
+    return [{k: v[i * (b // n_micro):(i + 1) * (b // n_micro)]
+             for k, v in batch.items()} for i in range(n_micro)]
+
+
 def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
                      data_axis: int = 1) -> Callable:
     """``step_fn(params, opt, batch, step) -> (params, opt, metrics)`` for
-    this rank of the TP group.
+    this rank of the group.
 
-    ``batch`` is the global batch (tokens and labels (B, S), S a multiple
-    of the group size), the same on every rank.  Per rank the step
-    (1) embeds its sequence shard, rows ``r·S/tp + arange(S/tp)``;
-    (2) runs the blocks through the ART runner; (3) applies the final norm
-    and the chunked CE over its rows; (4) runs backward on its own loss;
-    (5) sums the replicated leaves' gradients over the group; (6) clips by
-    the global norm; (7) takes an AdamW step at ``warmup_cosine(step)``.
+    ``batch`` is the global batch (tokens and labels (B, S); at tp ≥ 2 S
+    a multiple of the group size), the same on every rank.  The step cuts
+    it into ``scfg.microbatches`` microbatches; for each it (1) embeds the
+    rank's sequence shard, rows ``r·S/tp + arange(S/tp)`` (all of them at
+    tp 1); (2) runs the blocks through the runner (the ART-TP block, or
+    the dense block over blockwise attention); (3) applies the final norm
+    and the chunked CE over its rows; (4) runs backward on its own loss
+    and sums the gradients in fp32 (into the flat buckets of
+    ``dist/bucketing.py`` with ``grad_bucket_bytes``: the same bits).
+    Then it divides the sums by the microbatch count, (5) sums the
+    replicated leaves' gradients over the group, (6) clips by the global
+    norm and (7) takes an AdamW step at ``warmup_cosine(step)``.
     Parameters and optimizer state are updated in place.  ``metrics``:
-    the group's loss, ce, z_loss and token count, the pre-clip grad norm
-    and the learning rate."""
-    policy = _check_tp_path(cfg, group, scfg, data_axis)
-    runner = _art_runner(cfg, policy, group)
+    the microbatches' mean loss, ce and z_loss and their summed token
+    count (the group's), the pre-clip grad norm and the learning rate."""
+    runner = _check_path(cfg, group, scfg, data_axis)
     acfg = _adamw_config(scfg)
     tp, rank = group.size, group.rank
+    n_micro = int(scfg.microbatches)
+    loss_group = group if tp > 1 else None
 
-    def step_fn(params, opt, batch, step: int):
-        tokens, labels = batch["tokens"], batch["labels"]
+    def micro_grads(params, leaves, micro):
+        """Backward of one microbatch: (fp32 grads in leaf order, metrics)."""
+        tokens, labels = micro["tokens"], micro["labels"]
         s = tokens.shape[1]
         if s % tp:
             raise ValueError(f"sequence {s} does not split over {tp} ranks")
@@ -266,33 +292,59 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
         local = {"tokens": tokens[:, rows].to(group.device),
                  "labels": labels[:, rows].to(group.device)}
         positions = torch.arange(s, device=group.device)
-        paths, leaves = zip(*sharding.leaves(params))
-        places = [sharding.placement(p) for p in paths]
         for t in leaves:
             t.requires_grad_(True)
+        try:
+            loss, metrics = chunked_ce_loss(
+                cfg, params, local, seq_chunk=scfg.seq_chunk,
+                z_loss=scfg.z_loss, group=loss_group, positions=positions,
+                runner=runner)
+            loss.backward()
+            grads = [t.grad.float() for t in leaves]
+        finally:
+            for t in leaves:
+                t.grad = None
+                t.requires_grad_(False)
+        return grads, metrics
 
-        loss, metrics = chunked_ce_loss(
-            cfg, params, local, seq_chunk=scfg.seq_chunk,
-            z_loss=scfg.z_loss, group=group, positions=positions,
-            runner=runner)
-        loss.backward()
+    def step_fn(params, opt, batch, step: int):
+        paths, leaves = zip(*sharding.leaves(params))
+        plan = None
+        if scfg.grad_bucket_bytes and n_micro > 1:
+            plan = bucketing.bucket_plan(
+                list(leaves), target_bytes=scfg.grad_bucket_bytes)
+        acc, mets = None, []
+        for mb in _microbatches(batch, n_micro):
+            g, m = micro_grads(params, leaves, mb)
+            parts = g if plan is None else bucketing.pack(g, plan)
+            if acc is None:
+                acc = parts
+            else:
+                for a, part in zip(acc, parts):
+                    a.add_(part)
+            mets.append(m)
+        if n_micro > 1:
+            acc = [a / n_micro for a in acc]
+        grads = acc if plan is None else bucketing.unpack(acc, plan,
+                                                          torch.float32)
+        metrics = {k: (sum(m[k] for m in mets) if k == "tokens"
+                       else sum(m[k] for m in mets) / n_micro)
+                   for k in mets[0]}
 
-        grads: List[torch.Tensor] = []
-        for t in leaves:
-            grads.append(t.grad.float())
-            t.grad = None
-            t.requires_grad_(False)
-        rep = [i for i, pl in enumerate(places) if pl == "rep"]
-        flat = group.all_reduce(torch.cat([grads[i].reshape(-1)
-                                           for i in rep]))
-        off = 0
-        for i in rep:
-            n = grads[i].numel()
-            grads[i] = flat[off:off + n].view(grads[i].shape)
-            off += n
+        places = [sharding.placement(p) for p in paths]
+        sharded = None
+        if tp > 1:
+            rep = [i for i, pl in enumerate(places) if pl == "rep"]
+            flat = group.all_reduce(torch.cat([grads[i].reshape(-1)
+                                               for i in rep]))
+            off = 0
+            for i in rep:
+                n = grads[i].numel()
+                grads[i] = flat[off:off + n].view(grads[i].shape)
+                off += n
+            sharded = [pl != "rep" for pl in places]
         grads, grad_norm = clip_by_global_norm(
-            grads, scfg.clip_norm, group=group,
-            sharded=[pl != "rep" for pl in places])
+            grads, scfg.clip_norm, group=loss_group, sharded=sharded)
         lr = warmup_cosine(step, peak_lr=scfg.peak_lr,
                            warmup_steps=scfg.warmup_steps,
                            total_steps=scfg.total_steps)

@@ -160,6 +160,22 @@ def launch_on(device, fn, args) -> int:
         return fn(*args, current_stream(device))
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise when autograd is recording and an input of a kernel requires
+    grad.  The CUDA kernels are forward-only: their output would carry no
+    ``grad_fn``, and the gradient would stop there without a word.  A
+    caller that trains routes around the kernel (training attends through
+    ``models.layers.blockwise_attention``)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            f"requires grad while autograd records; call it under "
+            f"torch.no_grad() or on inputs that need no gradient")
+
+
 class CudaKernel:
     """One kernel library: loaded lazily, with a launch count.
 
@@ -204,4 +220,4 @@ class CudaKernel:
 
 __all__ = ["BUILD_DIR", "CudaKernel", "INCLUDE_DIR", "NVCC_FLAGS", "build",
            "current_stream", "included_headers", "launch_on", "library_path",
-           "nvcc_path", "source_of"]
+           "nvcc_path", "refuse_autograd", "source_of"]

@@ -23,7 +23,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.common import CudaKernel, launch_on
+from repro_torch.kernels.common import CudaKernel, launch_on, refuse_autograd
 from repro_torch.kernels.flash_attention.ref import attention_plain
 
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
@@ -143,6 +143,7 @@ def flash_attention(
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
+    refuse_autograd("flash_attention", q, k, v)
     qs, ks = q.shape, k.shape
     b, hq, sq, d = qs
     if k.dim() != 4 or ks != v.shape or ks[0] != b or ks[3] != d:

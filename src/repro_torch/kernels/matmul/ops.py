@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import CudaKernel
+from repro_torch.kernels.common import CudaKernel, refuse_autograd
 from repro_torch.kernels.matmul.ref import ACTIVATIONS, matmul_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,6 +70,7 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"matmul kernel: needs CUDA tensors, got "
                          f"{x.device}")
+    refuse_autograd("matmul", x, w, bias)
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     out_dtype = out_dtype or x.dtype

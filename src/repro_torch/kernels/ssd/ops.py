@@ -21,7 +21,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.common import CudaKernel, launch_on
+from repro_torch.kernels.common import CudaKernel, launch_on, refuse_autograd
 from repro_torch.kernels.ssd.ref import ssd_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -126,6 +126,7 @@ def ssd(
                          init_state=init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: unsupported device {x.device}")
+    refuse_autograd("ssd", x, dt, a, b, c, d, init_state)
     if x.dim() != 4 or b.dim() != 4 or b.shape != c.shape:
         raise ValueError(f"ssd: shapes x {tuple(x.shape)} b {tuple(b.shape)} "
                          f"c {tuple(c.shape)}")

@@ -6,9 +6,11 @@ Parameters are plain dicts of tensors laid out as the reference's (weights
 attention has one path: :func:`attention_core` calls the flash-attention
 wrapper, and the Mamba-2 block's scan calls the SSD wrapper; each launches
 its CUDA kernel for CUDA tensors and runs its plain version for CPU
-tensors.  Training attention (the TP block of ``models/artblock.py``) is
-:func:`blockwise_attention`, plain differentiable PyTorch as in the
-reference, whose flash kernel has no backward.
+tensors.  Training attention is :func:`blockwise_attention`, plain
+differentiable PyTorch, as the reference trains off the TPU: the TP block
+of ``models/artblock.py`` calls it, and the tp-1 step passes
+:func:`blockwise_core` to :func:`attention` (the flash kernel has no
+backward, and its wrapper refuses inputs that require grad).
 """
 
 from __future__ import annotations
@@ -65,6 +67,20 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     absolute position ``q_offset + i`` (default right-aligned)."""
     return flash_attention(q, k, v, causal=causal, window=window,
                            q_offset=q_offset)
+
+
+def blockwise_core(cfg: ModelConfig):
+    """An attention core with :func:`attention_core`'s signature over
+    :func:`blockwise_attention` at the config's chunks and causal skip:
+    the training route (the reference's ``attention_core`` off the TPU)."""
+    def core(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+             q_offset: Optional[int] = None) -> torch.Tensor:
+        return blockwise_attention(
+            q, k, v, causal=causal, window=window, q_chunk=cfg.attn_q_chunk,
+            kv_chunk=cfg.attn_kv_chunk, causal_skip=cfg.causal_block_skip,
+            q_offset=q_offset)
+
+    return core
 
 
 def _block_ranges(sq: int, skv: int, q_chunk: int, kv_chunk: int,
@@ -187,11 +203,14 @@ def out_proj(cfg: ModelConfig, p: Params, out: torch.Tensor,
 
 
 def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
-              positions: torch.Tensor, *, return_kv: bool = False):
+              positions: torch.Tensor, *, return_kv: bool = False,
+              core=None):
     """Causal GQA self-attention, x (B, S, D) → (B, S, D).  ``return_kv``
-    also returns the roped K/V — the bulk prefill's cache source."""
+    also returns the roped K/V — the bulk prefill's cache source.
+    ``core`` (default :func:`attention_core`) computes the attention of
+    the roped q/k/v: training passes :func:`blockwise_core`."""
     q, k, v = qkv_proj(cfg, p, x, positions)
-    out = attention_core(q, k, v, causal=True, window=cfg.window)
+    out = (core or attention_core)(q, k, v, causal=True, window=cfg.window)
     y = out_proj(cfg, p, out, x.dtype)
     if return_kv:
         return y, (k, v)

@@ -6,13 +6,14 @@ are a dict like the reference's pytree, except that ``layers`` is a list
 with one dict per layer where the reference stacks a leading layer axis
 for ``lax.scan`` (``repro_torch.bridge`` converts one into the other); the
 layer stack is a Python loop.  In training each block runs through the
-TP block runner the step passes in and the config's ``remat`` policy.
+block runner the step passes in (the ART-TP block, or at tp 1 the dense
+block with blockwise attention) and the config's ``remat`` policy.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -87,7 +88,8 @@ def _check_ported(cfg: ModelConfig) -> None:
     if not ((cfg.family == "dense" and cfg.attn_type == "gqa")
             or cfg.family == "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA and ssm families are ported")
+            f"{cfg.name}: only the dense GQA and ssm families are ported "
+            f"(the others: ROADMAP queue 1 item 5)")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
@@ -134,7 +136,7 @@ def _maybe_remat(cfg: ModelConfig, fn):
     if cfg.remat == "dots":
         raise NotImplementedError(
             "remat='dots' (save the matmul outputs, recompute the rest) is "
-            "not ported; use 'full' or 'none'")
+            "not ported; use 'full' or 'none' (ROADMAP queue 1 item 7)")
     if cfg.remat != "full":
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
@@ -145,16 +147,25 @@ def _maybe_remat(cfg: ModelConfig, fn):
     return remat
 
 
+def dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                positions: torch.Tensor, *,
+                core: Optional[Callable] = None) -> torch.Tensor:
+    """One pre-norm dense block: attention, then the MLP, each added to
+    the residual.  ``core`` is the attention core (``layers.attention``'s:
+    by default the flash kernel, which has no backward)."""
+    h = x + L.attention(cfg, p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
+                        positions, core=core)
+    return h + L.mlp(cfg, p["mlp"], L.rms_norm(p["ln2"], h, cfg.norm_eps))
+
+
 def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor,
                  runner: Optional[Callable] = None) -> torch.Tensor:
-    if runner is not None and cfg.use_art and cfg.attn_type != "mla":
-        # every TP collective of this block is an ART ring schedule
-        # (models/artblock.py, installed by dist.steps.build_train_step)
+    if runner is not None:
+        # the train step's block: the ART-TP block (models/artblock.py) or,
+        # at tp 1, dense_block over blockwise attention (dist/steps.py)
         return runner(cfg, p, x, positions)
-    h = x + L.attention(cfg, p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
-                        positions)
-    return h + L.mlp(cfg, p["mlp"], L.rms_norm(p["ln2"], h, cfg.norm_eps))
+    return dense_block(cfg, p, x, positions)
 
 
 def _ssm_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -168,8 +179,9 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """tokens (B, S) → final-norm hidden (B, S, D).
 
     ``positions`` (default ``arange(S)``) is what the blocks rope with.
-    With a TP block runner (``runner(cfg, layer_params, x, positions)``,
-    training) ``tokens`` is this rank's sequence shard and ``positions``
+    A block runner (``runner(cfg, layer_params, x, positions)``, training)
+    runs each dense block in place of :func:`dense_block`.  With the TP
+    runner ``tokens`` is this rank's sequence shard and ``positions``
     the whole sequence's: rank r holds rows ``r·S_loc + arange(S_loc)``,
     and the runner ropes after gathering.
     Each block goes through :func:`_maybe_remat` (the per-layer
@@ -188,10 +200,38 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return L.rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 
-def forward(cfg: ModelConfig, params: Params,
-            tokens: torch.Tensor) -> torch.Tensor:
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            runner: Optional[Callable] = None) -> torch.Tensor:
     """tokens (B, S) → fp32 logits (B, S, V)."""
-    return _lm_logits(cfg, params, forward_hidden(cfg, params, tokens))
+    return _lm_logits(cfg, params,
+                      forward_hidden(cfg, params, tokens, runner=runner))
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, z_loss: float = 1e-4, moe_aux_weight: float = 1e-2,
+            runner: Optional[Callable] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``loss_fn`` over full logits: batch tokens (B, S),
+    labels (B, S) with -1 = masked.  Returns (total, metrics) with the
+    masked mean cross-entropy ``ce``, ``z_loss`` (``z_loss`` × the masked
+    mean of logsumexp²), ``moe_aux`` (0: no ported family routes experts)
+    and the ``tokens`` counted.  ``runner`` is :func:`forward_hidden`'s:
+    on the card a gradient needs one (``dist.steps`` builds it), since the
+    default attention is the forward-only flash kernel.  The training step
+    streams the head instead (``dist/loss.py``)."""
+    logits = forward(cfg, params, batch["tokens"], runner=runner)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    safe = labels.clamp_min(0)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    denom = mask.sum().clamp_min(1.0)
+    ce = ((lse - gold) * mask).sum() / denom
+    zl = z_loss * ((lse * mask) ** 2).sum() / denom
+    aux = logits.new_zeros(())
+    total = ce + zl + moe_aux_weight * aux
+    return total, {"ce": ce, "z_loss": zl, "moe_aux": aux,
+                   "tokens": mask.sum()}
 
 
 def _lm_logits(cfg: ModelConfig, params: Params,

@@ -621,6 +621,95 @@ def test_dla_kernel_rejects(cuda):
 
 
 # ---------------------------------------------------------------------------
+# forward-only kernels: the wrappers refuse autograd; training avoids them
+# ---------------------------------------------------------------------------
+
+
+def _forward_only_call(kernel, device):
+    """(call, inputs, the kernel's CudaKernel) at a small shape."""
+    g = torch.Generator(device=device).manual_seed(7)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=device)  # noqa: E731
+    if kernel == "flash_attention":
+        from repro_torch.kernels.flash_attention import FLASH
+
+        return (lambda q, k, v: flash_attention(q, k, v),
+                [rnd(1, 4, 64, 64), rnd(1, 2, 64, 64), rnd(1, 2, 64, 64)],
+                FLASH)
+    if kernel == "ssd":
+        bsz, s, h, g_, n, p = 1, 64, 4, 1, 16, 16
+        return (lambda x, dt, bm, cm: ssd(
+                    x, dt, -torch.ones(h, device=device), bm, cm,
+                    torch.ones(h, device=device), chunk=32),
+                [rnd(bsz, s, h, p), torch.rand(bsz, s, h, generator=g,
+                                               device=device) * 0.1,
+                 rnd(bsz, s, g_, n), rnd(bsz, s, g_, n)], SSD)
+    from repro_torch.kernels.matmul import MATMUL, matmul
+
+    return (lambda x, w: matmul(x, w), [rnd(32, 64), rnd(64, 48)], MATMUL)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd", "matmul"])
+def test_wrapper_refuses_autograd(cuda, kernel):
+    """An input that requires grad while autograd records raises instead
+    of returning an output with no ``grad_fn``; under ``no_grad`` (or with
+    no input requiring grad) the kernel launches."""
+    call, inputs, counter = _forward_only_call(kernel, cuda)
+    before = counter.launches
+    for i in range(len(inputs)):
+        args = [t.clone().requires_grad_(j == i) for j, t in
+                enumerate(inputs)]
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(*args)
+    assert counter.launches == before
+    with torch.no_grad():
+        call(*[t.clone().requires_grad_(True) for t in inputs])
+    call(*inputs)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+
+
+def test_tp1_train_step_on_card_matches_cpu(cuda):
+    """Two tp-1 steps of reduced smollm-360m in fp32 (microbatches 2) on
+    the card against the CPU from the same parameters and batches: loss and
+    grad norm 1e-4 relative, parameters 1e-4; no flash or SSD launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist import sharding
+    from repro_torch.dist.group import Group
+    from repro_torch.dist.steps import (
+        StepConfig,
+        build_init,
+        build_train_step,
+        init_opt,
+    )
+    from repro_torch.kernels.flash_attention import FLASH
+    from repro_torch.models.model import params_to
+
+    cfg = get_config("smollm-360m").reduced()
+    scfg = StepConfig(microbatches=2, seq_chunk=8, warmup_steps=1)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=33,
+                                  global_batch=4))
+    cpu = Group(rank=0, size=1, device=torch.device("cpu"))
+    card = Group(rank=0, size=1, device=cuda)
+    p_cpu, o_cpu = build_init(cfg, cpu, scfg)(0)
+    p_gpu = params_to(p_cpu, cuda)
+    o_gpu = init_opt(p_gpu, scfg)
+    launches = (FLASH.launches, SSD.launches)
+    for k in range(2):
+        batch = data.global_batch(k)
+        p_cpu, o_cpu, m_cpu = build_train_step(cfg, cpu, scfg)(
+            p_cpu, o_cpu, batch, k)
+        p_gpu, o_gpu, m_gpu = build_train_step(cfg, card, scfg)(
+            p_gpu, o_gpu, batch, k)
+        for key in ("loss", "grad_norm"):
+            assert abs(m_gpu[key] - m_cpu[key]) <= 1e-4 * abs(m_cpu[key])
+    assert (FLASH.launches, SSD.launches) == launches
+    for (_, a), (_, b) in zip(sharding.leaves(p_gpu),
+                              sharding.leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
 # the PGAS substrate on the card: peer-mapped heaps against the wire
 # ---------------------------------------------------------------------------
 

@@ -15,7 +15,9 @@
   not zero, so an element whose gradient is rounding noise can flip);
 * replicated leaves bitwise equal on every rank; the hop functions'
   call counts from the schedule (remat "none" and "full");
-* the paths this slice does not port raise.
+* microbatch accumulation at TP 2 (2 microbatches) against the
+  reference's fused step with ``microbatches=2``, at the same tolerances;
+* the paths not ported raise.
 
 One gloo world per TP size is spawned for the module.
 """
@@ -86,14 +88,15 @@ def _tree_np(tree):
 _REF = {}
 
 
-def _reference(tp):
+def _reference(tp, micro=1):
     """The reference's fused TP run: initial params, batches, per-step
     (loss, grad_norm) and the final params, as numpy."""
-    if tp in _REF:
-        return _REF[tp]
+    if (tp, micro) in _REF:
+        return _REF[tp, micro]
     cfg = ref_get_config(ARCH).reduced()
     mesh = make_host_mesh(data=1, model=tp)
-    scfg = RefStepConfig(transport=RefTransportPolicy(tp="fused"), **STEP_KW)
+    scfg = RefStepConfig(transport=RefTransportPolicy(tp="fused"),
+                         microbatches=micro, **STEP_KW)
     data = RefSyntheticLM(RefDataConfig(vocab_size=cfg.vocab_size,
                                         seq_len=17, global_batch=2))
     bundle = ref_build_train_step(cfg, mesh, scfg,
@@ -106,22 +109,23 @@ def _reference(tp):
         batches.append({k: np.asarray(v) for k, v in batch.items()})
         params, opt, m = bundle.fn(params, opt, batch, jnp.int32(step))
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
-    _REF[tp] = dict(params0=params0, batches=batches, metrics=metrics,
-                    params=_tree_np(params))
-    return _REF[tp]
+    _REF[tp, micro] = dict(params0=params0, batches=batches,
+                           metrics=metrics, params=_tree_np(params))
+    return _REF[tp, micro]
 
 
 _PORT = {}
 
 
-def _port(pools, tp, **kw):
-    key = (tp, repr(sorted(kw.items())))
+def _port(pools, tp, micro=1, **kw):
+    key = (tp, micro, repr(sorted(kw.items())))
     if key not in _PORT:
-        ref = _reference(tp)
+        ref = _reference(tp, micro)
         _PORT[key] = pools[tp].run(
             rank_tasks.train, ARCH, steps=2, reduced=True,
-            step_overrides=STEP_KW, params_np=ref["params0"],
-            batches=ref["batches"], return_params=True, **kw)
+            step_overrides=dict(STEP_KW, microbatches=micro),
+            params_np=ref["params0"], batches=ref["batches"],
+            return_params=True, **kw)
     return _PORT[key]
 
 
@@ -139,12 +143,10 @@ def test_loss_and_grad_norm_match_reference(pools, tp):
         np.testing.assert_allclose(got, RECORDED, rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("tp", [2, 4])
-def test_params_after_two_steps_pass_parameter_rule(pools, tp):
-    ref = _reference(tp)
+def _check_parameter_rule(ref, res, tp):
     peak_lr = StepConfig().peak_lr
     t = 1e-5
-    for rank, rank_res in enumerate(_port(pools, tp)):
+    for rank, rank_res in enumerate(res):
         want = {"/".join(map(str, p)): v.numpy() for p, v in sharding.leaves(
             shard_params(ref["params"], rank, tp))}
         assert set(rank_res["params"]) == set(want)
@@ -153,6 +155,25 @@ def test_params_after_two_steps_pass_parameter_rule(pools, tp):
             d = np.abs(g - w)
             assert d.mean() <= t * np.abs(w).mean(), (rank, name)
             assert d.max() <= 2 * peak_lr + t * np.abs(w).max(), (rank, name)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_params_after_two_steps_pass_parameter_rule(pools, tp):
+    _check_parameter_rule(_reference(tp), _port(pools, tp), tp)
+
+
+def test_tp2_microbatches_match_reference(pools):
+    """Two microbatches of one row at TP 2: the fp32 accumulation of the
+    TP step against the reference's fused step with ``microbatches=2``
+    (loss and grad norm 1e-5 relative, parameters by the parameter rule
+    at 1e-5)."""
+    ref = _reference(2, micro=2)
+    res = _port(pools, 2, micro=2)
+    for rank_res in res:
+        got = [(m["loss"], m["grad_norm"]) for m in rank_res["metrics"]]
+        np.testing.assert_allclose(got, ref["metrics"], rtol=1e-5, atol=0)
+        assert [m["tokens"] for m in rank_res["metrics"]] == [32.0, 32.0]
+    _check_parameter_rule(ref, res, 2)
 
 
 @pytest.mark.parametrize("tp", [2, 4])
@@ -215,11 +236,6 @@ def _cpu_group(size):
 
 
 @pytest.mark.parametrize("size,scfg,kw,match", [
-    (1, StepConfig(transport=TransportPolicy(tp="fused")), {}, "tp=1"),
-    (2, StepConfig(microbatches=2, transport=TransportPolicy(tp="fused")),
-     {}, "microbatches"),
-    (2, StepConfig(grad_bucket_bytes=1 << 20,
-                   transport=TransportPolicy(tp="fused")), {}, "bucket"),
     (2, StepConfig(transport=TransportPolicy(tp="bidir")), {}, "bidir"),
     (2, StepConfig(transport=TransportPolicy(tp="ring")), {}, "ring"),
     (2, StepConfig(transport=TransportPolicy(tp="xla")), {}, "xla"),
