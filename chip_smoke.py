@@ -37,6 +37,17 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    CUDA cores' fp32 peak for fp32); the plain version is timed at S 2048
    and at the 128-row chunk in bf16 (no single PyTorch call computes the
    scan, so there is no library yardstick).
+   SSD backward (``csrc/ssd_bwd.cu``, four CUDA kernels a call) against
+   ``ssd_bwd_plain`` at the same five shapes in bf16 and fp32 (a random
+   dstate where there is an init_state), reading the entering states the
+   forward kept, plus the training microbatch (B 4, S 2048) in bf16.
+   Tolerances, each gradient's max error over its max against the plain
+   backward on fp32-upcast inputs: fp32 1e-4 (ddt and da 5e-4: sums of
+   both signs through a reverse cumsum), bf16 1e-2 (dx, dB, dC written in
+   bf16; the kept entering states are bf16).  Two calls must give the
+   same bits.  Timed by events and on the device beside the bound and,
+   at S 2048, the 128-row chunk and the training shape in bf16, the plain
+   backward.
 3. Serve full-width smollm-360m in bf16 (random weights from a seed): 8
    requests with prompts of 256–1024 tokens, 32 new tokens each, batch 4,
    max_seq 2048, prefill chunks of 128, one arrival every 2 steps —
@@ -125,6 +136,20 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
     (microbatches 2) on the card and on the CPU from the same parameters:
     loss and grad norm within 1e-4 relative, every parameter leaf by the
     parameter rule at 1e-4.
+10b. One-GPU training of full-width mamba2-2.7b through the Trainer (64
+    layers, bf16 parameters from seed 0, fp32 AdamW masters and moments,
+    remat full, no checkpoint): SyntheticLM batches of 8 × 2048 tokens in
+    2 microbatches, seq_chunk 512, 3 steps, then one more under
+    torch.profiler, under torch's deterministic algorithms.  Held: every
+    step's launches exact (SSD forward 2 × 64 × 2, the forward and the
+    remat recompute; SSD backward 64 × 2; flash, DLA and cc_matmul 0), and
+    in the profiled step as many SSD device events (3 and 4 CUDA kernels
+    a launch); the step-0 loss within 0.5 of ln 50280; every loss and
+    grad norm finite.  Printed: each step's wall time, tokens/s, loss,
+    grad norm and peak memory, the profiled step's top device ops and
+    idle share, beside the card's name and power limit.  Then reduced
+    mamba2-2.7b in fp32, 2 tp-1 steps on the card and on the CPU, held as
+    in phase 10.
 11. The DLA matmul kernel (``kernels/matmul/csrc/matmul.cu``): first the
     entry point driven as a user calls the DLA instruction — ``matmul`` at
     the case study's sizes (256/512/1024 square, fp32, gelu with a bias)
@@ -514,6 +539,34 @@ def ssd_bound_ms(x, b, chunk, with_init):
                                        else "bytes")
 
 
+#: (label, B, S, H, P, N, with init_state) of the SSD phases, chunk 128
+SSD_CASES = [("mamba2 S2048", 1, 2048, 80, 64, 128, False),
+             ("mamba2 S1000 ragged", 1, 1000, 80, 64, 128, False),
+             ("mamba2 chunk128+state", 1, 128, 80, 64, 128, True),
+             ("mamba2 B2 S384+state", 2, 384, 80, 64, 128, True),
+             ("zamba2 S512", 1, 512, 112, 64, 64, False)]
+
+
+def ssd_case_inputs(gen, bsz, s, h, p, n, with_init, dtype):
+    """x, dt, a, b, c, d and init_state (or None) of an SSD case, drawn on
+    the card as the model makes them."""
+    import torch
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(bsz, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(randn(bsz, s, h))
+    a = -torch.exp(torch.log(torch.linspace(1.0, 16.0, h, device=dev)))
+    b = randn(bsz, s, 1, n).to(dtype)
+    c = randn(bsz, s, 1, n).to(dtype)
+    d = torch.ones(h, device=dev)
+    init = randn(bsz, h, n, p) if with_init else None
+    return (x, dt, a, b, c, d), init
+
+
 def phase_ssd_kernels():
     """SSD kernel vs ``ssd_plain`` on the card at the mamba2-2.7b head
     shapes and one zamba2 shape; returns every case's numbers by (label,
@@ -531,30 +584,14 @@ def phase_ssd_kernels():
           f"register fences inserted by ptxas (C7519)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    # (label, B, S, H, P, N, with init_state)
-    cases = [("mamba2 S2048", 1, 2048, 80, 64, 128, False),
-             ("mamba2 S1000 ragged", 1, 1000, 80, 64, 128, False),
-             ("mamba2 chunk128+state", 1, 128, 80, 64, 128, True),
-             ("mamba2 B2 S384+state", 2, 384, 80, 64, 128, True),
-             ("zamba2 S512", 1, 512, 112, 64, 64, False)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
     chunk = 128
     out = {}
-    for label, bsz, s, h, p, n, with_init in cases:
+    for label, bsz, s, h, p, n, with_init in SSD_CASES:
         for dtype in (torch.bfloat16, torch.float32):
-            def randn(*shape):
-                return torch.randn(shape, generator=gen, device=dev)
-
-            x = randn(bsz, s, h, p).to(dtype)
-            dt = torch.nn.functional.softplus(randn(bsz, s, h))
-            a = -torch.exp(torch.log(torch.linspace(1.0, 16.0, h,
-                                                    device=dev)))
-            b = randn(bsz, s, 1, n).to(dtype)
-            c = randn(bsz, s, 1, n).to(dtype)
-            d = torch.ones(h, device=dev)
-            init = randn(bsz, h, n, p) if with_init else None
-            args = (x, dt, a, b, c, d)
+            args, init = ssd_case_inputs(gen, bsz, s, h, p, n, with_init,
+                                         dtype)
+            x, _, _, b, c, _ = args
             kw = dict(chunk=chunk, init_state=init)
             y, st = ssd(*args, **kw)
             torch.cuda.synchronize()
@@ -594,7 +631,132 @@ def phase_ssd_kernels():
                   + " + ".join(f"{k} {t:.4f}" for k, t in split) + "), "
                   f"plain {fmt_ms(rec.get('plain_ms'))}, bound "
                   f"{bound_ms:.5f} ms ({bound_by})", flush=True)
-            del x, b, c, y, st, y_want, st_want
+            del args, x, b, c, y, st, y_want, st_want
+    return out
+
+
+SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dd", "dinit")
+# the SSD backward against ssd_bwd_plain on fp32-upcast inputs, max |error|
+# over max |plain| by gradient.  fp32: full fp32 on the CUDA cores in
+# another order, 1e-4; ddt and da 5e-4, sums of both signs through the
+# reverse cumsum of dcum (the fp32 plain version alone is up to 6e-5 from
+# fp64 at S 2048).  bf16: 1e-2 -- dx, dB and dC are written in bf16 (half
+# an ulp is 2^-8 of a value) and the forward keeps the entering states in
+# bf16 (~2^-9 of the terms that read them).
+SSD_BWD_TOL = {"float32": dict.fromkeys(SSD_GRADS, 1e-4)
+               | {"ddt": 5e-4, "da": 5e-4},
+               "bfloat16": dict.fromkeys(SSD_GRADS, 1e-2)}
+#: the backward's training shape: one microbatch of the mamba2 phase
+SSD_TRAIN_CASE = ("mamba2 B4 S2048 (train)", 4, 2048, 80, 64, 128, False)
+
+
+def ssd_bwd_bound_ms(x, b, chunk, with_init):
+    """Least time for the SSD backward: the larger of its operations and its
+    bytes.  Operations, for the rows of each chunk: C·Bᵀ once a group and
+    dy·xᵀ, Wᵀ·dy, dSᵀ·C and dS·B a head over the causal triangle (i ≥ j),
+    and four row-by-state products a head (dlocal, B·g, x·gᵀ, dy·s_inᵀ),
+    at the bf16 tensor-core peak for bf16 inputs and the CUDA cores' fp32
+    peak for fp32.  Bytes: x, dy, dt, B, C (and init_state and dstate where
+    given) in, dx, ddt, dB, dC (and d init_state) out, once each."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    flops = 0.0
+    for lo in range(0, s, chunk):
+        r = min(chunk, s - lo)
+        tri = r * (r + 1.0) / 2
+        flops += 2 * bsz * (tri * n * g
+                            + h * (2 * tri * (p + n) + 4.0 * r * n * p))
+    state_bytes = bsz * h * n * p * 4
+    nbytes = (3 * x.numel() * x.element_size() + 2 * bsz * s * h * 4
+              + 4 * b.numel() * b.element_size()
+              + (3 * state_bytes if with_init else 0) + 4 * h * 4)
+    peak = PEAK_FP32_FLOPS if x.element_size() == 4 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_ssd_bwd():
+    """The SSD backward kernels vs ``ssd_bwd_plain`` on the card at the
+    forward phase's shapes (bf16 and fp32, a random dstate where there is
+    an init_state) and at the training microbatch (bf16); two calls must
+    give the same bits.  Returns every case's numbers by (label, dtype
+    name)."""
+    import torch
+
+    from repro_torch.kernels.ssd import SSD_BWD, ssd_bwd, ssd_bwd_plain
+    from repro_torch.kernels.ssd.ops import _forward
+
+    for line in SSD_BWD.ptxas_report().splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print(f"[ptxas] {line.strip()}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    chunk = 128
+    out = {}
+    cases = [(case, dtype) for case in SSD_CASES
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases.append((SSD_TRAIN_CASE, torch.bfloat16))
+    for (label, bsz, s, h, p, n, with_init), dtype in cases:
+        name = str(dtype).split(".")[1]
+        args, init = ssd_case_inputs(gen, bsz, s, h, p, n, with_init, dtype)
+        x, b = args[0], args[3]
+        dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+        dstate = (torch.randn(init.shape, generator=gen, device="cuda")
+                  if with_init else None)
+        _, _, s_in = _forward(*args, chunk, init)
+        kw = dict(chunk=chunk, init_state=init, s_in=s_in)
+        got = ssd_bwd(*args, dy, dstate, **kw)
+        again = ssd_bwd(*args, dy, dstate, **kw)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
+        del again
+        up = [t.float() for t in args]
+        want = ssd_bwd_plain(*up, dy.float(), dstate, chunk=chunk,
+                             init_state=init)
+        errs, worst_abs = {}, 0.0
+        for gname, u, w in zip(SSD_GRADS, got, want):
+            if gname == "dinit" and not with_init:
+                continue
+            if not torch.isfinite(u).all():
+                fail(f"ssd_bwd {label} {name}: non-finite {gname}")
+            diff = (u.float() - w).abs().max().item()
+            worst_abs = max(worst_abs, diff)
+            errs[gname] = diff / w.abs().max().item()
+        tol = SSD_BWD_TOL[name]
+        print(f"[ssd-bwd] {label} {name}: max_err/max "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f" (tol {tol['dx']:g}, ddt/da {tol['da']:g}); two calls "
+              f"bitwise equal: {bitwise}", flush=True)
+        if not bitwise:
+            fail(f"ssd_bwd {label} {name}: two calls differ")
+        bad = {k: v for k, v in errs.items() if v > tol[k]}
+        if bad:
+            fail(f"ssd_bwd {label} {name}: out of tolerance: {bad}")
+        del got, want, up
+        call = lambda: ssd_bwd(*args, dy, dstate, **kw)   # noqa: E731
+        kernel_ms = time_ms(call, iters=10)
+        dev_ms, n_kernels, split = device_kernels(call, iters=10)
+        if n_kernels != 4:
+            fail(f"ssd_bwd {label} {name}: {n_kernels} device events a "
+                 f"call, expected 4 CUDA kernels")
+        bound_ms, bound_by = ssd_bwd_bound_ms(x, b, chunk, with_init)
+        rec = dict(max_err=errs, max_abs_err=worst_abs, ms=kernel_ms,
+                   device_ms=dev_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   cuda_kernels_a_call=n_kernels,
+                   kernel_device_ms=[[k, t] for k, t in split])
+        if dtype == torch.bfloat16 and label in (
+                "mamba2 S2048", "mamba2 chunk128+state", SSD_TRAIN_CASE[0]):
+            rec["plain_ms"] = time_ms(lambda: ssd_bwd_plain(
+                *args, dy, dstate, chunk=chunk, init_state=init), iters=3,
+                warmup=1)
+        out[(label, name)] = rec
+        print(f"[ssd-bwd] {label} {name}: kernels {kernel_ms:.4f} ms by "
+              f"events, {fmt_ms(dev_ms)} on the device ({n_kernels} CUDA "
+              f"kernels a call: "
+              + " + ".join(f"{k} {t:.4f}" for k, t in split) + "), plain "
+              f"{fmt_ms(rec.get('plain_ms'))}, bound {bound_ms:.5f} ms "
+              f"({bound_by})", flush=True)
+        del args, x, b, dy, dstate, s_in
     return out
 
 
@@ -1278,8 +1440,12 @@ TRAIN_STEPS, TRAIN_CKPT_AT = 4, 2
 # bitwise equal (the step runs under torch's deterministic algorithms, so
 # they should be): relative
 RESUME_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
-#: device kernels of the forward-only kernels, which training must not run
-FORWARD_ONLY = re.compile(r"flash_fwd|flash_merge|ssd_chunks|ssd_pass")
+#: device kernels of the port that a training step may show, by family:
+#: flash attention, the SSD forward (three kernels a call of more than one
+#: chunk) and the SSD backward (four a call)
+PORT_EVENTS = {"flash": re.compile(r"flash_fwd|flash_merge"),
+               "ssd": re.compile(r"ssd_chunks|ssd_pass"),
+               "ssd_bwd": re.compile(r"ssd_bwd_")}
 
 
 def kernel_counts():
@@ -1287,29 +1453,30 @@ def kernel_counts():
     from repro_torch.kernels.cc_matmul import ops as cc_ops
     from repro_torch.kernels.flash_attention import FLASH
     from repro_torch.kernels.matmul import MATMUL
-    from repro_torch.kernels.ssd import SSD
+    from repro_torch.kernels.ssd import SSD, SSD_BWD
 
     return dict(cc_ops.launches(), flash_attention=FLASH.launches,
-                ssd=SSD.launches, matmul=MATMUL.launches)
+                ssd=SSD.launches, ssd_bwd=SSD_BWD.launches,
+                matmul=MATMUL.launches)
 
 
 def reset_kernel_counts():
     from repro_torch.kernels.cc_matmul import ops as cc_ops
     from repro_torch.kernels.flash_attention import FLASH
     from repro_torch.kernels.matmul import MATMUL
-    from repro_torch.kernels.ssd import SSD
+    from repro_torch.kernels.ssd import SSD, SSD_BWD
 
     cc_ops.reset_counts()
-    FLASH.launches = SSD.launches = MATMUL.launches = 0
+    FLASH.launches = SSD.launches = SSD_BWD.launches = MATMUL.launches = 0
 
 
 def profile_train_step(step_fn, params, opt, batch, step):
     """One train step under torch.profiler: (top ten device ops by self
     device time [(name, ms, count)], the device's idle share of the
-    step's window, the step's wall ms, device events of the forward-only
-    kernels).  The window runs from the step's start on the host to the
-    later of its end and the last device event; busy is the union of the
-    device events inside it (kernels, copies, fills)."""
+    step's window, the step's wall ms, device events of the port's kernels
+    by family, ``PORT_EVENTS``).  The window runs from the step's start on
+    the host to the later of its end and the last device event; busy is
+    the union of the device events inside it (kernels, copies, fills)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1328,8 +1495,10 @@ def profile_train_step(step_fn, params, opt, batch, step):
     dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA
            and e.name != "smoke_train_step"]
+    port = {k: sum(1 for e in dev if pat.search(e.name))
+            for k, pat in PORT_EVENTS.items()}
     if not win or not dev:
-        return [], None, wall_ms, 0
+        return [], None, wall_ms, port
     lo = win[0].time_range.start
     spans = sorted((max(e.time_range.start, lo), e.time_range.end)
                    for e in dev if e.time_range.end > lo)
@@ -1349,8 +1518,7 @@ def profile_train_step(step_fn, params, opt, batch, step):
         rows[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(((k, ms, n) for k, (ms, n) in rows.items()),
                  key=lambda r: -r[1])[:10]
-    forward_only = sum(1 for e in dev if FORWARD_ONLY.search(e.name))
-    return top, 1.0 - busy / (hi - lo), wall_ms, forward_only
+    return top, 1.0 - busy / (hi - lo), wall_ms, port
 
 
 def phase_train_1gpu(smi_line):
@@ -1362,20 +1530,12 @@ def phase_train_1gpu(smi_line):
     import shutil
     import warnings
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.dist import sharding
-    from repro_torch.dist.group import Group
-    from repro_torch.dist.steps import (
-        StepConfig,
-        build_init,
-        build_train_step,
-        init_opt,
-    )
-    from repro_torch.models.model import params_to
+    from repro_torch.dist.steps import StepConfig
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     cfg = get_config(TRAIN_ARCH)
@@ -1445,7 +1605,7 @@ def phase_train_1gpu(smi_line):
                 sharding.leaves((p_res, o_res["master"], o_res["mu"],
                                  o_res["nu"]))))
             del p_res, o_res, resumed.step_fn
-            top, idle, wall_ms, forward_only = profile_train_step(
+            top, idle, wall_ms, events = profile_train_step(
                 run.step_fn, params, opt, data.global_batch(TRAIN_STEPS),
                 TRAIN_STEPS)
             counts = kernel_counts()
@@ -1483,9 +1643,9 @@ def phase_train_1gpu(smi_line):
     print(f"{tag} resumed run bitwise equal to the uninterrupted one: "
           f"metrics {bitwise}, final parameters and AdamW state "
           f"{same_params}", flush=True)
-    if forward_only or any(counts.values()):
-        fail(f"train-1gpu: a training step ran forward-only kernels "
-             f"({forward_only} device events, counts {counts})")
+    if any(events.values()) or any(counts.values()):
+        fail(f"train-1gpu: a training step ran kernels of the port "
+             f"(device events {events}, counts {counts})")
     print(f"{tag} profiled step {TRAIN_STEPS}: {wall_ms:.1f} ms wall, "
           f"device idle share "
           f"{'not measured' if idle is None else f'{idle:.4f}'}; "
@@ -1498,7 +1658,29 @@ def phase_train_1gpu(smi_line):
     del params, opt, run
     torch.cuda.empty_cache()
 
-    # reduced smollm in fp32: the card against the CPU
+    tp1_card_vs_cpu(cfg, "[train-1gpu]")
+
+
+def tp1_card_vs_cpu(cfg, tag):
+    """The reduced ``cfg`` in fp32, 2 tp-1 steps (microbatches 2) on the
+    card and on the CPU from the same parameters: loss and grad norm
+    within 1e-4 relative, every parameter leaf by the parameter rule at
+    1e-4 (mean |d| <= 1e-4 x the leaf's mean magnitude, max |d| <=
+    2 peak_lr + 1e-4 x its max)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist import sharding
+    from repro_torch.dist.group import Group
+    from repro_torch.dist.steps import (
+        StepConfig,
+        build_init,
+        build_train_step,
+        init_opt,
+    )
+    from repro_torch.models.model import params_to
+
     rcfg = cfg.reduced()
     rscfg = StepConfig(microbatches=2, seq_chunk=8, warmup_steps=1)
     rdata = SyntheticLM(DataConfig(vocab_size=rcfg.vocab_size, seq_len=65,
@@ -1528,14 +1710,159 @@ def phase_train_1gpu(smi_line):
                                            / max(np.abs(b).mean(), 1e-30)))
         if not (d.mean() <= t * np.abs(b).mean()
                 and d.max() <= 2 * rscfg.peak_lr + t * np.abs(b).max()):
-            fail(f"train-1gpu reduced {path}: card vs CPU mean |d| "
+            fail(f"{tag} reduced {path}: card vs CPU mean |d| "
                  f"{d.mean()}, max |d| {d.max()}")
-    print(f"[train-1gpu] reduced {rcfg.name} fp32, 2 tp-1 steps "
+    print(f"{tag} reduced {rcfg.name} fp32, 2 tp-1 steps "
           f"(microbatches 2), card vs CPU: loss/grad_norm max rel "
           f"{worst:.3g} (tol {t}); params mean |d|/mean |p| max "
           f"{worst_mean:.3g} (tol {t})", flush=True)
     if worst > t:
-        fail(f"train-1gpu reduced: card vs CPU metrics differ by {worst}")
+        fail(f"{tag} reduced: card vs CPU metrics differ by {worst}")
+
+
+#: the one-GPU mamba2 training phase: full-width mamba2-2.7b
+M2_ARCH = "mamba2-2.7b"
+M2_BATCH, M2_SEQ, M2_MICRO, M2_CHUNK, M2_STEPS = 8, 2048, 2, 512, 3
+
+
+class NoCheckpoints:
+    """The mamba2 phase's checkpoint manager: restores nothing and saves
+    nothing (a 2.7B model's checkpoint, ~38 GB, would outlast the steps;
+    phase 10 holds the format and the resume)."""
+
+    directory = None
+
+    def should_save(self, step):
+        return False
+
+    def save(self, step, tree, *, extra=None):
+        return "(not written)"
+
+    def restore_or_none(self, template, device=None):
+        return None
+
+
+def phase_train_mamba2(smi_line):
+    """Full-width mamba2-2.7b trained on one card through the Trainer: 3
+    steps, then one more under torch.profiler; every step's SSD launches
+    exact (forward 2 x layers x microbatches under remat full, backward
+    layers x microbatches, every other kernel 0); then reduced mamba2 in
+    fp32, 2 tp-1 steps on the card and on the CPU.  Returns the numbers of
+    the kernels line."""
+    import math
+    import warnings
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist import sharding
+    from repro_torch.dist.steps import StepConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(M2_ARCH)
+    scfg = StepConfig(microbatches=M2_MICRO, seq_chunk=M2_CHUNK,
+                      warmup_steps=1, total_steps=100)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=M2_SEQ + 1, global_batch=M2_BATCH))
+    tag = f"[train-mamba2] ({smi_line})"
+    want = dict.fromkeys(kernel_counts(), 0)
+    want.update(ssd=2 * cfg.n_layers * M2_MICRO,
+                ssd_bwd=cfg.n_layers * M2_MICRO)
+    steps = []
+
+    def on_step(step, m):
+        counts = kernel_counts()
+        reset_kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        steps.append(dict(m, peak_gib=peak, counts=counts))
+        print(f"{tag} step {step - 1}: {m['step_time_s']:.3f} s, "
+              f"{m['tokens'] / m['step_time_s']:.1f} tokens/s, loss "
+              f"{m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, lr "
+              f"{m['lr']:.3g}; peak memory {peak:.2f} GiB; launches ssd "
+              f"{counts['ssd']}, ssd_bwd {counts['ssd_bwd']}", flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # as phase 10: deterministic kernels, without the fill of empty memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            reset_kernel_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run = Trainer(cfg, scfg, TrainerConfig(
+                total_steps=M2_STEPS, log_interval=1000,
+                ckpt_dir=str(ROOT / "build" / "smoke_mamba2_ckpt")), data,
+                device="cuda", log_fn=lambda line: print(f"{tag} {line}",
+                                                         flush=True))
+            run.ckpt = NoCheckpoints()
+            params, opt, _ = run.train(on_step=on_step)
+            n_params = sum(t.numel() for _, t in sharding.leaves(params))
+            print(f"{tag} {cfg.name} full width ({cfg.n_layers} layers, "
+                  f"{n_params / 1e6:.1f}M parameters in {cfg.param_dtype}, "
+                  f"fp32 AdamW masters and moments, remat {cfg.remat}), "
+                  f"batches of {M2_BATCH} x {M2_SEQ} tokens in {M2_MICRO} "
+                  f"microbatches, seq_chunk {M2_CHUNK}: {M2_STEPS} steps in "
+                  f"{time.perf_counter() - t0:.1f} s with init", flush=True)
+            reset_kernel_counts()
+            top, idle, wall_ms, events = profile_train_step(
+                run.step_fn, params, opt, data.global_batch(M2_STEPS),
+                M2_STEPS)
+            prof_counts = kernel_counts()
+            reset_kernel_counts()
+        notes = sorted({str(w.message).split(".")[0] for w in caught})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    for line in notes:
+        print(f"{tag} warning under deterministic algorithms: "
+              f"{line[:160]}", flush=True)
+    loss0 = steps[0]["loss"]
+    print(f"{tag} step-0 loss {loss0:.6f} vs ln {cfg.vocab_size} = "
+          f"{math.log(cfg.vocab_size):.6f} (tol 0.5)", flush=True)
+    if not (math.isfinite(loss0)
+            and abs(loss0 - math.log(cfg.vocab_size)) <= 0.5):
+        fail(f"train-mamba2: step-0 loss {loss0} not within 0.5 of "
+             f"ln {cfg.vocab_size}")
+    for k, st in enumerate(steps):
+        if not (math.isfinite(st["loss"]) and math.isfinite(
+                st["grad_norm"])):
+            fail(f"train-mamba2: step {k} not finite: {st}")
+        if st["counts"] != want:
+            fail(f"train-mamba2: step {k} launches {st['counts']}, "
+                 f"expected {want}")
+    if prof_counts != want:
+        fail(f"train-mamba2: profiled step launches {prof_counts}, "
+             f"expected {want}")
+    if top and events != {"flash": 0, "ssd": 3 * want["ssd"],
+                          "ssd_bwd": 4 * want["ssd_bwd"]}:
+        fail(f"train-mamba2: profiled step's device events {events}, "
+             f"expected ssd {3 * want['ssd']} and ssd_bwd "
+             f"{4 * want['ssd_bwd']} (3 and 4 CUDA kernels a launch)")
+    print(f"{tag} every step's launches {want} (SSD forward 2 x "
+          f"{cfg.n_layers} layers x {M2_MICRO} microbatches: the forward "
+          f"and the remat recompute; backward {cfg.n_layers} x {M2_MICRO})",
+          flush=True)
+    print(f"{tag} profiled step {M2_STEPS}: {wall_ms:.1f} ms wall, device "
+          f"idle share {'not measured' if idle is None else f'{idle:.4f}'}"
+          f"; port device events {events}", flush=True)
+    for name, ms, n in top:
+        print(f"{tag}   {ms:9.3f} ms  x{n:<5} {name[:100]}", flush=True)
+    if not top:
+        print(f"{tag} torch.profiler saw no device time: top ops and idle "
+              f"share not measured", flush=True)
+    out = dict(bwd_launches=steps[0]["counts"]["ssd_bwd"],
+               train_launches=steps[0]["counts"]["ssd"],
+               step_s=[st["step_time_s"] for st in steps],
+               peak_gib=max(st["peak_gib"] for st in steps), idle=idle)
+    del params, opt, run
+    torch.cuda.empty_cache()
+    tp1_card_vs_cpu(cfg, "[train-mamba2]")
+    return out
 
 
 DLA_CASE_SIZES = (256, 512, 1024)
@@ -1847,6 +2174,7 @@ def main() -> int:
     phase_build()
     flash_main = phase_kernels()
     ssd_cases = phase_ssd_kernels()
+    ssd_bwd_cases = phase_ssd_bwd()
     flash_launches = phase_serve()
     torch.cuda.empty_cache()              # the smollm weights are gone
     ssd_launches = phase_serve_mamba2()
@@ -1860,6 +2188,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_1gpu(card_name_and_limit())
     torch.cuda.empty_cache()
+    m2_train = phase_train_mamba2(card_name_and_limit())
+    torch.cuda.empty_cache()
     dla_launches, dla_main = phase_dla()
     torch.cuda.empty_cache()
     phase_case_study(phase_pgas())
@@ -1870,6 +2200,8 @@ def main() -> int:
     ssd_chunk = ssd_cases[("mamba2 chunk128+state", "bfloat16")]
     ssd_f32 = ssd_cases[("mamba2 S2048", "float32")]
     ssd_z = ssd_cases[("zamba2 S512", "bfloat16")]
+    bwd = ssd_bwd_cases[(SSD_TRAIN_CASE[0], "bfloat16")]
+    bwd_f32 = ssd_bwd_cases[("mamba2 S2048", "float32")]
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/"
@@ -1893,7 +2225,21 @@ def main() -> int:
              fp32_ms=ssd_f32["ms"], fp32_device_ms=ssd_f32["device_ms"],
              fp32_bound_ms=ssd_f32["bound_ms"],
              zamba2_ms=ssd_z["ms"], zamba2_device_ms=ssd_z["device_ms"],
-             zamba2_bound_ms=ssd_z["bound_ms"]),
+             zamba2_bound_ms=ssd_z["bound_ms"],
+             train_launches=m2_train["train_launches"],
+             bwd_source="src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
+             bwd_replaces="XLA's gradient of src/repro/models/layers.py:640 "
+                          "ssd_jnp (no Pallas counterpart)",
+             bwd_shape="B4 S2048 H80 P64 N128 bf16",
+             bwd_launches=m2_train["bwd_launches"],
+             bwd_max_err=bwd["max_abs_err"], bwd_max_rel_err=bwd["max_err"],
+             bwd_ms=bwd["ms"], bwd_device_ms=bwd["device_ms"],
+             bwd_plain_ms=bwd["plain_ms"], bwd_bound_ms=bwd["bound_ms"],
+             bwd_bound_by=bwd["bound_by"],
+             bwd_kernel_device_ms=bwd["kernel_device_ms"],
+             bwd_fp32_s2048_ms=bwd_f32["ms"],
+             bwd_fp32_s2048_device_ms=bwd_f32["device_ms"],
+             bwd_fp32_s2048_bound_ms=bwd_f32["bound_ms"]),
     ]
     for entry, line in (("matmul_tile", 65), ("consume_matmul", 84),
                         ("consume_matmul_acc", 106),

@@ -13,12 +13,13 @@ Training: :class:`TransportPolicy`, :class:`StepConfig`,
 for the ``model`` axis.  At tp 1 (``Group(rank=0, size=1, device=…)``,
 no process pool) it is the reference's one-device step: the dense block
 attends through ``layers.blockwise_attention``, as the reference does off
-the TPU.  At tp ≥ 2 it is the path the reference takes with
-``TransportPolicy(tp="fused")`` on a ``(1, tp)`` mesh: every dense
-block's TP edges on the fused ring of ``kernels/cc_matmul``.  Both take
-fp32 microbatch accumulation, into flat buckets with
-``grad_bucket_bytes``.  A data axis, the other TP transports and SSM
-training raise, each naming its ROADMAP item.
+the TPU, and the ssm (Mamba-2) block is the model's own, its SSD scan
+the kernel with its backward (``kernels/ssd``).  At tp ≥ 2 it is the
+path the reference takes with ``TransportPolicy(tp="fused")`` on a
+``(1, tp)`` mesh: every dense block's TP edges on the fused ring of
+``kernels/cc_matmul``.  Both take fp32 microbatch accumulation, into
+flat buckets with ``grad_bucket_bytes``.  A data axis and the other TP
+transports raise, each naming its ROADMAP item; ART-TP is dense-only.
 """
 
 from __future__ import annotations
@@ -106,8 +107,6 @@ def park_row(cache: Cache, i: int) -> Cache:
 
 ROADMAP_DATA = ("ROADMAP queue 1 item 7 (distributed steps: a data axis "
                 "with gradient sync)")
-ROADMAP_SSM_TRAIN = ("ROADMAP queue 1 item 5.1 (SSM training: the SSD "
-                     "kernel has no backward)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,24 +187,30 @@ def _art_runner(cfg: ModelConfig, policy: TransportPolicy,
 
 def _check_path(cfg: ModelConfig, group, scfg: StepConfig,
                 data_axis: int) -> Callable:
-    """The block runner of this group's train step, or the raise that
-    names the ROADMAP item of a path not ported."""
+    """The block runner of this group's train step (None: the model's own
+    ssm block), or the raise that names the ROADMAP item of a path not
+    ported."""
     if data_axis != 1:
         raise NotImplementedError(
             f"data axis {data_axis} is not ported: {ROADMAP_DATA}")
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"training {cfg.name} is not ported: {ROADMAP_SSM_TRAIN}")
     if scfg.microbatches < 1:
         raise ValueError(f"microbatches={scfg.microbatches} < 1")
+    if cfg.family not in ("dense", "ssm"):
+        raise ValueError(f"{cfg.name}: the train step takes the dense and "
+                         f"ssm families")
     if group.size == 1:
-        if cfg.family != "dense":
-            raise ValueError(f"{cfg.name}: the tp-1 step trains the dense "
-                             f"family")
+        if cfg.family == "ssm":
+            # forward_hidden's ssm branch: the Mamba-2 block, whose SSD
+            # scan is the kernel with its backward
+            return None
         # the model's own block, attending through blockwise attention at
         # the config's chunks (the reference's one-device step off the
         # TPU): never the flash kernel, which has no backward
         return functools.partial(dense_block, core=L.blockwise_core(cfg))
+    if cfg.family != "dense":
+        raise ValueError(
+            f"{cfg.name}: ART-TP is dense-only (the reference's _art_runner "
+            f"runs the dense block); train the {cfg.family} family at tp 1")
     policy = scfg.resolved_transport()
     if policy.tp == "auto":
         raise NotImplementedError(
@@ -214,8 +219,7 @@ def _check_path(cfg: ModelConfig, group, scfg: StepConfig,
         raise NotImplementedError(
             f"TransportPolicy.tp={policy.tp!r} with use_art={cfg.use_art} "
             f"is not ported (only 'fused' ART-TP is): {ROADMAP_OVERLAP}")
-    if cfg.family != "dense" or not artblock.supports_art_tp(cfg,
-                                                             group.size):
+    if not artblock.supports_art_tp(cfg, group.size):
         raise ValueError(f"{cfg.name} cannot run the ART-TP block at "
                          f"tp={group.size}")
     return _art_runner(cfg, policy, group)

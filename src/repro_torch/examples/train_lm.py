@@ -1,12 +1,14 @@
-"""End to end on one device: train a ~100M-parameter SmolLM-family model
-for a few hundred steps with checkpoints, preemption handling and fp32
-microbatch accumulation (the reference's ``examples/train_lm.py``, whose
-DP × TP mesh is one device here).
+"""End to end on one device: train a ~100M-parameter SmolLM-family (or,
+with ``--arch mamba2-2.7b``, Mamba-2-family) model for a few hundred steps
+with checkpoints, preemption handling and fp32 microbatch accumulation
+(the reference's ``examples/train_lm.py``, whose DP × TP mesh is one
+device here).
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.train_lm [--steps 300]
-on a CUDA device (~100M parameters: smollm-360m at 16 layers / 768 wide,
-fp32); ``--small --device cpu`` runs the reduced config on the CPU.
-``--resume`` continues from ``--ckpt-dir`` instead of starting fresh.
+on a CUDA device (~100M parameters, fp32: smollm-360m at 16 layers / 768
+wide, or mamba2-2.7b at 24 layers / 768 wide with 24 SSD heads);
+``--small --device cpu`` runs the reduced config on the CPU.  ``--resume``
+continues from ``--ckpt-dir`` instead of starting fresh.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import tempfile
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--arch", default="smollm-360m",
+                   choices=("smollm-360m", "mamba2-2.7b"))
     p.add_argument("--steps", type=int, default=300)
     p.add_argument("--small", action="store_true",
                    help="reduced width, fewer steps (CPU-sized)")
@@ -38,16 +42,19 @@ def main(argv=None):
     from repro_torch.dist.steps import StepConfig
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-    base = get_config("smollm-360m")
+    base = get_config(args.arch)
     if args.small:
         cfg = base.reduced()
         seq, gb, steps = 64, 8, min(args.steps, 60)
     else:
-        cfg = dataclasses.replace(
-            base, n_layers=16, d_model=768, n_heads=12, n_kv_heads=4,
-            d_ff=2048, head_dim=64, param_dtype="float32",
-            compute_dtype="float32", remat="none", attn_q_chunk=256,
-            attn_kv_chunk=256)
+        wide = (dict(n_layers=24, d_model=768, ssm_heads=24)
+                if base.family == "ssm" else
+                dict(n_layers=16, d_model=768, n_heads=12, n_kv_heads=4,
+                     d_ff=2048, head_dim=64, attn_q_chunk=256,
+                     attn_kv_chunk=256))
+        cfg = dataclasses.replace(base, param_dtype="float32",
+                                  compute_dtype="float32", remat="none",
+                                  **wide)
         seq, gb, steps = 256, 16, args.steps
 
     scfg = StepConfig(microbatches=2, seq_chunk=min(256, seq), peak_lr=1e-3,

@@ -1,4 +1,7 @@
 """Hand-written Hopper kernels of the port, each beside its plain version."""
 
-#: every kernel of the port, by the name of its ``<name>/csrc/<name>.cu``
-KERNEL_NAMES = ("flash_attention", "ssd", "cc_matmul", "matmul")
+#: every kernel library of the port, by the name of its source
+#: (``common.source_of``: ``<name>/csrc/<name>.cu``, ``<dir>/<name>`` for
+#: ``<dir>/csrc/<name>.cu``)
+KERNEL_NAMES = ("flash_attention", "ssd", "ssd/ssd_bwd", "cc_matmul",
+                "matmul")

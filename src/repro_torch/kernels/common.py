@@ -1,6 +1,6 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel source ``csrc/<name>.cu`` has a plain C interface and is
+Each kernel source ``<dir>/csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``.  Headers shared by several kernels (``kernels/include/``, e.g.
 ``hopper.cuh``: cp.async, wgmma and its descriptors) are found through
@@ -58,8 +58,11 @@ def nvcc_path() -> str:
 
 
 def source_of(name: str) -> Path:
-    """``name`` → ``kernels/<name>/csrc/<name>.cu``."""
-    return KERNELS_DIR / name / "csrc" / f"{name}.cu"
+    """``name`` → ``kernels/<name>/csrc/<name>.cu``, and ``<dir>/<name>``
+    → ``kernels/<dir>/csrc/<name>.cu`` (a second source of one kernel's
+    directory, e.g. ``ssd/ssd_bwd``)."""
+    folder, _, stem = name.rpartition("/")
+    return KERNELS_DIR / (folder or stem) / "csrc" / f"{stem}.cu"
 
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
@@ -161,11 +164,12 @@ def launch_on(device, fn, args) -> int:
 
 
 def refuse_autograd(name: str, *tensors) -> None:
-    """Raise when autograd is recording and an input of a kernel requires
-    grad.  The CUDA kernels are forward-only: their output would carry no
-    ``grad_fn``, and the gradient would stop there without a word.  A
-    caller that trains routes around the kernel (training attends through
-    ``models.layers.blockwise_attention``)."""
+    """Raise when autograd is recording and an input of a forward-only
+    kernel (flash attention, the DLA matmul) requires grad: its output
+    would carry no ``grad_fn``, and the gradient would stop there without
+    a word.  A caller that trains routes around the kernel (training
+    attends through ``models.layers.blockwise_attention``); the SSD scan
+    has a backward of its own (``kernels/ssd/ops.py``)."""
     import torch
 
     if torch.is_grad_enabled() and any(

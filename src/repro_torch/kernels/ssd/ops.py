@@ -1,5 +1,5 @@
-"""SSD scan wrapper: the CUDA kernel for CUDA tensors, the plain version for
-CPU tensors, and nothing in between.
+"""SSD scan wrapper: the CUDA kernels for CUDA tensors, the plain versions
+for CPU tensors, and nothing in between.
 
 ``ssd`` checks device, dtypes, shapes and strides, picks the head and P
 tiles of a block (:func:`ssd_plan`), allocates y, the final state and,
@@ -8,9 +8,14 @@ for more than one chunk, the chunk-state scratch with ``torch.empty``
 stream.  x, b and c may be strided views (the model passes slices
 of the conv output, whose row stride is the conv width) as long as their
 last dim is contiguous; a ragged S is handled inside the kernel, so
-nothing is padded or copied.  ``ssd_chunk_fed`` runs the scan over a
-sequence delivered in segments, carrying the state from one call to the
-next through ``init_state``.
+nothing is padded or copied.  When autograd records and an input
+requires grad, the same forward runs inside a ``torch.autograd.Function``
+that keeps the states entering each chunk (the forward's ``s_in``
+scratch, in x's type) and whose backward is :func:`ssd_bwd`
+(``csrc/ssd_bwd.cu``); otherwise (every serving call) the forward is
+launched directly and keeps nothing.  ``ssd_chunk_fed`` runs the scan
+over a sequence delivered in segments, carrying the state from one call
+to the next through ``init_state`` (and its gradient back the same way).
 """
 
 from __future__ import annotations
@@ -21,8 +26,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.common import CudaKernel, launch_on, refuse_autograd
-from repro_torch.kernels.ssd.ref import ssd_plain
+from repro_torch.kernels.common import CudaKernel, launch_on
+from repro_torch.kernels.ssd.ref import ssd_bwd_plain, ssd_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: dynamic shared memory one block may take on Hopper (227 KB)
@@ -32,11 +37,17 @@ MAX_CHUNK = 128
 MODE_STATE, MODE_OUT, MODE_BOTH = 1, 2, 3
 #: P tiles the plan tries
 _P_TILES = (64, 32)
+#: the largest state size N and head dim P the backward takes (its
+#: products' outputs are 128 rows of a block's register tiles)
+BWD_MAX_NP = 128
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SSD = CudaKernel(
     "ssd", "repro_ssd_fwd",
     [_I] + [_P] * 12 + [_I] * 10 + [_L] * 12 + [_P])
+SSD_BWD = CudaKernel(
+    "ssd/ssd_bwd", "repro_ssd_bwd",
+    [_I] + [_P] * 22 + [_I] * 7 + [_L] * 12 + [_P])
 
 
 def block_smem(chunk: int, n: int, pt: int, ht: int, dtype, nc: int) -> int:
@@ -105,28 +116,8 @@ def _aligned16(*ts: torch.Tensor) -> bool:
                for t in ts)
 
 
-def ssd(
-    x: torch.Tensor,                      # (B, S, H, P)
-    dt: torch.Tensor,                     # (B, S, H) fp32
-    a: torch.Tensor,                      # (H,) fp32
-    b: torch.Tensor,                      # (B, S, G, N)
-    c: torch.Tensor,                      # (B, S, G, N)
-    d: torch.Tensor,                      # (H,) fp32
-    *,
-    chunk: int = 128,
-    init_state: Optional[torch.Tensor] = None,   # (B, H, N, P) fp32
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan.  Returns (y (B, S, H, P) in x's dtype, final state
-    (B, H, N, P) fp32).  See :func:`~repro_torch.kernels.ssd.ref.ssd_plain`.
-    On the card a call of more than one chunk runs three CUDA kernels
-    (chunk-local states, the ordered state pass, outputs) and counts one
-    launch."""
-    if x.device.type == "cpu":
-        return ssd_plain(x, dt, a, b, c, d, chunk=chunk,
-                         init_state=init_state)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd: unsupported device {x.device}")
-    refuse_autograd("ssd", x, dt, a, b, c, d, init_state)
+def _check(x, dt, a, b, c, d, chunk, init_state) -> None:
+    """What the kernels take: raises on anything else."""
     if x.dim() != 4 or b.dim() != 4 or b.shape != c.shape:
         raise ValueError(f"ssd: shapes x {tuple(x.shape)} b {tuple(b.shape)} "
                          f"c {tuple(c.shape)}")
@@ -156,15 +147,6 @@ def ssd(
         raise ValueError("ssd: inputs on different devices")
     if x.stride(3) != 1 or b.stride(3) != 1 or c.stride(3) != 1:
         raise ValueError("ssd: the last dim of x, b and c must be contiguous")
-    nc = -(-s // chunk)
-    plan = ssd_plan(bsz, s, h, g, n, p, chunk, x.dtype, _sm_count(x.device))
-    if plan is None:
-        raise ValueError(
-            f"ssd: chunk {chunk}, state {n}, head dim {p} in {x.dtype} need "
-            f"{block_smem(chunk, n, 32, 1, x.dtype, nc)} B of "
-            f"shared memory, more than {SMEM_LIMIT}")
-    ht, pt = plan
-    a, d = a.contiguous(), d.contiguous()
     if init_state is not None:
         if init_state.shape != (bsz, h, n, p) \
                 or init_state.dtype != torch.float32 \
@@ -174,6 +156,42 @@ def ssd(
                 f"ssd: init_state must be a contiguous float32 "
                 f"{(bsz, h, n, p)} tensor on {x.device}, got "
                 f"{init_state.dtype} {tuple(init_state.shape)}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _strides(x, dt, b, c) -> Tuple[int, ...]:
+    return (x.stride(0), x.stride(1), x.stride(2),
+            dt.stride(0), dt.stride(1), dt.stride(2),
+            b.stride(0), b.stride(1), b.stride(2),
+            c.stride(0), c.stride(1), c.stride(2))
+
+
+def _on16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it whose data starts on 16 bytes."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _forward(x, dt, a, b, c, d, chunk, init_state):
+    """The forward kernel on CUDA tensors: (y, final state, s_in), s_in the
+    (B, nc, H, N, P) states entering each chunk in x's type (None for one
+    chunk, whose entering state is ``init_state``)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd: unsupported device {x.device}")
+    _check(x, dt, a, b, c, d, chunk, init_state)
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = -(-s // chunk)
+    plan = ssd_plan(bsz, s, h, g, n, p, chunk, x.dtype, _sm_count(x.device))
+    if plan is None:
+        raise ValueError(
+            f"ssd: chunk {chunk}, state {n}, head dim {p} in {x.dtype} need "
+            f"{block_smem(chunk, n, 32, 1, x.dtype, nc)} B of "
+            f"shared memory, more than {SMEM_LIMIT}")
+    ht, pt = plan
+    a, d = a.contiguous(), d.contiguous()
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
     local = s_in = total = None
@@ -183,19 +201,150 @@ def ssd(
         s_in = torch.empty((bsz, nc, h, n, p), dtype=x.dtype, device=x.device)
         total = torch.empty((bsz, nc, h), dtype=torch.float32,
                             device=x.device)
-    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     rc = launch_on(x.device, SSD.fn(), (
         _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-        b.data_ptr(), c.data_ptr(), d.data_ptr(), ptr(init_state),
-        y.data_ptr(), state.data_ptr(), ptr(local), ptr(s_in), ptr(total),
+        b.data_ptr(), c.data_ptr(), d.data_ptr(), _ptr(init_state),
+        y.data_ptr(), state.data_ptr(), _ptr(local), _ptr(s_in), _ptr(total),
         bsz, s, h, g, n, p, chunk, ht, pt, int(_aligned16(x, b, c)),
-        x.stride(0), x.stride(1), x.stride(2),
-        dt.stride(0), dt.stride(1), dt.stride(2),
-        b.stride(0), b.stride(1), b.stride(2),
-        c.stride(0), c.stride(1), c.stride(2)))
+        *_strides(x, dt, b, c)))
     SSD.check(rc)
     SSD.launches += 1
-    return y, state
+    return y, state, s_in
+
+
+class _Scan(torch.autograd.Function):
+    """The scan with its gradient: forward :func:`_forward` (the plain
+    version on the CPU), keeping the inputs and ``s_in``; backward
+    :func:`ssd_bwd`.  An unused output's cotangent arrives as None (no
+    zeros are made): a None ``dstate`` is a zero one."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d, init_state, chunk):
+        if x.device.type == "cpu":
+            y, state = ssd_plain(x, dt, a, b, c, d, chunk=chunk,
+                                 init_state=init_state)
+            s_in = None
+        else:
+            y, state, s_in = _forward(x, dt, a, b, c, d, chunk, init_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b, c, d, init_state, s_in)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, b, c, d, init_state, s_in = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x, memory_format=torch.contiguous_format)
+        dx, ddt, da, db, dc, dd, dinit = ssd_bwd(
+            x, dt, a, b, c, d, dy, dstate, chunk=ctx.chunk,
+            init_state=init_state, s_in=s_in)
+        return (dx, ddt, da, db, dc, dd,
+                None if init_state is None else dinit, None)
+
+
+def ssd(
+    x: torch.Tensor,                      # (B, S, H, P)
+    dt: torch.Tensor,                     # (B, S, H) fp32
+    a: torch.Tensor,                      # (H,) fp32
+    b: torch.Tensor,                      # (B, S, G, N)
+    c: torch.Tensor,                      # (B, S, G, N)
+    d: torch.Tensor,                      # (H,) fp32
+    *,
+    chunk: int = 128,
+    init_state: Optional[torch.Tensor] = None,   # (B, H, N, P) fp32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan.  Returns (y (B, S, H, P) in x's dtype, final state
+    (B, H, N, P) fp32).  See :func:`~repro_torch.kernels.ssd.ref.ssd_plain`.
+    On the card a call of more than one chunk runs three CUDA kernels
+    (chunk-local states, the ordered state pass, outputs) and counts one
+    launch.  When autograd records and an input requires grad, the
+    outputs carry a ``grad_fn`` whose backward is :func:`ssd_bwd`."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b, c, d, init_state)):
+        return _Scan.apply(x, dt, a, b, c, d, init_state, chunk)
+    if x.device.type == "cpu":
+        return ssd_plain(x, dt, a, b, c, d, chunk=chunk,
+                         init_state=init_state)
+    return _forward(x, dt, a, b, c, d, chunk, init_state)[:2]
+
+
+def ssd_bwd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    d: torch.Tensor,
+    dy: torch.Tensor,                              # (B, S, H, P), x's dtype
+    dstate: Optional[torch.Tensor] = None,         # (B, H, N, P) fp32
+    *,
+    chunk: int = 128,
+    init_state: Optional[torch.Tensor] = None,
+    s_in: Optional[torch.Tensor] = None,           # (B, nc, H, N, P)
+) -> Tuple[torch.Tensor, ...]:
+    """Gradient of :func:`ssd` for the cotangents ``dy`` and ``dstate``
+    (zeros when None): (dx in x's dtype, ddt fp32, da fp32, db and dc in
+    b's dtype, dd fp32, d init_state fp32).  See
+    :func:`~repro_torch.kernels.ssd.ref.ssd_bwd_plain`, which the CPU takes
+    (recomputing ``s_in`` when None).  On the card ``s_in`` is the
+    forward's scratch (x's type), required for more than one chunk; the
+    call runs four CUDA kernels (dlocal, the reverse pass, the chunks,
+    the reduction over heads) and counts one launch of ``SSD_BWD``."""
+    if x.device.type == "cpu":
+        return ssd_bwd_plain(x, dt, a, b, c, d, dy, dstate, chunk=chunk,
+                             init_state=init_state, s_in=s_in)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_bwd: unsupported device {x.device}")
+    _check(x, dt, a, b, c, d, chunk, init_state)
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = -(-s // chunk)
+    if n > BWD_MAX_NP or p > BWD_MAX_NP:
+        raise ValueError(f"ssd_bwd: state size {n} and head dim {p} must be "
+                         f"at most {BWD_MAX_NP}")
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"ssd_bwd: dy {dy.dtype} {tuple(dy.shape)} for x "
+                         f"{x.dtype} {tuple(x.shape)}")
+    # the kernels read dy and dstate as 8- or 16-byte vectors: a view that
+    # starts off 16 bytes is copied
+    dy = _on16(dy.contiguous())
+    if dstate is not None:
+        if dstate.shape != (bsz, h, n, p) or dstate.device != x.device:
+            raise ValueError(f"ssd_bwd: dstate {tuple(dstate.shape)}, "
+                             f"expected {(bsz, h, n, p)}")
+        dstate = _on16(dstate.float().contiguous())
+    if nc > 1:
+        if s_in is None or s_in.shape != (bsz, nc, h, n, p) \
+                or s_in.dtype != x.dtype or not s_in.is_contiguous():
+            raise ValueError(
+                f"ssd_bwd: s_in must be the forward's contiguous "
+                f"{(bsz, nc, h, n, p)} {x.dtype} entering states")
+    a, d = a.contiguous(), d.contiguous()
+    dev = x.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    dx, ddt = empty(bsz, s, h, p, dtype=x.dtype), empty(bsz, s, h)
+    da, dd, dinit = empty(h), empty(h), empty(bsz, h, n, p)
+    db, dc = empty(bsz, s, g, n, dtype=b.dtype), empty(bsz, s, g, n,
+                                                      dtype=b.dtype)
+    gbuf, total = empty(bsz, nc, h, n, p), empty(bsz, nc, h)
+    dbh, dch, part = empty(bsz, s, h, n), empty(bsz, s, h, n), empty(
+        bsz, nc, h, 2)
+    rc = launch_on(dev, SSD_BWD.fn(), (
+        _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+        b.data_ptr(), c.data_ptr(), d.data_ptr(), _ptr(init_state),
+        _ptr(s_in), dy.data_ptr(), _ptr(dstate), dx.data_ptr(),
+        ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        dd.data_ptr(), dinit.data_ptr(), gbuf.data_ptr(), total.data_ptr(),
+        dbh.data_ptr(), dch.data_ptr(), part.data_ptr(),
+        bsz, s, h, g, n, p, chunk, *_strides(x, dt, b, c)))
+    SSD_BWD.check(rc)
+    SSD_BWD.launches += 1
+    return dx, ddt, da, db, dc, dd, dinit
 
 
 def ssd_chunk_fed(

@@ -6,6 +6,10 @@
 * :func:`ssd_split` — the same scan split as ``csrc/ssd.cu`` splits it:
   every chunk's local state from a zero state, one ordered pass over the
   chunks, then each chunk's y from the state that entered it.
+* :func:`ssd_bwd_plain` — the scan's gradient split as
+  ``csrc/ssd_bwd.cu`` splits it (every chunk's dlocal, one reverse pass
+  over the chunks, then each chunk's gradients): the oracle of the
+  backward kernels, as ``ssd_split`` is of the forward.
 * :func:`ssd_decode_step` — the single-token recurrence of serving decode
   (plain tensor code in the reference too).
 * :func:`ssd_sequential` — the step-by-step recurrence, the definition both
@@ -126,6 +130,126 @@ def ssd_split(
     y = y.reshape(bsz, nc * chunk, h, p)[:, :s]
     y = y + d.float()[None, None, :, None] * x[:, :s].float()
     return y.to(x.dtype), state
+
+
+def ssd_bwd_plain(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    d: torch.Tensor,
+    dy: torch.Tensor,
+    dstate: Optional[torch.Tensor] = None,
+    *,
+    chunk: int = 128,
+    init_state: Optional[torch.Tensor] = None,
+    s_in: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Gradient of :func:`ssd_plain` for the cotangents ``dy`` (of y) and
+    ``dstate`` (of the final state; zeros when ``None``), in the kernel's
+    decomposition.  Per chunk k, with cum, total, u = exp(total - cum) dt,
+    F_lm = exp(cum_l - cum_m) [l >= m], S = C B^T and W = S F dt_m:
+
+    (i) every chunk at once: dlocal_k = sum_l exp(cum_l) C_l^T dy_l (N, P);
+    (ii) in reverse chunk order from ``dstate``: g_k, the gradient of chunk
+    k's outgoing state, then ds_in[k] = exp(total_k) g_k + dlocal_k and
+    g_{k-1} = ds_in[k]; the gradient of ``init_state`` is ds_in[0];
+    (iii) every chunk at once: dx = W^T dy + u (B g_k) + d dy, dB = (dy
+    x^T F dt)^T C + u (x g_k^T), dC = (dy x^T F dt) B + exp(cum) (dy
+    s_in^T), and the gradient of cum from the decay factors, the state
+    injection u and exp(total_k) <g_k, s_in[k]>;
+    then ddt = the direct terms + a * (reverse cumsum of dcum), da =
+    sum dt * (reverse cumsum of dcum), dd = sum dy x, and dB, dC summed
+    over the heads of a group.  ``s_in`` (B, nc, H, N, P), the states
+    entering each chunk, is recomputed in fp32 when ``None``.  (Mamba-2's
+    public Triton backward, ``mamba_ssm/ops/triton/ssd_combined.py``,
+    splits the gradient the same way.)
+
+    Returns (dx in x's dtype, ddt fp32, da fp32, db and dc in b's dtype,
+    dd fp32, d init_state fp32)."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    hpg = h // g
+    pad = (-s) % chunk
+    if pad:
+        x, b, c, dy = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, b, c, dy))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    nc = x.shape[1] // chunk
+    shape = (bsz, nc, chunk, h)
+    xf = x.float().reshape(*shape, p)
+    dyf = dy.float().reshape(*shape, p)
+    dtf = dt.float().reshape(shape)
+    bh = b.repeat_interleave(hpg, dim=2).float().reshape(*shape, n)
+    ch = c.repeat_interleave(hpg, dim=2).float().reshape(*shape, n)
+    af = a.float()
+    cum = torch.cumsum(dtf * af, dim=2)                        # (B, nc, L, H)
+    total = cum[:, :, -1]                                       # (B, nc, H)
+    u = torch.exp(total[:, :, None] - cum) * dtf
+    ec = torch.exp(cum)
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    decay = torch.where(causal, torch.exp(
+        cum[:, :, :, None, :] - cum[:, :, None, :, :]),
+        torch.zeros((), device=x.device))                       # F (B,nc,L,L,H)
+    if s_in is None:
+        local = torch.einsum("bklhn,bklhp->bkhnp", bh * u[..., None], xf)
+        state = (torch.zeros((bsz, h, n, p), device=x.device)
+                 if init_state is None else init_state.float())
+        entering = []
+        for k in range(nc):
+            entering.append(state)
+            state = torch.exp(total[:, k])[..., None, None] * state \
+                + local[:, k]
+        s_in = torch.stack(entering, dim=1)
+    s_in = s_in.float()
+    # (i) each chunk's output gradient carried to its entering state
+    dlocal = torch.einsum("bklhn,bklhp->bkhnp", ch * ec[..., None], dyf)
+    # (ii) the reverse pass
+    gk = (torch.zeros((bsz, h, n, p), device=x.device) if dstate is None
+          else dstate.float())
+    outgoing = [None] * nc
+    for k in reversed(range(nc)):
+        outgoing[k] = gk
+        gk = torch.exp(total[:, k])[..., None, None] * gk + dlocal[:, k]
+    d_init = gk
+    gs = torch.stack(outgoing, dim=1)                           # (B,nc,H,N,P)
+    # (iii) every chunk's gradients
+    scores = torch.einsum("bklhn,bkmhn->bklmh", ch, bh)         # S
+    dw = torch.einsum("bklhp,bkmhp->bklmh", dyf, xf)            # dL/dW
+    dtm = dtf[:, :, None, :, :]                                  # dt_m
+    w = scores * decay * dtm
+    ds = dw * decay * dtm                                       # dL/dS
+    r = dw * scores * decay
+    ddt = r.sum(dim=2)                                          # W's dt_m
+    q = r * dtm
+    dcum = q.sum(dim=3) - q.sum(dim=2)                          # exp(cum_l - cum_m)
+    bg = torch.einsum("bkmhn,bkhnp->bkmhp", bh, gs)
+    dx = (torch.einsum("bklmh,bklhp->bkmhp", w, dyf) + u[..., None] * bg
+          + d.float()[:, None] * dyf)
+    du = (xf * bg).sum(dim=-1)                                  # dL/du
+    ddt = ddt + torch.exp(total[:, :, None] - cum) * du
+    dcum = dcum - u * du
+    dtotal = (u * du).sum(dim=2) + torch.exp(total) * (gs * s_in).sum(
+        dim=(-1, -2))
+    xg = torch.einsum("bkmhp,bkhnp->bkmhn", xf, gs)
+    dbh = torch.einsum("bklmh,bklhn->bkmhn", ds, ch) + u[..., None] * xg
+    inter = torch.einsum("bklhp,bkhnp->bklhn", dyf, s_in) * ec[..., None]
+    dch = torch.einsum("bklmh,bkmhn->bklhn", ds, bh) + inter
+    dcum = dcum + (ch * inter).sum(dim=-1)
+    dcum[:, :, -1] += dtotal
+    rc = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+    ddt = ddt + af * rc
+    da = (dtf * rc).sum(dim=(0, 1, 2))
+    dd = (dyf * xf).sum(dim=(0, 1, 2, 4))
+
+    def rows(t):
+        return t.reshape(bsz, nc * chunk, *t.shape[3:])[:, :s]
+
+    db = rows(dbh).reshape(bsz, s, g, hpg, n).sum(dim=3)
+    dc = rows(dch).reshape(bsz, s, g, hpg, n).sum(dim=3)
+    return (rows(dx).to(x.dtype), rows(ddt), da, db.to(b.dtype),
+            dc.to(c.dtype), dd, d_init)
 
 
 def ssd_decode_step(

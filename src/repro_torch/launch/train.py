@@ -2,10 +2,11 @@
 
 Trains one model on one device through :class:`~repro_torch.runtime.
 trainer.Trainer` with checkpoints, preemption handling and the straggler
-watchdog.  ``--arch`` takes ``smollm-360m`` or ``h2o-danube-1.8b`` (the
-mamba2 step is ROADMAP queue 1 item 5.1 and raises).  The default is the
-arch's ``reduced()`` config, as in the reference launcher; ``--full``
-trains the full-width config (bf16 parameters, fp32 AdamW state).
+watchdog.  ``--arch`` takes ``smollm-360m``, ``h2o-danube-1.8b`` or
+``mamba2-2.7b`` (its SSD scan trains through the kernel and its
+backward on the card).  The default is the arch's ``reduced()`` config,
+as in the reference launcher; ``--full`` trains the full-width config
+(bf16 parameters, fp32 AdamW state).
 ``--device cpu`` runs on the CPU; without it the launcher needs a CUDA
 device and fails if there is none.  ``--data-axis`` and ``--model-axis``
 stay 1: a data axis and TP through this launcher are item 7 (the TP step

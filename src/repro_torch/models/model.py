@@ -5,9 +5,12 @@ The counterpart of the dense GQA and ``ssm`` (Mamba-2) families of
 are a dict like the reference's pytree, except that ``layers`` is a list
 with one dict per layer where the reference stacks a leading layer axis
 for ``lax.scan`` (``repro_torch.bridge`` converts one into the other); the
-layer stack is a Python loop.  In training each block runs through the
-block runner the step passes in (the ART-TP block, or at tp 1 the dense
-block with blockwise attention) and the config's ``remat`` policy.
+layer stack is a Python loop.  In training each dense block runs through
+the block runner the step passes in (the ART-TP block, or at tp 1 the
+dense block with blockwise attention), each ssm block is the model's own
+(its SSD scan the kernel with its backward), and every block goes through
+the config's ``remat`` policy (remat full recomputes the block, and with
+it the scan's forward, in backward).
 """
 
 from __future__ import annotations
@@ -216,9 +219,10 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     masked mean cross-entropy ``ce``, ``z_loss`` (``z_loss`` × the masked
     mean of logsumexp²), ``moe_aux`` (0: no ported family routes experts)
     and the ``tokens`` counted.  ``runner`` is :func:`forward_hidden`'s:
-    on the card a gradient needs one (``dist.steps`` builds it), since the
-    default attention is the forward-only flash kernel.  The training step
-    streams the head instead (``dist/loss.py``)."""
+    on the card a dense model's gradient needs one (``dist.steps`` builds
+    it), since the default attention is the forward-only flash kernel; an
+    ssm model needs none.  The training step streams the head instead
+    (``dist/loss.py``)."""
     logits = forward(cfg, params, batch["tokens"], runner=runner)
     labels = batch["labels"]
     mask = (labels >= 0).float()

@@ -10,7 +10,9 @@ Flash-attention tolerances are those of the reference's kernel tests: fp32
 bf16 rounding step of that output is at most 2^-7 of it), against the
 plain version and against the split-and-merge plain version.  SSD
 tolerances are relative to the largest output: y 1e-4 in fp32 and 2e-2 in
-bf16 (y is written in bf16), the fp32 state 1e-4 in both.  DLA matmul
+bf16 (y is written in bf16), the fp32 state 1e-4 in both.  The SSD
+backward's (``SSD_BWD_TOL``) are relative to each gradient's largest
+magnitude, against the plain backward on the inputs upcast to fp32.  DLA matmul
 tolerances are relative to the largest output: fp32 in and out 1e-5, bf16
 in and fp32 out 1e-4, a bf16 output 1e-2.  The PGAS tests hold
 peer-mapped heaps (PUT/GET as stores into the peers' partitions) to the
@@ -26,7 +28,14 @@ from repro_torch.kernels.flash_attention import (
     attention_plain,
     flash_attention,
 )
-from repro_torch.kernels.ssd import SSD, ssd, ssd_plain
+from repro_torch.kernels.ssd import (
+    SSD,
+    SSD_BWD,
+    ssd,
+    ssd_bwd,
+    ssd_bwd_plain,
+    ssd_plain,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -318,6 +327,148 @@ def test_reduced_mamba2_on_card_matches_cpu(cuda):
     torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(c_gpu["ssm_state"].cpu(), c_cpu["ssm_state"],
                                rtol=1e-4, atol=1e-4)
+
+
+GRADS = ("dx", "ddt", "da", "db", "dc", "dd", "dinit")
+#: the SSD backward against the plain backward on fp32-upcast inputs, max
+#: |error| over max |plain| by gradient.  fp32: full fp32 on the CUDA cores
+#: in another order, 1e-4; ddt and da 5e-4, sums of both signs through the
+#: reverse cumsum of dcum (the fp32 plain version alone is up to 6e-5 from
+#: fp64 at S 2048).  bf16: 1e-2 -- dx, dB and dC are written in bf16 (half
+#: an ulp is 2^-8 of a value) and the entering states the forward keeps
+#: are bf16 (~2^-9 of the terms that read them).
+SSD_BWD_TOL = {torch.float32: dict.fromkeys(GRADS, 1e-4)
+               | {"ddt": 5e-4, "da": 5e-4},
+               torch.bfloat16: dict.fromkeys(GRADS, 1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,s,h,g,n,p,chunk,init", [
+    (1, 300, 8, 1, 128, 64, 128, True),   # mamba2 widths, ragged, a state
+    (2, 256, 4, 1, 128, 64, 128, False),  # two full chunks, from zeros
+    (2, 77, 4, 2, 16, 16, 8, True),       # reduced widths, two groups
+    (1, 200, 6, 3, 64, 32, 32, False),    # three groups of two heads
+    (1, 128, 4, 1, 64, 128, 128, True),   # one chunk, P 128
+])
+def test_ssd_bwd_kernel_matches_plain(cuda, dtype, bsz, s, h, g, n, p,
+                                      chunk, init):
+    """The backward kernels (dlocal, the reverse pass, the chunks, the
+    reduction over heads) against ``ssd_bwd_plain``, reading the entering
+    states the forward kept; a second call gives the same bits."""
+    from repro_torch.kernels.ssd.ops import _forward
+
+    args, state = _ssd_inputs(bsz, s, h, g, n, p, dtype, cuda,
+                              seed=s + n + 1, init=init)
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    dy = torch.randn(bsz, s, h, p, generator=gen, device=cuda).to(dtype)
+    dstate = (torch.randn(bsz, h, n, p, generator=gen, device=cuda)
+              if init else None)
+    _, _, s_in = _forward(*args, chunk, state)
+    before = SSD_BWD.launches
+    kw = dict(chunk=chunk, init_state=state, s_in=s_in)
+    got = ssd_bwd(*args, dy, dstate, **kw)
+    again = ssd_bwd(*args, dy, dstate, **kw)
+    torch.cuda.synchronize()
+    assert SSD_BWD.launches == before + 2
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    up = [t.float() for t in args]
+    want = ssd_bwd_plain(*up, dy.float(), dstate, chunk=chunk,
+                         init_state=state)
+    for name, u, w in zip(GRADS, got, want):
+        assert u.shape == w.shape, name
+        assert u.dtype == (dtype if name in ("dx", "db", "dc")
+                           else torch.float32), name
+        if name == "dinit" and not init:
+            continue
+        assert _rel(u, w) <= SSD_BWD_TOL[dtype][name], (name, _rel(u, w))
+
+
+def test_ssd_bwd_takes_cotangents_off_16_bytes(cuda):
+    """dy and dstate as contiguous views that start 4 bytes into their
+    storage give the bits of aligned copies (the wrapper copies them: the
+    kernels read them as vectors)."""
+    from repro_torch.kernels.ssd.ops import _forward
+
+    args, state = _ssd_inputs(1, 200, 4, 1, 64, 64, torch.float32, cuda,
+                              seed=5, init=True)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    flat = torch.randn(1 + 200 * 4 * 64, generator=gen, device=cuda)
+    dy = flat[1:].view(1, 200, 4, 64)
+    dst = torch.randn(1 + 4 * 64 * 64, generator=gen, device=cuda)[1:].view(
+        1, 4, 64, 64)
+    assert dy.data_ptr() % 16 and dst.data_ptr() % 16
+    _, _, s_in = _forward(*args, 128, state)
+    kw = dict(chunk=128, init_state=state, s_in=s_in)
+    got = ssd_bwd(*args, dy, dst, **kw)
+    want = ssd_bwd(*args, dy.clone(), dst.clone(), **kw)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
+def test_ssd_autograd_on_card_matches_cpu(cuda):
+    """The scan's autograd Function on the card (forward kernel, then the
+    backward kernels) against the same Function on the CPU (the plain
+    versions), fp32, with a state; one forward and one backward launch."""
+    args, state = _ssd_inputs(2, 150, 4, 2, 32, 16, torch.float32, cuda,
+                              seed=3, init=True)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    dy = torch.randn(2, 150, 4, 16, generator=gen, device=cuda)
+    dst = torch.randn(2, 4, 32, 16, generator=gen, device=cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        ins = [t.detach().to(dev).requires_grad_(True)
+               for t in (*args, state)]
+        launches = (SSD.launches, SSD_BWD.launches)
+        y, st = ssd(*ins[:6], chunk=32, init_state=ins[6])
+        torch.autograd.backward([y, st], [dy.to(dev), dst.to(dev)])
+        if dev.type == "cuda":
+            assert (SSD.launches, SSD_BWD.launches) == (launches[0] + 1,
+                                                        launches[1] + 1)
+        grads.append([t.grad.cpu() for t in ins])
+    for name, u, w in zip(GRADS, *grads):
+        assert _rel(u, w) <= SSD_BWD_TOL[torch.float32][name], name
+
+
+def test_reduced_mamba2_tp1_step_on_card_matches_cpu(cuda):
+    """Two tp-1 steps of reduced mamba2-2.7b in fp32 (microbatches 2) on the
+    card against the CPU from the same parameters and batches: loss and
+    grad norm 1e-4 relative, parameters 1e-4; the SSD forward and backward
+    kernels launched once per layer and microbatch, flash never."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist import sharding
+    from repro_torch.dist.group import Group
+    from repro_torch.dist.steps import (
+        StepConfig,
+        build_init,
+        build_train_step,
+        init_opt,
+    )
+    from repro_torch.models.model import params_to
+
+    cfg = get_config("mamba2-2.7b").reduced()
+    scfg = StepConfig(microbatches=2, seq_chunk=8, warmup_steps=1)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=41,
+                                  global_batch=4))
+    cpu = Group(rank=0, size=1, device=torch.device("cpu"))
+    card = Group(rank=0, size=1, device=cuda)
+    p_cpu, o_cpu = build_init(cfg, cpu, scfg)(0)
+    p_gpu = params_to(p_cpu, cuda)
+    o_gpu = init_opt(p_gpu, scfg)
+    launches = (FLASH.launches, SSD.launches, SSD_BWD.launches)
+    for k in range(2):
+        batch = data.global_batch(k)
+        p_cpu, o_cpu, m_cpu = build_train_step(cfg, cpu, scfg)(
+            p_cpu, o_cpu, batch, k)
+        p_gpu, o_gpu, m_gpu = build_train_step(cfg, card, scfg)(
+            p_gpu, o_gpu, batch, k)
+        for key in ("loss", "grad_norm"):
+            assert abs(m_gpu[key] - m_cpu[key]) <= 1e-4 * abs(m_cpu[key])
+    per_run = 2 * 2 * cfg.n_layers                # steps x microbatches
+    assert (FLASH.launches, SSD.launches, SSD_BWD.launches) == (
+        launches[0], launches[1] + per_run, launches[2] + per_run)
+    for (_, a), (_, b) in zip(sharding.leaves(p_gpu),
+                              sharding.leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -635,20 +786,12 @@ def _forward_only_call(kernel, device):
         return (lambda q, k, v: flash_attention(q, k, v),
                 [rnd(1, 4, 64, 64), rnd(1, 2, 64, 64), rnd(1, 2, 64, 64)],
                 FLASH)
-    if kernel == "ssd":
-        bsz, s, h, g_, n, p = 1, 64, 4, 1, 16, 16
-        return (lambda x, dt, bm, cm: ssd(
-                    x, dt, -torch.ones(h, device=device), bm, cm,
-                    torch.ones(h, device=device), chunk=32),
-                [rnd(bsz, s, h, p), torch.rand(bsz, s, h, generator=g,
-                                               device=device) * 0.1,
-                 rnd(bsz, s, g_, n), rnd(bsz, s, g_, n)], SSD)
     from repro_torch.kernels.matmul import MATMUL, matmul
 
     return (lambda x, w: matmul(x, w), [rnd(32, 64), rnd(64, 48)], MATMUL)
 
 
-@pytest.mark.parametrize("kernel", ["flash_attention", "ssd", "matmul"])
+@pytest.mark.parametrize("kernel", ["flash_attention", "matmul"])
 def test_wrapper_refuses_autograd(cuda, kernel):
     """An input that requires grad while autograd records raises instead
     of returning an output with no ``grad_fn``; under ``no_grad`` (or with

@@ -3,7 +3,8 @@
 * ``models.model.loss_fn`` against ``repro.models.model.loss_fn``: the
   total, the metrics and every parameter's gradient at 1e-5;
 * the tp-1 ``build_train_step`` against the reference's on a one-device
-  mesh: 3 steps of reduced ``smollm-360m`` and ``h2o-danube-1.8b`` in
+  mesh: 3 steps of reduced ``smollm-360m``, ``h2o-danube-1.8b`` and
+  ``mamba2-2.7b`` (its SSD scan through the scan's autograd Function) in
   fp32, with microbatches 1 and 2, fed the reference's parameters
   (through ``repro_torch.bridge``) and the reference's ``SyntheticLM``
   batches: loss, grad norm and lr of every step at 1e-5 relative, and
@@ -12,9 +13,9 @@
   reference's own check, ``tests/test_dist.py``, at its tolerances), and
   bucketed accumulation gives the bits of leaf-by-leaf accumulation;
 * ``dist.bucketing`` against ``repro.dist.bucketing``;
-* the training forward never reaches the flash kernel's wrapper, SSM
-  training raises (ROADMAP item 5.1), and the launcher and the example
-  run on the CPU.
+* the training forward never reaches the flash kernel's wrapper, the
+  ssm family raises at tp ≥ 2 (ART-TP is dense-only), and the launcher
+  and the example run on the CPU (smollm and mamba2).
 """
 
 import dataclasses
@@ -50,7 +51,7 @@ from repro_torch.kernels.common import refuse_autograd
 from repro_torch.models import layers, model
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-ARCHS = ["smollm-360m", "h2o-danube-1.8b"]
+ARCHS = ["smollm-360m", "h2o-danube-1.8b", "mamba2-2.7b"]
 STEP_KW = dict(seq_chunk=8, warmup_steps=1)
 CPU = Group(rank=0, size=1, device=torch.device("cpu"))
 
@@ -299,10 +300,31 @@ def test_training_forward_never_calls_flash(monkeypatch):
         model.forward(cfg, params, batch["tokens"])
 
 
-def test_ssm_training_raises_item_5_1():
+def test_ssm_step_runs_the_model_block_and_refuses_tp():
+    """At tp 1 the ssm step runs the model's own Mamba-2 block (no
+    runner): its loss and gradients are ``model.loss_fn``'s.  ART-TP runs
+    the dense block only, so tp 2 raises, as the reference's runner takes
+    only the dense block."""
     cfg = get_config("mamba2-2.7b").reduced()
-    with pytest.raises(NotImplementedError, match="item 5.1"):
-        build_train_step(cfg, CPU, StepConfig())
+    scfg = StepConfig(seq_chunk=8, warmup_steps=1, peak_lr=0.0,
+                      weight_decay=0.0)
+    params, opt = build_init(cfg, CPU, scfg)(0)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=17,
+                                   global_batch=2)).global_batch(0)
+    tree = sharding.map_leaves(lambda _, t: t.clone().requires_grad_(True),
+                               params)
+    want, _ = model.loss_fn(cfg, tree, {k: torch.as_tensor(v).long()
+                                        for k, v in batch.items()},
+                            z_loss=scfg.z_loss)
+    want.backward()
+    norm = torch.sqrt(sum((t.grad.double() ** 2).sum()
+                          for _, t in sharding.leaves(tree))).item()
+    _, _, m = build_train_step(cfg, CPU, scfg)(params, opt, batch, 0)
+    np.testing.assert_allclose(m["loss"], want.item(), rtol=1e-5)
+    np.testing.assert_allclose(m["grad_norm"], norm, rtol=1e-5)
+    with pytest.raises(ValueError, match="dense-only"):
+        build_train_step(cfg, Group(rank=0, size=2,
+                                    device=torch.device("cpu")), scfg)
 
 
 def test_refuse_autograd_raises_only_while_recording():
@@ -335,6 +357,27 @@ def test_example_train_lm_small_runs(tmp_path, capsys):
 
     train_lm.main(["--small", "--device", "cpu", "--steps", "20",
                    "--ckpt-dir", str(tmp_path)])
+    assert capsys.readouterr().out.rstrip().endswith("train_lm OK")
+
+
+def test_launcher_and_example_train_mamba2(tmp_path, capsys):
+    """Reduced mamba2 through the launcher (3 steps, then a resume to 5 in
+    2 microbatches, the ssm leaves through the checkpoint) and through
+    ``train_lm --small`` (the loss falls)."""
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train as launch_train
+
+    args = ["--arch", "mamba2-2.7b", "--device", "cpu", "--seq-len", "16",
+            "--global-batch", "4", "--ckpt-dir", str(tmp_path / "ck"),
+            "--steps"]
+    t = launch_train.main(args + ["3"])
+    assert [h["step"] for h in t.history] == [1, 2, 3]
+    assert all(np.isfinite(h["loss"]) for h in t.history)
+    t = launch_train.main(args + ["5", "--microbatches", "2"])
+    assert [h["step"] for h in t.history] == [4, 5]
+    assert "restored step 3" in capsys.readouterr().out
+    train_lm.main(["--arch", "mamba2-2.7b", "--small", "--device", "cpu",
+                   "--steps", "20", "--ckpt-dir", str(tmp_path / "lm")])
     assert capsys.readouterr().out.rstrip().endswith("train_lm OK")
 
 
