@@ -37,17 +37,25 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    CUDA cores' fp32 peak for fp32); the plain version is timed at S 2048
    and at the 128-row chunk in bf16 (no single PyTorch call computes the
    scan, so there is no library yardstick).
-   SSD backward (``csrc/ssd_bwd.cu``, four CUDA kernels a call) against
+   SSD backward (``csrc/ssd_bwd.cu``, ``ops.SSD_BWD_KERNELS`` CUDA kernels
+   a call; bf16 on the tensor cores in head tiles) against
    ``ssd_bwd_plain`` at the same five shapes in bf16 and fp32 (a random
    dstate where there is an init_state), reading the entering states the
    forward kept, plus the training microbatch (B 4, S 2048) in bf16.
+   Printed: each case's plan as the wrapper launched it (heads a block,
+   blocks; shared memory a block, blocks an SM by the occupancy query;
+   ptxas's registers and spills above) and the scratch a call allocates
+   (the caching allocator's peak less what the call keeps).
    Tolerances, each gradient's max error over its max against the plain
    backward on fp32-upcast inputs: fp32 1e-4 (ddt and da 5e-4: sums of
    both signs through a reverse cumsum), bf16 1e-2 (dx, dB, dC written in
-   bf16; the kept entering states are bf16).  Two calls must give the
-   same bits.  Timed by events and on the device beside the bound and,
-   at S 2048, the 128-row chunk and the training shape in bf16, the plain
-   backward.
+   bf16; the kept entering states are bf16).  bf16 is also held to
+   ``ssd_bwd_bf16_emulated`` on the same kept states (``SSD_BWD_EMU_TOL``:
+   dx, dB, dC 2^-8, dd and d init_state 1e-4, ddt and da 5e-4).  Two calls must give the
+   same bits, and a call must be exactly ``ops.SSD_BWD_KERNELS`` CUDA
+   kernels.  Timed by events and on the device (split by CUDA kernel)
+   beside the bound and, at S 2048, the 128-row chunk and the training
+   shape in bf16, the plain backward.
 3. Serve full-width smollm-360m in bf16 (random weights from a seed): 8
    requests with prompts of 256–1024 tokens, 32 new tokens each, batch 4,
    max_seq 2048, prefill chunks of 128, one arrival every 2 steps —
@@ -143,11 +151,12 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
     torch.profiler, under torch's deterministic algorithms.  Held: every
     step's launches exact (SSD forward 2 × 64 × 2, the forward and the
     remat recompute; SSD backward 64 × 2; flash, DLA and cc_matmul 0), and
-    in the profiled step as many SSD device events (3 and 4 CUDA kernels
-    a launch); the step-0 loss within 0.5 of ln 50280; every loss and
-    grad norm finite.  Printed: each step's wall time, tokens/s, loss,
-    grad norm and peak memory, the profiled step's top device ops and
-    idle share, beside the card's name and power limit.  Then reduced
+    in the profiled step as many SSD device events (3 CUDA kernels a
+    forward launch, ``ops.SSD_BWD_KERNELS`` a backward one); the step-0
+    loss within 0.5 of ln 50280; every loss and grad norm finite.
+    Printed: each step's wall time, tokens/s, loss, grad norm and peak
+    memory, the profiled step's top device ops and idle share, beside the
+    card's name and power limit.  Then reduced
     mamba2-2.7b in fp32, 2 tp-1 steps on the card and on the CPU, held as
     in phase 10.
 11. The DLA matmul kernel (``kernels/matmul/csrc/matmul.cu``): first the
@@ -247,38 +256,74 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# host seconds the profiler records before the first launch and after the
+# last kernel ends: kineto keeps only the device events inside its capture
+# window, so no call's kernels lie near the window's edges
+PROFILE_PAD_S = 0.05
+# profiles taken of one function until its record is whole
+PROFILE_TRIES = 3
+
+
 def device_kernels(fn, iters: int = 20):
     """Device time of one call from torch.profiler (CUPTI), the host's
     launch cost excluded: (ms a call, device events a call, [(kernel,
     ms a call)] in launch order).  Every kernel, copy or fill on the card
-    is an event, so a call that gains one shows it.  (None, 0, []) when
-    the profiler records no device time."""
+    is an event, so a call that gains one shows it.  A record is whole when
+    every call shows the same sequence of events; one that is not (the
+    profiler lost events) is taken again, up to ``PROFILE_TRIES`` times.
+    If none is whole, the time is ``queued_ms``'s and the count the last
+    record's events over ``iters`` (a fraction, which no kernel count
+    equals).  (None, 0, []) when the profiler records no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+    for attempt in range(1, PROFILE_TRIES + 1):
+        events = profiled_events(fn, iters)
+        whole = len(events) % iters == 0 and all(
+            e.name == events[i % (len(events) // iters)].name
+            for i, e in enumerate(events))
+        if whole or attempt == PROFILE_TRIES:
+            break
+        print(f"[profiler] {len(events)} device events for {iters} calls, "
+              f"not the same events in every call: profiled again "
+              f"({attempt} of {PROFILE_TRIES})", flush=True)
     total = sum(e.time_range.elapsed_us() for e in events)
     if total <= 0:
         return None, 0, []
-    per_call = len(events) / iters
+    if not whole:
+        ms = queued_ms(fn, iters)
+        print(f"[profiler] no whole record in {PROFILE_TRIES} profiles: "
+              f"device time {ms:.4f} ms a call by CUDA events queued behind "
+              f"a busy card", flush=True)
+        return ms, len(events) / iters, []
+    per_call = len(events) // iters
     split = []
-    if per_call.is_integer():
-        per_call = int(per_call)
-        for i in range(per_call):
-            name = events[i].name.replace("(anonymous namespace)::", "")
-            name = re.match(r"(?:void\s+)?([\w:]*)", name).group(1)
-            split.append((name.split("::")[-1] or events[i].name, sum(
-                e.time_range.elapsed_us() for e in events[i::per_call])
-                / iters / 1e3))
+    for i in range(per_call):
+        name = events[i].name.replace("(anonymous namespace)::", "")
+        name = re.match(r"(?:void\s+)?([\w:]*)", name).group(1)
+        split.append((name.split("::")[-1] or events[i].name, sum(
+            e.time_range.elapsed_us() for e in events[i::per_call])
+            / iters / 1e3))
     return total / iters / 1e3, per_call, split
+
+
+def profiled_events(fn, iters: int):
+    """The device events of ``iters`` calls of ``fn`` under torch.profiler,
+    in start order, the capture window padded by ``PROFILE_PAD_S`` on each
+    side."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    return sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
 
 
 def device_ms(fn, iters: int = 20):
@@ -646,6 +691,18 @@ SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dd", "dinit")
 SSD_BWD_TOL = {"float32": dict.fromkeys(SSD_GRADS, 1e-4)
                | {"ddt": 5e-4, "da": 5e-4},
                "bfloat16": dict.fromkeys(SSD_GRADS, 1e-2)}
+# the bf16 backward against ssd_bwd_bf16_emulated (its roundings in plain
+# PyTorch) on the same inputs and kept entering states, max |error| over
+# max |emulation|, d init_state with or without one: dx, dB and dC 2^-8
+# (written in bf16; fp32 sums in another order may round to the
+# neighbouring bf16), dd and d init_state 1e-4, each above the sound
+# build's reading and below that of a build whose split fp32 operands lose
+# their low parts (probe_bwd's no_lo; PERF.md); ddt and da 5e-4, as the
+# fp32 backward's: sum-order noise through the reverse cumsum, which at S
+# 2048 is as large as what the low parts add to them
+SSD_BWD_EMU_TOL = dict.fromkeys(("dx", "db", "dc"), 2.0 ** -8) \
+    | dict.fromkeys(("dd", "dinit"), 1e-4) \
+    | dict.fromkeys(("ddt", "da"), 5e-4)
 #: the backward's training shape: one microbatch of the mamba2 phase
 SSD_TRAIN_CASE = ("mamba2 B4 S2048 (train)", 4, 2048, 80, 64, 128, False)
 
@@ -679,17 +736,29 @@ def ssd_bwd_bound_ms(x, b, chunk, with_init):
 def phase_ssd_bwd():
     """The SSD backward kernels vs ``ssd_bwd_plain`` on the card at the
     forward phase's shapes (bf16 and fp32, a random dstate where there is
-    an init_state) and at the training microbatch (bf16); two calls must
-    give the same bits.  Returns every case's numbers by (label, dtype
-    name)."""
+    an init_state) and at the training microbatch (bf16), and bf16 against
+    its rounding plan (``ssd_bwd_bf16_emulated``); two calls must give the
+    same bits.  Returns every case's numbers by (label, dtype name)."""
     import torch
 
-    from repro_torch.kernels.ssd import SSD_BWD, ssd_bwd, ssd_bwd_plain
+    from repro_torch.kernels.ssd import (
+        SSD_BWD,
+        ssd_bwd,
+        ssd_bwd_bf16_emulated,
+        ssd_bwd_plain,
+    )
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ops import _forward
 
-    for line in SSD_BWD.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+    report = SSD_BWD.ptxas_report().splitlines()
+    for line in report:
+        if "C7519" not in line and ("registers" in line or "spill" in line
+                                    or "smem" in line or "C7520" in line):
             print(f"[ptxas] {line.strip()}")
+    print(f"[ptxas] ssd_bwd: {sum('C7519' in line for line in report)} wgmma "
+          f"register fences inserted by ptxas (C7519), "
+          f"{sum('C7520' in line for line in report)} kernels with their "
+          f"wgmmas serialized (C7520)")
     gen = torch.Generator(device="cuda").manual_seed(1)
     chunk = 128
     out = {}
@@ -700,12 +769,32 @@ def phase_ssd_bwd():
         name = str(dtype).split(".")[1]
         args, init = ssd_case_inputs(gen, bsz, s, h, p, n, with_init, dtype)
         x, b = args[0], args[3]
+        dl_occ, ch_occ = ssd_ops.bwd_occupancy(chunk, n, p, dtype)
+        dl_smem, ch_smem = ssd_ops.bwd_smem(chunk, n, p, dtype)
         dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
         dstate = (torch.randn(init.shape, generator=gen, device="cuda")
                   if with_init else None)
         _, _, s_in = _forward(*args, chunk, init)
         kw = dict(chunk=chunk, init_state=init, s_in=s_in)
+        # the scratch a call allocates, by the caching allocator: its peak
+        # during the call less what the call leaves allocated (the grads)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         got = ssd_bwd(*args, dy, dstate, **kw)
+        torch.cuda.synchronize()
+        scratch = (torch.cuda.max_memory_allocated()
+                   - torch.cuda.memory_allocated())
+        plan = dict(ssd_ops.BWD_LAUNCHED)
+        _, modelled = ssd_ops.bwd_scratch_bytes(
+            bsz, s, h, b.shape[2], n, p, chunk, dtype, plan["heads_a_block"])
+        print(f"[ssd-bwd] {label} {name}: launched {plan['heads_a_block']} "
+              f"heads a block, {plan['blocks']} blocks of dlocal and of the "
+              f"chunks kernel; shared memory a block {dl_smem} / {ch_smem} "
+              f"B, blocks an SM {dl_occ} / {ch_occ} (occupancy query); "
+              f"scratch {scratch / 1e6:.1f} MB (allocator: the call's peak "
+              f"less what it keeps); {modelled / 1e6:.1f} MB moved by the "
+              f"model ops.bwd_scratch_bytes (each buffer written and read "
+              f"once; not measured)", flush=True)
         again = ssd_bwd(*args, dy, dstate, **kw)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
@@ -732,18 +821,39 @@ def phase_ssd_bwd():
         bad = {k: v for k, v in errs.items() if v > tol[k]}
         if bad:
             fail(f"ssd_bwd {label} {name}: out of tolerance: {bad}")
-        del got, want, up
+        del want, up
+        if dtype == torch.bfloat16:
+            # the precision plan: the same kept states, the kernels' roundings
+            emu = ssd_bwd_bf16_emulated(*args, dy, dstate, ht=plan[
+                "heads_a_block"], **kw)
+            emu_errs = {gname: ((u.float() - w.float()).abs().max()
+                                / w.float().abs().max()).item()
+                        for gname, u, w in zip(SSD_GRADS, got, emu)}
+            print(f"[ssd-bwd] {label} {name}: against the bf16 emulation "
+                  f"on the kept states, max_err/max "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in emu_errs.items())
+                  + f" (tol dx/dB/dC {SSD_BWD_EMU_TOL['dx']:g}, dd/dinit "
+                  f"{SSD_BWD_EMU_TOL['dd']:g}, ddt/da "
+                  f"{SSD_BWD_EMU_TOL['ddt']:g})", flush=True)
+            bad = {k: v for k, v in emu_errs.items()
+                   if v > SSD_BWD_EMU_TOL[k]}
+            if bad:
+                fail(f"ssd_bwd {label} {name}: off the bf16 emulation: "
+                     f"{bad}")
+            del emu
+        del got
         call = lambda: ssd_bwd(*args, dy, dstate, **kw)   # noqa: E731
         kernel_ms = time_ms(call, iters=10)
         dev_ms, n_kernels, split = device_kernels(call, iters=10)
-        if n_kernels != 4:
+        if n_kernels != ssd_ops.SSD_BWD_KERNELS:
             fail(f"ssd_bwd {label} {name}: {n_kernels} device events a "
-                 f"call, expected 4 CUDA kernels")
+                 f"call, expected {ssd_ops.SSD_BWD_KERNELS} CUDA kernels")
         bound_ms, bound_by = ssd_bwd_bound_ms(x, b, chunk, with_init)
         rec = dict(max_err=errs, max_abs_err=worst_abs, ms=kernel_ms,
                    device_ms=dev_ms, bound_ms=bound_ms, bound_by=bound_by,
                    cuda_kernels_a_call=n_kernels,
-                   kernel_device_ms=[[k, t] for k, t in split])
+                   kernel_device_ms=[[k, t] for k, t in split],
+                   scratch_bytes=scratch)
         if dtype == torch.bfloat16 and label in (
                 "mamba2 S2048", "mamba2 chunk128+state", SSD_TRAIN_CASE[0]):
             rec["plain_ms"] = time_ms(lambda: ssd_bwd_plain(
@@ -904,7 +1014,11 @@ def phase_serve_mamba2():
         if not all(torch.isfinite(v).all() for v in first.values()):
             fail(f"mamba2 {mode}: non-finite first-token logits")
         runs[mode] = ({r.rid: r.out_tokens for r in srv.done}, first)
-        del srv
+        # the hook holds the server through the bound method it wraps: a
+        # cycle that only Python's cyclic collector frees, which kept the
+        # server's weights and caches (5.7 GiB) allocated phases later
+        del srv._emit_first_token
+        del srv, emit, record
     (tok_c, first_c), (tok_b, first_b) = runs["chunked"], runs["bulk"]
     agree = sum(a == b for r in tok_b for a, b in zip(tok_c[r], tok_b[r]))
     total = sum(len(t) for t in tok_b.values())
@@ -1124,7 +1238,8 @@ def phase_cc_kernels():
                   f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} "
                   f"ms, {lib_name} {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
                   f"({bound_by})" + (
-                      f"; on the device (torch.profiler) kernel "
+                      f"; on the device (torch.profiler; queued events "
+                      f"after a [profiler] line) kernel "
                       f"{fmt_ms(dev_ms)}, library {fmt_ms(lib_dev_ms)}"
                       if timed else ""), flush=True)
             if not err <= tol:
@@ -1483,11 +1598,13 @@ def profile_train_step(step_fn, params, opt, batch, step):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         with record_function("smoke_train_step"):
             t0 = time.perf_counter()
             params, opt, _ = step_fn(params, opt, batch, step)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
     events = prof.events()
     win = [e for e in events if e.name == "smoke_train_step"
            and e.device_type == torch.autograd.DeviceType.CPU]
@@ -1547,14 +1664,22 @@ def phase_train_1gpu(smi_line):
     ckpt_dir = ROOT / "build" / "smoke_train_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     tag = f"[train-1gpu] ({smi_line})"
+    print(f"{tag} at entry: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+          f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB "
+          f"reserved by the caching allocator", flush=True)
 
     def on_step(step, m):
         peak = torch.cuda.max_memory_allocated() / 2**30
+        # the bytes the program asked for, without the allocator's rounding
+        # and its unsplit cached blocks
+        asked = torch.cuda.memory_stats().get(
+            "requested_bytes.all.peak", 0) / 2**30
         torch.cuda.reset_peak_memory_stats()
         print(f"{tag} step {step - 1}: {m['step_time_s']:.3f} s, "
               f"{m['tokens'] / m['step_time_s']:.1f} tokens/s, loss "
               f"{m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, lr "
-              f"{m['lr']:.3g}; peak memory {peak:.2f} GiB", flush=True)
+              f"{m['lr']:.3g}; peak memory {peak:.2f} GiB (requested "
+              f"{asked:.2f})", flush=True)
 
     def trainer(total):
         return Trainer(cfg, scfg, TrainerConfig(
@@ -1758,6 +1883,7 @@ def phase_train_mamba2(smi_line):
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.dist import sharding
     from repro_torch.dist.steps import StepConfig
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     cfg = get_config(M2_ARCH)
@@ -1771,17 +1897,26 @@ def phase_train_mamba2(smi_line):
                 ssd_bwd=cfg.n_layers * M2_MICRO)
     steps = []
 
+    alloc = {"num_device_alloc": 0, "num_alloc_retries": 0}
+
     def on_step(step, m):
         counts = kernel_counts()
         reset_kernel_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
+        # the caching allocator's cudaMallocs and its retries after freeing
+        # its cache (a full pool) during the step
+        mem = torch.cuda.memory_stats()
+        grew = {k: mem.get(k, 0) - v for k, v in alloc.items()}
+        alloc.update({k: mem.get(k, 0) for k in alloc})
         steps.append(dict(m, peak_gib=peak, counts=counts))
         print(f"{tag} step {step - 1}: {m['step_time_s']:.3f} s, "
               f"{m['tokens'] / m['step_time_s']:.1f} tokens/s, loss "
               f"{m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, lr "
               f"{m['lr']:.3g}; peak memory {peak:.2f} GiB; launches ssd "
-              f"{counts['ssd']}, ssd_bwd {counts['ssd_bwd']}", flush=True)
+              f"{counts['ssd']}, ssd_bwd {counts['ssd_bwd']}; allocator "
+              f"cudaMallocs {grew['num_device_alloc']}, retries "
+              f"{grew['num_alloc_retries']}", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     # as phase 10: deterministic kernels, without the fill of empty memory
@@ -1793,6 +1928,8 @@ def phase_train_mamba2(smi_line):
             warnings.simplefilter("always")
             reset_kernel_counts()
             torch.cuda.reset_peak_memory_stats()
+            mem = torch.cuda.memory_stats()
+            alloc.update({k: mem.get(k, 0) for k in alloc})
             t0 = time.perf_counter()
             run = Trainer(cfg, scfg, TrainerConfig(
                 total_steps=M2_STEPS, log_interval=1000,
@@ -1838,11 +1975,13 @@ def phase_train_mamba2(smi_line):
     if prof_counts != want:
         fail(f"train-mamba2: profiled step launches {prof_counts}, "
              f"expected {want}")
+    bwd_kernels = ssd_ops.SSD_BWD_KERNELS
     if top and events != {"flash": 0, "ssd": 3 * want["ssd"],
-                          "ssd_bwd": 4 * want["ssd_bwd"]}:
+                          "ssd_bwd": bwd_kernels * want["ssd_bwd"]}:
         fail(f"train-mamba2: profiled step's device events {events}, "
              f"expected ssd {3 * want['ssd']} and ssd_bwd "
-             f"{4 * want['ssd_bwd']} (3 and 4 CUDA kernels a launch)")
+             f"{bwd_kernels * want['ssd_bwd']} (3 and {bwd_kernels} CUDA "
+             f"kernels a launch)")
     print(f"{tag} every step's launches {want} (SSD forward 2 x "
           f"{cfg.n_layers} layers x {M2_MICRO} microbatches: the forward "
           f"and the remat recompute; backward {cfg.n_layers} x {M2_MICRO})",
@@ -1855,6 +1994,13 @@ def phase_train_mamba2(smi_line):
     if not top:
         print(f"{tag} torch.profiler saw no device time: top ops and idle "
               f"share not measured", flush=True)
+    times = [st["step_time_s"] for st in steps]
+    toks = [st["tokens"] / st["step_time_s"] for st in steps]
+    peak = max(st["peak_gib"] for st in steps)
+    print(f"{tag} steps {min(times):.3f}–{max(times):.3f} s, "
+          f"{min(toks):.1f}–{max(toks):.1f} tokens/s, peak {peak:.2f} GiB, "
+          f"idle {'not measured' if idle is None else f'{idle:.4f}'}",
+          flush=True)
     out = dict(bwd_launches=steps[0]["counts"]["ssd_bwd"],
                train_launches=steps[0]["counts"]["ssd"],
                step_s=[st["step_time_s"] for st in steps],
@@ -2239,7 +2385,8 @@ def main() -> int:
              bwd_kernel_device_ms=bwd["kernel_device_ms"],
              bwd_fp32_s2048_ms=bwd_f32["ms"],
              bwd_fp32_s2048_device_ms=bwd_f32["device_ms"],
-             bwd_fp32_s2048_bound_ms=bwd_f32["bound_ms"]),
+             bwd_fp32_s2048_bound_ms=bwd_f32["bound_ms"],
+             bwd_scratch_bytes=bwd["scratch_bytes"]),
     ]
     for entry, line in (("matmul_tile", 65), ("consume_matmul", 84),
                         ("consume_matmul_acc", 106),

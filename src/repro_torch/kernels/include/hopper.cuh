@@ -117,11 +117,14 @@ __device__ __forceinline__ void tile_chunk(int i, int& row, int& col8) {
   col8 = i % (C / 8);
 }
 
-// byte offset of chunk (r, c8) in a tile of R rows
+// byte offset of chunk (r, c8) in a tile of `rows` (R) rows
+__device__ __forceinline__ uint32_t swz(int rows, int r, int c8) {
+  return (c8 >> 3) * (rows * 128) + (r >> 3) * 1024 + (r & 7) * 128 +
+         (((c8 & 7) ^ (r & 7)) << 4);
+}
 template <int R>
 __device__ __forceinline__ uint32_t swz_offset(int r, int c8) {
-  return (c8 >> 3) * (R * 128) + (r >> 3) * 1024 + (r & 7) * 128 +
-         (((c8 & 7) ^ (r & 7)) << 4);
+  return swz(R, r, c8);
 }
 
 // bytes of a tile of R rows x C columns (whole atom columns)
@@ -177,7 +180,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int phase) {
       "r"(phase)
       : "memory");
 }
-// one box of a 2-D / 3-D tensor map at coordinates (innermost first) into
+// one box of a 2-D / 3-D / 4-D tensor map at coordinates (innermost first) into
 // shared memory at `dst`, its bytes completing on the mbarrier `bar`
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
                                             uint32_t bar, int c0, int c1) {
@@ -185,6 +188,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
@@ -227,15 +240,23 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>(1) << 62);
 }
 
-// descriptor of k16 step `ks` of a K-major tile of R rows at `base`
+// descriptor of k16 step `ks` of a K-major tile of `rows` (R) rows at
+// `base`
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int rows, int ks) {
+  return make_desc(base + (ks >> 2) * (rows * 128) + (ks & 3) * 32, 16, 1024);
+}
 template <int R>
 __device__ __forceinline__ uint64_t desc_k_major(uint32_t base, int ks) {
-  return make_desc(base + (ks >> 2) * (R * 128) + (ks & 3) * 32, 16, 1024);
+  return desc_k(base, R, ks);
 }
-// descriptor of k16 step `ks` of an MN-major tile of R (= K) rows at `base`
+// descriptor of k16 step `ks` of an MN-major tile of `rows` (R, = K) rows
+// at `base`
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int rows, int ks) {
+  return make_desc(base + ks * 2048, rows * 128, 1024);
+}
 template <int R>
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t base, int ks) {
-  return make_desc(base + ks * 2048, R * 128, 1024);
+  return desc_mn(base, R, ks);
 }
 
 // the first 1024-byte aligned address at or after `p` (swizzle atoms)
@@ -246,6 +267,34 @@ __device__ __forceinline__ uint32_t align1024(uint32_t p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  __nv_bfloat162 v;
+  *reinterpret_cast<uint32_t*>(&v) = u;
+  return __bfloat1622float2(v);
+}
+
+// 2^x on the special function unit (flushes to 0 below 2^-126)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// an L2 policy that evicts first, and a 16-byte load under a policy: data
+// streamed once through L2 without pushing out what is read next
+__device__ __forceinline__ uint64_t l2_drop() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(pol));
+  return pol;
+}
+__device__ __forceinline__ float4 load4_drop(const float* p, uint64_t pol) {
+  float4 v;
+  asm volatile("ld.global.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p), "l"(pol));
+  return v;
 }
 
 // D (64 x N fp32, N / 2 registers a thread) [+]= A (64 x 16) B (16 x N).

@@ -103,6 +103,14 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using ll = long long;
+using hopper::desc_k;
+using hopper::desc_mn;
+using hopper::ex2;
+using hopper::l2_drop;
+using hopper::load4_drop;
+using hopper::swz;
+using hopper::tma_load_4d;
+using hopper::unpack_bf16;
 
 constexpr int WG = 128;      // threads of a warpgroup
 constexpr int MAX_WG = 2;    // warpgroups a block (row tiles of a chunk)
@@ -222,19 +230,6 @@ __host__ __device__ inline Layout make_layout(int mode, int lp, int np,
 // tiles and copies
 // ---------------------------------------------------------------------------
 
-// byte offset of 16-byte chunk (r, c8) in a swizzled tile of `rows` rows
-__device__ __forceinline__ uint32_t swz(int rows, int r, int c8) {
-  return (c8 >> 3) * (rows * 128) + (r >> 3) * 1024 + (r & 7) * 128 +
-         (((c8 & 7) ^ (r & 7)) << 4);
-}
-// wgmma descriptors of k16 step `ks` of a swizzled tile of `rows` rows
-__device__ __forceinline__ uint64_t desc_k(uint32_t base, int rows, int ks) {
-  return hopper::make_desc(base + (ks >> 2) * (rows * 128) + (ks & 3) * 32, 16,
-                           1024);
-}
-__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int rows, int ks) {
-  return hopper::make_desc(base + ks * 2048, rows * 128, 1024);
-}
 
 // bf16 views as TMA tensor maps, boxes of 64 columns x a tile's rows
 // (make_maps): x as (P, S, H, B), B and C as (N, S, G, B), s_in as
@@ -243,16 +238,6 @@ struct Maps {
   CUtensorMap x, b, c, s;
 };
 
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
 
 // rows [0, rows) x columns [0, cols) of a tile at byte `dst` from a
 // row-major source (row stride `ss` elements): source rows >= vr and
@@ -315,11 +300,6 @@ __device__ void fill_state_bf16(char* sm, int dst, const float* src, ll ss,
   }
 }
 
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-  __nv_bfloat162 v;
-  *reinterpret_cast<uint32_t*>(&v) = u;
-  return __bfloat1622float2(v);
-}
 
 // ---------------------------------------------------------------------------
 // fp32 products on the CUDA cores.  Each thread computes the elements a
@@ -437,12 +417,6 @@ __device__ __forceinline__ void frag_coord(int r, int tw, int& n, int& col) {
   }
 }
 
-// 2^x on the special function unit (flushes to 0 below 2^-126)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // u X split into a bf16 high part (over the X tile at `ox`) and the bf16
 // rounding of the remainder (the tile at `ot`, same layout), u_r for row r
@@ -941,14 +915,6 @@ __global__ void __launch_bounds__(MAX_WG* WG, sizeof(T) == 2 ? 2 : 1)
 // the ordered pass over the chunk states
 // ---------------------------------------------------------------------------
 
-// an L2 policy that evicts first: the pass streams the chunk states through
-// L2 without pushing out what the output kernel reads next
-__device__ __forceinline__ uint64_t l2_drop() {
-  uint64_t pol;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(pol));
-  return pol;
-}
 
 __device__ __forceinline__ void store4(float* p, float4 v, uint64_t pol) {
   asm volatile("st.global.L2::cache_hint.v4.f32 [%0], {%1, %2, %3, %4}, %5;\n" ::
@@ -960,13 +926,6 @@ __device__ __forceinline__ void store4(bf16* p, float4 v, uint64_t pol) {
                "r"(hopper::pack_bf16(v.x, v.y)), "r"(hopper::pack_bf16(v.z, v.w)),
                "l"(pol)
                : "memory");
-}
-__device__ __forceinline__ float4 load4_drop(const float* p, uint64_t pol) {
-  float4 v;
-  asm volatile("ld.global.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "l"(p), "l"(pol));
-  return v;
 }
 
 // one thread per 4 elements of one (b, h) state: s_in[k] = state, then

@@ -40,6 +40,13 @@ _P_TILES = (64, 32)
 #: the largest state size N and head dim P the backward takes (its
 #: products' outputs are 128 rows of a block's register tiles)
 BWD_MAX_NP = 128
+#: CUDA kernels one backward call runs, in both dtypes: dlocal, the reverse
+#: pass over the states, the chunks, the reduction over heads
+SSD_BWD_KERNELS = 4
+#: what the last backward call on the card launched: heads a block (the
+#: kernel's clamp of the plan to a group's heads; fp32 takes 1) and blocks
+#: of its dlocal and chunks kernels
+BWD_LAUNCHED: dict = {}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SSD = CudaKernel(
@@ -47,7 +54,7 @@ SSD = CudaKernel(
     [_I] + [_P] * 12 + [_I] * 10 + [_L] * 12 + [_P])
 SSD_BWD = CudaKernel(
     "ssd/ssd_bwd", "repro_ssd_bwd",
-    [_I] + [_P] * 22 + [_I] * 7 + [_L] * 12 + [_P])
+    [_I] + [_P] * 23 + [_I] * 9 + [_L] * 12 + [_P])
 
 
 def block_smem(chunk: int, n: int, pt: int, ht: int, dtype, nc: int) -> int:
@@ -103,6 +110,78 @@ def ssd_plan(bsz: int, s: int, h: int, g: int, n: int, p: int, chunk: int,
             if best is None or key < best[0]:
                 best = (key, ht, pt)
     return None if best is None else best[1:]
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_occupancy(chunk: int, n: int, p: int, dtype) -> Tuple[int, int]:
+    """Blocks of the backward's dlocal and chunks kernels that fit one SM
+    at once, by the library's occupancy query (registers and shared
+    memory as built and launched)."""
+    occ = (ctypes.c_int * 2)()
+    fn = SSD_BWD.symbol("repro_ssd_bwd_occupancy", [_I] * 4 + [_P])
+    SSD_BWD.check(fn(_DTYPES[dtype], chunk, n, p, occ))
+    return occ[0], occ[1]
+
+
+def bwd_smem(chunk: int, n: int, p: int, dtype) -> Tuple[int, int]:
+    """Dynamic shared memory of one block of the backward's dlocal and
+    chunks kernels, as the library lays them out."""
+    fn = SSD_BWD.symbol("repro_ssd_bwd_smem_bytes", [_I] * 5)
+    return tuple(fn(_DTYPES[dtype], kern, chunk, n, p) for kern in (0, 1))
+
+
+@functools.lru_cache(maxsize=512)
+def ssd_bwd_plan(bsz: int, s: int, h: int, g: int, n: int, p: int,
+                 chunk: int, dtype, sms: int = 132, occ: int = 1) -> int:
+    """Heads a block of the bf16 backward (dlocal and the chunks kernel):
+    the head tile whose grid takes the least modelled time, waves × (heads
+    + 1) (a block's time grows with its heads, plus its B and C loads and
+    its dB and dC stores), a wave ``sms × occ`` blocks (``occ``, blocks an
+    SM, from :func:`bwd_occupancy`); ties go to the larger tile (fewer dB
+    and dC partials).  1 for fp32, whose kernels take one head a block."""
+    if dtype != torch.bfloat16:
+        return 1
+    nc = -(-s // chunk)
+    hpg = h // g
+    best = None
+    for ht in range(1, hpg + 1):
+        blocks = bsz * nc * g * -(-hpg // ht)
+        key = (-(-blocks // (sms * occ)) * (ht + 1), -ht)
+        if best is None or key < best[0]:
+            best = (key, ht)
+    return best[1]
+
+
+def bwd_scratch(bsz: int, s: int, h: int, g: int, n: int, p: int,
+                chunk: int, dtype, ht: int) -> dict:
+    """The backward's scratch as {name: (shape, dtype)}: dlocal (fp32),
+    g_k's bf16 high and low parts (bf16 only), the chunk totals, each head
+    tile's dB and dC (fp32: each head's) and the da/dd partials."""
+    nc = -(-s // chunk)
+    tiles = h if dtype != torch.bfloat16 else g * -(-(h // g) // ht)
+    out = dict(gbuf=((bsz, nc, h, n, p), torch.float32),
+               total=((bsz, nc, h), torch.float32),
+               dbh=((bsz, s, tiles, n), torch.float32),
+               dch=((bsz, s, tiles, n), torch.float32),
+               part=((bsz, nc, h, 2), torch.float32))
+    if dtype == torch.bfloat16:
+        out["ghl"] = ((bsz, nc, h, 2, n, p), torch.bfloat16)
+    return out
+
+
+def bwd_scratch_bytes(bsz: int, s: int, h: int, g: int, n: int, p: int,
+                      chunk: int, dtype, ht: int) -> Tuple[int, int]:
+    """(bytes of scratch a backward call allocates, a model of the bytes
+    of it the call moves, not a measurement): each buffer written once and
+    read once, except fp32's dlocal, which the pass rewrites in place as
+    g_k and the chunks kernel reads (four times)."""
+    sizes = {k: torch.Size(shape).numel() * dt.itemsize
+             for k, (shape, dt) in bwd_scratch(bsz, s, h, g, n, p, chunk,
+                                               dtype, ht).items()}
+    moved = 2 * sum(sizes.values())
+    if dtype != torch.bfloat16:
+        moved += 2 * sizes["gbuf"]
+    return sum(sizes.values()), moved
 
 
 def _aligned16(*ts: torch.Tensor) -> bool:
@@ -290,8 +369,11 @@ def ssd_bwd(
     :func:`~repro_torch.kernels.ssd.ref.ssd_bwd_plain`, which the CPU takes
     (recomputing ``s_in`` when None).  On the card ``s_in`` is the
     forward's scratch (x's type), required for more than one chunk; the
-    call runs four CUDA kernels (dlocal, the reverse pass, the chunks,
-    the reduction over heads) and counts one launch of ``SSD_BWD``."""
+    call runs ``SSD_BWD_KERNELS`` CUDA kernels (dlocal, the reverse pass,
+    the chunks, the reduction over heads; bf16 on the tensor cores in head
+    tiles of :func:`ssd_bwd_plan`, whose roundings
+    ``ref.ssd_bwd_bf16_emulated`` repeats) and counts one launch of
+    ``SSD_BWD``."""
     if x.device.type == "cpu":
         return ssd_bwd_plain(x, dt, a, b, c, d, dy, dstate, chunk=chunk,
                              init_state=init_state, s_in=s_in)
@@ -323,6 +405,9 @@ def ssd_bwd(
                 f"{(bsz, nc, h, n, p)} {x.dtype} entering states")
     a, d = a.contiguous(), d.contiguous()
     dev = x.device
+    ht = ssd_bwd_plan(bsz, s, h, g, n, p, chunk, x.dtype, _sm_count(dev),
+                      bwd_occupancy(chunk, n, p, x.dtype)[1]
+                      if x.dtype == torch.bfloat16 else 1)
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -331,19 +416,23 @@ def ssd_bwd(
     da, dd, dinit = empty(h), empty(h), empty(bsz, h, n, p)
     db, dc = empty(bsz, s, g, n, dtype=b.dtype), empty(bsz, s, g, n,
                                                       dtype=b.dtype)
-    gbuf, total = empty(bsz, nc, h, n, p), empty(bsz, nc, h)
-    dbh, dch, part = empty(bsz, s, h, n), empty(bsz, s, h, n), empty(
-        bsz, nc, h, 2)
+    scratch = {k: empty(*shape, dtype=dt_) for k, (shape, dt_) in
+               bwd_scratch(bsz, s, h, g, n, p, chunk, x.dtype, ht).items()}
     rc = launch_on(dev, SSD_BWD.fn(), (
         _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
         b.data_ptr(), c.data_ptr(), d.data_ptr(), _ptr(init_state),
         _ptr(s_in), dy.data_ptr(), _ptr(dstate), dx.data_ptr(),
         ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-        dd.data_ptr(), dinit.data_ptr(), gbuf.data_ptr(), total.data_ptr(),
-        dbh.data_ptr(), dch.data_ptr(), part.data_ptr(),
-        bsz, s, h, g, n, p, chunk, *_strides(x, dt, b, c)))
+        dd.data_ptr(), dinit.data_ptr(), scratch["gbuf"].data_ptr(),
+        _ptr(scratch.get("ghl")), scratch["total"].data_ptr(),
+        scratch["dbh"].data_ptr(), scratch["dch"].data_ptr(),
+        scratch["part"].data_ptr(), bsz, s, h, g, n, p, chunk, ht,
+        int(_aligned16(x, b, c)), *_strides(x, dt, b, c)))
     SSD_BWD.check(rc)
     SSD_BWD.launches += 1
+    BWD_LAUNCHED.update(
+        heads_a_block=min(ht, h // g) if x.dtype == torch.bfloat16 else 1,
+        blocks=bsz * nc * scratch["dbh"].shape[2])
     return dx, ddt, da, db, dc, dd, dinit
 
 

@@ -10,6 +10,10 @@
   ``csrc/ssd_bwd.cu`` splits it (every chunk's dlocal, one reverse pass
   over the chunks, then each chunk's gradients): the oracle of the
   backward kernels, as ``ssd_split`` is of the forward.
+* :func:`ssd_bwd_bf16_emulated` — ``ssd_bwd_plain`` with the roundings of
+  the bf16 backward kernels (bf16 operands, fp32 operands split into bf16
+  high and low parts, dB and dC summed over head tiles in order): the
+  precision plan of the tensor-core path, held on the CPU.
 * :func:`ssd_decode_step` — the single-token recurrence of serving decode
   (plain tensor code in the reference too).
 * :func:`ssd_sequential` — the step-by-step recurrence, the definition both
@@ -250,6 +254,147 @@ def ssd_bwd_plain(
     dc = rows(dch).reshape(bsz, s, g, hpg, n).sum(dim=3)
     return (rows(dx).to(x.dtype), rows(ddt), da, db.to(b.dtype),
             dc.to(c.dtype), dd, d_init)
+
+
+def _hi_lo(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``t`` as a bf16 high part and the bf16 rounding of what it leaves
+    (the kernels' split of an fp32 operand), both as fp32."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def ssd_bwd_bf16_emulated(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    d: torch.Tensor,
+    dy: torch.Tensor,
+    dstate: Optional[torch.Tensor] = None,
+    *,
+    chunk: int = 128,
+    init_state: Optional[torch.Tensor] = None,
+    s_in: Optional[torch.Tensor] = None,
+    ht: int = 1,
+) -> Tuple[torch.Tensor, ...]:
+    """:func:`ssd_bwd_plain` rounded where the bf16 kernels of
+    ``csrc/ssd_bwd.cu`` round, in fp32 otherwise.  x, b, c and dy are bf16
+    (their values are the products' operands as they are).  Each fp32
+    operand of a tensor-core product is its bf16 high part plus the bf16
+    rounding of what that leaves: exp(cum) dy (dlocal, dC), g_k (the
+    pass's output; B g_k, and u x g_kᵀ, whose u x is split too and whose
+    low × low product is dropped), W and dS (dx, dB, dC) and chunk 0's
+    entering state ``init_state``.  The states entering chunks 1.. are the
+    forward's, kept in bf16 (``s_in``, recomputed and rounded when None);
+    <g_k, s> takes g_k as high + low and chunk 0's state in fp32.  Each
+    head's dB and dC are summed over a tile of ``ht`` heads of a group in
+    head order, the tiles in order, and written in bf16 with dx.  Returns
+    what :func:`ssd_bwd_plain` returns."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    hpg = h // g
+    pad = (-s) % chunk
+    if pad:
+        x, b, c, dy = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, b, c, dy))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    nc = x.shape[1] // chunk
+    shape = (bsz, nc, chunk, h)
+    xf = x.float().reshape(*shape, p)
+    dyf = dy.float().reshape(*shape, p)
+    dtf = dt.float().reshape(shape)
+    bh = b.repeat_interleave(hpg, dim=2).float().reshape(*shape, n)
+    ch = c.repeat_interleave(hpg, dim=2).float().reshape(*shape, n)
+    af = a.float()
+    cum = torch.cumsum(dtf * af, dim=2)
+    total = cum[:, :, -1]
+    u = torch.exp(total[:, :, None] - cum) * dtf
+    ec = torch.exp(cum)
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    decay = torch.where(causal, torch.exp(
+        cum[:, :, :, None, :] - cum[:, :, None, :, :]),
+        torch.zeros((), device=x.device))
+    init = (torch.zeros((bsz, h, n, p), device=x.device) if init_state is None
+            else init_state.float())
+    if s_in is None:      # the forward's pass, its states kept in bf16
+        local = torch.einsum("bklhn,bklhp->bkhnp", bh * u[..., None], xf)
+        state, entering = init, []
+        for k in range(nc):
+            entering.append(state)
+            state = torch.exp(total[:, k])[..., None, None] * state \
+                + local[:, k]
+        s_in = torch.stack(entering, dim=1).to(torch.bfloat16)
+    s_exact = s_in.float().clone()
+    s_exact[:, 0] = init                      # <g_k, s>: chunk 0 in fp32
+    s_prod = s_exact.clone()
+    s_prod[:, 0] = sum(_hi_lo(init))          # products: its two parts
+    ey_hi, ey_lo = _hi_lo(dyf * ec[..., None])
+    ey = ey_hi + ey_lo
+    # (i) dlocal, (ii) the reverse pass in fp32, g_k kept as two parts
+    dlocal = torch.einsum("bklhn,bklhp->bkhnp", ch, ey)
+    gk = (torch.zeros((bsz, h, n, p), device=x.device) if dstate is None
+          else dstate.float())
+    outgoing = [None] * nc
+    for k in reversed(range(nc)):
+        outgoing[k] = gk
+        gk = torch.exp(total[:, k])[..., None, None] * gk + dlocal[:, k]
+    d_init = gk
+    g_hi, g_lo = _hi_lo(torch.stack(outgoing, dim=1))
+    g_kept = g_hi + g_lo
+    # (iii) every chunk's gradients
+    scores = torch.einsum("bklhn,bkmhn->bklmh", ch, bh)
+    dw = torch.einsum("bklhp,bkmhp->bklmh", dyf, xf)
+    dtm = dtf[:, :, None, :, :]
+    w = sum(_hi_lo(scores * decay * dtm))
+    ds = sum(_hi_lo(dw * decay * dtm))
+    r = dw * scores * decay
+    ddt = r.sum(dim=2)
+    q = r * dtm
+    dcum = q.sum(dim=3) - q.sum(dim=2)
+    bg = torch.einsum("bkmhn,bkhnp->bkmhp", bh, g_kept)
+    dx = (torch.einsum("bklmh,bklhp->bkmhp", w, dyf) + u[..., None] * bg
+          + d.float()[:, None] * dyf)
+    du = (xf * bg).sum(dim=-1)
+    ddt = ddt + torch.exp(total[:, :, None] - cum) * du
+    dcum = dcum - u * du
+    dtotal = (u * du).sum(dim=2) + torch.exp(total) * (g_kept * s_exact).sum(
+        dim=(-1, -2))
+    ux_hi, ux_lo = _hi_lo(u[..., None] * xf)
+    xg = (torch.einsum("bkmhp,bkhnp->bkmhn", ux_hi, g_kept)
+          + torch.einsum("bkmhp,bkhnp->bkmhn", ux_lo, g_hi))
+    dbh = torch.einsum("bklmh,bklhn->bkmhn", ds, ch) + xg
+    dch = (torch.einsum("bklmh,bkmhn->bklhn", ds, bh)
+           + torch.einsum("bklhp,bkhnp->bklhn", ey, s_prod))
+    dcum = dcum + ec * (dyf * torch.einsum("bklhn,bkhnp->bklhp", ch,
+                                           s_prod)).sum(dim=-1)
+    dcum[:, :, -1] += dtotal
+    rc = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+    ddt = ddt + af * rc
+    da = (dtf * rc).sum(dim=(0, 1, 2))
+    dd = (dyf * xf).sum(dim=(0, 1, 2, 4))
+
+    def rows(t):
+        return t.reshape(bsz, nc * chunk, *t.shape[3:])[:, :s]
+
+    def over_heads(t):        # (B, S, H, N): head tiles in order, then tiles
+        t = rows(t).reshape(bsz, s, g, hpg, n)
+        out = []
+        for gi in range(g):
+            tiles = []
+            for lo in range(0, hpg, ht):
+                acc = t[:, :, gi, lo]
+                for j in range(lo + 1, min(lo + ht, hpg)):
+                    acc = acc + t[:, :, gi, j]
+                tiles.append(acc)
+            tot = tiles[0]
+            for tl in tiles[1:]:
+                tot = tot + tl
+            out.append(tot)
+        return torch.stack(out, dim=2)
+
+    return (rows(dx).to(x.dtype), rows(ddt), da, over_heads(dbh).to(b.dtype),
+            over_heads(dch).to(c.dtype), dd, d_init)
 
 
 def ssd_decode_step(

@@ -12,7 +12,9 @@ plain version and against the split-and-merge plain version.  SSD
 tolerances are relative to the largest output: y 1e-4 in fp32 and 2e-2 in
 bf16 (y is written in bf16), the fp32 state 1e-4 in both.  The SSD
 backward's (``SSD_BWD_TOL``) are relative to each gradient's largest
-magnitude, against the plain backward on the inputs upcast to fp32.  DLA matmul
+magnitude, against the plain backward on the inputs upcast to fp32; its
+bf16 kernels are also held to their rounding plan, ``ssd_bwd_bf16_emulated``
+on the same kept states (``SSD_BWD_EMU_TOL``).  DLA matmul
 tolerances are relative to the largest output: fp32 in and out 1e-5, bf16
 in and fp32 out 1e-4, a bf16 output 1e-2.  The PGAS tests hold
 peer-mapped heaps (PUT/GET as stores into the peers' partitions) to the
@@ -33,6 +35,7 @@ from repro_torch.kernels.ssd import (
     SSD_BWD,
     ssd,
     ssd_bwd,
+    ssd_bwd_bf16_emulated,
     ssd_bwd_plain,
     ssd_plain,
 )
@@ -340,6 +343,16 @@ GRADS = ("dx", "ddt", "da", "db", "dc", "dd", "dinit")
 SSD_BWD_TOL = {torch.float32: dict.fromkeys(GRADS, 1e-4)
                | {"ddt": 5e-4, "da": 5e-4},
                torch.bfloat16: dict.fromkeys(GRADS, 1e-2)}
+#: the bf16 backward against ``ssd_bwd_bf16_emulated`` (the kernels'
+#: roundings in plain PyTorch) on the same inputs and kept states, d
+#: init_state with or without one: dx, dB and dC 2^-8 (written in bf16:
+#: fp32 sums in another order may round to the neighbouring bf16), dd and d
+#: init_state 1e-4, each between the sound build's reading and that of a
+#: build whose split fp32 operands lose their low parts (``probe_bwd``'s
+#: ``no_lo``); ddt and da 5e-4, as the fp32 backward's (sum-order noise
+#: through the reverse cumsum, as large at S 2048 as the low parts' share)
+SSD_BWD_EMU_TOL = dict.fromkeys(("dx", "db", "dc"), 2.0 ** -8) | \
+    dict.fromkeys(("dd", "dinit"), 1e-4) | dict.fromkeys(("ddt", "da"), 5e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -381,6 +394,113 @@ def test_ssd_bwd_kernel_matches_plain(cuda, dtype, bsz, s, h, g, n, p,
         if name == "dinit" and not init:
             continue
         assert _rel(u, w) <= SSD_BWD_TOL[dtype][name], (name, _rel(u, w))
+
+
+def _bwd_case(cuda, dtype, bsz, s, h, g, n, p, chunk, init, pad, seed):
+    """Inputs, cotangents and the forward's kept states of a backward
+    case."""
+    from repro_torch.kernels.ssd.ops import _forward
+
+    args, state = _ssd_inputs(bsz, s, h, g, n, p, dtype, cuda, seed=seed,
+                              init=init, pad=pad)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    dy = torch.randn(bsz, s, h, p, generator=gen, device=cuda).to(dtype)
+    dstate = (torch.randn(bsz, h, n, p, generator=gen, device=cuda)
+              if init else None)
+    _, _, s_in = _forward(*args, chunk, state)
+    return args, state, dy, dstate, s_in
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,s,h,g,n,p,chunk,init,ht,pad", [
+    (1, 300, 6, 1, 128, 64, 128, True, 4, 8),    # tiles of 4 and 2
+    (1, 256, 80, 1, 128, 64, 128, False, 3, 8),  # 80 heads in tiles of 3
+    (2, 200, 10, 2, 64, 32, 64, True, 2, 8),     # chunk 64, groups of 5
+    (1, 200, 6, 3, 64, 64, 64, False, 2, 2),     # rows off 16 bytes
+    (1, 150, 4, 1, 32, 128, 128, True, 3, 2),    # P 128, off 16 bytes
+    (1, 300, 4, 1, 128, 128, 128, True, 2, 8),   # N and P 128: s over g_lo
+])
+def test_ssd_bwd_head_tiles_chunks_and_fills(cuda, monkeypatch, dtype, bsz,
+                                             s, h, g, n, p, chunk, init, ht,
+                                             pad):
+    """The backward against ``ssd_bwd_plain`` where the bf16 kernels take
+    other routes: head tiles that do not divide a group's heads (``ht``
+    forces the plan; fp32 takes one head a block whatever it says), chunk
+    64, x/B/C as slices of one buffer whose rows start off 16 bytes (the
+    element fill instead of TMA or cp.async), P 128, and N and P 128 (the
+    entering state loaded over g_k's low part); two calls bitwise equal."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    monkeypatch.setattr(ssd_ops, "ssd_bwd_plan", lambda *a, **k: ht)
+    args, state, dy, dstate, s_in = _bwd_case(cuda, dtype, bsz, s, h, g, n,
+                                              p, chunk, init, pad, s + h)
+    x, _, _, b, c, _ = args
+    assert ssd_ops._aligned16(x, b, c) == (pad * x.element_size() % 16 == 0)
+    kw = dict(chunk=chunk, init_state=state, s_in=s_in)
+    before = SSD_BWD.launches
+    got = ssd_bwd(*args, dy, dstate, **kw)
+    again = ssd_bwd(*args, dy, dstate, **kw)
+    torch.cuda.synchronize()
+    assert SSD_BWD.launches == before + 2
+    assert ssd_ops.BWD_LAUNCHED["heads_a_block"] == (
+        min(ht, h // g) if dtype == torch.bfloat16 else 1)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    want = ssd_bwd_plain(*[t.float() for t in args], dy.float(), dstate,
+                         chunk=chunk, init_state=state)
+    for name, u, w in zip(GRADS, got, want):
+        if name == "dinit" and not init:
+            continue
+        assert _rel(u, w) <= SSD_BWD_TOL[dtype][name], (name, _rel(u, w))
+
+
+@pytest.mark.parametrize("bsz,s,h,g,n,p,chunk,init,pad", [
+    (1, 300, 6, 1, 128, 64, 128, True, 8),    # ragged, a state, TMA
+    (1, 512, 80, 1, 128, 64, 128, False, 8),  # mamba2 heads, the plan's tile
+    (2, 200, 10, 2, 64, 32, 64, True, 8),     # chunk 64, two groups
+    (1, 200, 6, 3, 64, 64, 64, False, 2),     # rows off 16 bytes
+    (1, 300, 4, 1, 128, 128, 128, True, 8),   # N and P 128
+])
+def test_ssd_bwd_bf16_matches_emulation(cuda, bsz, s, h, g, n, p, chunk,
+                                        init, pad):
+    """The bf16 kernels hold their precision plan: against
+    ``ssd_bwd_bf16_emulated`` with the head tile the call launched and the
+    same kept entering states, within ``SSD_BWD_EMU_TOL``, which dropping
+    the low parts of the split fp32 operands exceeds (dx, dB, dC and d
+    init_state)."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    args, state, dy, dstate, s_in = _bwd_case(
+        cuda, torch.bfloat16, bsz, s, h, g, n, p, chunk, init, pad, 3 * s + h)
+    kw = dict(chunk=chunk, init_state=state, s_in=s_in)
+    got = ssd_bwd(*args, dy, dstate, **kw)
+    want = ssd_bwd_bf16_emulated(
+        *args, dy, dstate, ht=ssd_ops.BWD_LAUNCHED["heads_a_block"], **kw)
+    for name, u, w in zip(GRADS, got, want):
+        assert _rel(u, w) <= SSD_BWD_EMU_TOL[name], (name, _rel(u, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_cuda_kernels_a_call(cuda, dtype):
+    """One backward call is exactly ``ops.SSD_BWD_KERNELS`` CUDA kernels on
+    the card (the profiler's device events), and one wrapper launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    args, state, dy, dstate, s_in = _bwd_case(cuda, dtype, 1, 300, 8, 1,
+                                              128, 64, 128, True, 8, 7)
+    kw = dict(chunk=128, init_state=state, s_in=s_in)
+    ssd_bwd(*args, dy, dstate, **kw)
+    torch.cuda.synchronize()
+    before = SSD_BWD.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ssd_bwd(*args, dy, dstate, **kw)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert SSD_BWD.launches == before + 1
+    assert len(events) == ssd_ops.SSD_BWD_KERNELS, [e.name for e in events]
+    assert all("ssd_bwd_" in e.name for e in events)
 
 
 def test_ssd_bwd_takes_cotangents_off_16_bytes(cuda):

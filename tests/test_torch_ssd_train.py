@@ -11,7 +11,16 @@ inputs:
   a ``dstate`` cotangent, ragged S, one and two groups, chunks 8 and 32;
 * the ``ssd`` wrapper's gradients (its ``torch.autograd.Function``) on the
   CPU against both, and ``ssd_chunk_fed``'s against the bulk call's;
-* the Mamba-2 block's gradients with remat full against remat none.
+* the Mamba-2 block's gradients with remat full against remat none;
+* the bf16 backward kernels' precision plan, ``ssd_bwd_bf16_emulated``
+  (bf16 operands, fp32 operands as bf16 high and low parts, dB and dC
+  summed over head tiles), on bf16-rounded inputs: against ``jax.vjp`` of
+  ``ssd_jnp`` at the chip smoke's bf16 tolerance (1e-2 of each gradient's
+  largest magnitude), and against ``ssd_bwd_plain`` given the same kept
+  entering states (bf16 for chunks 1.., ``init_state`` in fp32) tightly:
+  dx, dB and dC to 2^-8 (their bf16 rounding), ddt, da, dd and d
+  init_state to 2e-5 (the splits leave ~2^-17 of each product; measured
+  ≤ 5e-6 at these sizes).
 
 Tolerance: every gradient within 1e-5 of its largest magnitude (max
 |error| ≤ 1e-5 · max |want|): the same fp32 arithmetic summed in another
@@ -38,6 +47,7 @@ from repro_torch.dist import sharding
 from repro_torch.kernels.ssd import (
     ssd,
     ssd_bwd,
+    ssd_bwd_bf16_emulated,
     ssd_bwd_plain,
     ssd_chunk_fed,
     ssd_plain,
@@ -254,3 +264,109 @@ def test_mamba2_remat_full_matches_none(segments):
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(
             b.abs().max()))
+
+
+#: the bf16 emulation against the reference: the chip smoke's bf16
+#: tolerance; against the plain backward on the same kept states: the
+#: bf16 outputs to their rounding (2^-8), the fp32 ones to 2e-5
+BF16_REF_REL = 1e-2
+BF16_PLAIN_REL = dict.fromkeys(("dx", "db", "dc"), 2.0 ** -8) | dict.fromkeys(
+    ("ddt", "da", "dd", "dinit"), 2e-5)
+BF16_CASES = [  # (B, S, H, G, N, P, chunk, head tile, init_state, dstate)
+    (2, 300, 4, 1, 32, 16, 64, 3, True, True),    # ragged; tiles of 3 and 1
+    (1, 200, 6, 2, 16, 32, 32, 2, False, True),   # two groups; tiles 2 + 1
+    (2, 130, 3, 1, 24, 8, 128, 2, True, False),   # a chunk and a 2-row one
+    (1, 256, 4, 1, 32, 32, 64, 4, True, True),    # one tile of a group
+]
+
+
+def _bf16_inputs(bsz, s, h, g, n, p, seed):
+    """``_inputs`` with x, b, c and dy rounded to bf16 (as the kernels take
+    them; the reference sees the same values in fp32)."""
+    arrs = _inputs(bsz, s, h, g, n, p, seed)
+    for k in ("x", "b", "c", "dy"):
+        arrs[k] = torch.from_numpy(arrs[k]).bfloat16().float().numpy()
+    return arrs
+
+
+def _kept_states(x, dt, a, b, c, chunk, init):
+    """The states entering each chunk as the forward keeps them: bf16 for
+    chunks 1.. (its pass rounds them), and chunk 0's ``init`` in fp32
+    (the backward reads ``init_state`` itself)."""
+    bsz, s, h, p = x.shape
+    cuts = range(0, s, chunk)
+    state = torch.zeros(bsz, h, b.shape[3], p) if init is None else init
+    kept = []
+    for lo in cuts:
+        kept.append(state if lo == 0 else state.bfloat16().float())
+        hi = min(lo + chunk, s)
+        _, state = ssd_plain(x[:, lo:hi], dt[:, lo:hi], a, b[:, lo:hi],
+                             c[:, lo:hi], torch.zeros(h), chunk=chunk,
+                             init_state=state)
+    return torch.stack(kept, dim=1)
+
+
+@pytest.mark.parametrize("bsz,s,h,g,n,p,chunk,ht,init,dstate", BF16_CASES)
+def test_bf16_emulation_matches_jax_vjp(bsz, s, h, g, n, p, chunk, ht, init,
+                                        dstate):
+    arrs = _bf16_inputs(bsz, s, h, g, n, p, seed=s + h + ht)
+    want = _reference(arrs, chunk, init, dstate)
+    x, dt, a, b, c, d, st, dy, ds = _t(arrs, "x", "dt", "a", "b", "c", "d",
+                                       "init", "dy", "dstate")
+    got = ssd_bwd_bf16_emulated(
+        x.bfloat16(), dt, a, b.bfloat16(), c.bfloat16(), d, dy.bfloat16(),
+        ds if dstate else None, chunk=chunk, init_state=st if init else None,
+        ht=ht)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32, torch.bfloat16,
+                                      torch.bfloat16, torch.float32,
+                                      torch.float32]
+    for name, u, w in zip(NAMES, got, want):
+        if name == "dinit" and not init:
+            continue
+        err = np.abs(u.float().numpy() - w).max()
+        assert err <= BF16_REF_REL * np.abs(w).max(), (name, err)
+
+
+@pytest.mark.parametrize("bsz,s,h,g,n,p,chunk,ht,init,dstate", BF16_CASES)
+def test_bf16_emulation_matches_plain_on_kept_states(bsz, s, h, g, n, p,
+                                                     chunk, ht, init,
+                                                     dstate):
+    """Given the same kept entering states, the bf16 plan moves ddt and da
+    (sums of both signs through the reverse cumsum) by no more than its
+    splits: the states' own bf16 rounding is the forward's, not the
+    backward's."""
+    arrs = _bf16_inputs(bsz, s, h, g, n, p, seed=3 * s + ht)
+    x, dt, a, b, c, d, st, dy, ds = _t(arrs, "x", "dt", "a", "b", "c", "d",
+                                       "init", "dy", "dstate")
+    st, ds = (st if init else None), (ds if dstate else None)
+    kept = _kept_states(x, dt, a, b, c, chunk, st)
+    got = ssd_bwd_bf16_emulated(
+        x.bfloat16(), dt, a, b.bfloat16(), c.bfloat16(), d, dy.bfloat16(),
+        ds, chunk=chunk, init_state=st, s_in=kept.bfloat16(), ht=ht)
+    want = ssd_bwd_plain(x, dt, a, b, c, d, dy, ds, chunk=chunk,
+                         init_state=st, s_in=kept)
+    for name, u, w in zip(NAMES, got, want):
+        err = (u.float() - w).abs().max().item()
+        assert err <= BF16_PLAIN_REL[name] * w.abs().max().item(), (name, err)
+
+
+def test_bwd_plan_and_scratch():
+    """The bf16 backward's head tiles fill whole waves of 132 SMs (one
+    block an SM): 40 heads a block at the training microbatch (128 blocks),
+    10 at one batch row; fp32 takes one head a block.  Its dB and dC
+    scratch holds one slot per head tile, so it shrinks by the tile."""
+    from repro_torch.kernels.ssd import ops
+
+    args = (2048, 80, 1, 128, 64, 128)
+    assert ops.ssd_bwd_plan(4, *args, torch.bfloat16, 132, 1) == 40
+    assert ops.ssd_bwd_plan(1, *args, torch.bfloat16, 132, 1) == 10
+    assert ops.ssd_bwd_plan(4, *args, torch.float32, 132, 1) == 1
+    bf = ops.bwd_scratch(4, *args, torch.bfloat16, 40)
+    f32 = ops.bwd_scratch(4, *args, torch.float32, 1)
+    assert bf["dbh"][0] == (4, 2048, 2, 128) and f32["dbh"][0] == (
+        4, 2048, 80, 128)
+    assert bf["ghl"] == ((4, 16, 80, 2, 128, 64), torch.bfloat16)
+    assert "ghl" not in f32
+    allocated, moved = ops.bwd_scratch_bytes(4, *args, torch.bfloat16, 40)
+    assert moved == 2 * allocated < 10 ** 9
