@@ -9,16 +9,16 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
 2. Hold each kernel to its plain PyTorch version on the card at the main
    paths' shapes.
    Flash attention: smollm-360m heads 15/5 at D 64, h2o-danube-1.8b heads
-   32/8 at D 80; bf16 and fp32; bulk S = 1000 and 2048, 128-row chunks at
-   q_offset 0, 128, 896, 1024 and 1920 of a 2048 scratch, a ragged 100-row
-   chunk at 896, a 256 window at 2048 and at the chunk at 1024, and a
-   window of 0 at 2048 (only None means no window: no row sees a column,
-   every output 0).
+   32/8 at D 80, zamba2-7b heads 32/32 at D 112; bf16 and fp32; bulk
+   S = 1000 and 2048, 128-row chunks at q_offset 0, 128, 896, 1024 and
+   1920 of a 2048 scratch, a ragged 100-row chunk at 896, a 256 window at
+   2048 and at the chunk at 1024, and a window of 0 at 2048 (only None
+   means no window: no row sees a column, every output 0).
    Tolerances: max abs error 2e-4 in fp32 (TF32 off), 3e-2 in bf16 at
    bulk, the chunk at 1024 and the windows at 2048; bf16 at the other
    chunks, and every bf16 case against the split-and-merge plain version
    at the kernel's split plan, to 1e-2 of the largest plain output.  At
-   bulk-2048 and chunk-128@1024 of both models in bf16, time the kernel,
+   bulk-2048 and chunk-128@1024 of the three models in bf16, time the kernel,
    the plain version, the bound and ``scaled_dot_product_attention`` over
    the same visible columns (the library yardstick, bottom-right causal
    for a chunk; the port never calls it), and name the kernel SDPA ran.
@@ -72,9 +72,19 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    each bf16 server run's to 1.5e-1 of the fp32 ones (bf16 rounding alone
    moves this random-init model's logits by ~7.5%; the share of agreeing
    generated tokens is printed, not held).
-5. The reduced configs in fp32: prefill logits (and mamba2's final SSD
-   state) through the kernels on the card against their plain versions on
-   the CPU.
+4b. Serve full-width zamba2-7b in bf16 (random weights from a seed; 81
+   Mamba-2 layers, 13 applications of 2 shared attention blocks at head
+   dim 112) as phase 4 serves mamba2: 6 requests of 256–1024 tokens, 16
+   new each, batch 4, max_seq 2048, one arrival every 2 steps, chunked
+   (128) then bulk.  Held: every request answered; the SSD kernel
+   launched 81 times and the flash kernel 13 times a prefill pass, and no
+   other kernel of the port; then the fp32 check of phase 4 (chunked ≡
+   bulk first-token logits 1e-3, each bf16 run against fp32 1.5e-1).
+   Printed: the parameters, init time, prefill and decode tokens/s, TTFT,
+   ITL, the peak memory of each run and the phase's wall time.
+5. The reduced configs in fp32: prefill logits (and mamba2's and
+   zamba2's final SSD states) through the kernels on the card against
+   their plain versions on the CPU.
 6. The fused collective matmul's three hop kernels (``cc_matmul.cu``)
    against their plain versions at the shapes full-width h2o-danube-1.8b
    gives them at TP 4 (B 2, 512 rows a rank, bidirectional half rings of
@@ -157,8 +167,8 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
     Printed: each step's wall time, tokens/s, loss, grad norm and peak
     memory, the profiled step's top device ops and idle share, beside the
     card's name and power limit.  Then reduced
-    mamba2-2.7b in fp32, 2 tp-1 steps on the card and on the CPU, held as
-    in phase 10.
+    mamba2-2.7b and reduced zamba2-7b in fp32, 2 tp-1 steps each on the
+    card and on the CPU, held as in phase 10.
 11. The DLA matmul kernel (``kernels/matmul/csrc/matmul.cu``): first the
     entry point driven as a user calls the DLA instruction — ``matmul`` at
     the case study's sizes (256/512/1024 square, fp32, gelu with a bias)
@@ -443,7 +453,8 @@ def sdpa_yardstick(q, k, v, window, q_offset):
 
 def phase_kernels():
     """Kernel vs plain on the card; returns the main-path shapes' numbers
-    (bulk-2048 and chunk-128@1024 of smollm-360m in bf16)."""
+    (bulk-2048 and chunk-128@1024 of smollm-360m in bf16; h2o-danube-1.8b's
+    and zamba2-7b's under ``h2o_*`` and ``zamba2_*``)."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -461,7 +472,8 @@ def phase_kernels():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    heads = {"smollm-360m": (15, 5, 64), "h2o-danube-1.8b": (32, 8, 80)}
+    heads = {"smollm-360m": (15, 5, 64), "h2o-danube-1.8b": (32, 8, 80),
+             "zamba2-7b": (32, 32, 112)}
     # (label, Sq, Skv, q_offset, window); the first five at TOL, the rest
     # (in bf16) at BF16_SPLIT_REL.  window-0: no row sees a column, every
     # output 0 (only None means no window)
@@ -552,7 +564,9 @@ def phase_kernels():
     for arch, label, tag in (
             ("smollm-360m", "chunk-128@1024", "chunk"),
             ("h2o-danube-1.8b", "bulk-2048", "h2o_bulk"),
-            ("h2o-danube-1.8b", "chunk-128@1024", "h2o_chunk")):
+            ("h2o-danube-1.8b", "chunk-128@1024", "h2o_chunk"),
+            ("zamba2-7b", "bulk-2048", "zamba2_bulk"),
+            ("zamba2-7b", "chunk-128@1024", "zamba2_chunk")):
         out.update({f"{tag}_{key}": main[(arch, label)][key]
                     for key in keys})
     return out
@@ -936,19 +950,21 @@ def phase_serve():
     return launches
 
 
-def phase_serve_mamba2():
-    """Full-width mamba2-2.7b, chunked then bulk admission; returns the SSD
-    launches of the two runs."""
+def phase_serve_state(arch):
+    """Full-width ``arch`` (mamba2-2.7b, phase 4; zamba2-7b, phase 4b) in
+    bf16, chunked then bulk admission, then the fp32 check; returns the
+    SSD and flash launches of the two server runs."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import FLASH
-    from repro_torch.kernels.ssd import SSD
+    from repro_torch.dist.steps import serve_step
+    from repro_torch.models.decode import init_cache
     from repro_torch.models.model import (
         count_params,
         count_params_analytic,
         init_params,
+        n_applications,
     )
     from repro_torch.models.prefill import (
         init_prefill_scratch,
@@ -958,15 +974,17 @@ def phase_serve_mamba2():
     )
     from repro_torch.runtime.server import Server, ServerConfig, drive_arrivals
 
-    cfg = get_config("mamba2-2.7b")
-    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    tag = arch.split("-")[0]
+    apps = n_applications(cfg) if cfg.family == "hybrid" else 0
+    t_phase = t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = count_params(params)
-    print(f"[mamba2] {cfg.name} full width, {n_params/1e6:.1f}M params in "
+    print(f"[{tag}] {cfg.name} full width, {n_params/1e6:.1f}M params in "
           f"{cfg.param_dtype}, init {time.perf_counter()-t0:.1f}s", flush=True)
     if n_params != count_params_analytic(cfg):
-        fail(f"mamba2: {n_params} params, expected "
+        fail(f"{tag}: {n_params} params, expected "
              f"{count_params_analytic(cfg)}")
     rng = np.random.default_rng(0)
     lens = rng.integers(256, 1025, size=6)
@@ -974,10 +992,9 @@ def phase_serve_mamba2():
     chunk, max_new = 128, 16
     want_chunks = int(sum(-(-int(n) // chunk) for n in lens))
     runs = {}
-    launches = 0
-    for mode, admit_chunk, want in (
-            ("chunked", chunk, cfg.n_layers * want_chunks),
-            ("bulk", None, cfg.n_layers * len(prompts))):
+    launches = {"ssd": 0, "flash": 0}
+    for mode, admit_chunk, passes in (("chunked", chunk, want_chunks),
+                                      ("bulk", None, len(prompts))):
         srv = Server(cfg, params, ServerConfig(
             max_batch=4, max_seq=2048, max_new_tokens=max_new,
             prefill_chunk=admit_chunk))
@@ -989,30 +1006,38 @@ def phase_serve_mamba2():
             emit(i, req, logits)
 
         srv._emit_first_token = record
-        SSD.launches = FLASH.launches = 0
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         steps = drive_arrivals(srv, prompts, every=2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = SSD.launches
-        launches += n
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = kernel_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update(ssd=cfg.n_layers * passes,
+                    flash_attention=apps * passes)
+        launches["ssd"] += counts["ssd"]
+        launches["flash"] += counts["flash_attention"]
         st = srv.stats()
-        print(f"[mamba2:{mode}] {st['requests']} requests, {st['tokens']} "
+        print(f"[{tag}:{mode}] {st['requests']} requests, {st['tokens']} "
               f"tokens in {steps} steps, {wall:.2f}s; prefill "
               f"{st['prefill_tok_s']:.1f} tok/s, decode "
               f"{st['decode_tok_s']:.1f} tok/s, ttft "
               f"{st['mean_ttft_s']*1e3:.1f} ms, itl "
-              f"{st['mean_itl_s']*1e3:.2f} ms; ssd launches {n} over "
-              f"{st['prefill_chunks']} prefill passes", flush=True)
+              f"{st['mean_itl_s']*1e3:.2f} ms, peak {peak:.2f} GiB; ssd "
+              f"launches {counts['ssd']}, flash {counts['flash_attention']} "
+              f"over {st['prefill_chunks']} prefill passes", flush=True)
         if st["requests"] != len(prompts) or any(
                 len(r.out_tokens) != max_new for r in srv.done):
-            fail(f"mamba2 {mode}: not every request answered with "
+            fail(f"{tag} {mode}: not every request answered with "
                  f"{max_new} tokens")
-        if n != want or FLASH.launches:
-            fail(f"mamba2 {mode}: ssd launched {n} times (expected {want}), "
-                 f"flash {FLASH.launches} times (expected 0)")
+        if st["prefill_chunks"] != passes or counts != want:
+            fail(f"{tag} {mode}: {st['prefill_chunks']} prefill passes "
+                 f"(expected {passes}), launches {counts} (expected "
+                 f"{want}: ssd {cfg.n_layers} and flash {apps} a pass)")
         if not all(torch.isfinite(v).all() for v in first.values()):
-            fail(f"mamba2 {mode}: non-finite first-token logits")
+            fail(f"{tag} {mode}: non-finite first-token logits")
         runs[mode] = ({r.rid: r.out_tokens for r in srv.done}, first)
         # the hook holds the server through the bound method it wraps: a
         # cycle that only Python's cyclic collector frees, which kept the
@@ -1023,17 +1048,44 @@ def phase_serve_mamba2():
     agree = sum(a == b for r in tok_b for a, b in zip(tok_c[r], tok_b[r]))
     total = sum(len(t) for t in tok_b.values())
 
+    # where a server step's time goes: one decode step of a full batch
+    # over 2048 slots, and one 128-token prefill chunk at 512 of a
+    # 1024-token carry, each under torch.profiler (the device's idle
+    # share of the call says how far the host holds the card back)
+    cache = init_cache(cfg, 4, 2048, "cuda")
+    step_toks = torch.zeros(4, dtype=torch.long, device="cuda")
+    scr = init_prefill_scratch(cfg, 1, 1024, "cuda")
+    chunk_toks = torch.as_tensor(prompts[0][None, :chunk], dtype=torch.long,
+                                 device="cuda")
+    for label, call in (
+            ("decode step, batch 4 over 2048 slots",
+             lambda: serve_step(cfg, params, cache, step_toks)),
+            (f"prefill chunk, {chunk} rows at 512",
+             lambda: prefill_chunk(cfg, params, scr, chunk_toks, 512))):
+        call()
+        top, idle, wall_ms, events = profile_call(call)
+        busy = sum(ms for _, ms, _ in top)
+        print(f"[{tag}] profiled {label}: {wall_ms:.2f} ms wall, device "
+              f"idle share {'not measured' if idle is None else f'{idle:.4f}'}"
+              f", port device events {events}; top device ops "
+              f"{busy:.3f} ms:", flush=True)
+        for name, ms, n in top[:6]:
+            print(f"[{tag}]   {ms:8.3f} ms  x{n:<5} {name[:90]}", flush=True)
+    del cache, scr
+
     # The same prompts in fp32 (the bf16 weights, widened), bulk and in
     # 128-token chunks outside the server: chunked ≡ bulk is held here, in
     # fp32, where only the GEMMs' summation order differs between the two.
-    # bf16 rounding alone moves this random-init model's first-token
-    # logits by ~7.5% of their largest magnitude against fp32 (and two
-    # bf16 runs whose GEMMs round differently as far apart), so each bf16
-    # server run is held to the fp32 logits at 1.5e-1 instead of to each
-    # other; a fault in the carry or the kernel moves them by O(1).
+    # bf16 rounding alone moves these random-init models' first-token
+    # logits by several percent of their largest magnitude against fp32
+    # (mamba2: ~7.5%; two bf16 runs whose GEMMs round differently as far
+    # apart), so each bf16 server run is held to the fp32 logits at 1.5e-1
+    # instead of to each other; a fault in the carry or a kernel moves
+    # them by O(1).
     torch.backends.cuda.matmul.allow_tf32 = False       # full fp32 GEMMs
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
     params32 = widen(params)
     del params
     err = {"c16-b16": 0.0, "c32-b32": 0.0, "c16-b32": 0.0, "b16-b32": 0.0}
@@ -1052,16 +1104,18 @@ def phase_serve_mamba2():
                                  "b16-b32": (first_b[rid], b32)}.items():
             e = ((got - want).abs().max() / want.abs().max()).item()
             err[key] = max(err[key], e)
-    del params32
-    print(f"[mamba2] first-token logits, max_err/max over the 6 requests: "
+    del params32, scr
+    peak32 = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{tag}] first-token logits, max_err/max over the 6 requests: "
           f"bf16 chunked vs bulk {err['c16-b16']:.3g}; fp32 chunked vs bulk "
           f"{err['c32-b32']:.3g} (tol 1e-3); bf16 chunked vs fp32 "
           f"{err['c16-b32']:.3g}, bf16 bulk vs fp32 {err['b16-b32']:.3g} "
           f"(tol 1.5e-1); generated tokens agree {agree}/{total} "
-          f"({agree / total:.1%})", flush=True)
+          f"({agree / total:.1%}); fp32 check peak {peak32:.2f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
     if not (err["c32-b32"] <= 1e-3 and err["c16-b32"] <= 1.5e-1
             and err["b16-b32"] <= 1.5e-1):
-        fail(f"mamba2: first-token logits out of tolerance: {err}")
+        fail(f"{tag}: first-token logits out of tolerance: {err}")
     return launches
 
 
@@ -1084,7 +1138,8 @@ def phase_reduced_vs_cpu():
     from repro_torch.models.model import init_params, params_to
     from repro_torch.models.prefill import prefill
 
-    for name in ("smollm-360m", "h2o-danube-1.8b", "mamba2-2.7b"):
+    for name in ("smollm-360m", "h2o-danube-1.8b", "mamba2-2.7b",
+                 "zamba2-7b"):
         cfg = get_config(name).reduced()
         params = init_params(cfg, seed=1, device="cpu")
         toks = torch.from_numpy(np.random.default_rng(1).integers(
@@ -1097,7 +1152,7 @@ def phase_reduced_vs_cpu():
               f"diff {err:.3g} (tol 1e-4)", flush=True)
         if not err <= 1e-4:
             fail(f"reduced {name}: card vs CPU logits differ by {err}")
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             want = c_cpu["ssm_state"]
             err = ((c_gpu["ssm_state"].cpu() - want).abs().max()
                    / want.abs().max()).item()
@@ -1585,13 +1640,14 @@ def reset_kernel_counts():
     FLASH.launches = SSD.launches = SSD_BWD.launches = MATMUL.launches = 0
 
 
-def profile_train_step(step_fn, params, opt, batch, step):
-    """One train step under torch.profiler: (top ten device ops by self
-    device time [(name, ms, count)], the device's idle share of the
-    step's window, the step's wall ms, device events of the port's kernels
-    by family, ``PORT_EVENTS``).  The window runs from the step's start on
-    the host to the later of its end and the last device event; busy is
-    the union of the device events inside it (kernels, copies, fills)."""
+def profile_call(fn):
+    """One call of ``fn`` (a train step, a serving step) under
+    torch.profiler: (top ten device ops by self device time [(name, ms,
+    count)], the device's idle share of the call's window, the call's
+    wall ms, device events of the port's kernels by family,
+    ``PORT_EVENTS``).  The window runs from the call's start on the host
+    to the later of its end and the last device event; busy is the union
+    of the device events inside it (kernels, copies, fills)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1599,19 +1655,19 @@ def profile_train_step(step_fn, params, opt, batch, step):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
-        with record_function("smoke_train_step"):
+        with record_function("smoke_profiled_call"):
             t0 = time.perf_counter()
-            params, opt, _ = step_fn(params, opt, batch, step)
+            fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         time.sleep(PROFILE_PAD_S)
     events = prof.events()
-    win = [e for e in events if e.name == "smoke_train_step"
+    win = [e for e in events if e.name == "smoke_profiled_call"
            and e.device_type == torch.autograd.DeviceType.CPU]
     # the annotation's own range is filed under the card too: not work
     dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.name != "smoke_train_step"]
+           and e.name != "smoke_profiled_call"]
     port = {k: sum(1 for e in dev if pat.search(e.name))
             for k, pat in PORT_EVENTS.items()}
     if not win or not dev:
@@ -1730,9 +1786,9 @@ def phase_train_1gpu(smi_line):
                 sharding.leaves((p_res, o_res["master"], o_res["mu"],
                                  o_res["nu"]))))
             del p_res, o_res, resumed.step_fn
-            top, idle, wall_ms, events = profile_train_step(
-                run.step_fn, params, opt, data.global_batch(TRAIN_STEPS),
-                TRAIN_STEPS)
+            batch = data.global_batch(TRAIN_STEPS)
+            top, idle, wall_ms, events = profile_call(
+                lambda: run.step_fn(params, opt, batch, TRAIN_STEPS))
             counts = kernel_counts()
         notes = sorted({str(w.message).split(".")[0] for w in caught})
     finally:
@@ -1946,9 +2002,9 @@ def phase_train_mamba2(smi_line):
                   f"microbatches, seq_chunk {M2_CHUNK}: {M2_STEPS} steps in "
                   f"{time.perf_counter() - t0:.1f} s with init", flush=True)
             reset_kernel_counts()
-            top, idle, wall_ms, events = profile_train_step(
-                run.step_fn, params, opt, data.global_batch(M2_STEPS),
-                M2_STEPS)
+            batch = data.global_batch(M2_STEPS)
+            top, idle, wall_ms, events = profile_call(
+                lambda: run.step_fn(params, opt, batch, M2_STEPS))
             prof_counts = kernel_counts()
             reset_kernel_counts()
         notes = sorted({str(w.message).split(".")[0] for w in caught})
@@ -2298,6 +2354,19 @@ def phase_case_study(pool):
                  f"{r0['batch']}: err {err}")
 
 
+def timed(label, fn, *args):
+    """``fn(*args)``, then the caching allocator's free blocks released
+    and the phase's wall time printed."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.empty_cache()
+    print(f"[smoke] phase {label}: {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2308,7 +2377,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        import repro_torch  # noqa: F401
+        from repro_torch.configs import get_config
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the "
               f"root of the checkout", file=sys.stderr)
@@ -2317,28 +2386,28 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t_start = time.perf_counter()
-    phase_build()
-    flash_main = phase_kernels()
-    ssd_cases = phase_ssd_kernels()
-    ssd_bwd_cases = phase_ssd_bwd()
-    flash_launches = phase_serve()
-    torch.cuda.empty_cache()              # the smollm weights are gone
-    ssd_launches = phase_serve_mamba2()
-    torch.cuda.empty_cache()
-    phase_reduced_vs_cpu()
-    cc_main = phase_cc_kernels()
-    torch.cuda.empty_cache()
-    cc_main.update(phase_ring_kernels())
-    cc_launches = phase_tp_train()
-    phase_tp_reduced()
-    torch.cuda.empty_cache()
-    phase_train_1gpu(card_name_and_limit())
-    torch.cuda.empty_cache()
-    m2_train = phase_train_mamba2(card_name_and_limit())
-    torch.cuda.empty_cache()
-    dla_launches, dla_main = phase_dla()
-    torch.cuda.empty_cache()
-    phase_case_study(phase_pgas())
+    timed("build", phase_build)
+    flash_main = timed("2 flash", phase_kernels)
+    ssd_cases = timed("2 ssd", phase_ssd_kernels)
+    ssd_bwd_cases = timed("2b ssd backward", phase_ssd_bwd)
+    flash_launches = timed("3 smollm serving", phase_serve)
+    ssd_launches = timed("4 mamba2 serving", phase_serve_state,
+                         "mamba2-2.7b")["ssd"]
+    zamba2_launches = timed("4b zamba2 serving", phase_serve_state,
+                            "zamba2-7b")
+    timed("5 reduced card vs cpu", phase_reduced_vs_cpu)
+    cc_main = timed("6 hop kernels", phase_cc_kernels)
+    cc_main.update(timed("7 ring kernels", phase_ring_kernels))
+    cc_launches = timed("8 tp training", phase_tp_train)
+    timed("9 reduced tp", phase_tp_reduced)
+    timed("10 smollm training", phase_train_1gpu, card_name_and_limit())
+    m2_train = timed("10b mamba2 training", phase_train_mamba2,
+                     card_name_and_limit())
+    timed("10b reduced zamba2 tp-1", tp1_card_vs_cpu,
+          get_config("zamba2-7b"), "[train-zamba2]")
+    dla_launches, dla_main = timed("11 dla matmul", phase_dla)
+    timed("12-13 pgas and case study",
+          lambda: phase_case_study(phase_pgas()))
     print(f"[smoke] all phases {time.perf_counter() - t_start:.1f}s",
           flush=True)
 
@@ -2353,7 +2422,8 @@ def main() -> int:
              source="src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:93",
-             launches=flash_launches, **flash_main),
+             launches=flash_launches,
+             zamba2_launches=zamba2_launches["flash"], **flash_main),
         dict(name="ssd", route="cuda",
              source="src/repro_torch/kernels/ssd/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd/kernel.py:96",
@@ -2372,6 +2442,7 @@ def main() -> int:
              fp32_bound_ms=ssd_f32["bound_ms"],
              zamba2_ms=ssd_z["ms"], zamba2_device_ms=ssd_z["device_ms"],
              zamba2_bound_ms=ssd_z["bound_ms"],
+             zamba2_serve_launches=zamba2_launches["ssd"],
              train_launches=m2_train["train_launches"],
              bwd_source="src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
              bwd_replaces="XLA's gradient of src/repro/models/layers.py:640 "

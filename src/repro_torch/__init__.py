@@ -1,9 +1,10 @@
 """repro_torch — the PyTorch/CUDA port of ``repro`` for NVIDIA Hopper.
 
 The JAX package ``repro`` stays the reference; this package reimplements
-its serving main path (dense GQA decoder and pure-SSM Mamba-2, chunked
-streamed prefill, per-slot decode, paged KV block pool for the dense
-family), dense training on one device (``runtime/trainer.py``) and
+its serving main path (dense GQA decoder, pure-SSM Mamba-2 and the
+zamba2 hybrid, chunked streamed prefill, per-slot decode, paged KV block
+pool for the dense family), training on one device
+(``runtime/trainer.py``; dense, Mamba-2 and the hybrid) and dense
 tensor-parallel over rank processes, and the PGAS substrate, with plain
 PyTorch tensor code and hand-written CUDA kernels for ``sm_90a`` in place
 of the Pallas TPU kernels (flash attention, the SSD chunked scan, the DLA

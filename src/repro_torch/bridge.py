@@ -1,8 +1,9 @@
 """Reference parameters → port parameters.
 
 Takes the reference's parameter pytree with numpy leaves (``layers`` leaves
-stacked on a leading layer axis by ``lax.scan``) and returns the port's
-dict of tensors with ``layers`` as a list of per-layer dicts.  bf16 leaves
+stacked on a leading layer axis by ``lax.scan``, the hybrid's
+``shared_blocks`` on a leading block axis) and returns the port's dict of
+tensors with each stack as a list of per-layer (per-block) dicts.  bf16 leaves
 arrive as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy``
 rejects; they go across bit for bit through a 16-bit integer view.
 """
@@ -38,19 +39,29 @@ def _unstack(node: Any, i: int) -> Any:
     return np.asarray(node)[i]
 
 
-def params_from_reference(tree: Dict[str, Any],
-                          device: DeviceLike = "cpu") -> Dict[str, Any]:
-    """The reference's parameter pytree (numpy leaves) → the port's
-    parameters on ``device``.  The layer count is the leading axis of any
-    leaf of ``layers`` (``ln1`` in the dense family, ``ln`` in the SSM)."""
-    out = {k: _tree(v, device) for k, v in tree.items() if k != "layers"}
-    stacked = tree["layers"]
+def _unstack_all(stacked: Any, device: DeviceLike) -> list:
+    """A stacked subtree → one dict per index of its leading axis (read
+    off any leaf)."""
     leaf = stacked
     while isinstance(leaf, dict):
         leaf = next(iter(leaf.values()))
-    n_layers = np.asarray(leaf).shape[0]
-    out["layers"] = [_tree(_unstack(stacked, i), device)
-                     for i in range(n_layers)]
+    return [_tree(_unstack(stacked, i), device)
+            for i in range(np.asarray(leaf).shape[0])]
+
+
+#: the stacked subtrees of the reference's parameter pytree
+STACKED = ("layers", "shared_blocks")
+
+
+def params_from_reference(tree: Dict[str, Any],
+                          device: DeviceLike = "cpu") -> Dict[str, Any]:
+    """The reference's parameter pytree (numpy leaves) → the port's
+    parameters on ``device``: ``layers`` (and the hybrid's
+    ``shared_blocks``) as lists of per-layer (per-block) dicts."""
+    out = {k: _tree(v, device) for k, v in tree.items() if k not in STACKED}
+    for k in STACKED:
+        if k in tree:
+            out[k] = _unstack_all(tree[k], device)
     return out
 
 

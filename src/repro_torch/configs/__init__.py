@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-The two dense GQA archs and the pure-SSM mamba2 are ported; the
-reference's other seven land with their families.
+The two dense GQA archs, the pure-SSM mamba2 and the zamba2 hybrid (a
+Mamba-2 backbone with shared attention blocks) are ported; the
+reference's other six land with their families.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ from repro_torch.configs.base import (
 from repro_torch.configs.h2o_danube_1p8b import config as _h2o_danube
 from repro_torch.configs.mamba2_2p7b import config as _mamba2
 from repro_torch.configs.smollm_360m import config as _smollm
+from repro_torch.configs.zamba2_7b import config as _zamba2
 
-_CONFIGS = {c.name: c for c in (_smollm, _h2o_danube, _mamba2)}
+_CONFIGS = {c.name: c for c in (_smollm, _h2o_danube, _mamba2, _zamba2)}
 
 ARCH_NAMES = tuple(_CONFIGS)
 

@@ -135,8 +135,8 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class ChunkCarrySpec:
     """What one streamed-prefill chunk hands to the next (reference
-    ``configs.base.ChunkCarrySpec``).  Only the ``ring`` kind (full-length
-    K/V scratch rows of the GQA families) is ported so far."""
+    ``configs.base.ChunkCarrySpec``).  The ``ring`` (dense GQA), ``state``
+    (Mamba-2) and ``hybrid`` (zamba2) kinds are ported so far."""
 
     kind: str              # ring | latent | state | hybrid | encdec
     constant_size: bool    # carry size independent of the prompt length

@@ -14,9 +14,10 @@ for the ``model`` axis.  At tp 1 (``Group(rank=0, size=1, device=…)``,
 no process pool) it is the reference's one-device step: the dense block
 attends through ``layers.blockwise_attention``, as the reference does off
 the TPU, and the ssm (Mamba-2) block is the model's own, its SSD scan
-the kernel with its backward (``kernels/ssd``).  At tp ≥ 2 it is the
-path the reference takes with ``TransportPolicy(tp="fused")`` on a
-``(1, tp)`` mesh: every dense block's TP edges on the fused ring of
+the kernel with its backward (``kernels/ssd``); the hybrid takes both,
+its shared attention applications through the dense block.  At tp ≥ 2
+it is the path the reference takes with ``TransportPolicy(tp="fused")``
+on a ``(1, tp)`` mesh: every dense block's TP edges on the fused ring of
 ``kernels/cc_matmul``.  Both take fp32 microbatch accumulation, into
 flat buckets with ``grad_bucket_bytes``.  A data axis and the other TP
 transports raise, each naming its ROADMAP item; ART-TP is dense-only.
@@ -68,8 +69,8 @@ def slot_write(cache: Cache, slot_cache: Cache, i: int) -> Cache:
     """Write every leaf of a batch-1 cache into row ``i`` of the contiguous
     batched cache, in place (``build_slot_write_step``): the per-row
     bookkeeping ``pos``/``slot_pos`` carries the batch on axis 0, the
-    (L, B, ...) layer stacks (``k``/``v``, ``ssm_state``/``conv_state``)
-    on axis 1."""
+    (L, B, ...) layer stacks (``k``/``v``, ``ssm_state``/``conv_state``,
+    the hybrid's ``attn_k``/``attn_v`` a shared application) on axis 1."""
     for name, leaf in cache.items():
         axis = 0 if name in ("pos", "slot_pos") else 1
         leaf.select(axis, i).copy_(slot_cache[name].select(axis, 0))
@@ -188,24 +189,26 @@ def _art_runner(cfg: ModelConfig, policy: TransportPolicy,
 def _check_path(cfg: ModelConfig, group, scfg: StepConfig,
                 data_axis: int) -> Callable:
     """The block runner of this group's train step (None: the model's own
-    ssm block), or the raise that names the ROADMAP item of a path not
-    ported."""
+    ssm block; a hybrid's Mamba-2 layers are the model's own too, and the
+    runner runs its shared attention applications), or the raise that
+    names the ROADMAP item of a path not ported."""
     if data_axis != 1:
         raise NotImplementedError(
             f"data axis {data_axis} is not ported: {ROADMAP_DATA}")
     if scfg.microbatches < 1:
         raise ValueError(f"microbatches={scfg.microbatches} < 1")
-    if cfg.family not in ("dense", "ssm"):
-        raise ValueError(f"{cfg.name}: the train step takes the dense and "
-                         f"ssm families")
+    if cfg.family not in ("dense", "ssm", "hybrid"):
+        raise ValueError(f"{cfg.name}: the train step takes the dense, "
+                         f"ssm and hybrid families")
     if group.size == 1:
         if cfg.family == "ssm":
             # forward_hidden's ssm branch: the Mamba-2 block, whose SSD
             # scan is the kernel with its backward
             return None
-        # the model's own block, attending through blockwise attention at
-        # the config's chunks (the reference's one-device step off the
-        # TPU): never the flash kernel, which has no backward
+        # the model's own dense block (a hybrid's shared applications),
+        # attending through blockwise attention at the config's chunks
+        # (the reference's one-device step off the TPU): never the flash
+        # kernel, which has no backward
         return functools.partial(dense_block, core=L.blockwise_core(cfg))
     if cfg.family != "dense":
         raise ValueError(

@@ -30,9 +30,10 @@
 //    layer slices of the scratch): any multiple of 16 bytes works, which
 //    the wrapper checks.  Tiles use the 128-byte swizzle (hopper.cuh):
 //    8 threads copy one 128-byte line and store without bank conflicts.
-//    Head dims 80 and 96 fill part of a second 64-column atom: 16 and 32
-//    columns, so their K/V tiles take 16 KB of shared memory for 10 and 12
-//    KB of data, and no product is padded.  Rows past Skv or Sq are
+//    Head dims 80, 96 and 112 fill part of a second 64-column atom: 16, 32
+//    and 48 columns, so their K/V tiles take 16 KB of shared memory for 10,
+//    12 and 14 KB of data, and no product is padded (zamba2-7b's 112 is
+//    seven k16 steps of Q K^T and an m64n112k16 P V).  Rows past Skv or Sq are
 //    zero-filled by the copy.
 //  * Split-KV: when (q tiles x Hq) is below a wave of 132 SMs, the
 //    visible kv tiles of each q tile are cut into `splits` ranges of
@@ -516,6 +517,7 @@ cudaError_t dispatch(int dtype, int head_dim, const Args& a, int batch,
     REPRO_FLASH_DIM(64)
     REPRO_FLASH_DIM(80)
     REPRO_FLASH_DIM(96)
+    REPRO_FLASH_DIM(112)
     REPRO_FLASH_DIM(128)
     default: return cudaErrorInvalidValue;
   }

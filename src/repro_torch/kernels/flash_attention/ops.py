@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels.common import CudaKernel, launch_on, refuse_autograd
 from repro_torch.kernels.flash_attention.ref import attention_plain
 
-HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: q rows and kv rows a tile of the bf16 kernel

@@ -2,11 +2,13 @@
 
 Continuous batching with chunked streamed prefill on one GPU, random
 weights from seed 0.  ``--arch`` takes ``smollm-360m``,
-``h2o-danube-1.8b`` or ``mamba2-2.7b``.  The default is the arch's
+``h2o-danube-1.8b``, ``mamba2-2.7b`` or ``zamba2-7b`` (the hybrid: Mamba-2
+layers with shared attention blocks).  The default is the arch's
 ``reduced()`` config, as in the reference launcher; ``--full`` serves the
 full-width config in bf16.  ``--prefill-chunk 0`` admits with bulk
 per-request prefill; ``--paged`` needs an arch with a paged KV layout (not
-mamba2, whose cache is its constant-size state).
+mamba2, whose cache is its constant-size state, nor zamba2, whose cache is
+that state beside one K/V ring a shared application).
 ``--device cpu`` runs on the CPU (with the kernels' plain versions);
 without it the launcher needs a CUDA device and fails if there is none.
 """

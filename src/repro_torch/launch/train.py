@@ -2,11 +2,14 @@
 
 Trains one model on one device through :class:`~repro_torch.runtime.
 trainer.Trainer` with checkpoints, preemption handling and the straggler
-watchdog.  ``--arch`` takes ``smollm-360m``, ``h2o-danube-1.8b`` or
+watchdog.  ``--arch`` takes ``smollm-360m``, ``h2o-danube-1.8b``,
 ``mamba2-2.7b`` (its SSD scan trains through the kernel and its
-backward on the card).  The default is the arch's ``reduced()`` config,
-as in the reference launcher; ``--full`` trains the full-width config
-(bf16 parameters, fp32 AdamW state).
+backward on the card) or ``zamba2-7b`` (the hybrid: its Mamba-2 layers
+as mamba2's, its shared attention blocks through blockwise attention).
+The default is the arch's ``reduced()`` config, as in the reference
+launcher; ``--full`` trains the full-width config (bf16 parameters, fp32
+AdamW state), which for zamba2-7b raises on its ``remat="dots"``
+(ROADMAP queue 1 item 7).
 ``--device cpu`` runs on the CPU; without it the launcher needs a CUDA
 device and fails if there is none.  ``--data-axis`` and ``--model-axis``
 stay 1: a data axis and TP through this launcher are item 7 (the TP step
@@ -53,11 +56,13 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.dist.steps import StepConfig
+    from repro_torch.models.model import check_remat
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    check_remat(cfg)           # before a full-width model is built
     scfg = StepConfig(
         microbatches=args.microbatches, peak_lr=args.lr,
         warmup_steps=max(args.steps // 20, 5), total_steps=args.steps,

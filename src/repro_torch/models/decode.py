@@ -1,7 +1,7 @@
 """Serving decode: the K/V ring cache, the paged block pool, the SSM state
-cache and one decode step.
+cache, the hybrid's pair of them and one decode step.
 
-The counterpart of the dense GQA and ``ssm`` subset of
+The counterpart of the dense GQA, ``ssm`` and ``hybrid`` subset of
 ``repro.models.decode``.  The layouts are the reference's:
 
 * contiguous cache ``k``/``v`` (L, B, Hkv, S_buf, hd) in the param dtype,
@@ -12,7 +12,11 @@ The counterpart of the dense GQA and ``ssm`` subset of
   parking blocks;
 * SSM cache ``ssm_state`` (L, B, H, N, P) fp32 and ``conv_state``
   (L, B, conv−1, C) of raw pre-conv rows in the param dtype, with ``pos``:
-  constant size, whatever the sequence length (no paged layout).
+  constant size, whatever the sequence length (no paged layout);
+* hybrid cache (zamba2): the SSM cache of every Mamba-2 layer plus one
+  K/V ring ``attn_k``/``attn_v`` (n_apps, B, Hkv, S_buf, hd) a shared
+  *application* (the parameters are shared, the caches are not), with
+  ``pos`` and ``slot_pos`` (contiguous only, as in the reference).
 
 Where the reference returns a new cache from a donated one, the port
 updates the cache tensors in place and returns the same dict.  Decode
@@ -30,7 +34,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, serving_features
 from repro_torch.kernels.ssd import ssd_decode_step
 from repro_torch.models import layers as L
-from repro_torch.models.model import _lm_logits
+from repro_torch.models.model import (
+    _lm_logits,
+    hybrid_order,
+    n_applications,
+    shared_block,
+)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -55,21 +64,30 @@ def ssm_cache(cfg: ModelConfig, batch: int, device) -> Cache:
     }
 
 
+def kv_stacks(cfg: ModelConfig) -> Tuple[Tuple[str, str], int]:
+    """Names and depth of the attention K/V stacks of the cache and the
+    prefill scratch: ``k``/``v`` a layer (dense), ``attn_k``/``attn_v`` a
+    shared application (hybrid)."""
+    if cfg.family == "hybrid":
+        return ("attn_k", "attn_v"), n_applications(cfg)
+    return ("k", "v"), cfg.n_layers
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device) -> Cache:
-    if cfg.family == "ssm":
-        return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
-                **ssm_cache(cfg, batch, device)}
-    dt = L.pdtype(cfg)
+    cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+    if cfg.family in ("ssm", "hybrid"):
+        cache.update(ssm_cache(cfg, batch, device))
+        if cfg.family == "ssm":
+            return cache
     sb = kv_buf_len(cfg, max_seq)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, sb, cfg.resolved_head_dim)
-    return {
-        "pos": torch.zeros(batch, dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device),
-        "slot_pos": torch.full((batch, sb), -1, dtype=torch.int32,
-                               device=device),
-    }
+    names, depth = kv_stacks(cfg)
+    shape = (depth, batch, cfg.n_kv_heads, sb, cfg.resolved_head_dim)
+    for name in names:
+        cache[name] = torch.zeros(shape, dtype=L.pdtype(cfg), device=device)
+    cache["slot_pos"] = torch.full((batch, sb), -1, dtype=torch.int32,
+                                   device=device)
+    return cache
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
@@ -217,25 +235,56 @@ def mamba2_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return (y @ p["out_proj"].to(cd)).to(x.dtype), ssm_state, win[:, 1:]
 
 
+def _ssm_one(cfg: ModelConfig, params: Params, cache: Cache,
+             x: torch.Tensor, li: int) -> torch.Tensor:
+    """Mamba-2 layer ``li`` on one token a row, its state updated in place."""
+    lp = params["layers"][li]
+    normed = L.rms_norm(lp["ln"], x, cfg.norm_eps)
+    o, st, cv = mamba2_decode(cfg, lp["mamba"], normed,
+                              cache["ssm_state"][li], cache["conv_state"][li])
+    cache["ssm_state"][li] = st
+    cache["conv_state"][li] = cv
+    return x + o
+
+
 def _decode_ssm(cfg: ModelConfig, params: Params, cache: Cache,
                 x: torch.Tensor) -> torch.Tensor:
-    for li, lp in enumerate(params["layers"]):
-        normed = L.rms_norm(lp["ln"], x, cfg.norm_eps)
-        o, st, cv = mamba2_decode(cfg, lp["mamba"], normed,
-                                  cache["ssm_state"][li],
-                                  cache["conv_state"][li])
-        cache["ssm_state"][li] = st
-        cache["conv_state"][li] = cv
-        x = x + o
+    for li in range(cfg.n_layers):
+        x = _ssm_one(cfg, params, cache, x, li)
+    return x
+
+
+def _stamp_slot(cache: Cache, pos: torch.Tensor) -> torch.Tensor:
+    """Mark each row's ring slot ``pos % S_buf`` as holding ``pos`` (once a
+    step, before any layer attends); returns the slots (B,)."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    slot = (pos % cache["slot_pos"].shape[1]).long()
+    cache["slot_pos"][rows, slot] = pos
+    return slot
+
+
+def _decode_hybrid(cfg: ModelConfig, params: Params, cache: Cache,
+                   x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The Mamba-2 layers and, after each group, the shared application
+    ``g`` attending over its own cache ``attn_k[g]``/``attn_v[g]`` with
+    block ``g % n_shared``'s parameters (no window, as the reference)."""
+    _stamp_slot(cache, pos)
+    for kind, i in hybrid_order(cfg):
+        if kind == "ssm":
+            x = _ssm_one(cfg, params, cache, x, i)
+            continue
+        sp = shared_block(cfg, params, i)
+        x = x + attention_decode(
+            cfg, sp["attn"], L.rms_norm(sp["ln1"], x, cfg.norm_eps),
+            cache["attn_k"][i], cache["attn_v"][i], cache["slot_pos"], pos)
+        x = x + L.mlp(cfg, sp["mlp"], L.rms_norm(sp["ln2"], x, cfg.norm_eps))
     return x
 
 
 def _decode_gqa(cfg: ModelConfig, params: Params, cache: Cache,
                 x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     rows = torch.arange(x.shape[0], device=x.device)
-    sb = cache["slot_pos"].shape[1]
-    slot = (pos % sb).long()
-    cache["slot_pos"][rows, slot] = pos
+    slot = _stamp_slot(cache, pos)
     slot_pos = cache["slot_pos"]
     paged = "kp" in cache
 
@@ -268,6 +317,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     x = params["embed"][tokens]                              # (B, D)
     if cfg.family == "ssm":
         x = _decode_ssm(cfg, params, cache, x)
+    elif cfg.family == "hybrid":
+        x = _decode_hybrid(cfg, params, cache, x, pos)
     else:
         x = _decode_gqa(cfg, params, cache, x, pos)
     cache["pos"] = pos + 1

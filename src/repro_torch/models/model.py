@@ -1,22 +1,24 @@
 """Model assembly: init, embed, blocks, forward and the tied LM head.
 
-The counterpart of the dense GQA and ``ssm`` (Mamba-2) families of
+The counterpart of the dense GQA, ``ssm`` (Mamba-2) and ``hybrid``
+(zamba2: a Mamba-2 backbone with shared attention blocks) families of
 ``repro.models.model``.  Parameters
-are a dict like the reference's pytree, except that ``layers`` is a list
-with one dict per layer where the reference stacks a leading layer axis
-for ``lax.scan`` (``repro_torch.bridge`` converts one into the other); the
-layer stack is a Python loop.  In training each dense block runs through
-the block runner the step passes in (the ART-TP block, or at tp 1 the
-dense block with blockwise attention), each ssm block is the model's own
-(its SSD scan the kernel with its backward), and every block goes through
-the config's ``remat`` policy (remat full recomputes the block, and with
-it the scan's forward, in backward).
+are a dict like the reference's pytree, except that ``layers`` (and the
+hybrid's ``shared_blocks``) is a list with one dict per layer (block)
+where the reference stacks a leading axis for ``lax.scan``
+(``repro_torch.bridge`` converts one into the other); the layer stack is a
+Python loop.  In training each dense block, the hybrid's shared
+applications too, runs through the block runner the step passes in (the
+ART-TP block, or at tp 1 the dense block with blockwise attention), each
+ssm block is the model's own (its SSD scan the kernel with its backward),
+and every block goes through the config's ``remat`` policy (remat full
+recomputes the block, and with it the scan's forward, in backward).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -88,11 +90,37 @@ def _init_ssm_layer(cfg: ModelConfig, gen, device) -> Params:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if not ((cfg.family == "dense" and cfg.attn_type == "gqa")
+    if not ((cfg.family in ("dense", "hybrid") and cfg.attn_type == "gqa")
             or cfg.family == "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA and ssm families are ported "
-            f"(the others: ROADMAP queue 1 item 5)")
+            f"{cfg.name}: only the dense GQA, ssm and hybrid families are "
+            f"ported (the others: ROADMAP queue 1 item 5)")
+
+
+def n_applications(cfg: ModelConfig) -> int:
+    """Shared-block applications of a hybrid: one after every
+    ``hybrid_period`` Mamba-2 layers (the trailing layers take none)."""
+    return cfg.n_layers // cfg.hybrid_period
+
+
+def hybrid_order(cfg: ModelConfig) -> Iterator[Tuple[str, int]]:
+    """The hybrid's blocks in order (the reference's ``_forward_hybrid``):
+    ``("ssm", i)`` for Mamba-2 layer ``i``, and ``("shared", g)`` for
+    shared application ``g``, which runs block :func:`shared_block` and
+    owns K/V cache ``g`` after layers ``[g·period, (g+1)·period)``; the
+    ``n_layers % period`` trailing layers run last."""
+    period = cfg.hybrid_period
+    for g in range(n_applications(cfg)):
+        for i in range(g * period, (g + 1) * period):
+            yield "ssm", i
+        yield "shared", g
+    for i in range(n_applications(cfg) * period, cfg.n_layers):
+        yield "ssm", i
+
+
+def shared_block(cfg: ModelConfig, params: Params, g: int) -> Params:
+    """The parameters application ``g`` runs: block ``g % n_shared``."""
+    return params["shared_blocks"][g % max(cfg.n_shared_blocks, 1)]
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
@@ -117,10 +145,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = _init((cfg.d_model, cfg.vocab_size), dt, gen, device)
-    init_layer = _init_ssm_layer if cfg.family == "ssm" else _init_dense_layer
+    init_layer = (_init_dense_layer if cfg.family == "dense"
+                  else _init_ssm_layer)
     layer_fn = layer_fn or (lambda layer: layer)
     p["layers"] = [layer_fn(init_layer(cfg, gen, device))
                    for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        # the attention blocks every application shares; their depth
+        # scale is the backbone's (n_layers), as in the reference
+        p["shared_blocks"] = [layer_fn(_init_dense_layer(cfg, gen, device))
+                              for _ in range(max(cfg.n_shared_blocks, 1))]
     return p
 
 
@@ -128,20 +162,28 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens]
 
 
+def check_remat(cfg: ModelConfig) -> None:
+    """Raise unless the port trains with ``cfg.remat``: ``"full"`` and
+    ``"none"``.  The reference's ``"dots"`` policy (keep the matmul
+    outputs) has no counterpart here."""
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            f"{cfg.name}: remat='dots' (save the matmul outputs, recompute "
+            f"the rest) is not ported; use 'full' or 'none' (ROADMAP queue "
+            f"1 item 7)")
+    if cfg.remat not in ("full", "none"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
 def _maybe_remat(cfg: ModelConfig, fn):
     """Per-block activation checkpointing while gradients are recorded:
     ``remat="full"`` keeps only each block's input and recomputes the
     block in backward (``torch.utils.checkpoint``, non-reentrant), and
-    ``"none"`` keeps everything.  The reference's ``"dots"`` policy (keep
-    the matmul outputs) has no counterpart here and raises."""
+    ``"none"`` keeps everything; any other policy raises
+    (:func:`check_remat`)."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs, recompute the rest) is "
-            "not ported; use 'full' or 'none' (ROADMAP queue 1 item 7)")
-    if cfg.remat != "full":
-        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    check_remat(cfg)
 
     def remat(*args):
         return torch.utils.checkpoint.checkpoint(fn, *args,
@@ -188,18 +230,25 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     the whole sequence's: rank r holds rows ``r·S_loc + arange(S_loc)``,
     and the runner ropes after gathering.
     Each block goes through :func:`_maybe_remat` (the per-layer
-    ``remat`` policy of the reference's scan body)."""
+    ``remat`` policy of the reference's scan body).  A hybrid runs its
+    Mamba-2 layers and shared applications in :func:`hybrid_order`, each
+    application a dense block over its shared parameters (autograd sums a
+    shared block's gradient over its applications)."""
     _check_ported(cfg)
     x = _embed(params, tokens)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    if cfg.family == "ssm":
-        block = _maybe_remat(cfg, lambda h, lp: _ssm_block(cfg, lp, h))
+    ssm = _maybe_remat(cfg, lambda h, lp: _ssm_block(cfg, lp, h))
+    dense = _maybe_remat(
+        cfg, lambda h, lp: _dense_block(cfg, lp, h, positions, runner))
+    if cfg.family == "hybrid":
+        for kind, i in hybrid_order(cfg):
+            x = (ssm(x, params["layers"][i]) if kind == "ssm"
+                 else dense(x, shared_block(cfg, params, i)))
     else:
-        block = _maybe_remat(
-            cfg, lambda h, lp: _dense_block(cfg, lp, h, positions, runner))
-    for lp in params["layers"]:
-        x = block(x, lp)
+        block = ssm if cfg.family == "ssm" else dense
+        for lp in params["layers"]:
+            x = block(x, lp)
     return L.rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -219,10 +268,10 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     masked mean cross-entropy ``ce``, ``z_loss`` (``z_loss`` × the masked
     mean of logsumexp²), ``moe_aux`` (0: no ported family routes experts)
     and the ``tokens`` counted.  ``runner`` is :func:`forward_hidden`'s:
-    on the card a dense model's gradient needs one (``dist.steps`` builds
-    it), since the default attention is the forward-only flash kernel; an
-    ssm model needs none.  The training step streams the head instead
-    (``dist/loss.py``)."""
+    on the card a dense or hybrid model's gradient needs one
+    (``dist.steps`` builds it), since the default attention is the
+    forward-only flash kernel; an ssm model needs none.  The training
+    step streams the head instead (``dist/loss.py``)."""
     logits = forward(cfg, params, batch["tokens"], runner=runner)
     labels = batch["labels"]
     mask = (labels >= 0).float()
@@ -264,22 +313,24 @@ def count_params(params: Any) -> int:
 
 
 def count_params_analytic(cfg: ModelConfig) -> int:
-    """Scalars in ``init_params(cfg)`` from the config alone: the dense GQA
-    and ``ssm`` terms of ``repro.models.model.count_params_analytic``."""
+    """Scalars in ``init_params(cfg)`` from the config alone: the dense
+    GQA, ``ssm`` and ``hybrid`` terms of
+    ``repro.models.model.count_params_analytic``."""
     _check_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     total = v * d + d + (0 if cfg.tie_embeddings else d * v)
+    d_in = cfg.ssm_heads * cfg.ssm_head_dim
+    conv_ch = d_in + 2 * cfg.ssm_groups * cfg.ssm_state
+    proj_out = 2 * d_in + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads
+    ssm = (d * proj_out + cfg.ssm_conv * conv_ch + conv_ch
+           + 3 * cfg.ssm_heads + d_in + d_in * d + d)
     if cfg.family == "ssm":
-        d_in = cfg.ssm_heads * cfg.ssm_head_dim
-        conv_ch = d_in + 2 * cfg.ssm_groups * cfg.ssm_state
-        proj_out = 2 * d_in + 2 * cfg.ssm_groups * cfg.ssm_state \
-            + cfg.ssm_heads
-        per_layer = (d * proj_out + cfg.ssm_conv * conv_ch + conv_ch
-                     + 3 * cfg.ssm_heads + d_in + d_in * d + d)
-    else:
-        hd = cfg.resolved_head_dim
-        attn = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
-                + cfg.n_heads * hd * d)
-        per_layer = (attn + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff
-                     + 2 * d)
-    return total + cfg.n_layers * per_layer
+        return total + cfg.n_layers * ssm
+    hd = cfg.resolved_head_dim
+    attn = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+            + cfg.n_heads * hd * d)
+    dense = attn + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff + 2 * d
+    if cfg.family == "hybrid":
+        return (total + cfg.n_layers * ssm
+                + max(cfg.n_shared_blocks, 1) * dense)
+    return total + cfg.n_layers * dense

@@ -1,7 +1,7 @@
 """Prefill into the decode cache: bulk, chunked, and to paged blocks.
 
-The counterpart of the GQA ``ring`` and SSM ``state`` carries of
-``repro.models.prefill``.
+The counterpart of the GQA ``ring``, SSM ``state`` and ``hybrid`` carries
+of ``repro.models.prefill``.
 Ring fill: the cache keeps the last ``sb`` positions, position ``p`` at
 slot ``p % sb``; for a prompt shorter than ``sb`` the tail slots stay empty
 (``slot_pos = −1``).
@@ -19,6 +19,12 @@ from its pair (the SSD kernel's ``init_state`` and a conv over [tail ‖
 chunk rows]), and the finished carry is the decode cache itself.  Chunk
 cuts land on ``ssm_chunk`` multiples, so the scan walks the chunks a bulk
 prefill walks.
+
+The ``hybrid`` carry (zamba2) is the two together: the ``state`` pair of
+every Mamba-2 layer, and a full-length K/V scratch a shared application
+(each application attends against its own rows, through the flash kernel
+at ``q_offset = lo`` as the dense family does), ring-filled into the
+application's cache at the end.
 """
 
 from __future__ import annotations
@@ -29,8 +35,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, chunk_carry_spec
 from repro_torch.models import layers as L
-from repro_torch.models.decode import kv_buf_len, ssm_cache
-from repro_torch.models.model import _embed, _lm_logits
+from repro_torch.models.decode import kv_buf_len, kv_stacks, ssm_cache
+from repro_torch.models.model import (
+    _embed,
+    _lm_logits,
+    hybrid_order,
+    shared_block,
+)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -61,42 +72,83 @@ def _ring_fill(seq_t: torch.Tensor, sb: int, seq_axis: int) -> torch.Tensor:
     return filled
 
 
+def _dense_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                 positions: torch.Tensor, sb: int):
+    """One dense block over the prompt: (x, its K/V ring-filled to ``sb``
+    slots in the param dtype)."""
+    dt = L.pdtype(cfg)
+    normed = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
+    a, (k, v) = L.attention(cfg, lp["attn"], normed, positions,
+                            return_kv=True)
+    x = x + a
+    x = x + L.mlp(cfg, lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps))
+    return (x, _ring_fill(k, sb, seq_axis=2).to(dt),
+            _ring_fill(v, sb, seq_axis=2).to(dt))
+
+
 def _prefill_gqa(cfg: ModelConfig, params: Params, x: torch.Tensor,
                  positions: torch.Tensor, sb: int):
-    dt = L.pdtype(cfg)
     ks, vs = [], []
     for lp in params["layers"]:
-        normed = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
-        a, (k, v) = L.attention(cfg, lp["attn"], normed, positions,
-                                return_kv=True)
-        x = x + a
-        x = x + L.mlp(cfg, lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps))
-        ks.append(_ring_fill(k, sb, seq_axis=2).to(dt))
-        vs.append(_ring_fill(v, sb, seq_axis=2).to(dt))
+        x, k, v = _dense_layer(cfg, lp, x, positions, sb)
+        ks.append(k)
+        vs.append(v)
     slot_pos, _ = _slot_map(x.shape[1], sb, x.device)
     return x, {"k": torch.stack(ks), "v": torch.stack(vs),
                "slot_pos": slot_pos}
 
 
+def _ssm_layer(cfg: ModelConfig, params: Params, x: torch.Tensor, li: int,
+               states: Optional[torch.Tensor] = None,
+               tails: Optional[torch.Tensor] = None):
+    """x through Mamba-2 layer ``li``, resuming from its carried (SSD
+    state, conv tail) pair when ``states``/``tails`` (L, B, ...) are given
+    — updated in place — or from zeros.  Returns (x, state, tail)."""
+    lp = params["layers"][li]
+    normed = L.rms_norm(lp["ln"], x, cfg.norm_eps)
+    o, (st, cv) = L.mamba2_block(
+        cfg, lp["mamba"], normed, return_state=True,
+        init_state=None if states is None else states[li],
+        conv_state=None if tails is None else tails[li])
+    if states is not None:
+        states[li] = st
+        tails[li] = cv
+    return x + o, st, cv
+
+
 def _ssm_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
                states: Optional[torch.Tensor] = None,
                tails: Optional[torch.Tensor] = None):
-    """x through the Mamba-2 layers, each resuming from its carried (SSD
-    state, conv tail) pair when ``states``/``tails`` (L, B, ...) are given
-    — updated in place — or from zeros.  Returns (x, [(state, tail)])."""
+    """x through every Mamba-2 layer (:func:`_ssm_layer`).  Returns
+    (x, [(state, tail)])."""
     out = []
-    for li, lp in enumerate(params["layers"]):
-        normed = L.rms_norm(lp["ln"], x, cfg.norm_eps)
-        o, (st, cv) = L.mamba2_block(
-            cfg, lp["mamba"], normed, return_state=True,
-            init_state=None if states is None else states[li],
-            conv_state=None if tails is None else tails[li])
-        x = x + o
-        if states is not None:
-            states[li] = st
-            tails[li] = cv
+    for li in range(len(params["layers"])):
+        x, st, cv = _ssm_layer(cfg, params, x, li, states, tails)
         out.append((st, cv))
     return x, out
+
+
+def _prefill_hybrid(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                    positions: torch.Tensor, sb: int):
+    """The hybrid's blocks in order: each Mamba-2 layer keeps its state
+    pair, each shared application its own ring-filled K/V."""
+    dt = L.pdtype(cfg)
+    pairs = [None] * cfg.n_layers
+    ks, vs = [], []
+    for kind, i in hybrid_order(cfg):
+        if kind == "ssm":
+            x, st, cv = _ssm_layer(cfg, params, x, i)
+            pairs[i] = (st, cv.to(dt))
+        else:
+            x, k, v = _dense_layer(cfg, shared_block(cfg, params, i), x,
+                                   positions, sb)
+            ks.append(k)
+            vs.append(v)
+    slot_pos, _ = _slot_map(x.shape[1], sb, x.device)
+    return x, {"ssm_state": torch.stack([st for st, _ in pairs]),
+               "conv_state": torch.stack([cv for _, cv in pairs]),
+               "attn_k": torch.stack(ks), "attn_v": torch.stack(vs),
+               "slot_pos": slot_pos}
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
@@ -114,7 +166,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     else:
         sb = kv_buf_len(cfg, cache_len or s_total)
         positions = torch.arange(s_total, device=x.device)
-        x, cache = _prefill_gqa(cfg, params, x, positions, sb)
+        body = _prefill_hybrid if cfg.family == "hybrid" else _prefill_gqa
+        x, cache = body(cfg, params, x, positions, sb)
     return (_finish_cache(cache, tokens.shape[0], s_total, x.device),
             _chunk_logits(cfg, params, x))
 
@@ -137,10 +190,12 @@ def _finish_cache(cache: Cache, batch: int, s_total: int, device) -> Cache:
 def chunk_support(cfg: ModelConfig) -> Tuple[bool, str]:
     """Whether streamed prefill can run, with the reason if not.  The
     flash kernel takes ``q_offset``, so the ported ``ring`` carry of the
-    dense family always chunks, and the SSM ``state`` carry has no
-    attention; the other carry kinds are not ported yet."""
+    dense family and the ``hybrid`` carry always chunk, and the SSM
+    ``state`` carry has no attention; the other carry kinds are not
+    ported yet."""
     kind = chunk_carry_spec(cfg).kind
-    if (kind, cfg.family) not in (("ring", "dense"), ("state", "ssm")):
+    if (kind, cfg.family) not in (("ring", "dense"), ("state", "ssm"),
+                                  ("hybrid", "hybrid")):
         return False, f"the {kind!r} chunk carry of {cfg.family} is not ported"
     return True, ""
 
@@ -169,20 +224,25 @@ def init_prefill_scratch(cfg: ModelConfig, batch: int, prompt_len: int,
     kind a full-length K/V scratch (L, B, Hkv, S, hd) in the compute dtype
     (the cast to the cache's param dtype happens at the ring fill, as in
     bulk); for the ``state`` kind the constant-size SSD state (fp32) and
-    conv tail (compute dtype), ``prompt_len`` unused."""
+    conv tail (compute dtype), ``prompt_len`` unused; for the ``hybrid``
+    kind both: the state pair of every layer and a K/V scratch
+    (n_apps, B, Hkv, S, hd) a shared application, named ``attn_k`` and
+    ``attn_v``."""
     ok, why = chunk_support(cfg)
     if not ok:
         raise ValueError(f"{cfg.name}: {why}")
     cd = L.cdtype(cfg)
     pos = {"pos": torch.zeros(batch, dtype=torch.int32, device=device)}
-    if cfg.family == "ssm":
+    carry = {}
+    if cfg.family in ("ssm", "hybrid"):
         carry = ssm_cache(cfg, batch, device)
         carry["conv_state"] = carry["conv_state"].to(cd)
-        return {**carry, **pos}
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, prompt_len,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=cd, device=device),
-            "v": torch.zeros(shape, dtype=cd, device=device), **pos}
+        if cfg.family == "ssm":
+            return {**carry, **pos}
+    names, depth = kv_stacks(cfg)
+    shape = (depth, batch, cfg.n_kv_heads, prompt_len, cfg.resolved_head_dim)
+    return {**carry, **{n: torch.zeros(shape, dtype=cd, device=device)
+                        for n in names}, **pos}
 
 
 def _chunk_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -201,6 +261,15 @@ def _chunk_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return L.out_proj(cfg, p, out, x.dtype)
 
 
+def _chunk_dense_layer(cfg: ModelConfig, lp: Params, h: torch.Tensor,
+                       kbuf: torch.Tensor, vbuf: torch.Tensor,
+                       lo: int) -> torch.Tensor:
+    """One dense block over chunk rows, its K/V scratch written in place."""
+    normed = L.rms_norm(lp["ln1"], h, cfg.norm_eps)
+    h = h + _chunk_attention(cfg, lp["attn"], normed, kbuf, vbuf, lo)
+    return h + L.mlp(cfg, lp["mlp"], L.rms_norm(lp["ln2"], h, cfg.norm_eps))
+
+
 def _chunk_logits(cfg: ModelConfig, params: Params,
                   h: torch.Tensor) -> torch.Tensor:
     x = L.rms_norm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
@@ -216,13 +285,19 @@ def prefill_chunk(cfg: ModelConfig, params: Params, scratch: Cache,
     if cfg.family == "ssm":
         h, _ = _ssm_stack(cfg, params, h, scratch["ssm_state"],
                           scratch["conv_state"])
+    elif cfg.family == "hybrid":
+        for kind, i in hybrid_order(cfg):
+            if kind == "ssm":
+                h, _, _ = _ssm_layer(cfg, params, h, i, scratch["ssm_state"],
+                                     scratch["conv_state"])
+            else:
+                h = _chunk_dense_layer(cfg, shared_block(cfg, params, i), h,
+                                       scratch["attn_k"][i],
+                                       scratch["attn_v"][i], lo)
     else:
         for li, lp in enumerate(params["layers"]):
-            normed = L.rms_norm(lp["ln1"], h, cfg.norm_eps)
-            h = h + _chunk_attention(cfg, lp["attn"], normed,
-                                     scratch["k"][li], scratch["v"][li], lo)
-            h = h + L.mlp(cfg, lp["mlp"],
-                          L.rms_norm(lp["ln2"], h, cfg.norm_eps))
+            h = _chunk_dense_layer(cfg, lp, h, scratch["k"][li],
+                                   scratch["v"][li], lo)
     scratch["pos"] = torch.full_like(scratch["pos"], lo + tokens.shape[1])
     return scratch, _chunk_logits(cfg, params, h)
 
@@ -231,18 +306,23 @@ def scratch_to_cache(cfg: ModelConfig, scratch: Cache,
                      cache_len: Optional[int] = None) -> Cache:
     """A completed prefill scratch → the decode-cache layout of
     :func:`prefill` (ring fill, cast to the param dtype).  The ``state``
-    carry already is the cache."""
+    carry already is the cache; the ``hybrid`` carry keeps its state pairs
+    and ring-fills its applications' K/V."""
     dt = L.pdtype(cfg)
-    if cfg.family == "ssm":
-        return {"ssm_state": scratch["ssm_state"],
-                "conv_state": scratch["conv_state"].to(dt),
-                "pos": scratch["pos"]}
-    batch, s = scratch["k"].shape[1], scratch["k"].shape[3]
+    cache = {}
+    if cfg.family in ("ssm", "hybrid"):
+        cache = {"ssm_state": scratch["ssm_state"],
+                 "conv_state": scratch["conv_state"].to(dt)}
+        if cfg.family == "ssm":
+            return {**cache, "pos": scratch["pos"]}
+    names, _ = kv_stacks(cfg)
+    kbuf = scratch[names[0]]
+    batch, s = kbuf.shape[1], kbuf.shape[3]
     sb = kv_buf_len(cfg, cache_len or s)
-    cache = {"k": _ring_fill(scratch["k"], sb, seq_axis=3).to(dt),
-             "v": _ring_fill(scratch["v"], sb, seq_axis=3).to(dt),
-             "slot_pos": _slot_map(s, sb, scratch["k"].device)[0]}
-    return _finish_cache(cache, batch, s, scratch["k"].device)
+    for n in names:
+        cache[n] = _ring_fill(scratch[n], sb, seq_axis=3).to(dt)
+    cache["slot_pos"] = _slot_map(s, sb, kbuf.device)[0]
+    return _finish_cache(cache, batch, s, kbuf.device)
 
 
 # ---------------------------------------------------------------------------

@@ -4,12 +4,14 @@ The counterpart of ``repro.runtime.server`` on one device:
 
 * **Admission** is per slot: a request's prompt is prefilled into its
   chunk carry (a full-length K/V scratch for the dense family, the
-  constant-size SSD state and conv tail for the SSM family) by incremental
-  chunk steps, at most one chunk per server step, so prefill interleaves
-  with decode instead of blocking it.  Chunks round up to the carry's
-  ``chunk_multiple`` (``ssm_chunk`` for the SSM).  The finished carry
-  becomes a single-request cache written into its batch row (contiguous)
-  or into pool blocks (paged, dense only).  ``prefill_chunk`` of
+  constant-size SSD state and conv tail for the SSM family, both for the
+  hybrid: the states of its Mamba-2 layers and a K/V scratch a shared
+  attention application) by incremental chunk steps, at most one chunk
+  per server step, so prefill interleaves with decode instead of blocking
+  it.  Chunks round up to the carry's ``chunk_multiple`` (``ssm_chunk``
+  for the SSM and the hybrid).  The finished carry becomes a
+  single-request cache written into its batch row (contiguous) or into
+  pool blocks (paged, dense only).  ``prefill_chunk`` of
   ``None``/0 admits with one bulk prefill per request instead.
 * **Decode** runs one batched step per server step; every cache row
   advances at its own position, argmax runs on the device and the server

@@ -22,7 +22,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("name", ["smollm-360m", "h2o-danube-1.8b",
-                                  "mamba2-2.7b"])
+                                  "mamba2-2.7b", "zamba2-7b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_equal_reference(name, reduced):
     ours, ref = get_config(name), ref_get_config(name)
@@ -38,9 +38,9 @@ def test_config_fields_equal_reference(name, reduced):
 
 def test_registry_names_and_unknown_arch():
     assert set(ARCH_NAMES) == {"smollm-360m", "h2o-danube-1.8b",
-                               "mamba2-2.7b"}
+                               "mamba2-2.7b", "zamba2-7b"}
     with pytest.raises(KeyError):
-        get_config("zamba2-7b")
+        get_config("whisper-tiny")
 
 
 def test_package_imports_no_jax_and_no_reference():

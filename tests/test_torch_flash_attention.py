@@ -59,6 +59,18 @@ def test_plain_matches_pallas_and_ref(hq, hkv, s, window):
     np.testing.assert_allclose(ours, ref, **TOL)
 
 
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (6, 2)])          # groups 1, 3
+def test_plain_matches_pallas_at_head_dim_112(hq, hkv):
+    """zamba2-7b's head dim, which the CUDA kernel takes as seven k16
+    steps: the plain version against the reference's Pallas kernel."""
+    q, k, v = _qkv(1, hq, hkv, 128, 128, 112, seed=112 + hq)
+    ours = _plain(q, k, v, causal=True)
+    pallas = np.asarray(flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), causal=True,
+                                        interpret=True))
+    np.testing.assert_allclose(ours, pallas, **TOL)
+
+
 @pytest.mark.parametrize("lo,c,window", [(0, 8, None), (8, 8, None),
                                           (13, 7, None), (16, 8, 6),
                                           (24, 9, 5)])

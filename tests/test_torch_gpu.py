@@ -62,7 +62,7 @@ def _qkv(shape_q, shape_kv, dtype, device, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 112, 128])
 @pytest.mark.parametrize("sq,skv,q_offset,window", [
     (77, 77, None, None),        # ragged bulk
     (128, 128, None, 40),        # aligned, windowed
@@ -103,7 +103,7 @@ def _split_rel_err(got, q, k, v, **kw):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 112, 128])
 @pytest.mark.parametrize("sq,skv,q_offset,window", [
     (128, 1024, 512, None),      # a chunk the bf16 kernel splits over kv
     (100, 1024, 0, None),        # a ragged first chunk
@@ -142,7 +142,7 @@ def test_strided_inputs_and_empty_rows(cuda):
     assert torch.count_nonzero(empty).item() == 0
 
 
-@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("d", [64, 80, 112])
 @pytest.mark.parametrize("lo", [0, 128, 384])
 def test_bf16_model_views_match_split_plain(cuda, d, lo):
     """bf16 as the model calls it: q a transposed projection, k/v layer
@@ -331,6 +331,32 @@ def test_reduced_mamba2_on_card_matches_cpu(cuda):
     torch.testing.assert_close(c_gpu["ssm_state"].cpu(), c_cpu["ssm_state"],
                                rtol=1e-4, atol=1e-4)
 
+
+
+def test_reduced_zamba2_on_card_matches_cpu(cuda):
+    """Reduced zamba2-7b in fp32: bulk prefill through the SSD kernel (a
+    launch a Mamba-2 layer) and the flash kernel (one a shared
+    application) on the card against their plain versions on the CPU,
+    same parameters, at mamba2's tolerance: logits, final SSD states and
+    every application's K/V."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, n_applications, \
+        params_to
+    from repro_torch.models.prefill import prefill
+
+    cfg = get_config("zamba2-7b").reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 37))).long()
+    c_cpu, l_cpu = prefill(cfg, params, toks)
+    before = (FLASH.launches, SSD.launches)
+    c_gpu, l_gpu = prefill(cfg, params_to(params, cuda), toks.to(cuda))
+    assert (FLASH.launches, SSD.launches) == (
+        before[0] + n_applications(cfg), before[1] + cfg.n_layers)
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+    for k in ("ssm_state", "attn_k", "attn_v"):
+        torch.testing.assert_close(c_gpu[k].cpu(), c_cpu[k], rtol=1e-4,
+                                   atol=1e-4)
 
 GRADS = ("dx", "ddt", "da", "db", "dc", "dd", "dinit")
 #: the SSD backward against the plain backward on fp32-upcast inputs, max
@@ -590,6 +616,50 @@ def test_reduced_mamba2_tp1_step_on_card_matches_cpu(cuda):
                               sharding.leaves(p_cpu)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
 
+
+
+def test_reduced_zamba2_tp1_step_on_card_matches_cpu(cuda):
+    """Two tp-1 steps of reduced zamba2-7b in fp32 (microbatches 2) on the
+    card against the CPU, as mamba2's: loss and grad norm 1e-4 relative,
+    parameters 1e-4; the SSD forward and backward kernels launched once
+    per Mamba-2 layer and microbatch, flash never (the shared attention
+    trains through blockwise attention)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist import sharding
+    from repro_torch.dist.group import Group
+    from repro_torch.dist.steps import (
+        StepConfig,
+        build_init,
+        build_train_step,
+        init_opt,
+    )
+    from repro_torch.models.model import params_to
+
+    cfg = get_config("zamba2-7b").reduced()
+    scfg = StepConfig(microbatches=2, seq_chunk=8, warmup_steps=1)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=41,
+                                  global_batch=4))
+    cpu = Group(rank=0, size=1, device=torch.device("cpu"))
+    card = Group(rank=0, size=1, device=cuda)
+    p_cpu, o_cpu = build_init(cfg, cpu, scfg)(0)
+    p_gpu = params_to(p_cpu, cuda)
+    o_gpu = init_opt(p_gpu, scfg)
+    launches = (FLASH.launches, SSD.launches, SSD_BWD.launches)
+    for k in range(2):
+        batch = data.global_batch(k)
+        p_cpu, o_cpu, m_cpu = build_train_step(cfg, cpu, scfg)(
+            p_cpu, o_cpu, batch, k)
+        p_gpu, o_gpu, m_gpu = build_train_step(cfg, card, scfg)(
+            p_gpu, o_gpu, batch, k)
+        for key in ("loss", "grad_norm"):
+            assert abs(m_gpu[key] - m_cpu[key]) <= 1e-4 * abs(m_cpu[key])
+    per_run = 2 * 2 * cfg.n_layers                # steps x microbatches
+    assert (FLASH.launches, SSD.launches, SSD_BWD.launches) == (
+        launches[0], launches[1] + per_run, launches[2] + per_run)
+    for (_, a), (_, b) in zip(sharding.leaves(p_gpu),
+                              sharding.leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
 
 # ---------------------------------------------------------------------------
 # the fused collective matmul's hop kernels (csrc/cc_matmul.cu)

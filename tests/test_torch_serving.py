@@ -260,6 +260,57 @@ def test_mamba2_tokens_equal_reference(mamba2_reference, mode):
                       server.ServerConfig(paged=True), device="cpu")
 
 
+@pytest.fixture(scope="module")
+def zamba2_reference():
+    """mamba2's recipe for the zamba2 hybrid through the reference server,
+    chunked (chunk 4, rounded up to ssm_chunk 8) and bulk: the Mamba-2
+    layers' decays and skips keep the reference's init, every other
+    matrix is std 0.3 (the shared blocks' too)."""
+    cfg_ref = ref_get_config("zamba2-7b").reduced()
+    np_params = _mamba2_params(cfg_ref)
+    params_ref = jax.tree.map(jnp.asarray, np_params)
+    prompts = _prompts(cfg_ref, MAMBA2_RECIPE["requests"],
+                       MAMBA2_RECIPE["prompt_len"])
+    mesh = make_host_mesh(1, 1)
+    out = {}
+    for mode, chunk in MAMBA2_MODES.items():
+        srv = ref_server.Server(cfg_ref, params_ref, mesh,
+                                srv=ref_server.ServerConfig(
+                                    **_mamba2_srv_kw(chunk)))
+        for p in prompts:
+            srv.submit(p)
+        srv.run()
+        out[mode] = _tokens(srv)
+    return np_params, prompts, out
+
+
+@pytest.mark.parametrize("mode", list(MAMBA2_MODES))
+def test_zamba2_tokens_equal_reference(zamba2_reference, mode):
+    """The port's server emits the reference server's tokens for the
+    hybrid, chunked and bulk; its cache has no paged layout."""
+    np_params, prompts, ref_tokens = zamba2_reference
+    cfg = get_config("zamba2-7b").reduced()
+    params = params_from_reference(np_params)
+    srv = server.Server(cfg, params, server.ServerConfig(
+        **_mamba2_srv_kw(MAMBA2_MODES[mode])), device="cpu")
+    for p in prompts:
+        srv.submit(p)
+    srv.run()
+    got = _tokens(srv)
+    assert got == ref_tokens[mode]
+    assert len(got) == MAMBA2_RECIPE["requests"]
+    assert all(len(t) == MAMBA2_RECIPE["max_new"] for t in got.values())
+    assert len({tuple(t) for t in got.values()}) > 1
+    st = srv.stats()
+    assert st["admission_mode"] == ("chunked(8)" if mode == "chunked"
+                                    else "bulk")
+    assert st["prefill_chunks"] == MAMBA2_RECIPE["requests"] * (
+        2 if mode == "chunked" else 1)
+    with pytest.raises(ValueError, match="paged"):
+        server.Server(cfg, params, server.ServerConfig(paged=True),
+                      device="cpu")
+
+
 def test_block_pool_random_ops_match_reference():
     rng = np.random.default_rng(0)
     ours, ref = server.BlockPool(24, reserved=3), ref_server.BlockPool(

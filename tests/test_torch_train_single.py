@@ -3,19 +3,22 @@
 * ``models.model.loss_fn`` against ``repro.models.model.loss_fn``: the
   total, the metrics and every parameter's gradient at 1e-5;
 * the tp-1 ``build_train_step`` against the reference's on a one-device
-  mesh: 3 steps of reduced ``smollm-360m``, ``h2o-danube-1.8b`` and
-  ``mamba2-2.7b`` (its SSD scan through the scan's autograd Function) in
-  fp32, with microbatches 1 and 2, fed the reference's parameters
-  (through ``repro_torch.bridge``) and the reference's ``SyntheticLM``
-  batches: loss, grad norm and lr of every step at 1e-5 relative, and
-  every parameter leaf after the last step at rtol = atol = 1e-5;
+  mesh: 3 steps of reduced ``smollm-360m``, ``h2o-danube-1.8b``,
+  ``mamba2-2.7b`` (its SSD scan through the scan's autograd Function) and
+  ``zamba2-7b`` (the hybrid: its shared blocks' gradients summed over
+  their applications) in fp32, with microbatches 1 and 2, fed the
+  reference's parameters (through ``repro_torch.bridge``) and the
+  reference's ``SyntheticLM`` batches: loss, grad norm and lr of every
+  step at 1e-5 relative, and every parameter leaf after the last step at
+  rtol = atol = 1e-5;
 * microbatch accumulation: 4 microbatches give the full-batch update (the
   reference's own check, ``tests/test_dist.py``, at its tolerances), and
   bucketed accumulation gives the bits of leaf-by-leaf accumulation;
 * ``dist.bucketing`` against ``repro.dist.bucketing``;
 * the training forward never reaches the flash kernel's wrapper, the
   ssm family raises at tp ≥ 2 (ART-TP is dense-only), and the launcher
-  and the example run on the CPU (smollm and mamba2).
+  and the example run on the CPU (smollm and mamba2; the launcher also
+  reduced zamba2, and refuses full-width zamba2's ``remat="dots"``).
 """
 
 import dataclasses
@@ -51,7 +54,7 @@ from repro_torch.kernels.common import refuse_autograd
 from repro_torch.models import layers, model
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-ARCHS = ["smollm-360m", "h2o-danube-1.8b", "mamba2-2.7b"]
+ARCHS = ["smollm-360m", "h2o-danube-1.8b", "mamba2-2.7b", "zamba2-7b"]
 STEP_KW = dict(seq_chunk=8, warmup_steps=1)
 CPU = Group(rank=0, size=1, device=torch.device("cpu"))
 
@@ -379,6 +382,27 @@ def test_launcher_and_example_train_mamba2(tmp_path, capsys):
     train_lm.main(["--arch", "mamba2-2.7b", "--small", "--device", "cpu",
                    "--steps", "20", "--ckpt-dir", str(tmp_path / "lm")])
     assert capsys.readouterr().out.rstrip().endswith("train_lm OK")
+
+
+def test_launcher_trains_reduced_zamba2_and_refuses_full(tmp_path,
+                                                         monkeypatch):
+    """Reduced zamba2 through the launcher (2 steps); ``--full`` raises on
+    the config's ``remat="dots"`` before any parameter is drawn."""
+    from repro_torch.launch import train as launch_train
+
+    t = launch_train.main(["--arch", "zamba2-7b", "--device", "cpu",
+                           "--seq-len", "16", "--global-batch", "4",
+                           "--steps", "2", "--ckpt-dir", str(tmp_path)])
+    assert [h["step"] for h in t.history] == [1, 2]
+    assert all(np.isfinite(h["loss"]) for h in t.history)
+
+    def no_init(*a, **k):
+        raise AssertionError("parameters drawn")
+
+    monkeypatch.setattr(model, "init_params", no_init)
+    with pytest.raises(NotImplementedError, match="dots.*item 7"):
+        launch_train.main(["--arch", "zamba2-7b", "--full", "--device",
+                           "cpu", "--ckpt-dir", str(tmp_path / "full")])
 
 
 def test_trainer_and_launcher_raise_without_device(monkeypatch, tmp_path):
