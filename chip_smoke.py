@@ -9,7 +9,8 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
 2. Hold each kernel to its plain PyTorch version on the card at the main
    paths' shapes.
    Flash attention: smollm-360m heads 15/5 at D 64, h2o-danube-1.8b heads
-   32/8 at D 80, zamba2-7b heads 32/32 at D 112; bf16 and fp32; bulk
+   32/8 at D 80, zamba2-7b heads 32/32 at D 112, internvl2-2b heads 16/8
+   at D 128; bf16 and fp32; bulk
    S = 1000 and 2048, 128-row chunks at q_offset 0, 128, 896, 1024 and
    1920 of a 2048 scratch, a ragged 100-row chunk at 896, a 256 window at
    2048 and at the chunk at 1024, and a window of 0 at 2048 (only None
@@ -24,7 +25,12 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    for a chunk; the port never calls it), and name the kernel SDPA ran.
    Times are CUDA events around back-to-back calls, host launch cost
    included; the kernel's and the yardstick's device times
-   (torch.profiler) are printed beside them.
+   (torch.profiler) are printed beside them.  Then flash without a mask
+   at whisper-tiny's shapes (heads 6/6, D 64): its encoder's 1500 × 1500
+   and the cross-attention of 1, 37 and 448 decoder rows over 1500
+   encoder rows, bf16 and fp32, at the same tolerances (bf16 also to
+   1e-2 of the largest against the plain version); the encoder and the
+   448-row call timed, SDPA without a mask as the yardstick.
    SSD scan: mamba2-2.7b heads (H 80, P 64, N 128, G 1, chunk 128) at
    S 2048, ragged S 1000, a 128-row chunk with a carried state and B 2 at
    S 384 with a state, plus one zamba2 shape (H 112, N 64, S 512); bf16
@@ -62,6 +68,21 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    contiguous, then paged with 128-token blocks.  The two must emit the
    same tokens, and the flash kernel must have launched n_layers times per
    prefill chunk.
+3b. Serve full-width internvl2-2b in bf16 (random weights from a seed; 24
+   layers, heads 16/8 at D 128): phase 3's recipe, each request with 256
+   patch embeddings of width 1024 (standard normal from the seed) before
+   its 256–1024 text tokens, contiguous then paged.  Held: every request
+   answered; flash launched 24 times a prefill chunk (53 chunks a run)
+   and no other kernel of the port; paged ≡ contiguous tokens; then
+   phase 4's fp32 check (chunked ≡ bulk first-token logits 1e-3, each
+   bf16 run against fp32 1.5e-1).  Printed: phase 4's serving numbers and
+   one profiled decode step and 128-row chunk (the card's idle share).
+3c. Serve full-width whisper-tiny in bf16 the same way: 6 requests of
+   64–448 decoder tokens, each with 1500 frame embeddings of width 384,
+   16 new tokens, max_seq 512, chunked (128) then bulk.  Held: flash
+   launched 12 times a bulk pass and on chunk 0 (4 encoder layers
+   without a mask, 4 causal self- and 4 unmasked cross-attentions), 8
+   times a later chunk, never in decode; phase 4's fp32 check.
 4. Serve full-width mamba2-2.7b in bf16 (random weights from a seed): 6
    requests with prompts of 256–1024 tokens, 16 new tokens each, batch 4,
    one arrival every 2 steps — chunked admission (128-token chunks), then
@@ -407,20 +428,22 @@ def phase_build():
           f"total {time.perf_counter() - t0:.1f}s", flush=True)
 
 
-def sdpa_yardstick(q, k, v, window, q_offset):
+def sdpa_yardstick(q, k, v, window, q_offset, causal=True):
     """One ``scaled_dot_product_attention`` call over the same visible
     columns (the library yardstick; the port never calls it): bottom-right
     causal alignment for a chunk (``is_causal`` is top-left when Sq < Skv),
-    an explicit mask for a window.  Returns the call and the name of the
-    kernel it ran, read from the profiler."""
+    an explicit mask for a window, no mask for a non-causal call.  Returns
+    the call and the name of the kernel it ran, read from the profiler."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
 
     sq = q.shape[2]
-    end = q_offset + sq
+    end = q_offset + sq if causal else k.shape[2]
     kk, vv = k[:, :, :end], v[:, :, :end]
-    if window is not None:
+    if not causal:
+        mask = None
+    elif window is not None:
         rows = q_offset + torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(end, device=q.device)[None, :]
         mask = (cols <= rows) & (cols > rows - window)
@@ -431,7 +454,7 @@ def sdpa_yardstick(q, k, v, window, q_offset):
 
     def call():
         return F.scaled_dot_product_attention(
-            q, kk, vv, attn_mask=mask, is_causal=mask is None,
+            q, kk, vv, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=True)
 
     call()
@@ -453,8 +476,10 @@ def sdpa_yardstick(q, k, v, window, q_offset):
 
 def phase_kernels():
     """Kernel vs plain on the card; returns the main-path shapes' numbers
-    (bulk-2048 and chunk-128@1024 of smollm-360m in bf16; h2o-danube-1.8b's
-    and zamba2-7b's under ``h2o_*`` and ``zamba2_*``)."""
+    (bulk-2048 and chunk-128@1024 of smollm-360m in bf16; h2o-danube-1.8b's,
+    zamba2-7b's and internvl2-2b's under ``h2o_*``, ``zamba2_*`` and
+    ``internvl2_*``; whisper-tiny's non-causal encoder and cross calls
+    under ``whisper_*``, from :func:`flash_noncausal`)."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -473,7 +498,7 @@ def phase_kernels():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     heads = {"smollm-360m": (15, 5, 64), "h2o-danube-1.8b": (32, 8, 80),
-             "zamba2-7b": (32, 32, 112)}
+             "zamba2-7b": (32, 32, 112), "internvl2-2b": (16, 8, 128)}
     # (label, Sq, Skv, q_offset, window); the first five at TOL, the rest
     # (in bf16) at BF16_SPLIT_REL.  window-0: no row sees a column, every
     # output 0 (only None means no window)
@@ -566,10 +591,100 @@ def phase_kernels():
             ("h2o-danube-1.8b", "bulk-2048", "h2o_bulk"),
             ("h2o-danube-1.8b", "chunk-128@1024", "h2o_chunk"),
             ("zamba2-7b", "bulk-2048", "zamba2_bulk"),
-            ("zamba2-7b", "chunk-128@1024", "zamba2_chunk")):
+            ("zamba2-7b", "chunk-128@1024", "zamba2_chunk"),
+            ("internvl2-2b", "bulk-2048", "internvl2_bulk"),
+            ("internvl2-2b", "chunk-128@1024", "internvl2_chunk")):
         out.update({f"{tag}_{key}": main[(arch, label)][key]
                     for key in keys})
+    for tag, case in flash_noncausal(gen).items():
+        out.update({f"{tag}_{key}": case[key]
+                    for key in keys + ("max_abs_err", "bound_by")})
     return out
+
+
+#: whisper-tiny's non-causal flash calls (heads 6/6, D 64): the encoder's
+#: bidirectional self-attention over its 1500 frames, and the decoder's
+#: cross-attention of 1, 37 and 448 rows (a decode-sized, a ragged and the
+#: longest prompt) over the encoder's 1500 rows; the 1500-row edge
+#: (23 × 64 + 28) is masked only by the column bound
+NONCAUSAL_CASES = (("whisper_enc", 1500), ("whisper_cross1", 1),
+                   ("whisper_cross37", 37), ("whisper_cross", 448))
+
+
+def flash_noncausal(gen):
+    """Each of ``NONCAUSAL_CASES`` in bf16 and fp32 against the plain
+    version (fp32 at ``TOL``; bf16 at ``TOL`` and, against the plain and
+    the split-and-merge plain versions at the kernel's split plan, at
+    ``BF16_SPLIT_REL``); the encoder and the 448-row cross call timed in
+    bf16 beside their bound and SDPA's time.  Returns the timed cases."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        attention_plain,
+        attention_split_plain,
+        flash_attention,
+        kv_split_plan,
+    )
+
+    dev = torch.device("cuda")
+    hq = hkv = 6
+    d, skv = 64, 1500
+    timed = {}
+    for tag, sq in NONCAUSAL_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(1, hq, sq, d, generator=gen, device=dev)
+            k = torch.randn(1, hkv, skv, d, generator=gen, device=dev)
+            v = torch.randn(1, hkv, skv, d, generator=gen, device=dev)
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            got = flash_attention(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            want = attention_plain(q, k, v, causal=False).float()
+            if not torch.isfinite(got).all():
+                fail(f"flash {tag} {dtype}: non-finite output")
+            err = (got.float() - want).abs().max().item()
+            tol = TOL[str(dtype).split(".")[1]]
+            held = f"max_abs_err {err:.3g} (tol {tol})"
+            bad = err > tol
+            plan = kv_split_plan(sq, skv, 0, False, None, hq)
+            if dtype == torch.bfloat16:
+                split = attention_split_plain(q, k, v, plan,
+                                              causal=False).float()
+                rels = [((got.float() - w).abs().max()
+                         / w.abs().max().clamp_min(1e-30)).item()
+                        for w in (want, split)]
+                held += (f", max_err/max vs plain {rels[0]:.3g}, vs split "
+                         f"plain {rels[1]:.3g} (tol {BF16_SPLIT_REL}), plan "
+                         f"{plan.splits} split(s) x {plan.tiles_per_split} "
+                         f"kv tiles")
+                bad = bad or max(rels) > BF16_SPLIT_REL
+            print(f"[flash] whisper-tiny non-causal {tag} (Sq {sq}, Skv "
+                  f"{skv}) {str(dtype)[6:]}: {held}", flush=True)
+            if bad:
+                fail(f"flash {tag} {dtype}: {held}")
+            if dtype == torch.bfloat16 and tag in ("whisper_enc",
+                                                   "whisper_cross"):
+                call = lambda: flash_attention(q, k, v, causal=False)
+                lib, lib_name = sdpa_yardstick(q, k, v, None, 0,
+                                               causal=False)
+                bound_ms, bound_by = attention_bound_ms(q, k, False, None, 0)
+                timed[tag] = dict(
+                    max_abs_err=err, ms=time_ms(call),
+                    plain_ms=time_ms(lambda: attention_plain(
+                        q, k, v, causal=False)),
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=time_ms(lib), device_ms=device_ms(call),
+                    library_device_ms=device_ms(lib))
+                t = timed[tag]
+                print(f"[flash] timed whisper-tiny {tag} (B1 Hq{hq}/Hkv"
+                      f"{hkv} Sq{sq} Skv{skv} D{d} non-causal bf16, plan "
+                      f"{plan.splits} x {plan.tiles_per_split}): kernel "
+                      f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
+                      f"{t['library_ms']:.4f} ms ({lib_name}), bound "
+                      f"{bound_ms:.5f} ms ({bound_by}); on the device "
+                      f"(torch.profiler) kernel {fmt_ms(t['device_ms'])}, "
+                      f"sdpa {fmt_ms(t['library_device_ms'])}", flush=True)
+            del q, k, v, got, want
+    return timed
 
 
 def ssd_bound_ms(x, b, chunk, with_init):
@@ -950,6 +1065,54 @@ def phase_serve():
     return launches
 
 
+def drive_recorded(srv, items):
+    """Drive ``srv`` through ``items`` (one arrival every 2 steps) with
+    every kernel count set to 0 just before, recording each request's
+    first-token logits: (steps, wall s, peak GiB, kernel counts, {rid:
+    logits})."""
+    import torch
+
+    from repro_torch.runtime.server import drive_arrivals
+
+    first = {}
+    emit = srv._emit_first_token
+
+    def record(i, req, logits):
+        first[req.rid] = logits[0].float().cpu()
+        emit(i, req, logits)
+
+    srv._emit_first_token = record
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    steps = drive_arrivals(srv, items, every=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = kernel_counts()
+    # the hook holds the server through the bound method it wraps: a
+    # cycle that only Python's cyclic collector frees, which kept the
+    # server's weights and caches (5.7 GiB) allocated phases later
+    del srv._emit_first_token
+    return steps, wall, peak, counts, first
+
+
+def print_profiles(tag, calls):
+    """Each ``(label, call)`` once under torch.profiler: its wall time,
+    the device's idle share of it (how far the host holds the card back),
+    the port's device events and the top device ops."""
+    for label, call in calls:
+        call()
+        top, idle, wall_ms, events = profile_call(call)
+        busy = sum(ms for _, ms, _ in top)
+        print(f"[{tag}] profiled {label}: {wall_ms:.2f} ms wall, device "
+              f"idle share {'not measured' if idle is None else f'{idle:.4f}'}"
+              f", port device events {events}; top device ops "
+              f"{busy:.3f} ms:", flush=True)
+        for name, ms, n in top[:6]:
+            print(f"[{tag}]   {ms:8.3f} ms  x{n:<5} {name[:90]}", flush=True)
+
+
 def phase_serve_state(arch):
     """Full-width ``arch`` (mamba2-2.7b, phase 4; zamba2-7b, phase 4b) in
     bf16, chunked then bulk admission, then the fp32 check; returns the
@@ -972,7 +1135,7 @@ def phase_serve_state(arch):
         prefill_chunk,
         prefill_chunk_cuts,
     )
-    from repro_torch.runtime.server import Server, ServerConfig, drive_arrivals
+    from repro_torch.runtime.server import Server, ServerConfig
 
     cfg = get_config(arch)
     tag = arch.split("-")[0]
@@ -998,22 +1161,7 @@ def phase_serve_state(arch):
         srv = Server(cfg, params, ServerConfig(
             max_batch=4, max_seq=2048, max_new_tokens=max_new,
             prefill_chunk=admit_chunk))
-        first = {}
-        emit = srv._emit_first_token
-
-        def record(i, req, logits, emit=emit, first=first):
-            first[req.rid] = logits[0].float().cpu()
-            emit(i, req, logits)
-
-        srv._emit_first_token = record
-        reset_kernel_counts()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        steps = drive_arrivals(srv, prompts, every=2)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        counts = kernel_counts()
+        steps, wall, peak, counts, first = drive_recorded(srv, prompts)
         want = dict.fromkeys(counts, 0)
         want.update(ssd=cfg.n_layers * passes,
                     flash_attention=apps * passes)
@@ -1039,11 +1187,7 @@ def phase_serve_state(arch):
         if not all(torch.isfinite(v).all() for v in first.values()):
             fail(f"{tag} {mode}: non-finite first-token logits")
         runs[mode] = ({r.rid: r.out_tokens for r in srv.done}, first)
-        # the hook holds the server through the bound method it wraps: a
-        # cycle that only Python's cyclic collector frees, which kept the
-        # server's weights and caches (5.7 GiB) allocated phases later
-        del srv._emit_first_token
-        del srv, emit, record
+        del srv
     (tok_c, first_c), (tok_b, first_b) = runs["chunked"], runs["bulk"]
     agree = sum(a == b for r in tok_b for a, b in zip(tok_c[r], tok_b[r]))
     total = sum(len(t) for t in tok_b.values())
@@ -1057,20 +1201,11 @@ def phase_serve_state(arch):
     scr = init_prefill_scratch(cfg, 1, 1024, "cuda")
     chunk_toks = torch.as_tensor(prompts[0][None, :chunk], dtype=torch.long,
                                  device="cuda")
-    for label, call in (
-            ("decode step, batch 4 over 2048 slots",
-             lambda: serve_step(cfg, params, cache, step_toks)),
-            (f"prefill chunk, {chunk} rows at 512",
-             lambda: prefill_chunk(cfg, params, scr, chunk_toks, 512))):
-        call()
-        top, idle, wall_ms, events = profile_call(call)
-        busy = sum(ms for _, ms, _ in top)
-        print(f"[{tag}] profiled {label}: {wall_ms:.2f} ms wall, device "
-              f"idle share {'not measured' if idle is None else f'{idle:.4f}'}"
-              f", port device events {events}; top device ops "
-              f"{busy:.3f} ms:", flush=True)
-        for name, ms, n in top[:6]:
-            print(f"[{tag}]   {ms:8.3f} ms  x{n:<5} {name[:90]}", flush=True)
+    print_profiles(tag, (
+        ("decode step, batch 4 over 2048 slots",
+         lambda: serve_step(cfg, params, cache, step_toks)),
+        (f"prefill chunk, {chunk} rows at 512",
+         lambda: prefill_chunk(cfg, params, scr, chunk_toks, 512))))
     del cache, scr
 
     # The same prompts in fp32 (the bf16 weights, widened), bulk and in
@@ -1115,6 +1250,181 @@ def phase_serve_state(arch):
           f"{time.perf_counter() - t_phase:.1f}s", flush=True)
     if not (err["c32-b32"] <= 1e-3 and err["c16-b32"] <= 1.5e-1
             and err["b16-b32"] <= 1.5e-1):
+        fail(f"{tag}: first-token logits out of tolerance: {err}")
+    return launches
+
+
+#: the frontend serving phases: requests, the range of their text or
+#: decoder prompt lengths, new tokens, max_seq and the two server runs
+#: (each admitting in 128-row chunks or in one bulk pass per request)
+FRONTEND_RUNS = {
+    "internvl2-2b": (8, (256, 1024), 32, 2048, (
+        ("contiguous", dict(prefill_chunk=128)),
+        ("paged", dict(prefill_chunk=128, paged=True, block_size=128)))),
+    "whisper-tiny": (6, (64, 448), 16, 512, (
+        ("chunked", dict(prefill_chunk=128)),
+        ("bulk", dict(prefill_chunk=None)))),
+}
+
+
+def flash_per_pass(cfg, lo):
+    """Flash launches of a prefill pass (a chunk at row ``lo``, or a bulk
+    pass at 0): one a dense block, and for the encoder-decoder one a
+    decoder layer's self- and one its cross-attention, plus the encoder's
+    layers where the pass runs the encoder (chunk 0 and bulk)."""
+    if cfg.family == "encdec":
+        return 2 * cfg.n_layers + (cfg.n_encoder_layers if lo == 0 else 0)
+    return cfg.n_layers
+
+
+def phase_serve_frontend(arch):
+    """Full-width ``arch`` (internvl2-2b, phase 3b; whisper-tiny, phase 3c)
+    in bf16 through the server, each request carrying its frontend
+    embeddings (256 patch rows of width 1024; 1500 frames of width 384),
+    in the two runs of ``FRONTEND_RUNS``; then one profiled decode step
+    and prefill chunk, and the fp32 check of phase 4.  Returns the flash
+    launches of the two server runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.steps import serve_step
+    from repro_torch.models.decode import init_cache
+    from repro_torch.models.model import (
+        count_params,
+        count_params_analytic,
+        init_params,
+    )
+    from repro_torch.models.prefill import (
+        chunk_rows,
+        init_prefill_scratch,
+        prefill,
+        prefill_chunk,
+        prefill_chunk_cuts,
+        prefill_rows,
+    )
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = get_config(arch)
+    tag = arch.split("-")[0]
+    n_req, (lo_len, hi_len), max_new, max_seq, runs = FRONTEND_RUNS[arch]
+    t_phase = t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    print(f"[{tag}] {cfg.name} full width, {n_params/1e6:.1f}M params in "
+          f"{cfg.param_dtype}, init {time.perf_counter()-t0:.1f}s", flush=True)
+    if n_params != count_params_analytic(cfg):
+        fail(f"{tag}: {n_params} params, expected "
+             f"{count_params_analytic(cfg)}")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(lo_len, hi_len + 1, size=n_req)
+    items = [(rng.integers(0, cfg.vocab_size, size=int(n)),
+              rng.standard_normal((cfg.frontend_tokens, cfg.frontend_dim),
+                                  dtype=np.float32)) for n in lens]
+    rows = [prefill_rows(cfg, int(n)) for n in lens]
+    chunk = 128
+    out, launches = {}, 0
+    for mode, extra in runs:
+        admit = extra["prefill_chunk"]
+        starts = [lo for r in rows for lo, _ in (
+            prefill_chunk_cuts(r, chunk_len=admit) if admit else [(0, r)])]
+        srv = Server(cfg, params, ServerConfig(
+            max_batch=4, max_seq=max_seq, max_new_tokens=max_new, **extra))
+        steps, wall, peak, counts, first = drive_recorded(srv, items)
+        want = dict.fromkeys(counts, 0)
+        want["flash_attention"] = sum(flash_per_pass(cfg, lo)
+                                      for lo in starts)
+        launches += counts["flash_attention"]
+        st = srv.stats()
+        print(f"[{tag}:{mode}] {st['requests']} requests, {st['tokens']} "
+              f"tokens in {steps} steps, {wall:.2f}s; prefill "
+              f"{st['prefill_tokens']} rows, {st['prefill_tok_s']:.1f} "
+              f"tok/s, decode {st['decode_tok_s']:.1f} tok/s, ttft "
+              f"{st['mean_ttft_s']*1e3:.1f} ms, itl "
+              f"{st['mean_itl_s']*1e3:.2f} ms, peak {peak:.2f} GiB; flash "
+              f"launches {counts['flash_attention']} over "
+              f"{st['prefill_chunks']} prefill passes", flush=True)
+        if st["requests"] != n_req or any(
+                len(r.out_tokens) != max_new for r in srv.done):
+            fail(f"{tag} {mode}: not every request answered with "
+                 f"{max_new} tokens")
+        if st["prefill_chunks"] != len(starts) or counts != want:
+            fail(f"{tag} {mode}: {st['prefill_chunks']} prefill passes "
+                 f"(expected {len(starts)}), launches {counts} (expected "
+                 f"{want})")
+        if not all(torch.isfinite(v).all() for v in first.values()):
+            fail(f"{tag} {mode}: non-finite first-token logits")
+        out[mode] = ({r.rid: r.out_tokens for r in srv.done}, first)
+        del srv
+    (a, (tok_a, first_a)), (b, (tok_b, first_b)) = out.items()
+    agree = sum(x == y for r in tok_b for x, y in zip(tok_a[r], tok_b[r]))
+    total = sum(len(t) for t in tok_b.values())
+    if b == "paged" and tok_a != tok_b:
+        fail(f"{tag}: paged tokens differ from contiguous tokens")
+
+    # one decode step of a full batch, and one 128-row prefill chunk (the
+    # VLM's at text row 512 of a 1280-row carry; whisper's chunk 0, which
+    # runs the encoder), each under torch.profiler
+    cache = init_cache(cfg, 4, max_seq, "cuda")
+    step_toks = torch.zeros(4, dtype=torch.long, device="cuda")
+    carry = rows[int(np.argmax(rows))]
+    lo = 512 if cfg.family == "vlm" else 0
+    scr = init_prefill_scratch(cfg, 1, carry, "cuda")
+    t_rows, f_rows = chunk_rows(cfg, lo, lo + chunk)
+    prompt, fe = items[int(np.argmax(rows))]
+    chunk_toks = torch.as_tensor(prompt[None, t_rows], dtype=torch.long,
+                                 device="cuda")
+    chunk_fe = (None if f_rows is None else
+                torch.as_tensor(fe[None, f_rows], device="cuda"))
+    print_profiles(tag, (
+        (f"decode step, batch 4 over {max_seq} slots",
+         lambda: serve_step(cfg, params, cache, step_toks)),
+        (f"prefill chunk, {chunk} rows at {lo}",
+         lambda: prefill_chunk(cfg, params, scr, chunk_toks, lo, chunk_fe))))
+    del cache, scr
+
+    # phase 4's fp32 check: the same requests in fp32 (the bf16 weights
+    # widened), bulk and in 128-row chunks outside the server; chunked ≡
+    # bulk at 1e-3 of the largest first-token logit, each bf16 server
+    # run against fp32 at 1.5e-1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    params32 = widen(params)
+    del params
+    err = {f"{a}-{b}": 0.0, "c32-b32": 0.0, f"{a}-b32": 0.0,
+           f"{b}-b32": 0.0}
+    for rid, (prompt, fe) in enumerate(items):
+        toks = torch.as_tensor(prompt[None, :], dtype=torch.long,
+                               device="cuda")
+        fet = torch.as_tensor(fe[None], device="cuda")
+        _, b32 = prefill(cfg32, params32, toks, fet)
+        scr = init_prefill_scratch(cfg32, 1, rows[rid], "cuda")
+        for lo, hi in prefill_chunk_cuts(rows[rid], chunk_len=chunk):
+            t_rows, f_rows = chunk_rows(cfg, lo, hi)
+            scr, c32 = prefill_chunk(cfg32, params32, scr, toks[:, t_rows],
+                                     lo, None if f_rows is None
+                                     else fet[:, f_rows])
+        b32, c32 = b32[0].cpu(), c32[0].cpu()
+        for key, (got, want) in {f"{a}-{b}": (first_a[rid], first_b[rid]),
+                                 "c32-b32": (c32, b32),
+                                 f"{a}-b32": (first_a[rid], b32),
+                                 f"{b}-b32": (first_b[rid], b32)}.items():
+            e = ((got - want).abs().max() / want.abs().max()).item()
+            err[key] = max(err[key], e)
+    del params32, scr
+    peak32 = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{tag}] first-token logits, max_err/max over the {n_req} "
+          f"requests: bf16 {a} vs {b} {err[f'{a}-{b}']:.3g}; fp32 chunked "
+          f"vs bulk {err['c32-b32']:.3g} (tol 1e-3); bf16 {a} vs fp32 "
+          f"{err[f'{a}-b32']:.3g}, bf16 {b} vs fp32 {err[f'{b}-b32']:.3g} "
+          f"(tol 1.5e-1); generated tokens agree {agree}/{total} "
+          f"({agree / total:.1%}); fp32 check peak {peak32:.2f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    if not (err["c32-b32"] <= 1e-3 and err[f"{a}-b32"] <= 1.5e-1
+            and err[f"{b}-b32"] <= 1.5e-1):
         fail(f"{tag}: first-token logits out of tolerance: {err}")
     return launches
 
@@ -2391,6 +2701,10 @@ def main() -> int:
     ssd_cases = timed("2 ssd", phase_ssd_kernels)
     ssd_bwd_cases = timed("2b ssd backward", phase_ssd_bwd)
     flash_launches = timed("3 smollm serving", phase_serve)
+    internvl2_launches = timed("3b internvl2 serving", phase_serve_frontend,
+                               "internvl2-2b")
+    whisper_launches = timed("3c whisper serving", phase_serve_frontend,
+                             "whisper-tiny")
     ssd_launches = timed("4 mamba2 serving", phase_serve_state,
                          "mamba2-2.7b")["ssd"]
     zamba2_launches = timed("4b zamba2 serving", phase_serve_state,
@@ -2423,7 +2737,9 @@ def main() -> int:
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:93",
              launches=flash_launches,
-             zamba2_launches=zamba2_launches["flash"], **flash_main),
+             zamba2_launches=zamba2_launches["flash"],
+             internvl2_launches=internvl2_launches,
+             whisper_launches=whisper_launches, **flash_main),
         dict(name="ssd", route="cuda",
              source="src/repro_torch/kernels/ssd/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd/kernel.py:96",

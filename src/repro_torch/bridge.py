@@ -2,8 +2,11 @@
 
 Takes the reference's parameter pytree with numpy leaves (``layers`` leaves
 stacked on a leading layer axis by ``lax.scan``, the hybrid's
-``shared_blocks`` on a leading block axis) and returns the port's dict of
-tensors with each stack as a list of per-layer (per-block) dicts.  bf16 leaves
+``shared_blocks`` on a leading block axis, the encoder-decoder's
+``enc_layers`` and ``dec_layers`` each on its own) and returns the port's
+dict of tensors with each stack as a list of per-layer (per-block) dicts;
+every other leaf (``frontend_proj``, ``dec_pos``, a LayerNorm's ``scale``
+and ``bias``) goes across as it is.  bf16 leaves
 arrive as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy``
 rejects; they go across bit for bit through a 16-bit integer view.
 """
@@ -50,14 +53,14 @@ def _unstack_all(stacked: Any, device: DeviceLike) -> list:
 
 
 #: the stacked subtrees of the reference's parameter pytree
-STACKED = ("layers", "shared_blocks")
+STACKED = ("layers", "shared_blocks", "enc_layers", "dec_layers")
 
 
 def params_from_reference(tree: Dict[str, Any],
                           device: DeviceLike = "cpu") -> Dict[str, Any]:
     """The reference's parameter pytree (numpy leaves) → the port's
-    parameters on ``device``: ``layers`` (and the hybrid's
-    ``shared_blocks``) as lists of per-layer (per-block) dicts."""
+    parameters on ``device``: each stack of :data:`STACKED` it holds as a
+    list of per-layer (per-block) dicts."""
     out = {k: _tree(v, device) for k, v in tree.items() if k not in STACKED}
     for k in STACKED:
         if k in tree:

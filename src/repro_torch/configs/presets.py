@@ -38,8 +38,7 @@ class TPPreset:
         return StepConfig(transport=TransportPolicy(tp=self.tp_transport))
 
 
-#: the reference's TP recipes, field for field.  ``nemotron-4-340b`` is not
-#: a port config yet, so resolving its preset raises ``KeyError``.
+#: the reference's TP recipes, field for field.
 TP_PRESETS: Dict[str, TPPreset] = {
     "nemotron-4-340b-tp": TPPreset(arch="nemotron-4-340b", tp_axis=8),
     "h2o-danube-1.8b-tp": TPPreset(arch="h2o-danube-1.8b", tp_axis=8),

@@ -199,7 +199,8 @@ def _check_path(cfg: ModelConfig, group, scfg: StepConfig,
         raise ValueError(f"microbatches={scfg.microbatches} < 1")
     if cfg.family not in ("dense", "ssm", "hybrid"):
         raise ValueError(f"{cfg.name}: the train step takes the dense, "
-                         f"ssm and hybrid families")
+                         f"ssm and hybrid families (vlm and encdec training: "
+                         f"ROADMAP queue 1 item 7)")
     if group.size == 1:
         if cfg.family == "ssm":
             # forward_hidden's ssm branch: the Mamba-2 block, whose SSD

@@ -124,6 +124,23 @@ def _aligned16(ptr: int, shape, stride) -> bool:
         st % 8 == 0 for n, st in zip(shape[:3], stride[:3]) if n > 1)
 
 
+def resolve_q_offset(sq: int, skv: int, q_offset: Optional[int],
+                     causal: bool, window: Optional[int]) -> int:
+    """The absolute position of q row 0 (default ``Skv - Sq``, the rows
+    right-aligned to the columns).  Only the causal mask and the window
+    read it: a call with neither (the whisper encoder's, and a decoder's
+    cross-attention, whose Sq may exceed Skv) sees every column from every
+    row, so any offset is accepted and taken as 0.  A masked call with a
+    negative offset raises."""
+    offset = skv - sq if q_offset is None else int(q_offset)
+    if not causal and window is None:
+        return 0
+    if offset < 0:
+        raise ValueError(f"flash_attention: q_offset {offset} < 0 under a "
+                         f"causal mask or a window")
+    return offset
+
+
 def flash_attention(
     q: torch.Tensor,               # (B, Hq, Sq, D)
     k: torch.Tensor,               # (B, Hkv, Skv, D)
@@ -135,11 +152,14 @@ def flash_attention(
     q_offset: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention of q rows at absolute positions ``q_offset + i`` (default
-    ``Skv - Sq``) over k/v with GQA (``Hq % Hkv == 0``).  See
+    ``Skv - Sq``; see :func:`resolve_q_offset`) over k/v with GQA
+    (``Hq % Hkv == 0``).  See
     :func:`~repro_torch.kernels.flash_attention.ref.attention_plain`."""
+    offset = resolve_q_offset(q.shape[2], k.shape[2], q_offset, causal,
+                              window)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
-                               scale=scale, q_offset=q_offset)
+                               scale=scale, q_offset=offset)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
@@ -172,9 +192,6 @@ def flash_attention(
             "flash_attention: the bf16 kernel copies 16-byte chunks; q, k "
             "and v need 16-byte aligned bases and strides (got strides "
             f"{qt}, {kt}, {vt})")
-    offset = skv - sq if q_offset is None else int(q_offset)
-    if offset < 0:
-        raise ValueError(f"flash_attention: q_offset {offset} < 0")
     scale = float(scale) if scale is not None else d ** -0.5
     out = torch.empty((b, hq, sq, d), dtype=dtype, device=dev)
     plan = (kv_split_plan(sq, skv, offset, causal, window, hq) if bf16

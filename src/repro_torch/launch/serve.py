@@ -2,13 +2,22 @@
 
 Continuous batching with chunked streamed prefill on one GPU, random
 weights from seed 0.  ``--arch`` takes ``smollm-360m``,
-``h2o-danube-1.8b``, ``mamba2-2.7b`` or ``zamba2-7b`` (the hybrid: Mamba-2
-layers with shared attention blocks).  The default is the arch's
+``h2o-danube-1.8b``, ``nemotron-4-340b`` (at ``reduced()`` only: it does
+not fit one card), ``mamba2-2.7b``, ``zamba2-7b`` (the hybrid: Mamba-2
+layers with shared attention blocks), ``internvl2-2b`` (the VLM: each
+request carries ``frontend_tokens`` patch embeddings, prefilled before its
+text) or ``whisper-tiny`` (the encoder-decoder: each request carries its
+frame embeddings, and its decoder prompt is capped at
+``decoder_max_seq``).  A frontend arch's embeddings are drawn per request
+from the seeded generator, as the reference launcher draws them.  The
+default is the arch's
 ``reduced()`` config, as in the reference launcher; ``--full`` serves the
 full-width config in bf16.  ``--prefill-chunk 0`` admits with bulk
 per-request prefill; ``--paged`` needs an arch with a paged KV layout (not
 mamba2, whose cache is its constant-size state, nor zamba2, whose cache is
-that state beside one K/V ring a shared application).
+that state beside one K/V ring a shared application, nor whisper, whose
+cross K/V stay contiguous).  A VLM's ``--max-seq`` must hold its patch
+rows as well as the prompt.
 ``--device cpu`` runs on the CPU (with the kernels' plain versions);
 without it the launcher needs a CUDA device and fails if there is none.
 """
@@ -63,13 +72,21 @@ def main(argv=None):
         prefill_chunk=args.prefill_chunk or None,
         paged=args.paged, block_size=args.block_size), device=device)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=args.prompt_len)
+    plen = args.prompt_len
+    if cfg.family == "encdec":
+        plen = min(plen, cfg.decoder_max_seq)
+    prompts = [rng.integers(0, cfg.vocab_size, size=plen)
                for _ in range(args.requests)]
+    if cfg.frontend:
+        # the vision or audio tower's output the request carries
+        prompts = [(pr, rng.standard_normal(
+            (cfg.frontend_tokens, cfg.frontend_dim), dtype=np.float32))
+            for pr in prompts]
     if args.arrive_every:
         steps = drive_arrivals(srv, prompts, args.arrive_every)
     else:
         for pr in prompts:
-            srv.submit(pr)
+            srv.submit(*pr) if isinstance(pr, tuple) else srv.submit(pr)
         steps = srv.run()
 
     stats = srv.stats()

@@ -16,7 +16,11 @@ The counterpart of the dense GQA, ``ssm`` and ``hybrid`` subset of
 * hybrid cache (zamba2): the SSM cache of every Mamba-2 layer plus one
   K/V ring ``attn_k``/``attn_v`` (n_apps, B, Hkv, S_buf, hd) a shared
   *application* (the parameters are shared, the caches are not), with
-  ``pos`` and ``slot_pos`` (contiguous only, as in the reference).
+  ``pos`` and ``slot_pos`` (contiguous only, as in the reference);
+* encdec cache (whisper): the decoder's self-attention ring ``k``/``v``
+  (capped at :data:`ENCDEC_DECODER_CAP` slots) and the encoder's cross
+  K/V ``cross_k``/``cross_v`` (L, B, Hkv, encoder_seq, hd), written once
+  at prefill (contiguous only, as in the reference).
 
 Where the reference returns a new cache from a donated one, the port
 updates the cache tensors in place and returns the same dict.  Decode
@@ -41,12 +45,18 @@ from repro_torch.models.model import (
     shared_block,
 )
 
+#: decoder self-attention ring cap of the encoder-decoder (whisper)
+ENCDEC_DECODER_CAP = 4096
+
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
 
 
 def kv_buf_len(cfg: ModelConfig, max_seq: int) -> int:
-    """Ring extent of the K/V cache: the SWA window caps it."""
+    """Ring extent of the K/V cache: the SWA window caps it, and the
+    encoder-decoder's decoder caps at :data:`ENCDEC_DECODER_CAP`."""
+    if cfg.family == "encdec":
+        return min(max_seq, ENCDEC_DECODER_CAP)
     return min(max_seq, cfg.window) if cfg.window else max_seq
 
 
@@ -85,6 +95,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     shape = (depth, batch, cfg.n_kv_heads, sb, cfg.resolved_head_dim)
     for name in names:
         cache[name] = torch.zeros(shape, dtype=L.pdtype(cfg), device=device)
+    if cfg.family == "encdec":
+        xshape = shape[:3] + (cfg.encoder_seq, shape[4])
+        for name in ("cross_k", "cross_v"):
+            cache[name] = torch.zeros(xshape, dtype=L.pdtype(cfg),
+                                      device=device)
     cache["slot_pos"] = torch.full((batch, sb), -1, dtype=torch.int32,
                                    device=device)
     return cache
@@ -178,9 +193,11 @@ def _masked_softmax_attend(scores: torch.Tensor, vcache: torch.Tensor,
 def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                      kc: torch.Tensor, vc: torch.Tensor,
                      slot_pos: torch.Tensor, pos: torch.Tensor,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     rope: bool = True) -> torch.Tensor:
     """x (B, D) one token per row at ``pos`` (B,).  Writes the row's K/V
-    into ``kc``/``vc`` (B, Hkv, S_buf, hd) in place; returns (B, D)."""
+    into ``kc``/``vc`` (B, Hkv, S_buf, hd) in place; returns (B, D).
+    ``rope=False``: the encoder-decoder's decoder (no rope)."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     hkv, hq = cfg.n_kv_heads, cfg.n_heads
@@ -189,9 +206,10 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q = (xc @ p["wq"].to(cd)).reshape(b, hq, hd)
     k = (xc @ p["wk"].to(cd)).reshape(b, hkv, hd)
     v = (xc @ p["wv"].to(cd)).reshape(b, hkv, hd)
-    posv = pos[:, None, None]
-    q = L.apply_rope(q[:, :, None, :], posv, cfg.rope_theta)[:, :, 0]
-    k = L.apply_rope(k[:, :, None, :], posv, cfg.rope_theta)[:, :, 0]
+    if rope:
+        posv = pos[:, None, None]
+        q = L.apply_rope(q[:, :, None, :], posv, cfg.rope_theta)[:, :, 0]
+        k = L.apply_rope(k[:, :, None, :], posv, cfg.rope_theta)[:, :, 0]
 
     slot = pos % kc.shape[2]
     _row_update(kc, k, slot)
@@ -199,6 +217,24 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     qg = q.reshape(b, hkv, hq // hkv, hd).float() * hd ** -0.5
     scores = torch.einsum("bkgd,bksd->bkgs", qg, kc.float())
     out = _masked_softmax_attend(scores, vc, slot_pos, pos, window)
+    out = out.reshape(b, hq * hd).to(cd)
+    return (out @ p["wo"].to(cd)).to(x.dtype)
+
+
+def cross_attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                           kc: torch.Tensor, vc: torch.Tensor) -> torch.Tensor:
+    """x (B, D) one token per row against the static cross K/V ``kc``/
+    ``vc`` (B, Hkv, S_enc, hd): every encoder row is visible."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    hkv, hq = cfg.n_kv_heads, cfg.n_heads
+    cd = L.cdtype(cfg)
+    q = (x.to(cd) @ p["wq"].to(cd)).reshape(b, hkv, hq // hkv, hd)
+    scores = torch.einsum("bkgd,bksd->bkgs", q.float() * hd ** -0.5,
+                          kc.float())
+    pr = torch.exp(scores - scores.amax(-1, keepdim=True))
+    pr = pr / pr.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bkgs,bksd->bkgd", pr, vc.float())
     out = out.reshape(b, hq * hd).to(cd)
     return (out @ p["wo"].to(cd)).to(x.dtype)
 
@@ -309,18 +345,40 @@ def _decode_gqa(cfg: ModelConfig, params: Params, cache: Cache,
     return x
 
 
+def _decode_encdec(cfg: ModelConfig, params: Params, cache: Cache,
+                   x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The decoder at ``pos``: the learned position ``dec_pos[min(pos,
+    4095)]`` added, then each layer's self-attention over its ring (no
+    rope), cross-attention over its cross K/V and the MLP."""
+    dec_pos = params["dec_pos"]
+    x = x + dec_pos[pos.long().clamp_max(dec_pos.shape[0] - 1)].to(x.dtype)
+    _stamp_slot(cache, pos)
+    for li, lp in enumerate(params["dec_layers"]):
+        x = x + attention_decode(
+            cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x), cache["k"][li],
+            cache["v"][li], cache["slot_pos"], pos, rope=False)
+        x = x + cross_attention_decode(
+            cfg, lp["xattn"], L.apply_norm(cfg, lp["ln_x"], x),
+            cache["cross_k"][li], cache["cross_v"][li])
+        x = x + L.mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], x))
+    return x
+
+
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                 tokens: torch.Tensor) -> Tuple[Cache, torch.Tensor]:
     """tokens (B,) → (cache, logits (B, V) fp32).  Every row advances at
-    its own ``pos``; the cache is updated in place."""
+    its own ``pos``; the cache is updated in place.  A VLM decodes as the
+    dense family (its patches are rows of the cache)."""
     pos = cache["pos"]
     x = params["embed"][tokens]                              # (B, D)
     if cfg.family == "ssm":
         x = _decode_ssm(cfg, params, cache, x)
     elif cfg.family == "hybrid":
         x = _decode_hybrid(cfg, params, cache, x, pos)
+    elif cfg.family == "encdec":
+        x = _decode_encdec(cfg, params, cache, x, pos)
     else:
         x = _decode_gqa(cfg, params, cache, x, pos)
     cache["pos"] = pos + 1
-    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    x = L.apply_norm(cfg, params["final_norm"], x)
     return cache, _lm_logits(cfg, params, x[:, None, :])[:, 0]

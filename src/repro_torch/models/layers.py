@@ -1,6 +1,8 @@
-"""Layers: norms, RoPE, GQA attention, the gated MLP and the Mamba-2 block.
+"""Layers: norms, positions, GQA attention, the MLP and the Mamba-2 block.
 
-The counterpart of the dense and SSM subset of ``repro.models.layers``.
+The counterpart of the dense, encoder-decoder and SSM subset of
+``repro.models.layers``: RMSNorm and (whisper) LayerNorm, RoPE and the
+sinusoidal encoder positions, self- and cross-attention.
 Parameters are plain dicts of tensors laid out as the reference's (weights
 ``(d_in, d_out)``), and attention tensors are ``(B, H, S, D)``.  Serving
 attention has one path: :func:`attention_core` calls the flash-attention
@@ -43,6 +45,24 @@ def rms_norm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def layer_norm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * params["scale"].float() + params["bias"].float()
+    return out.to(x.dtype)
+
+
+def apply_norm(cfg: ModelConfig, params: Params,
+               x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm when the dict has a ``bias`` (the encoder-decoder's),
+    else RMSNorm, as the reference picks."""
+    if "bias" in params:
+        return layer_norm(params, x, cfg.norm_eps)
+    return rms_norm(params, x, cfg.norm_eps)
+
+
 def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
     return 1.0 / (theta ** exps)
@@ -58,6 +78,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., : d // 2].float(), x[..., d // 2:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """(seq, dim) fp32: sin of position × inverse frequency, then cos."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    inv = 1.0 / (10000.0 ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                           device=device) / dim))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -179,18 +208,34 @@ def blockwise_attention(
     return out.reshape(b, hq, sq, dv).to(q.dtype)
 
 
+def _heads(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor,
+           n: int) -> torch.Tensor:
+    """x (B, S, D) @ w → (B, n, S, hd) in the compute dtype."""
+    b, s, _ = x.shape
+    cd = cdtype(cfg)
+    return (x.to(cd) @ w.to(cd)).reshape(
+        b, s, n, cfg.resolved_head_dim).transpose(1, 2)
+
+
 def qkv_proj(cfg: ModelConfig, p: Params, x: torch.Tensor,
              positions: torch.Tensor):
-    """x (B, S, D) → roped q (B, Hq, S, hd), k and v (B, Hkv, S, hd)."""
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
-    cd = cdtype(cfg)
-    xc = x.to(cd)
-    q = (xc @ p["wq"].to(cd)).reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = (xc @ p["wk"].to(cd)).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = (xc @ p["wv"].to(cd)).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    """x (B, S, D) → q (B, Hq, S, hd), k and v (B, Hkv, S, hd); q and k
+    roped at ``positions``, except in the encoder-decoder (whisper takes
+    its positions as embeddings, not as rope)."""
+    q = _heads(cfg, x, p["wq"], cfg.n_heads)
+    k = _heads(cfg, x, p["wk"], cfg.n_kv_heads)
+    v = _heads(cfg, x, p["wv"], cfg.n_kv_heads)
+    if cfg.family == "encdec":
+        return q, k, v
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def cross_kv(cfg: ModelConfig, p: Params, enc_out: torch.Tensor):
+    """The encoder output's K/V for the decoder's cross-attention:
+    (k, v) (B, Hkv, S_enc, hd), no rope."""
+    return (_heads(cfg, enc_out, p["wk"], cfg.n_kv_heads),
+            _heads(cfg, enc_out, p["wv"], cfg.n_kv_heads))
 
 
 def out_proj(cfg: ModelConfig, p: Params, out: torch.Tensor,
@@ -203,14 +248,23 @@ def out_proj(cfg: ModelConfig, p: Params, out: torch.Tensor,
 
 
 def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
-              positions: torch.Tensor, *, return_kv: bool = False,
-              core=None):
-    """Causal GQA self-attention, x (B, S, D) → (B, S, D).  ``return_kv``
-    also returns the roped K/V — the bulk prefill's cache source.
-    ``core`` (default :func:`attention_core`) computes the attention of
-    the roped q/k/v: training passes :func:`blockwise_core`."""
-    q, k, v = qkv_proj(cfg, p, x, positions)
-    out = (core or attention_core)(q, k, v, causal=True, window=cfg.window)
+              positions: torch.Tensor, *, causal: bool = True,
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              return_kv: bool = False, core=None):
+    """GQA attention, x (B, S, D) → (B, S, D): causal self-attention by
+    default, bidirectional with ``causal=False`` (the whisper encoder), and
+    cross-attention over precomputed ``kv_override`` = (k, v) from
+    :func:`cross_kv` (q rows and encoder rows are not aligned; the call
+    has no mask).  ``return_kv`` also returns the (roped) K/V — the bulk
+    prefill's cache source.  ``core`` (default :func:`attention_core`)
+    computes the attention of q/k/v: training passes
+    :func:`blockwise_core`."""
+    if kv_override is None:
+        q, k, v = qkv_proj(cfg, p, x, positions)
+    else:
+        q = _heads(cfg, x, p["wq"], cfg.n_heads)
+        k, v = kv_override
+    out = (core or attention_core)(q, k, v, causal=causal, window=cfg.window)
     y = out_proj(cfg, p, out, x.dtype)
     if return_kv:
         return y, (k, v)

@@ -1,11 +1,14 @@
-"""Model assembly: init, embed, blocks, forward and the tied LM head.
+"""Model assembly: init, embed, blocks, forward and the LM head.
 
-The counterpart of the dense GQA, ``ssm`` (Mamba-2) and ``hybrid``
-(zamba2: a Mamba-2 backbone with shared attention blocks) families of
-``repro.models.model``.  Parameters
-are a dict like the reference's pytree, except that ``layers`` (and the
-hybrid's ``shared_blocks``) is a list with one dict per layer (block)
-where the reference stacks a leading axis for ``lax.scan``
+The counterpart of the dense GQA, ``vlm`` (internvl2: projected patch
+embeddings before the text), ``encdec`` (whisper: a bidirectional encoder
+over frame embeddings, a decoder with cross-attention), ``ssm`` (Mamba-2)
+and ``hybrid`` (zamba2: a Mamba-2 backbone with shared attention blocks)
+families of ``repro.models.model``.  Parameters
+are a dict like the reference's pytree, except that ``layers`` (the
+hybrid's ``shared_blocks``, the encoder-decoder's ``enc_layers`` and
+``dec_layers``) is a list with one dict per layer (block) where the
+reference stacks a leading axis for ``lax.scan``
 (``repro_torch.bridge`` converts one into the other); the layer stack is a
 Python loop.  In training each dense block, the hybrid's shared
 applications too, runs through the block runner the step passes in (the
@@ -29,6 +32,9 @@ from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
 
+#: rows of the encoder-decoder's learned decoder positions ``dec_pos``
+DEC_POS = 4096
+
 
 def _init(shape, dtype, gen: torch.Generator, device,
           scale: float = 0.02) -> torch.Tensor:
@@ -38,25 +44,47 @@ def _init(shape, dtype, gen: torch.Generator, device,
     return (t * scale).to(dtype)
 
 
-def _init_dense_layer(cfg: ModelConfig, gen, device) -> Params:
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+def _init_norm(cfg: ModelConfig, device) -> Params:
+    """RMSNorm's unit scale, or (encoder-decoder) LayerNorm's unit scale
+    and zero bias, as the reference's ``init_norm``."""
+    dt = L.pdtype(cfg)
+    p = {"scale": torch.ones(cfg.d_model, dtype=dt, device=device)}
+    if cfg.family == "encdec":
+        p["bias"] = torch.zeros(cfg.d_model, dtype=dt, device=device)
+    return p
+
+
+def _init_attention(cfg: ModelConfig, gen, device) -> Params:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    dt = L.pdtype(cfg)
+    depth_scale = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
+    return {
+        "wq": _init((d, cfg.n_heads * hd), dt, gen, device),
+        "wk": _init((d, cfg.n_kv_heads * hd), dt, gen, device),
+        "wv": _init((d, cfg.n_kv_heads * hd), dt, gen, device),
+        "wo": _init((cfg.n_heads * hd, d), dt, gen, device, depth_scale),
+    }
+
+
+def _init_dense_layer(cfg: ModelConfig, gen, device,
+                      cross: bool = False) -> Params:
+    """A pre-norm block: attention and the MLP; ``cross`` adds the
+    encoder-decoder's cross-attention ``xattn`` and its norm ``ln_x``."""
+    d, f = cfg.d_model, cfg.d_ff
     dt = L.pdtype(cfg)
     depth_scale = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
     mlp = {"w_up": _init((d, f), dt, gen, device),
            "w_down": _init((f, d), dt, gen, device, depth_scale)}
     if cfg.gated_mlp:
         mlp["w_gate"] = _init((d, f), dt, gen, device)
-    return {
-        "ln1": {"scale": torch.ones(d, dtype=dt, device=device)},
-        "attn": {
-            "wq": _init((d, cfg.n_heads * hd), dt, gen, device),
-            "wk": _init((d, cfg.n_kv_heads * hd), dt, gen, device),
-            "wv": _init((d, cfg.n_kv_heads * hd), dt, gen, device),
-            "wo": _init((cfg.n_heads * hd, d), dt, gen, device, depth_scale),
-        },
-        "ln2": {"scale": torch.ones(d, dtype=dt, device=device)},
-        "mlp": mlp,
-    }
+    p = {"ln1": _init_norm(cfg, device),
+         "attn": _init_attention(cfg, gen, device),
+         "ln2": _init_norm(cfg, device),
+         "mlp": mlp}
+    if cross:
+        p["ln_x"] = _init_norm(cfg, device)
+        p["xattn"] = _init_attention(cfg, gen, device)
+    return p
 
 
 def _init_mamba2(cfg: ModelConfig, gen, device) -> Params:
@@ -90,11 +118,12 @@ def _init_ssm_layer(cfg: ModelConfig, gen, device) -> Params:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if not ((cfg.family in ("dense", "hybrid") and cfg.attn_type == "gqa")
-            or cfg.family == "ssm"):
+    if not ((cfg.family in ("dense", "hybrid", "vlm", "encdec")
+             and cfg.attn_type == "gqa") or cfg.family == "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA, ssm and hybrid families are "
-            f"ported (the others: ROADMAP queue 1 item 5)")
+            f"{cfg.name}: only the dense GQA, vlm, encdec, ssm and hybrid "
+            f"families are ported (MLA and MoE: ROADMAP queue 1 items 5.4 "
+            f"and 5.3)")
 
 
 def n_applications(cfg: ModelConfig) -> int:
@@ -140,26 +169,53 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     dt = L.pdtype(cfg)
     p: Params = {
         "embed": _init((cfg.vocab_size, cfg.d_model), dt, gen, device),
-        "final_norm": {"scale": torch.ones(cfg.d_model, dtype=dt,
-                                           device=device)},
+        "final_norm": _init_norm(cfg, device),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = _init((cfg.d_model, cfg.vocab_size), dt, gen, device)
-    init_layer = (_init_dense_layer if cfg.family == "dense"
-                  else _init_ssm_layer)
     layer_fn = layer_fn or (lambda layer: layer)
-    p["layers"] = [layer_fn(init_layer(cfg, gen, device))
-                   for _ in range(cfg.n_layers)]
+    if cfg.family == "encdec":
+        p["enc_layers"] = [_init_dense_layer(cfg, gen, device)
+                           for _ in range(cfg.n_encoder_layers)]
+        p["dec_layers"] = [_init_dense_layer(cfg, gen, device, cross=True)
+                           for _ in range(cfg.n_layers)]
+        p["enc_norm"] = _init_norm(cfg, device)
+        p["dec_pos"] = _init((DEC_POS, cfg.d_model), dt, gen, device, 0.01)
+    else:
+        init_layer = (_init_ssm_layer if cfg.family in ("ssm", "hybrid")
+                      else _init_dense_layer)
+        p["layers"] = [layer_fn(init_layer(cfg, gen, device))
+                       for _ in range(cfg.n_layers)]
     if cfg.family == "hybrid":
         # the attention blocks every application shares; their depth
         # scale is the backbone's (n_layers), as in the reference
         p["shared_blocks"] = [layer_fn(_init_dense_layer(cfg, gen, device))
                               for _ in range(max(cfg.n_shared_blocks, 1))]
+    if cfg.frontend:
+        p["frontend_proj"] = _init((cfg.frontend_dim, cfg.d_model), dt, gen,
+                                   device)
     return p
 
 
-def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+def project_frontend(cfg: ModelConfig, params: Params,
+                     frontend_embeds: torch.Tensor) -> torch.Tensor:
+    """Frontend embeddings (B, N, frontend_dim) through ``frontend_proj``
+    in the compute dtype: (B, N, D), still in the compute dtype."""
+    cd = L.cdtype(cfg)
+    return frontend_embeds.to(cd) @ params["frontend_proj"].to(cd)
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+           frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings (B, S, D); a VLM puts its projected patch rows
+    (B, N, D) before them (those rows may be a chunk's slice of the
+    patches, or none)."""
+    x = params["embed"][tokens]
+    if cfg.family == "vlm" and frontend_embeds is not None \
+            and frontend_embeds.shape[1]:
+        vis = project_frontend(cfg, params, frontend_embeds).to(x.dtype)
+        x = torch.cat([vis, x], dim=1)
+    return x
 
 
 def check_remat(cfg: ModelConfig) -> None:
@@ -194,13 +250,24 @@ def _maybe_remat(cfg: ModelConfig, fn):
 
 def dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, *,
-                core: Optional[Callable] = None) -> torch.Tensor:
+                core: Optional[Callable] = None,
+                causal: bool = True) -> torch.Tensor:
     """One pre-norm dense block: attention, then the MLP, each added to
     the residual.  ``core`` is the attention core (``layers.attention``'s:
-    by default the flash kernel, which has no backward)."""
-    h = x + L.attention(cfg, p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
-                        positions, core=core)
-    return h + L.mlp(cfg, p["mlp"], L.rms_norm(p["ln2"], h, cfg.norm_eps))
+    by default the flash kernel, which has no backward); ``causal=False``
+    is the whisper encoder's bidirectional block."""
+    h = x + L.attention(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
+                        positions, core=core, causal=causal)
+    return h + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h))
+
+
+def cross_block_tail(cfg: ModelConfig, p: Params, h: torch.Tensor,
+                     kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """What follows a decoder layer's self-attention: cross-attention over
+    the encoder's K/V ``kv`` (:func:`layers.cross_kv`), then the MLP."""
+    h = h + L.attention(cfg, p["xattn"], L.apply_norm(cfg, p["ln_x"], h),
+                        None, causal=False, kv_override=kv)
+    return h + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h))
 
 
 def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -218,12 +285,59 @@ def _ssm_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
                               L.rms_norm(p["ln"], x, cfg.norm_eps))
 
 
+def encode(cfg: ModelConfig, params: Params,
+           frontend_embeds: torch.Tensor) -> torch.Tensor:
+    """The whisper encoder: frame embeddings (B, S_enc, frontend_dim)
+    through ``frontend_proj``, plus sinusoidal positions, then the
+    bidirectional blocks and ``enc_norm``: (B, S_enc, D)."""
+    enc = project_frontend(cfg, params, frontend_embeds)
+    enc = enc + L.sinusoidal_positions(enc.shape[1], cfg.d_model,
+                                       enc.device).to(enc.dtype)
+    enc = enc.to(L.pdtype(cfg))
+    positions = torch.arange(enc.shape[1], device=enc.device)
+    for lp in params["enc_layers"]:
+        enc = dense_block(cfg, lp, enc, positions, causal=False)
+    return L.apply_norm(cfg, params["enc_norm"], enc)
+
+
+def decoder_embed(params: Params, tokens: torch.Tensor,
+                  lo: int = 0) -> torch.Tensor:
+    """Decoder rows ``[lo, lo+S)``: token embeddings plus the learned
+    positions ``dec_pos[lo:lo+S]``."""
+    x = params["embed"][tokens]
+    return x + params["dec_pos"][lo:lo + x.shape[1]].to(x.dtype)
+
+
+def _forward_encdec_hidden(cfg: ModelConfig, params: Params,
+                           tokens: torch.Tensor,
+                           frontend_embeds: Optional[torch.Tensor]
+                           ) -> torch.Tensor:
+    """Encoder once, then the decoder: causal self-attention (no rope),
+    cross-attention over each layer's K/V of the encoder output, MLP."""
+    if frontend_embeds is None:
+        raise ValueError(f"{cfg.name} needs frame embeddings")
+    enc = encode(cfg, params, frontend_embeds)
+    x = decoder_embed(params, tokens)
+    dpos = torch.arange(x.shape[1], device=x.device)
+    for lp in params["dec_layers"]:
+        h = x + L.attention(cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x),
+                            dpos)
+        x = cross_block_tail(cfg, lp, h, L.cross_kv(cfg, lp["xattn"], enc))
+    return L.apply_norm(cfg, params["final_norm"], x)
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    positions: Optional[torch.Tensor] = None, *,
-                   runner: Optional[Callable] = None) -> torch.Tensor:
-    """tokens (B, S) → final-norm hidden (B, S, D).
+                   runner: Optional[Callable] = None,
+                   frontend_embeds: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """tokens (B, S) → final-norm hidden (B, S, D); a VLM's hidden holds
+    its ``frontend_tokens`` patch rows first (B, N + S, D), and the
+    encoder-decoder's is the decoder's, the encoder run over
+    ``frontend_embeds`` (its frames).
 
-    ``positions`` (default ``arange(S)``) is what the blocks rope with.
+    ``positions`` (default ``arange`` over the rows) is what the blocks
+    rope with.
     A block runner (``runner(cfg, layer_params, x, positions)``, training)
     runs each dense block in place of :func:`dense_block`.  With the TP
     runner ``tokens`` is this rank's sequence shard and ``positions``
@@ -235,7 +349,11 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     application a dense block over its shared parameters (autograd sums a
     shared block's gradient over its applications)."""
     _check_ported(cfg)
-    x = _embed(params, tokens)
+    if cfg.family == "encdec":
+        return _forward_encdec_hidden(cfg, params, tokens, frontend_embeds)
+    if cfg.family == "vlm" and frontend_embeds is None:
+        raise ValueError(f"{cfg.name} needs patch embeddings")
+    x = _embed(cfg, params, tokens, frontend_embeds)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     ssm = _maybe_remat(cfg, lambda h, lp: _ssm_block(cfg, lp, h))
@@ -252,11 +370,14 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return L.rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 
-def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None, *,
             runner: Optional[Callable] = None) -> torch.Tensor:
-    """tokens (B, S) → fp32 logits (B, S, V)."""
+    """tokens (B, S) → fp32 logits (B, S, V) (a VLM's: (B, N + S, V), its
+    patch rows first)."""
     return _lm_logits(cfg, params,
-                      forward_hidden(cfg, params, tokens, runner=runner))
+                      forward_hidden(cfg, params, tokens, runner=runner,
+                                     frontend_embeds=frontend_embeds))
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -264,7 +385,9 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             runner: Optional[Callable] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's ``loss_fn`` over full logits: batch tokens (B, S),
-    labels (B, S) with -1 = masked.  Returns (total, metrics) with the
+    labels (B, S) with -1 = masked, and a frontend arch's
+    ``frontend_embeds`` (a VLM's logits over its patch rows are dropped).
+    Returns (total, metrics) with the
     masked mean cross-entropy ``ce``, ``z_loss`` (``z_loss`` × the masked
     mean of logsumexp²), ``moe_aux`` (0: no ported family routes experts)
     and the ``tokens`` counted.  ``runner`` is :func:`forward_hidden`'s:
@@ -272,8 +395,10 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     (``dist.steps`` builds it), since the default attention is the
     forward-only flash kernel; an ssm model needs none.  The training
     step streams the head instead (``dist/loss.py``)."""
-    logits = forward(cfg, params, batch["tokens"], runner=runner)
+    logits = forward(cfg, params, batch["tokens"],
+                     batch.get("frontend_embeds"), runner=runner)
     labels = batch["labels"]
+    logits = logits[:, logits.shape[1] - labels.shape[1]:]
     mask = (labels >= 0).float()
     safe = labels.clamp_min(0)
     lse = torch.logsumexp(logits, dim=-1)
@@ -314,11 +439,14 @@ def count_params(params: Any) -> int:
 
 def count_params_analytic(cfg: ModelConfig) -> int:
     """Scalars in ``init_params(cfg)`` from the config alone: the dense
-    GQA, ``ssm`` and ``hybrid`` terms of
+    GQA, ``vlm``, ``encdec``, ``ssm`` and ``hybrid`` terms of
     ``repro.models.model.count_params_analytic``."""
     _check_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
-    total = v * d + d + (0 if cfg.tie_embeddings else d * v)
+    norm = 2 * d if cfg.family == "encdec" else d     # LayerNorm's bias
+    total = v * d + norm + (0 if cfg.tie_embeddings else d * v)
+    if cfg.frontend:
+        total += cfg.frontend_dim * d
     d_in = cfg.ssm_heads * cfg.ssm_head_dim
     conv_ch = d_in + 2 * cfg.ssm_groups * cfg.ssm_state
     proj_out = 2 * d_in + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads
@@ -329,7 +457,13 @@ def count_params_analytic(cfg: ModelConfig) -> int:
     hd = cfg.resolved_head_dim
     attn = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
             + cfg.n_heads * hd * d)
-    dense = attn + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff + 2 * d
+    mlp = (3 if cfg.gated_mlp else 2) * d * cfg.d_ff
+    if cfg.family == "encdec":
+        enc = attn + mlp + 2 * norm
+        dec = 2 * attn + mlp + 3 * norm
+        return (total + cfg.n_encoder_layers * enc + cfg.n_layers * dec
+                + norm + DEC_POS * d)
+    dense = attn + mlp + 2 * d
     if cfg.family == "hybrid":
         return (total + cfg.n_layers * ssm
                 + max(cfg.n_shared_blocks, 1) * dense)

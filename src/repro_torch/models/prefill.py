@@ -1,7 +1,7 @@
 """Prefill into the decode cache: bulk, chunked, and to paged blocks.
 
-The counterpart of the GQA ``ring``, SSM ``state`` and ``hybrid`` carries
-of ``repro.models.prefill``.
+The counterpart of the GQA ``ring`` (dense and vlm), SSM ``state``,
+``hybrid`` and ``encdec`` carries of ``repro.models.prefill``.
 Ring fill: the cache keeps the last ``sb`` positions, position ``p`` at
 slot ``p % sb``; for a prompt shorter than ``sb`` the tail slots stay empty
 (``slot_pos = −1``).
@@ -25,6 +25,20 @@ every Mamba-2 layer, and a full-length K/V scratch a shared application
 (each application attends against its own rows, through the flash kernel
 at ``q_offset = lo`` as the dense family does), ring-filled into the
 application's cache at the end.
+
+A VLM's prompt is its ``frontend_tokens`` projected patch rows, then its
+text: the patches take positions ``0 … N−1`` of the same ring (rope, the
+scratch rows and ``slot_pos`` count them), and a chunk's rows ``[lo, hi)``
+of that sequence carry the patches and tokens that fall in them.
+
+The ``encdec`` carry (whisper): bulk prefill and chunk 0 run the encoder
+once over the request's frames and keep each decoder layer's cross K/V
+(``cross_k``/``cross_v``, ``encoder_seq`` rows, never a ring); later
+chunks attend against them.  The decoder's self-attention K/V stream like
+the ``ring`` kind, without rope (positions are the learned ``dec_pos``
+rows added to the embeddings).  Both the encoder's bidirectional
+attention and the cross-attention run through the flash kernel
+unmasked.
 """
 
 from __future__ import annotations
@@ -39,6 +53,9 @@ from repro_torch.models.decode import kv_buf_len, kv_stacks, ssm_cache
 from repro_torch.models.model import (
     _embed,
     _lm_logits,
+    cross_block_tail,
+    decoder_embed,
+    encode,
     hybrid_order,
     shared_block,
 )
@@ -151,12 +168,47 @@ def _prefill_hybrid(cfg: ModelConfig, params: Params, x: torch.Tensor,
                "slot_pos": slot_pos}
 
 
-def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+def _prefill_encdec(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                    frontend_embeds: torch.Tensor, sb: int):
+    """The encoder once, then every decoder layer keeping its self K/V
+    (ring-filled) and its cross K/V of the encoder output."""
+    dt = L.pdtype(cfg)
+    enc = encode(cfg, params, frontend_embeds)
+    x = decoder_embed(params, tokens)
+    dpos = torch.arange(x.shape[1], device=x.device)
+    ks, vs, xks, xvs = [], [], [], []
+    for lp in params["dec_layers"]:
+        a, (k, v) = L.attention(cfg, lp["attn"],
+                                L.apply_norm(cfg, lp["ln1"], x), dpos,
+                                return_kv=True)
+        kv = L.cross_kv(cfg, lp["xattn"], enc)
+        x = cross_block_tail(cfg, lp, x + a, kv)
+        ks.append(_ring_fill(k, sb, seq_axis=2).to(dt))
+        vs.append(_ring_fill(v, sb, seq_axis=2).to(dt))
+        xks.append(kv[0].to(dt))
+        xvs.append(kv[1].to(dt))
+    slot_pos, _ = _slot_map(x.shape[1], sb, x.device)
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs),
+               "cross_k": torch.stack(xks), "cross_v": torch.stack(xvs),
+               "slot_pos": slot_pos}
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None, *,
             cache_len: Optional[int] = None) -> Tuple[Cache, torch.Tensor]:
     """Run the prompt (B, S), build the decode cache, return next-token
-    logits (B, V).  ``cache_len``: ring capacity (default: prompt length;
-    the SSM cache has none)."""
-    x = _embed(params, tokens)
+    logits (B, V).  ``frontend_embeds``: a VLM's patches (B, N,
+    frontend_dim), which take the first N rows, or the encoder-decoder's
+    frames (B, S_enc, frontend_dim).  ``cache_len``: ring capacity
+    (default: the rows prefilled; the SSM cache has none)."""
+    if cfg.family == "encdec":
+        sb = kv_buf_len(cfg, cache_len or tokens.shape[1])
+        x, cache = _prefill_encdec(cfg, params, tokens, frontend_embeds, sb)
+        return (_finish_cache(cache, tokens.shape[0], tokens.shape[1],
+                              x.device), _chunk_logits(cfg, params, x))
+    if cfg.family == "vlm" and frontend_embeds is None:
+        raise ValueError(f"{cfg.name} needs patch embeddings")
+    x = _embed(cfg, params, tokens, frontend_embeds)
     s_total = x.shape[1]
     if cfg.family == "ssm":
         x, pairs = _ssm_stack(cfg, params, x)
@@ -190,14 +242,39 @@ def _finish_cache(cache: Cache, batch: int, s_total: int, device) -> Cache:
 def chunk_support(cfg: ModelConfig) -> Tuple[bool, str]:
     """Whether streamed prefill can run, with the reason if not.  The
     flash kernel takes ``q_offset``, so the ported ``ring`` carry of the
-    dense family and the ``hybrid`` carry always chunk, and the SSM
-    ``state`` carry has no attention; the other carry kinds are not
-    ported yet."""
+    dense and vlm families, the ``hybrid`` carry and the ``encdec`` carry
+    always chunk, and the SSM ``state`` carry has no attention; the other
+    carry kinds (MLA's ``latent``, MoE's ring) are not ported yet."""
     kind = chunk_carry_spec(cfg).kind
-    if (kind, cfg.family) not in (("ring", "dense"), ("state", "ssm"),
-                                  ("hybrid", "hybrid")):
+    if (kind, cfg.family) not in (("ring", "dense"), ("ring", "vlm"),
+                                  ("state", "ssm"), ("hybrid", "hybrid"),
+                                  ("encdec", "encdec")):
         return False, f"the {kind!r} chunk carry of {cfg.family} is not ported"
     return True, ""
+
+
+def prefill_rows(cfg: ModelConfig, n_tokens: int) -> int:
+    """Prefill rows of an ``n_tokens``-token prompt: a VLM's patch rows
+    come before its text in the same sequence; the encoder-decoder's
+    frames feed the encoder, not the decoder's rows."""
+    if cfg.frontend and cfg.family != "encdec":
+        return n_tokens + cfg.frontend_tokens
+    return n_tokens
+
+
+def chunk_rows(cfg: ModelConfig, lo: int, hi: int
+               ) -> Tuple[slice, Optional[slice]]:
+    """Which token rows and which frontend rows prefill rows ``[lo, hi)``
+    take: a VLM's patches are rows ``[0, N)`` and its text the rest; the
+    encoder-decoder's rows are its tokens, and its frames go whole with
+    chunk 0.  Returns (token slice, frontend slice or None)."""
+    if cfg.family == "encdec":
+        return slice(lo, hi), (slice(None) if lo == 0 else None)
+    if cfg.frontend:
+        n = cfg.frontend_tokens
+        return (slice(max(0, lo - n), max(0, hi - n)),
+                slice(lo, min(hi, n)) if lo < n else None)
+    return slice(lo, hi), None
 
 
 def prefill_chunk_cuts(s_total: int, chunk_len: Optional[int] = None,
@@ -227,7 +304,9 @@ def init_prefill_scratch(cfg: ModelConfig, batch: int, prompt_len: int,
     conv tail (compute dtype), ``prompt_len`` unused; for the ``hybrid``
     kind both: the state pair of every layer and a K/V scratch
     (n_apps, B, Hkv, S, hd) a shared application, named ``attn_k`` and
-    ``attn_v``."""
+    ``attn_v``; for the ``encdec`` kind the decoder's K/V scratch and the
+    cross K/V (L, B, Hkv, encoder_seq, hd) chunk 0 fills.  A VLM's
+    ``prompt_len`` counts its patch rows."""
     ok, why = chunk_support(cfg)
     if not ok:
         raise ValueError(f"{cfg.name}: {why}")
@@ -241,6 +320,10 @@ def init_prefill_scratch(cfg: ModelConfig, batch: int, prompt_len: int,
             return {**carry, **pos}
     names, depth = kv_stacks(cfg)
     shape = (depth, batch, cfg.n_kv_heads, prompt_len, cfg.resolved_head_dim)
+    if cfg.family == "encdec":
+        xshape = shape[:3] + (cfg.encoder_seq, shape[4])
+        carry = {n: torch.zeros(xshape, dtype=cd, device=device)
+                 for n in ("cross_k", "cross_v")}
     return {**carry, **{n: torch.zeros(shape, dtype=cd, device=device)
                         for n in names}, **pos}
 
@@ -265,23 +348,57 @@ def _chunk_dense_layer(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                        kbuf: torch.Tensor, vbuf: torch.Tensor,
                        lo: int) -> torch.Tensor:
     """One dense block over chunk rows, its K/V scratch written in place."""
-    normed = L.rms_norm(lp["ln1"], h, cfg.norm_eps)
+    normed = L.apply_norm(cfg, lp["ln1"], h)
     h = h + _chunk_attention(cfg, lp["attn"], normed, kbuf, vbuf, lo)
-    return h + L.mlp(cfg, lp["mlp"], L.rms_norm(lp["ln2"], h, cfg.norm_eps))
+    return h + L.mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], h))
+
+
+def _chunk_encdec(cfg: ModelConfig, params: Params, scratch: Cache,
+                  tokens: torch.Tensor, lo: int,
+                  frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Decoder rows ``[lo, lo+C)`` of an encoder-decoder.  Chunk 0 runs
+    the encoder over the frames and writes every layer's cross K/V into
+    the scratch; later chunks attend against those rows."""
+    enc = None
+    if lo == 0:
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name}: chunk 0 needs the frames")
+        enc = encode(cfg, params, frontend_embeds)
+    h = decoder_embed(params, tokens, lo)
+    for li, lp in enumerate(params["dec_layers"]):
+        normed = L.apply_norm(cfg, lp["ln1"], h)
+        h = h + _chunk_attention(cfg, lp["attn"], normed, scratch["k"][li],
+                                 scratch["v"][li], lo)
+        if enc is not None:
+            k1, v1 = L.cross_kv(cfg, lp["xattn"], enc)
+            scratch["cross_k"][li] = k1
+            scratch["cross_v"][li] = v1
+        h = cross_block_tail(cfg, lp, h, (scratch["cross_k"][li],
+                                          scratch["cross_v"][li]))
+    return h
 
 
 def _chunk_logits(cfg: ModelConfig, params: Params,
                   h: torch.Tensor) -> torch.Tensor:
-    x = L.rms_norm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
+    x = L.apply_norm(cfg, params["final_norm"], h[:, -1:, :])
     return _lm_logits(cfg, params, x)[:, 0]
 
 
 def prefill_chunk(cfg: ModelConfig, params: Params, scratch: Cache,
-                  tokens: torch.Tensor, lo: int) -> Tuple[Cache, torch.Tensor]:
-    """One incremental prefill chunk: ``tokens`` (B, C) are the prompt rows
-    ``[lo, lo+C)``.  Updates ``scratch`` in place; returns it and the
-    chunk's next-token logits (meaningful after the final chunk)."""
-    h = _embed(params, tokens)
+                  tokens: torch.Tensor, lo: int,
+                  frontend_embeds: Optional[torch.Tensor] = None
+                  ) -> Tuple[Cache, torch.Tensor]:
+    """One incremental prefill chunk over rows ``[lo, hi)`` of the prompt:
+    ``tokens`` (B, C) are its token rows and ``frontend_embeds`` a VLM's
+    patch rows that fall in it (they come first; either may be empty), or
+    the encoder-decoder's whole frames on chunk 0 (its rows are its
+    ``tokens``).  Updates ``scratch`` in place; returns it and the chunk's
+    next-token logits (meaningful after the final chunk)."""
+    if cfg.family == "encdec":
+        h = _chunk_encdec(cfg, params, scratch, tokens, lo, frontend_embeds)
+        scratch["pos"] = torch.full_like(scratch["pos"], lo + h.shape[1])
+        return scratch, _chunk_logits(cfg, params, h)
+    h = _embed(cfg, params, tokens, frontend_embeds)
     if cfg.family == "ssm":
         h, _ = _ssm_stack(cfg, params, h, scratch["ssm_state"],
                           scratch["conv_state"])
@@ -298,7 +415,7 @@ def prefill_chunk(cfg: ModelConfig, params: Params, scratch: Cache,
         for li, lp in enumerate(params["layers"]):
             h = _chunk_dense_layer(cfg, lp, h, scratch["k"][li],
                                    scratch["v"][li], lo)
-    scratch["pos"] = torch.full_like(scratch["pos"], lo + tokens.shape[1])
+    scratch["pos"] = torch.full_like(scratch["pos"], lo + h.shape[1])
     return scratch, _chunk_logits(cfg, params, h)
 
 
@@ -307,9 +424,12 @@ def scratch_to_cache(cfg: ModelConfig, scratch: Cache,
     """A completed prefill scratch → the decode-cache layout of
     :func:`prefill` (ring fill, cast to the param dtype).  The ``state``
     carry already is the cache; the ``hybrid`` carry keeps its state pairs
-    and ring-fills its applications' K/V."""
+    and ring-fills its applications' K/V; the ``encdec`` carry keeps its
+    cross K/V as they are."""
     dt = L.pdtype(cfg)
     cache = {}
+    if cfg.family == "encdec":
+        cache = {n: scratch[n].to(dt) for n in ("cross_k", "cross_v")}
     if cfg.family in ("ssm", "hybrid"):
         cache = {"ssm_state": scratch["ssm_state"],
                  "conv_state": scratch["conv_state"].to(dt)}

@@ -11,7 +11,7 @@ The counterpart of ``repro.runtime.server`` on one device:
   it.  Chunks round up to the carry's ``chunk_multiple`` (``ssm_chunk``
   for the SSM and the hybrid).  The finished carry becomes a
   single-request cache written into its batch row (contiguous) or into
-  pool blocks (paged, dense only).  ``prefill_chunk`` of
+  pool blocks (paged: dense and vlm).  ``prefill_chunk`` of
   ``None``/0 admits with one bulk prefill per request instead.
 * **Decode** runs one batched step per server step; every cache row
   advances at its own position, argmax runs on the device and the server
@@ -54,11 +54,13 @@ from repro_torch.models.decode import (
 )
 from repro_torch.models.prefill import (
     cache_to_blocks,
+    chunk_rows,
     chunk_support,
     init_prefill_scratch,
     prefill,
     prefill_chunk,
     prefill_chunk_cuts,
+    prefill_rows,
     scratch_to_blocks,
     scratch_to_cache,
     seed_scratch_from_blocks,
@@ -202,6 +204,7 @@ class ServerConfig:
 class Request:
     rid: int
     prompt: np.ndarray             # (S,) int32
+    frontend_embeds: Optional[np.ndarray] = None   # frontend archs, fp32
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     submitted: float = 0.0
     first_token: Optional[float] = None
@@ -282,14 +285,35 @@ class Server:
 
     # -- request intake -------------------------------------------------------
 
-    def submit(self, prompt: np.ndarray) -> int:
+    def submit(self, prompt: np.ndarray,
+               frontend_embeds: Optional[np.ndarray] = None) -> int:
+        """Queue a prompt; a frontend arch's request also takes its
+        embeddings (``frontend_tokens`` × ``frontend_dim``)."""
+        cfg = self.cfg
         prompt = np.asarray(prompt, np.int32)
-        if prompt.ndim != 1 or not 0 < prompt.size <= self.srv.max_seq:
+        if prompt.ndim != 1 or prompt.size == 0 \
+                or prefill_rows(cfg, prompt.size) > self.srv.max_seq:
             raise ValueError(f"prompt shape {prompt.shape} outside "
-                             f"(1..{self.srv.max_seq},)")
+                             f"(1..{self.srv.max_seq - prefill_rows(cfg, 0)}"
+                             f",)")
+        if cfg.family == "encdec" and prompt.size > cfg.decoder_max_seq:
+            raise ValueError(f"prompt of {prompt.size} tokens > the "
+                             f"decoder's {cfg.decoder_max_seq}")
+        if cfg.frontend:
+            if frontend_embeds is None:
+                raise ValueError(
+                    f"{cfg.name} requires frontend embeddings per request")
+            frontend_embeds = np.asarray(frontend_embeds, np.float32)
+            want = (cfg.frontend_tokens, cfg.frontend_dim)
+            if frontend_embeds.shape != want:
+                raise ValueError(f"frontend embeddings "
+                                 f"{frontend_embeds.shape}, expected {want}")
+        elif frontend_embeds is not None:
+            raise ValueError(f"{cfg.name} takes no frontend embeddings")
         rid = len(self.queue) + len(self.done) + sum(s is not None
                                                      for s in self.slots)
         self.queue.append(Request(rid=rid, prompt=prompt,
+                                  frontend_embeds=frontend_embeds,
                                   submitted=time.perf_counter()))
         return rid
 
@@ -305,8 +329,8 @@ class Server:
                 req.phase = "prefill"
                 req._cursor = 0
                 if self._chunkable:
-                    s = int(req.prompt.size)
-                    req._scratch = init_prefill_scratch(self.cfg, 1, s,
+                    se = prefill_rows(self.cfg, int(req.prompt.size))
+                    req._scratch = init_prefill_scratch(self.cfg, 1, se,
                                                         self.device)
                     if self._paged and req._shared:
                         bids = torch.as_tensor(req._blocks[:req._shared],
@@ -322,9 +346,11 @@ class Server:
 
     def _share_ok(self, s: int) -> bool:
         """Whether a prompt of length ``s`` may alias prefix-cache blocks:
-        decode must be provably unable to ring-wrap into shared blocks."""
+        decode must be provably unable to ring-wrap into shared blocks, and
+        the arch has no frontend (the key is the prompt's tokens alone,
+        which do not say what patches came before them)."""
         return (self._paged and self.srv.prefix_cache and self._chunkable
-                and self.cfg.window is None
+                and self.cfg.window is None and not self.cfg.frontend
                 and s + self.srv.max_new_tokens <= self._sb)
 
     def _m_max(self, s: int) -> int:
@@ -399,19 +425,25 @@ class Server:
             return
         t0 = time.perf_counter()
         _, i, req = min(pending)
+        cfg = self.cfg
         s = int(req.prompt.size)
         toks = torch.as_tensor(req.prompt[None, :], dtype=torch.long,
                                device=self.device)
         self.prefill_chunks += 1
 
+        def frontend(rows=slice(None)):
+            return torch.as_tensor(req.frontend_embeds[None, rows],
+                                   device=self.device)
+
         if not self._chunkable:
-            cache1, logits = prefill(self.cfg, self.params, toks,
-                                     cache_len=self.srv.max_seq)
-            self._prefill_tokens += s
+            cache1, logits = prefill(
+                cfg, self.params, toks,
+                frontend() if cfg.frontend else None,
+                cache_len=self.srv.max_seq)
+            self._prefill_tokens += prefill_rows(cfg, s)
             if self._paged:
                 self._install_paged(i, req,
-                                    cache_to_blocks(self.cfg, cache1,
-                                                    self._blk))
+                                    cache_to_blocks(cfg, cache1, self._blk))
             else:
                 slot_write(self.cache, cache1, i)
             self._sync()
@@ -419,10 +451,13 @@ class Server:
             self._emit_first_token(i, req, logits)
             return
 
-        cuts = prefill_chunk_cuts(s, chunk_len=self._eff_chunk)
+        cuts = prefill_chunk_cuts(prefill_rows(cfg, s),
+                                  chunk_len=self._eff_chunk)
         lo, hi = cuts[req._cursor]
-        req._scratch, logits = prefill_chunk(self.cfg, self.params,
-                                             req._scratch, toks[:, lo:hi], lo)
+        rows, fe_rows = chunk_rows(cfg, lo, hi)
+        req._scratch, logits = prefill_chunk(
+            cfg, self.params, req._scratch, toks[:, rows], lo,
+            None if fe_rows is None else frontend(fe_rows))
         self._prefill_tokens += hi - lo
         req._cursor += 1
         if req._cursor < len(cuts):
@@ -430,12 +465,12 @@ class Server:
             self._prefill_s += time.perf_counter() - t0
             return                          # more chunks; decode proceeds
         if self._paged:
-            blocks = scratch_to_blocks(self.cfg, req._scratch, self._blk,
+            blocks = scratch_to_blocks(cfg, req._scratch, self._blk,
                                        cache_len=self.srv.max_seq)
             self._install_paged(i, req, blocks)
         else:
             slot_write(self.cache, scratch_to_cache(
-                self.cfg, req._scratch, cache_len=self.srv.max_seq), i)
+                cfg, req._scratch, cache_len=self.srv.max_seq), i)
         req._scratch = None
         self._sync()
         self._prefill_s += time.perf_counter() - t0
@@ -551,10 +586,17 @@ class Server:
 def drive_arrivals(server: Server, prompts, every: int,
                    max_steps: int = 10_000) -> int:
     """Run ``server`` under synthetic arrivals: one prompt up front, one
-    more every ``every`` scheduler ticks, until the queue drains.  Returns
-    the tick count."""
+    more every ``every`` scheduler ticks, until the queue drains.  Each
+    item is a prompt, or a ``(prompt, frontend_embeds)`` pair for a
+    frontend arch.  Returns the tick count."""
+    def submit(item):
+        if isinstance(item, tuple):
+            server.submit(*item)
+        else:
+            server.submit(item)
+
     pending = list(prompts)
-    server.submit(pending.pop(0))
+    submit(pending.pop(0))
     steps = 0
     while ((pending or server.queue
             or any(s is not None for s in server.slots))
@@ -562,5 +604,5 @@ def drive_arrivals(server: Server, prompts, every: int,
         server.step()
         steps += 1
         if pending and steps % max(1, every) == 0:
-            server.submit(pending.pop(0))
+            submit(pending.pop(0))
     return steps

@@ -22,7 +22,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("name", ["smollm-360m", "h2o-danube-1.8b",
-                                  "mamba2-2.7b", "zamba2-7b"])
+                                  "mamba2-2.7b", "zamba2-7b",
+                                  "internvl2-2b", "whisper-tiny",
+                                  "nemotron-4-340b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_equal_reference(name, reduced):
     ours, ref = get_config(name), ref_get_config(name)
@@ -38,9 +40,10 @@ def test_config_fields_equal_reference(name, reduced):
 
 def test_registry_names_and_unknown_arch():
     assert set(ARCH_NAMES) == {"smollm-360m", "h2o-danube-1.8b",
-                               "mamba2-2.7b", "zamba2-7b"}
+                               "mamba2-2.7b", "zamba2-7b", "internvl2-2b",
+                               "whisper-tiny", "nemotron-4-340b"}
     with pytest.raises(KeyError):
-        get_config("whisper-tiny")
+        get_config("minicpm3-4b")
 
 
 def test_package_imports_no_jax_and_no_reference():
@@ -130,8 +133,10 @@ def test_tp_presets_equal_reference():
     assert dataclasses.asdict(ours.config) == dataclasses.asdict(ref.config)
     assert isinstance(ours.step, StepConfig)
     assert ours.step.transport.tp == ref.step.transport.tp == "fused"
-    with pytest.raises(KeyError):        # not a port config yet
-        get_tp_preset("nemotron-4-340b-tp")
+    ours, ref = get_tp_preset("nemotron-4-340b-tp"), \
+        ref_get_tp_preset("nemotron-4-340b-tp")
+    assert dataclasses.asdict(ours.config) == dataclasses.asdict(ref.config)
+    assert (ours.tp_axis, ours.step.transport.tp) == (8, "fused")
     with pytest.raises(KeyError):
         get_tp_preset("smollm-360m-tp")
 

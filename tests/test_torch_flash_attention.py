@@ -27,6 +27,7 @@ from repro_torch.kernels.flash_attention import (
     kv_split_plan,
     split_ranges,
 )
+from repro_torch.kernels.flash_attention import flash_attention as port_flash
 from repro_torch.kernels.flash_attention.ops import BLOCK_KV, BLOCK_Q
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -104,6 +105,28 @@ def test_rows_that_see_nothing_are_zero():
     q, k, v = _qkv(1, 2, 2, 4, 8, 16, seed=4)
     out = _plain(q, k, v, causal=False, window=2, q_offset=20)
     np.testing.assert_array_equal(out, np.zeros_like(out))
+
+
+@pytest.mark.parametrize("sq", [20, 37])
+def test_unmasked_call_takes_any_q_offset(sq):
+    """No causal mask and no window (the whisper encoder, and a decoder's
+    cross-attention over 16 encoder rows): more q rows than k/v rows, so
+    the default offset Skv − Sq is negative, and the call matches the
+    reference's blockwise attention.  Under a causal mask or a window a
+    negative offset raises, on the CPU as on the card."""
+    q, k, v = _qkv(1, 6, 2, sq, 16, 16, seed=8)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    ref = np.asarray(blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+        q_chunk=4, kv_chunk=8))
+    np.testing.assert_allclose(port_flash(tq, tk, tv, causal=False).numpy(),
+                               ref, **TOL)
+    np.testing.assert_array_equal(
+        port_flash(tq, tk, tv, causal=False, q_offset=-3).numpy(),
+        port_flash(tq, tk, tv, causal=False, q_offset=5).numpy())
+    for kw in (dict(causal=True), dict(causal=False, window=4)):
+        with pytest.raises(ValueError, match="q_offset"):
+            port_flash(tq, tk, tv, **kw)
 
 
 def test_bf16_out_in_q_dtype():

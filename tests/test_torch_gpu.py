@@ -90,9 +90,14 @@ def _split_rel_err(got, q, k, v, **kw):
         kv_split_plan,
     )
 
+    from repro_torch.kernels.flash_attention.ops import resolve_q_offset
+
     sq, skv = q.shape[2], k.shape[2]
-    off = skv - sq if kw.get("q_offset") is None else kw["q_offset"]
-    plan = kv_split_plan(sq, skv, off, True, kw.get("window"), q.shape[1])
+    causal = kw.get("causal", True)
+    off = resolve_q_offset(sq, skv, kw.get("q_offset"), causal,
+                           kw.get("window"))
+    plan = kv_split_plan(sq, skv, off, causal, kw.get("window"), q.shape[1])
+    kw = dict(kw, q_offset=off)
     errs = []
     for want in (attention_plain(q, k, v, **kw),
                  attention_split_plain(q, k, v, plan, **kw)):
@@ -161,6 +166,40 @@ def test_bf16_model_views_match_split_plain(cuda, d, lo):
     assert max(errs) <= BF16_SPLIT_REL, errs
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,sq,skv,d,causal,q_offset", [
+    (6, 6, 1500, 1500, 64, False, None),   # whisper's encoder
+    (6, 6, 1, 1500, 64, False, None),      # cross-attention, one row
+    (6, 6, 37, 1500, 64, False, None),     # a ragged decoder chunk
+    (6, 6, 448, 1500, 64, False, None),    # the whole decoder prompt
+    (6, 6, 1600, 1500, 64, False, None),   # more q rows than k/v rows
+    (16, 8, 384, 384, 128, True, None),    # internvl2 bulk
+    (16, 8, 128, 640, 128, True, 256),     # internvl2 chunk
+])
+def test_frontend_shapes_match_plain(cuda, dtype, hq, hkv, sq, skv, d,
+                                     causal, q_offset):
+    """The whisper and internvl2 shapes: non-causal over 1500 rows (the
+    ragged tile 1500 = 23 × 64 + 28 hidden only by the column bound), the
+    cross shapes whose few q rows the bf16 kernel splits over kv, and
+    causal D 128 at 16/8 heads.  fp32 at 2e-4; bf16 to the plain and the
+    split-and-merge plain versions at BF16_SPLIT_REL."""
+    q, k, v = _qkv((1, hq, sq, d), (1, hkv, skv, d), dtype, cuda,
+                   seed=sq + skv + d)
+    kw = dict(causal=causal, q_offset=q_offset)
+    before = FLASH.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FLASH.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        err = (got - attention_plain(q, k, v, **kw)).abs().max().item()
+        assert err <= TOL[dtype], err
+    else:
+        errs = _split_rel_err(got, q, k, v, **kw)
+        assert max(errs) <= BF16_SPLIT_REL, errs
+
+
 def test_wrapper_rejects(cuda):
     q = torch.randn(1, 2, 8, 64, device=cuda)
     with pytest.raises(TypeError):
@@ -182,6 +221,9 @@ def test_wrapper_rejects(cuda):
     wide = torch.randn(1, 2, 8, 68, device=cuda).bfloat16()[..., :64]
     with pytest.raises(ValueError):               # row stride 136 bytes
         flash_attention(wide, wide, wide)
+    long_q = torch.randn(1, 2, 12, 64, device=cuda)
+    with pytest.raises(ValueError, match="q_offset"):  # causal, Sq > Skv
+        flash_attention(long_q, q, q)
     assert FLASH.launches == before
 
 
@@ -1135,3 +1177,98 @@ def test_unmapped_heap_on_a_peer_group_raises(cuda):
             pool.run(rank_tasks.pgas_program, 16, [],
                      [("put", np.ones((2, 4), np.float32), 0, [(0, 1)])],
                      device="cuda")
+
+
+def test_reduced_vlm_on_card_matches_cpu(cuda):
+    """Reduced internvl2-2b in fp32: bulk prefill over 8 patch rows and 29
+    tokens, the same rows in chunks cut inside the patches, and two
+    decode steps, through the flash kernel on the card (n_layers launches
+    a pass or chunk) against the plain version on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.decode import decode_step
+    from repro_torch.models.model import init_params, params_to
+    from repro_torch.models.prefill import (
+        init_prefill_scratch,
+        prefill,
+        prefill_chunk,
+    )
+
+    cfg = get_config("internvl2-2b").reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    on_card = params_to(params, cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         size=(2, 29))).long()
+    fe = torch.from_numpy(rng.standard_normal(
+        (2, cfg.frontend_tokens, cfg.frontend_dim), dtype=np.float32))
+    c_cpu, l_cpu = prefill(cfg, params, toks, fe, cache_len=64)
+    before = FLASH.launches
+    c_gpu, l_gpu = prefill(cfg, on_card, toks.to(cuda), fe.to(cuda),
+                           cache_len=64)
+    assert FLASH.launches == before + cfg.n_layers
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(c_gpu["k"].cpu(), c_cpu["k"], rtol=1e-4,
+                               atol=1e-4)
+    n, s = cfg.frontend_tokens, cfg.frontend_tokens + 29
+    scr = init_prefill_scratch(cfg, 2, s, cuda)
+    for lo, hi in ((0, 5), (5, 20), (20, s)):
+        before = FLASH.launches
+        scr, l_chunk = prefill_chunk(
+            cfg, on_card, scr, toks[:, max(0, lo - n):max(0, hi - n)].to(cuda), lo,
+            fe[:, lo:min(hi, n)].to(cuda) if lo < n else None)
+        assert FLASH.launches == before + cfg.n_layers
+    torch.testing.assert_close(l_chunk.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+    step = torch.tensor([3, 7])
+    for _ in range(2):
+        c_cpu, d_cpu = decode_step(cfg, params, c_cpu, step)
+        c_gpu, d_gpu = decode_step(cfg, on_card, c_gpu, step.to(cuda))
+        torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=1e-4, atol=1e-4)
+
+
+def test_reduced_encdec_on_card_matches_cpu(cuda):
+    """Reduced whisper-tiny in fp32: bulk prefill of 20 decoder tokens
+    over 16 frames (the encoder's, the decoder's self- and its
+    cross-attention through the flash kernel: n_encoder_layers + 2 ×
+    n_layers launches), chunked prefill (the encoder on chunk 0 only), and
+    two decode steps (no kernel), on the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.decode import decode_step
+    from repro_torch.models.model import init_params, params_to
+    from repro_torch.models.prefill import (
+        init_prefill_scratch,
+        prefill,
+        prefill_chunk,
+    )
+
+    cfg = get_config("whisper-tiny").reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    on_card = params_to(params, cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         size=(2, 20))).long()
+    fe = torch.from_numpy(rng.standard_normal(
+        (2, cfg.frontend_tokens, cfg.frontend_dim), dtype=np.float32))
+    c_cpu, l_cpu = prefill(cfg, params, toks, fe, cache_len=32)
+    before = FLASH.launches
+    c_gpu, l_gpu = prefill(cfg, on_card, toks.to(cuda), fe.to(cuda),
+                           cache_len=32)
+    assert FLASH.launches == before + cfg.n_encoder_layers + 2 * cfg.n_layers
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+    for key in ("k", "cross_k", "cross_v"):
+        torch.testing.assert_close(c_gpu[key].cpu(), c_cpu[key], rtol=1e-4,
+                                   atol=1e-4)
+    scr = init_prefill_scratch(cfg, 2, 20, cuda)
+    for lo, hi in ((0, 3), (3, 20)):
+        before = FLASH.launches
+        scr, l_chunk = prefill_chunk(cfg, on_card, scr, toks[:, lo:hi].to(
+            cuda), lo, fe.to(cuda) if lo == 0 else None)
+        assert FLASH.launches == before + 2 * cfg.n_layers + (
+            cfg.n_encoder_layers if lo == 0 else 0)
+    torch.testing.assert_close(l_chunk.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+    step = torch.tensor([3, 7])
+    before = FLASH.launches
+    for _ in range(2):
+        c_cpu, d_cpu = decode_step(cfg, params, c_cpu, step)
+        c_gpu, d_gpu = decode_step(cfg, on_card, c_gpu, step.to(cuda))
+        torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=1e-4, atol=1e-4)
+    assert FLASH.launches == before

@@ -157,3 +157,20 @@ def test_paged_decode_equals_contiguous(arch):
         torch.testing.assert_close(lp[1], lc[1], rtol=0, atol=0)
     view = decode.gather_blocks(paged["kp"][0], paged["block_ids"])
     torch.testing.assert_close(view[1], contiguous["k"][0, 1], rtol=0, atol=0)
+
+
+def test_nemotron_reduced_forward():
+    """nemotron-4-340b (relu² MLP, not gated), held at ``reduced()``:
+    forward logits against the reference's from the same parameters."""
+    ref_cfg = ref_get_config("nemotron-4-340b").reduced()
+    ref_params = ref_model.init_params(ref_cfg, jax.random.PRNGKey(1))
+    cfg = get_config("nemotron-4-340b").reduced()
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params))
+    assert (cfg.activation, cfg.gated_mlp) == ("relu2", False)
+    assert model.count_params(params) == model.count_params_analytic(cfg)
+    assert model.count_params_analytic(get_config("nemotron-4-340b")) == \
+        ref_model.count_params_analytic(ref_get_config("nemotron-4-340b"))
+    toks = _tokens(cfg, 2, 11, seed=9)
+    ref_logits, _ = ref_model.forward(ref_cfg, ref_params, jnp.asarray(toks))
+    _close(model.forward(cfg, params, torch.from_numpy(toks).long()),
+           ref_logits)
