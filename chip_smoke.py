@@ -10,7 +10,8 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    paths' shapes.
    Flash attention: smollm-360m heads 15/5 at D 64, h2o-danube-1.8b heads
    32/8 at D 80, zamba2-7b heads 32/32 at D 112, internvl2-2b heads 16/8
-   at D 128; bf16 and fp32; bulk
+   at D 128, minicpm3-4b heads 40/40 at q/k head dim 96 and v head dim 64
+   (MLA, at its scale 96^-½); bf16 and fp32; bulk
    S = 1000 and 2048, 128-row chunks at q_offset 0, 128, 896, 1024 and
    1920 of a 2048 scratch, a ragged 100-row chunk at 896, a 256 window at
    2048 and at the chunk at 1024, and a window of 0 at 2048 (only None
@@ -19,7 +20,7 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    bulk, the chunk at 1024 and the windows at 2048; bf16 at the other
    chunks, and every bf16 case against the split-and-merge plain version
    at the kernel's split plan, to 1e-2 of the largest plain output.  At
-   bulk-2048 and chunk-128@1024 of the three models in bf16, time the kernel,
+   bulk-2048 and chunk-128@1024 of the five models in bf16, time the kernel,
    the plain version, the bound and ``scaled_dot_product_attention`` over
    the same visible columns (the library yardstick, bottom-right causal
    for a chunk; the port never calls it), and name the kernel SDPA ran.
@@ -83,6 +84,14 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    launched 12 times a bulk pass and on chunk 0 (4 encoder layers
    without a mask, 4 causal self- and 4 unmasked cross-attentions), 8
    times a later chunk, never in decode; phase 4's fp32 check.
+3d. Serve full-width minicpm3-4b in bf16 (random weights from a seed; 62
+   MLA layers, 40 heads, a 256-wide latent and a 32-wide shared rope key
+   cached a token, attention at q/k head dim 96 and v head dim 64):
+   phase 3's recipe, chunked (128) then bulk (MLA has no paged layout).
+   Held: every request answered; flash launched 62 times a prefill chunk
+   and bulk pass, never in decode (the absorbed form over the latent),
+   and no other kernel of the port; phase 4's fp32 check.  Printed as
+   phase 3b.
 4. Serve full-width mamba2-2.7b in bf16 (random weights from a seed): 6
    requests with prompts of 256–1024 tokens, 16 new tokens each, batch 4,
    one arrival every 2 steps — chunked admission (128-token chunks), then
@@ -104,8 +113,9 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    Printed: the parameters, init time, prefill and decode tokens/s, TTFT,
    ITL, the peak memory of each run and the phase's wall time.
 5. The reduced configs in fp32: prefill logits (and mamba2's and
-   zamba2's final SSD states) through the kernels on the card against
-   their plain versions on the CPU.
+   zamba2's final SSD states, minicpm3's latent cache) through the
+   kernels on the card against their plain versions on the CPU;
+   minicpm3 at its full width's head dims (q/k 96, v 64).
 6. The fused collective matmul's three hop kernels (``cc_matmul.cu``)
    against their plain versions at the shapes full-width h2o-danube-1.8b
    gives them at TP 4 (B 2, 512 rows a rank, bidirectional half rings of
@@ -394,24 +404,25 @@ def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
-def attention_bound_ms(q, k, causal, window, q_offset):
+def attention_bound_ms(q, k, v, causal, window, q_offset):
     """Least time for the attention call: the larger of its visible
-    operations at the bf16 peak and its bytes (q, the k/v rows it can see
-    and out, once each) at the memory rate.  Visible (row, col) pairs are
-    counted for these inputs."""
+    operations at the bf16 peak (2·(DK + DV) a visible (row, col) pair and
+    head: q·k and p·v) and its bytes (q, the k/v rows it can see and out,
+    once each, q and k at DK and v and out at DV) at the memory rate.
+    Visible pairs are counted for these inputs."""
     import torch
 
-    b, hq, sq, d = q.shape
-    skv = k.shape[2]
+    b, hq, sq, dk = q.shape
+    skv, dv = k.shape[2], v.shape[-1]
     rows = q_offset + torch.arange(sq, dtype=torch.int64)
     hi = torch.minimum(rows + 1, torch.tensor(skv)) if causal \
         else torch.full_like(rows, skv)
     lo = (rows - window + 1).clamp_min(0) if window is not None \
         else torch.zeros_like(rows)
     pairs = int((hi - lo).clamp_min(0).sum())
-    flops = 4.0 * d * pairs * hq * b
+    flops = 2.0 * (dk + dv) * pairs * hq * b
     cols = max(0, int(hi.max()) - int(lo.min()))   # k/v rows read
-    nbytes = (2 * q.numel() + 2 * b * k.shape[1] * cols * d) \
+    nbytes = (b * hq * sq + b * k.shape[1] * cols) * (dk + dv) \
         * q.element_size()
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -477,9 +488,10 @@ def sdpa_yardstick(q, k, v, window, q_offset, causal=True):
 def phase_kernels():
     """Kernel vs plain on the card; returns the main-path shapes' numbers
     (bulk-2048 and chunk-128@1024 of smollm-360m in bf16; h2o-danube-1.8b's,
-    zamba2-7b's and internvl2-2b's under ``h2o_*``, ``zamba2_*`` and
-    ``internvl2_*``; whisper-tiny's non-causal encoder and cross calls
-    under ``whisper_*``, from :func:`flash_noncausal`)."""
+    zamba2-7b's, internvl2-2b's and minicpm3-4b's (q/k head dim 96, v 64)
+    under ``h2o_*``, ``zamba2_*``, ``internvl2_*`` and ``minicpm3_*``;
+    whisper-tiny's non-causal encoder and cross calls under ``whisper_*``,
+    from :func:`flash_noncausal`)."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -490,15 +502,25 @@ def phase_kernels():
         kv_split_plan,
     )
 
+    name = "?"
     for line in FLASH.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[ptxas] {line.strip()}")
+        entry = re.search(r"(flash_fwd_bf16|flash_fwd_f32|flash_merge)"
+                          r"I((?:Li\d+E)+)E", line)
+        if entry:
+            name = (f"{entry.group(1)}<"
+                    f"{','.join(re.findall(r'Li(\d+)E', entry.group(2)))}>")
+        elif "registers" in line or "spill" in line or "smem" in line:
+            print(f"[ptxas] {name}: {line.strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    heads = {"smollm-360m": (15, 5, 64), "h2o-danube-1.8b": (32, 8, 80),
-             "zamba2-7b": (32, 32, 112), "internvl2-2b": (16, 8, 128)}
+    # (Hq, Hkv, q/k head dim, v head dim)
+    heads = {"smollm-360m": (15, 5, 64, 64),
+             "h2o-danube-1.8b": (32, 8, 80, 80),
+             "zamba2-7b": (32, 32, 112, 112),
+             "internvl2-2b": (16, 8, 128, 128),
+             "minicpm3-4b": (40, 40, 96, 64)}
     # (label, Sq, Skv, q_offset, window); the first five at TOL, the rest
     # (in bf16) at BF16_SPLIT_REL.  window-0: no row sees a column, every
     # output 0 (only None means no window)
@@ -516,14 +538,16 @@ def phase_kernels():
              ("window-256 chunk-128@1024", 128, 2048, 1024, 256)]
     timed = ("bulk-2048", "chunk-128@1024")
     main = {}
-    for arch, (hq, hkv, d) in heads.items():
+    for arch, (hq, hkv, d, dv) in heads.items():
         for dtype in (torch.bfloat16, torch.float32):
             for i, (label, sq, skv, q_offset, window) in enumerate(cases):
                 q = torch.randn(1, hq, sq, d, generator=gen, device=dev)
                 k = torch.randn(1, hkv, skv, d, generator=gen, device=dev)
-                v = torch.randn(1, hkv, skv, d, generator=gen, device=dev)
+                v = torch.randn(1, hkv, skv, dv, generator=gen, device=dev)
                 q, k, v = (t.to(dtype) for t in (q, k, v))
                 kw = dict(causal=True, window=window, q_offset=q_offset)
+                if dv != d:          # MLA's scale, (qk_nope + qk_rope)^-½
+                    kw["scale"] = d ** -0.5
                 got = flash_attention(q, k, v, **kw)
                 torch.cuda.synchronize()
                 want = attention_plain(q, k, v, **kw)
@@ -567,14 +591,15 @@ def phase_kernels():
                         lambda: flash_attention(q, k, v, **kw))
                     lib_dev_ms = device_ms(lib)
                     bound_ms, bound_by = attention_bound_ms(
-                        q, k, True, window, offset)
+                        q, k, v, True, window, offset)
                     main[(arch, label)] = dict(
                         max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=library_ms, device_ms=dev_ms,
                         library_device_ms=lib_dev_ms)
                     print(f"[flash] timed {arch} {label} (B1 Hq{hq}/Hkv{hkv}"
-                          f" Sq{sq} Skv{skv} q_offset {offset} D{d} causal "
+                          f" Sq{sq} Skv{skv} q_offset {offset} D{d}"
+                          f"{'' if dv == d else f'/{dv}'} causal "
                           f"bf16, plan {plan.splits} x "
                           f"{plan.tiles_per_split}): kernel {kernel_ms:.4f} "
                           f"ms, plain {plain_ms:.4f} ms, sdpa "
@@ -593,7 +618,9 @@ def phase_kernels():
             ("zamba2-7b", "bulk-2048", "zamba2_bulk"),
             ("zamba2-7b", "chunk-128@1024", "zamba2_chunk"),
             ("internvl2-2b", "bulk-2048", "internvl2_bulk"),
-            ("internvl2-2b", "chunk-128@1024", "internvl2_chunk")):
+            ("internvl2-2b", "chunk-128@1024", "internvl2_chunk"),
+            ("minicpm3-4b", "bulk-2048", "minicpm3_bulk"),
+            ("minicpm3-4b", "chunk-128@1024", "minicpm3_chunk")):
         out.update({f"{tag}_{key}": main[(arch, label)][key]
                     for key in keys})
     for tag, case in flash_noncausal(gen).items():
@@ -666,7 +693,8 @@ def flash_noncausal(gen):
                 call = lambda: flash_attention(q, k, v, causal=False)
                 lib, lib_name = sdpa_yardstick(q, k, v, None, 0,
                                                causal=False)
-                bound_ms, bound_by = attention_bound_ms(q, k, False, None, 0)
+                bound_ms, bound_by = attention_bound_ms(q, k, v, False,
+                                                        None, 0)
                 timed[tag] = dict(
                     max_abs_err=err, ms=time_ms(call),
                     plain_ms=time_ms(lambda: attention_plain(
@@ -1254,14 +1282,19 @@ def phase_serve_state(arch):
     return launches
 
 
-#: the frontend serving phases: requests, the range of their text or
-#: decoder prompt lengths, new tokens, max_seq and the two server runs
-#: (each admitting in 128-row chunks or in one bulk pass per request)
-FRONTEND_RUNS = {
+#: the serving phases of :func:`phase_serve_runs`: requests, the range
+#: of their text or decoder prompt lengths, new tokens, max_seq and the
+#: two server runs (each admitting in 128-row chunks or in one bulk pass
+#: per request)
+SERVE_RUNS = {
     "internvl2-2b": (8, (256, 1024), 32, 2048, (
         ("contiguous", dict(prefill_chunk=128)),
         ("paged", dict(prefill_chunk=128, paged=True, block_size=128)))),
     "whisper-tiny": (6, (64, 448), 16, 512, (
+        ("chunked", dict(prefill_chunk=128)),
+        ("bulk", dict(prefill_chunk=None)))),
+    # MLA has no paged layout (its cache is the latent, not K/V rows)
+    "minicpm3-4b": (8, (256, 1024), 32, 2048, (
         ("chunked", dict(prefill_chunk=128)),
         ("bulk", dict(prefill_chunk=None)))),
 }
@@ -1277,13 +1310,13 @@ def flash_per_pass(cfg, lo):
     return cfg.n_layers
 
 
-def phase_serve_frontend(arch):
-    """Full-width ``arch`` (internvl2-2b, phase 3b; whisper-tiny, phase 3c)
-    in bf16 through the server, each request carrying its frontend
-    embeddings (256 patch rows of width 1024; 1500 frames of width 384),
-    in the two runs of ``FRONTEND_RUNS``; then one profiled decode step
-    and prefill chunk, and the fp32 check of phase 4.  Returns the flash
-    launches of the two server runs."""
+def phase_serve_runs(arch):
+    """Full-width ``arch`` (internvl2-2b, phase 3b; whisper-tiny, phase 3c;
+    minicpm3-4b, phase 3d) in bf16 through the server, a frontend arch's
+    request carrying its embeddings (256 patch rows of width 1024; 1500
+    frames of width 384), in the two runs of ``SERVE_RUNS``; then one
+    profiled decode step and prefill chunk, and the fp32 check of phase
+    4.  Returns the flash launches of the two server runs."""
     import numpy as np
     import torch
 
@@ -1307,7 +1340,7 @@ def phase_serve_frontend(arch):
 
     cfg = get_config(arch)
     tag = arch.split("-")[0]
-    n_req, (lo_len, hi_len), max_new, max_seq, runs = FRONTEND_RUNS[arch]
+    n_req, (lo_len, hi_len), max_new, max_seq, runs = SERVE_RUNS[arch]
     t_phase = t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1321,7 +1354,8 @@ def phase_serve_frontend(arch):
     lens = rng.integers(lo_len, hi_len + 1, size=n_req)
     items = [(rng.integers(0, cfg.vocab_size, size=int(n)),
               rng.standard_normal((cfg.frontend_tokens, cfg.frontend_dim),
-                                  dtype=np.float32)) for n in lens]
+                                  dtype=np.float32) if cfg.frontend
+              else None) for n in lens]
     rows = [prefill_rows(cfg, int(n)) for n in lens]
     chunk = 128
     out, launches = {}, 0
@@ -1363,13 +1397,13 @@ def phase_serve_frontend(arch):
     if b == "paged" and tok_a != tok_b:
         fail(f"{tag}: paged tokens differ from contiguous tokens")
 
-    # one decode step of a full batch, and one 128-row prefill chunk (the
-    # VLM's at text row 512 of a 1280-row carry; whisper's chunk 0, which
+    # one decode step of a full batch, and one 128-row prefill chunk (at
+    # row 512 of the longest request's carry; whisper's chunk 0, which
     # runs the encoder), each under torch.profiler
     cache = init_cache(cfg, 4, max_seq, "cuda")
     step_toks = torch.zeros(4, dtype=torch.long, device="cuda")
     carry = rows[int(np.argmax(rows))]
-    lo = 512 if cfg.family == "vlm" else 0
+    lo = 0 if cfg.family == "encdec" else 512
     scr = init_prefill_scratch(cfg, 1, carry, "cuda")
     t_rows, f_rows = chunk_rows(cfg, lo, lo + chunk)
     prompt, fe = items[int(np.argmax(rows))]
@@ -1399,7 +1433,8 @@ def phase_serve_frontend(arch):
     for rid, (prompt, fe) in enumerate(items):
         toks = torch.as_tensor(prompt[None, :], dtype=torch.long,
                                device="cuda")
-        fet = torch.as_tensor(fe[None], device="cuda")
+        fet = None if fe is None else torch.as_tensor(fe[None],
+                                                      device="cuda")
         _, b32 = prefill(cfg32, params32, toks, fet)
         scr = init_prefill_scratch(cfg32, 1, rows[rid], "cuda")
         for lo, hi in prefill_chunk_cuts(rows[rid], chunk_len=chunk):
@@ -1440,6 +1475,12 @@ def widen(tree):
     return [widen(v) for v in tree]
 
 
+#: minicpm3's full-width head dims (q/k 64 + 32 = 96, v 64) on its
+#: reduced widths: phase 5 runs MLA through flash's unequal pair
+MLA_FULL_DIMS = dict(qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64,
+                     head_dim=96)
+
+
 def phase_reduced_vs_cpu():
     import numpy as np
     import torch
@@ -1449,8 +1490,10 @@ def phase_reduced_vs_cpu():
     from repro_torch.models.prefill import prefill
 
     for name in ("smollm-360m", "h2o-danube-1.8b", "mamba2-2.7b",
-                 "zamba2-7b"):
+                 "zamba2-7b", "minicpm3-4b"):
         cfg = get_config(name).reduced()
+        if cfg.attn_type == "mla":
+            cfg = dataclasses.replace(cfg, **MLA_FULL_DIMS)
         params = init_params(cfg, seed=1, device="cpu")
         toks = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab_size, size=(2, 300))).long()
@@ -1470,6 +1513,12 @@ def phase_reduced_vs_cpu():
                   f"max_err/max {err:.3g} (tol 1e-4)", flush=True)
             if not err <= 1e-4:
                 fail(f"reduced {name}: card vs CPU ssm_state differ by {err}")
+        if cfg.attn_type == "mla":
+            err = (c_gpu["ckv"].cpu() - c_cpu["ckv"]).abs().max().item()
+            print(f"[reduced] {name} (q/k 96, v 64) latent cache ckv, card "
+                  f"vs CPU: max abs diff {err:.3g} (tol 1e-4)", flush=True)
+            if not err <= 1e-4:
+                fail(f"reduced {name}: card vs CPU ckv differ by {err}")
 
 
 HOP_TOL = {("float32", "float32"): 1e-5, ("float32", "bfloat16"): 1e-5,
@@ -2701,10 +2750,12 @@ def main() -> int:
     ssd_cases = timed("2 ssd", phase_ssd_kernels)
     ssd_bwd_cases = timed("2b ssd backward", phase_ssd_bwd)
     flash_launches = timed("3 smollm serving", phase_serve)
-    internvl2_launches = timed("3b internvl2 serving", phase_serve_frontend,
+    internvl2_launches = timed("3b internvl2 serving", phase_serve_runs,
                                "internvl2-2b")
-    whisper_launches = timed("3c whisper serving", phase_serve_frontend,
+    whisper_launches = timed("3c whisper serving", phase_serve_runs,
                              "whisper-tiny")
+    minicpm3_launches = timed("3d minicpm3 serving", phase_serve_runs,
+                              "minicpm3-4b")
     ssd_launches = timed("4 mamba2 serving", phase_serve_state,
                          "mamba2-2.7b")["ssd"]
     zamba2_launches = timed("4b zamba2 serving", phase_serve_state,
@@ -2739,7 +2790,8 @@ def main() -> int:
              launches=flash_launches,
              zamba2_launches=zamba2_launches["flash"],
              internvl2_launches=internvl2_launches,
-             whisper_launches=whisper_launches, **flash_main),
+             whisper_launches=whisper_launches,
+             minicpm3_launches=minicpm3_launches, **flash_main),
         dict(name="ssd", route="cuda",
              source="src/repro_torch/kernels/ssd/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd/kernel.py:96",

@@ -1,10 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
 The dense GQA archs (smollm, h2o-danube and nemotron, the last held at
-``reduced()``), the pure-SSM mamba2, the zamba2 hybrid (a Mamba-2
-backbone with shared attention blocks), the internvl2 VLM (patch
-embeddings before the text) and the whisper encoder-decoder are ported;
-the reference's other three (MLA and MoE) land with their families.
+``reduced()``), the dense MLA arch minicpm3 (multi-head latent
+attention), the pure-SSM mamba2, the zamba2 hybrid (a Mamba-2 backbone
+with shared attention blocks), the internvl2 VLM (patch embeddings before
+the text) and the whisper encoder-decoder are ported; the reference's
+other two (MoE) land with their family.
 """
 
 from __future__ import annotations
@@ -18,13 +19,15 @@ from repro_torch.configs.base import (
 from repro_torch.configs.h2o_danube_1p8b import config as _h2o_danube
 from repro_torch.configs.internvl2_2b import config as _internvl2
 from repro_torch.configs.mamba2_2p7b import config as _mamba2
+from repro_torch.configs.minicpm3_4b import config as _minicpm3
 from repro_torch.configs.nemotron_4_340b import config as _nemotron
 from repro_torch.configs.smollm_360m import config as _smollm
 from repro_torch.configs.whisper_tiny import config as _whisper
 from repro_torch.configs.zamba2_7b import config as _zamba2
 
 _CONFIGS = {c.name: c for c in (_smollm, _h2o_danube, _mamba2, _zamba2,
-                                _internvl2, _whisper, _nemotron)}
+                                _internvl2, _whisper, _nemotron,
+                                _minicpm3)}
 
 ARCH_NAMES = tuple(_CONFIGS)
 

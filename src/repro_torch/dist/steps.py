@@ -201,6 +201,12 @@ def _check_path(cfg: ModelConfig, group, scfg: StepConfig,
         raise ValueError(f"{cfg.name}: the train step takes the dense, "
                          f"ssm and hybrid families (vlm and encdec training: "
                          f"ROADMAP queue 1 item 7)")
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: MLA training is not ported (the tp-1 runner needs "
+            f"mla_attention over blockwise_core, and full width needs its "
+            f"fp32 AdamW state on more than one card): ROADMAP queue 1 "
+            f"item 7")
     if group.size == 1:
         if cfg.family == "ssm":
             # forward_hidden's ssm branch: the Mamba-2 block, whose SSD

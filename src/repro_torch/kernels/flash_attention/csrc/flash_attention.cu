@@ -19,7 +19,7 @@
 // bf16 (the serving path), designed for those two bounds:
 //  * One warpgroup (128 threads) per 64 q rows of one head.  S = Q K^T and
 //    O += P V both run on the tensor cores with wgmma (m64n64k16 and
-//    m64nDk16, fp32 accumulators in registers).  Q and K are K-major
+//    m64nDVk16, fp32 accumulators in registers).  Q and K are K-major
 //    operands in shared memory; P is rounded to bf16 in registers and fed
 //    as the A operand; V is an MN-major B operand read in place (no
 //    transpose pass).  The row max and normaliser stay in fp32 registers,
@@ -35,6 +35,12 @@
 //    12 and 14 KB of data, and no product is padded (zamba2-7b's 112 is
 //    seven k16 steps of Q K^T and an m64n112k16 P V).  Rows past Skv or Sq are
 //    zero-filled by the copy.
+//  * q/k and v head dims are template arguments of their own (DK, DV):
+//    MLA (minicpm3-4b) attends with q/k rows of 96 (64 latent-expanded +
+//    32 rope) and v rows of 64.  Q and K tiles are loaded at DK and V
+//    tiles at DV, Q K^T is DK / 16 k16 steps and P V an m64nDVk16
+//    product, so neither is padded; the O accumulator, the split partials
+//    and the merge are DV wide.
 //  * Split-KV: when (q tiles x Hq) is below a wave of 132 SMs, the
 //    visible kv tiles of each q tile are cut into `splits` ranges of
 //    `tiles_per_split` (ops.kv_split_plan, which depends only on the
@@ -56,8 +62,8 @@
 //
 // fp32 keeps the CUDA-core kernel (flash_fwd_f32): the reference's full-fp32
 // dot, which tensor cores would turn into TF32.  One thread per q row with
-// q and acc[D] in registers, K/V tiles of 32 rows staged in shared memory;
-// far from the bound by design, and not the serving path.
+// q[DK] and acc[DV] in registers, K/V tiles of 32 rows staged in shared
+// memory; far from the bound by design, and not the serving path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,7 +80,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
-  float* part_o;   // splits > 1: (splits, B * Hq, Sq, D) unnormalised O
+  float* part_o;   // splits > 1: (splits, B * Hq, Sq, DV) unnormalised O
   float* part_ml;  // splits > 1: (splits, B * Hq, Sq, 2) row max, row sum
   int hq, hkv, sq, skv;
   ll q_sb, q_sh, q_ss;  // element strides of q over (b, h, s)
@@ -113,11 +119,12 @@ constexpr int F32_Q = 64;
 constexpr int F32_KV = 32;
 constexpr float NEG_BIG = -1.0e30f;
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(F32_Q) flash_fwd_f32(const Args a) {
-  static_assert(D % 4 == 0, "head dim must be a multiple of 4");
-  __shared__ __align__(16) float ks[F32_KV][D];
-  __shared__ __align__(16) float vs[F32_KV][D];
+  static_assert(DK % 4 == 0 && DV % 4 == 0,
+                "head dims must be multiples of 4");
+  __shared__ __align__(16) float ks[F32_KV][DK];
+  __shared__ __align__(16) float vs[F32_KV][DV];
 
   const int bh = blockIdx.y;
   const int b = bh / a.hq;
@@ -132,13 +139,13 @@ __global__ void __launch_bounds__(F32_Q) flash_fwd_f32(const Args a) {
   const float* k = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const float* v = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
-  float qr[D];
-  float acc[D];
+  float qr[DK];
+  float acc[DV];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < DK; ++d)
     qr[d] = live ? q[(ll)i * a.q_ss + d] * a.scale : 0.f;
-    acc[d] = 0.f;
-  }
+#pragma unroll
+  for (int d = 0; d < DV; ++d) acc[d] = 0.f;
   float m = NEG_BIG;
   float l = 0.f;
 
@@ -148,13 +155,17 @@ __global__ void __launch_bounds__(F32_Q) flash_fwd_f32(const Args a) {
   for (int t = t_lo; t < t_hi; ++t) {
     const int c0 = t * F32_KV;
     __syncthreads();  // every row is done with the previous tile
-    for (int idx = threadIdx.x; idx < F32_KV * D; idx += F32_Q) {
-      const int j = idx / D;
-      const int d = idx % D;
+    for (int idx = threadIdx.x; idx < F32_KV * DK; idx += F32_Q) {
+      const int j = idx / DK;
+      const int d = idx % DK;
       const int c = c0 + j;
-      const bool in = c < a.skv;
-      ks[j][d] = in ? k[(ll)c * a.k_ss + d] : 0.f;
-      vs[j][d] = in ? v[(ll)c * a.v_ss + d] : 0.f;
+      ks[j][d] = c < a.skv ? k[(ll)c * a.k_ss + d] : 0.f;
+    }
+    for (int idx = threadIdx.x; idx < F32_KV * DV; idx += F32_Q) {
+      const int j = idx / DV;
+      const int d = idx % DV;
+      const int c = c0 + j;
+      vs[j][d] = c < a.skv ? v[(ll)c * a.v_ss + d] : 0.f;
     }
     __syncthreads();
     if (!live) continue;
@@ -170,7 +181,7 @@ __global__ void __launch_bounds__(F32_Q) flash_fwd_f32(const Args a) {
       const float4* kr = reinterpret_cast<const float4*>(ks[j]);
       float dot = 0.f;
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
+      for (int d4 = 0; d4 < DK / 4; ++d4) {
         const float4 kk = kr[d4];
         dot += qr[4 * d4] * kk.x;
         dot += qr[4 * d4 + 1] * kk.y;
@@ -185,14 +196,14 @@ __global__ void __launch_bounds__(F32_Q) flash_fwd_f32(const Args a) {
     const float alpha = expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+    for (int d = 0; d < DV; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int j = 0; j < F32_KV; ++j) {
       const float p = s[j] <= 0.5f * NEG_BIG ? 0.f : expf(s[j] - m_new);
       psum += p;
       const float4* vr = reinterpret_cast<const float4*>(vs[j]);
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
+      for (int d4 = 0; d4 < DV / 4; ++d4) {
         const float4 vv = vr[d4];
         acc[4 * d4] += p * vv.x;
         acc[4 * d4 + 1] += p * vv.y;
@@ -206,9 +217,9 @@ __global__ void __launch_bounds__(F32_Q) flash_fwd_f32(const Args a) {
 
   if (!live) return;
   const float denom = l == 0.f ? 1.f : l;  // a row that saw nothing -> 0
-  float* o = static_cast<float*>(a.o) + (((ll)b * a.hq + h) * a.sq + i) * D;
+  float* o = static_cast<float*>(a.o) + (((ll)b * a.hq + h) * a.sq + i) * DV;
 #pragma unroll
-  for (int d = 0; d < D; ++d) o[d] = acc[d] / denom;
+  for (int d = 0; d < DV; ++d) o[d] = acc[d] / denom;
 }
 
 // ---------------------------------------------------------------------------
@@ -221,9 +232,10 @@ constexpr int THREADS = 128;
 constexpr int STAGES = 2;    // K/V ring depth (3 measured no faster)
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <int DK, int DV>
 constexpr int smem_bytes() {   // Q, then K and V a stage, and alignment
-  return 1024 + (1 + 2 * STAGES) * hopper::tile_bytes<BKV, D>();
+  return 1024 + (1 + STAGES) * hopper::tile_bytes<BKV, DK>() +
+         STAGES * hopper::tile_bytes<BKV, DV>();
 }
 
 // this thread's 16-byte chunks of a 64 x D tile: tile row, element offset
@@ -261,14 +273,16 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const Args a) {
   using MMA_S = hopper::Wgmma<BKV>;
-  using MMA_O = hopper::Wgmma<D>;
-  constexpr int TILE = hopper::tile_bytes<BKV, D>();   // one 64 x D tile
+  using MMA_O = hopper::Wgmma<DV>;
+  constexpr int TILE_K = hopper::tile_bytes<BKV, DK>();   // a 64 x DK tile
+  constexpr int TILE_V = hopper::tile_bytes<BKV, DV>();   // a 64 x DV tile
+  constexpr int STAGE = TILE_K + TILE_V;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s_q = hopper::align1024(hopper::smem_u32(smem));
-  const uint32_t s_kv = s_q + TILE;   // stage s: K at 2s, V at 2s + 1
+  const uint32_t s_kv = s_q + TILE_K;   // stage s: K, then V, at s * STAGE
 
   // heads on x, q tiles on y: the scheduler starts every head's last
   // (under a causal mask the longest) q tile first
@@ -300,14 +314,16 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const Args a) {
 
   // Q with the first kv tile, then the next STAGES - 2 tiles, a commit
   // group each
-  const TileChunks<D> cq(a.q_ss), ck(a.k_ss), cv(a.v_ss);
-  load_tile<D>(s_q, q, a.q_ss, cq, i0, a.sq);
+  const TileChunks<DK> cq(a.q_ss), ck(a.k_ss);
+  const TileChunks<DV> cv(a.v_ss);
+  load_tile<DK>(s_q, q, a.q_ss, cq, i0, a.sq);
 #pragma unroll
   for (int u = 0; u < STAGES - 1; ++u) {
     const int t = t_begin + u;
     if (t < t_end) {
-      load_tile<D>(s_kv + 2 * u * TILE, k, a.k_ss, ck, t * BKV, a.skv);
-      load_tile<D>(s_kv + (2 * u + 1) * TILE, v, a.v_ss, cv, t * BKV, a.skv);
+      load_tile<DK>(s_kv + u * STAGE, k, a.k_ss, ck, t * BKV, a.skv);
+      load_tile<DV>(s_kv + u * STAGE + TILE_K, v, a.v_ss, cv, t * BKV,
+                    a.skv);
     }
     hopper::cp_async_commit();
   }
@@ -320,16 +336,16 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const Args a) {
 
   for (int t = t_begin; t < t_end; ++t) {
     const int st = (t - t_begin) % STAGES;
-    const uint32_t s_k = s_kv + 2 * st * TILE;
-    const uint32_t s_v = s_k + TILE;
+    const uint32_t s_k = s_kv + st * STAGE;
+    const uint32_t s_v = s_k + TILE_K;
     hopper::cp_async_wait<STAGES - 2>();
     hopper::fence_proxy_async();
     __syncthreads();   // tile t landed for all; tile t - 1 no longer read
     const int tn = t + STAGES - 1;   // into the stage tile t - 1 left
     if (tn < t_end) {
-      const uint32_t n_k = s_kv + 2 * ((tn - t_begin) % STAGES) * TILE;
-      load_tile<D>(n_k, k, a.k_ss, ck, tn * BKV, a.skv);
-      load_tile<D>(n_k + TILE, v, a.v_ss, cv, tn * BKV, a.skv);
+      const uint32_t n_k = s_kv + ((tn - t_begin) % STAGES) * STAGE;
+      load_tile<DK>(n_k, k, a.k_ss, ck, tn * BKV, a.skv);
+      load_tile<DV>(n_k + TILE_K, v, a.v_ss, cv, tn * BKV, a.skv);
     }
     hopper::cp_async_commit();
 
@@ -340,7 +356,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const Args a) {
     hopper::fence_regs(s);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
+    for (int ks = 0; ks < DK / 16; ++ks)
       MMA_S::template ss<0, 0>(s, hopper::desc_k_major<BQ>(s_q, ks),
                                hopper::desc_k_major<BKV>(s_k, ks), ks > 0);
     hopper::wgmma_commit();
@@ -392,7 +408,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const Args a) {
       m[i] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         o[4 * j + 2 * i] *= alpha[i];
@@ -430,21 +446,21 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const Args a) {
   for (int i = 0; i < 2; ++i) {
     const int r = i0 + 16 * warp + g + 8 * i;
     if (r >= a.sq) continue;
-    const ll orow = ((ll)bh * a.sq + r) * D;
+    const ll orow = ((ll)bh * a.sq + r) * DV;
     if (a.splits == 1) {
       const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // saw nothing -> 0
       bf16* out = static_cast<bf16*>(a.o) + orow;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         const __nv_bfloat162 v2 = __floats2bfloat162_rn(
             o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
         *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + 2 * qd) = v2;
       }
     } else {
       const ll prow = ((ll)split * bh_rows + bh) * a.sq + r;
-      float* po = a.part_o + prow * D;
+      float* po = a.part_o + prow * DV;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<float2*>(po + 8 * j + 2 * qd) =
             make_float2(o[4 * j + 2 * i], o[4 * j + 2 * i + 1]);
       if (qd == 0)
@@ -456,14 +472,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const Args a) {
 
 // out = sum_s O_s 2^(m_s - M) / sum_s l_s 2^(m_s - M), M = max_s m_s, the
 // splits taken in order; a row no split saw is 0
-template <int D>
+template <int DV>
 __global__ void __launch_bounds__(256)
 flash_merge(const float* __restrict__ part_o, const float* __restrict__ ml,
             bf16* __restrict__ out, ll rows, int splits) {
   const ll idx = (ll)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= rows * (D / 2)) return;
-  const ll row = idx / (D / 2);
-  const int col = 2 * (int)(idx % (D / 2));
+  if (idx >= rows * (DV / 2)) return;
+  const ll row = idx / (DV / 2);
+  const int col = 2 * (int)(idx % (DV / 2));
   float mx = -INFINITY;
   for (int s = 0; s < splits; ++s) mx = fmaxf(mx, ml[2 * (s * rows + row)]);
   float sum = 0.f, o0 = 0.f, o1 = 0.f;
@@ -471,68 +487,73 @@ flash_merge(const float* __restrict__ part_o, const float* __restrict__ ml,
     for (int s = 0; s < splits; ++s) {
       const ll pr = s * rows + row;
       const float w = exp2f(ml[2 * pr] - mx);
-      const float2 po = *reinterpret_cast<const float2*>(part_o + pr * D + col);
+      const float2 po =
+          *reinterpret_cast<const float2*>(part_o + pr * DV + col);
       sum += ml[2 * pr + 1] * w;
       o0 += po.x * w;
       o1 += po.y * w;
     }
   }
   const float inv = sum > 0.f ? 1.f / sum : 0.f;
-  *reinterpret_cast<__nv_bfloat162*>(out + row * D + col) =
+  *reinterpret_cast<__nv_bfloat162*>(out + row * DV + col) =
       __floats2bfloat162_rn(o0 * inv, o1 * inv);
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch_f32(const Args& a, int batch, cudaStream_t stream) {
   const dim3 grid((a.sq + F32_Q - 1) / F32_Q, batch * a.hq);
-  flash_fwd_f32<D><<<grid, F32_Q, 0, stream>>>(a);
+  flash_fwd_f32<DK, DV><<<grid, F32_Q, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch_bf16(const Args& a, int batch, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();
-  cudaError_t e = hopper::set_smem((const void*)flash_fwd_bf16<D>, smem);
+  constexpr int smem = smem_bytes<DK, DV>();
+  cudaError_t e =
+      hopper::set_smem((const void*)flash_fwd_bf16<DK, DV>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(batch * a.hq, (a.sq + BQ - 1) / BQ, a.splits);
-  flash_fwd_bf16<D><<<grid, THREADS, smem, stream>>>(a);
+  flash_fwd_bf16<DK, DV><<<grid, THREADS, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return e;
   const ll rows = (ll)batch * a.hq * a.sq;
-  const ll n = rows * (D / 2);
-  flash_merge<D><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+  const ll n = rows * (DV / 2);
+  flash_merge<DV><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       a.part_o, a.part_ml, static_cast<bf16*>(a.o), rows, a.splits);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(int dtype, int head_dim, const Args& a, int batch,
+// the (q/k, v) head dim pairs built: every equal pair, and MLA's (96, 64)
+// (ops.HEAD_DIM_PAIRS is the same list)
+cudaError_t dispatch(int dtype, int dk, int dv, const Args& a, int batch,
                      cudaStream_t st) {
-#define REPRO_FLASH_DIM(D)                                        \
-  case D:                                                         \
-    return dtype == 0 ? launch_f32<D>(a, batch, st)               \
-                      : launch_bf16<D>(a, batch, st);
-  switch (head_dim) {
-    REPRO_FLASH_DIM(16)
-    REPRO_FLASH_DIM(32)
-    REPRO_FLASH_DIM(64)
-    REPRO_FLASH_DIM(80)
-    REPRO_FLASH_DIM(96)
-    REPRO_FLASH_DIM(112)
-    REPRO_FLASH_DIM(128)
-    default: return cudaErrorInvalidValue;
-  }
-#undef REPRO_FLASH_DIM
+#define REPRO_FLASH_DIMS(DK, DV)                                  \
+  if (dk == DK && dv == DV)                                       \
+    return dtype == 0 ? launch_f32<DK, DV>(a, batch, st)          \
+                      : launch_bf16<DK, DV>(a, batch, st);
+  REPRO_FLASH_DIMS(16, 16)
+  REPRO_FLASH_DIMS(32, 32)
+  REPRO_FLASH_DIMS(64, 64)
+  REPRO_FLASH_DIMS(80, 80)
+  REPRO_FLASH_DIMS(96, 96)
+  REPRO_FLASH_DIMS(112, 112)
+  REPRO_FLASH_DIMS(128, 128)
+  REPRO_FLASH_DIMS(96, 64)
+#undef REPRO_FLASH_DIMS
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores; splits must be 1), 1 = bfloat16 (wgmma).
-// Output o is contiguous (B, Hq, Sq, D).  With splits > 1 (bf16 only),
-// part_o (splits, B * Hq, Sq, D) and part_ml (splits, B * Hq, Sq, 2) are
+// head_dim is q's and k's, head_dim_v v's.  Output o is contiguous
+// (B, Hq, Sq, head_dim_v).  With splits > 1 (bf16 only), part_o
+// (splits, B * Hq, Sq, head_dim_v) and part_ml (splits, B * Hq, Sq, 2) are
 // fp32 scratch and a merge kernel follows on the same stream.  Returns
 // cudaGetLastError() after the launches (0 on success).
 extern "C" int repro_flash_attention_fwd(
-    int dtype, int head_dim, const void* q, const void* k, const void* v,
+    int dtype, int head_dim, int head_dim_v, const void* q, const void* k,
+    const void* v,
     void* o, int batch, int hq, int hkv, int sq, int skv,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
@@ -549,5 +570,6 @@ extern "C" int repro_flash_attention_fwd(
          v_sb, v_sh, v_ss, q_offset,     causal,  has_window,
          window, scale,  splits, tiles_per_split};
   return static_cast<int>(
-      dispatch(dtype, head_dim, a, batch, static_cast<cudaStream_t>(stream)));
+      dispatch(dtype, head_dim, head_dim_v, a, batch,
+               static_cast<cudaStream_t>(stream)));
 }

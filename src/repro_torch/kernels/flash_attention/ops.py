@@ -10,8 +10,10 @@ reference's full-fp32 dot (tensor cores would make it TF32).  Inputs may be
 strided views (the model passes q as a transposed projection and k/v as
 layer slices of the scratch) as long as the head dim is contiguous; for
 bf16 every base address and stride must also be a multiple of 16 bytes (the
-16-byte copies), and a bf16 input that is not raises.  The output is
-contiguous (B, Hq, Sq, D).
+16-byte copies), and a bf16 input that is not raises.  q and k share a
+head dim DK and v has its own, DV: the kernel is built for the pairs of
+:data:`HEAD_DIM_PAIRS` (every equal pair, and MLA's (96, 64)), and any
+other pair raises.  The output is contiguous (B, Hq, Sq, DV).
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ from repro_torch.kernels.common import CudaKernel, launch_on, refuse_autograd
 from repro_torch.kernels.flash_attention.ref import attention_plain
 
 HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128)
+#: (q/k head dim, v head dim) pairs the kernel is built for: every equal
+#: pair, and minicpm3-4b's MLA, whose q/k rows are 64 latent-expanded + 32
+#: rope columns and whose v rows are 64
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((96, 64),)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: q rows and kv rows a tile of the bf16 kernel
@@ -41,7 +47,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 FLASH = CudaKernel(
     "flash_attention", "repro_flash_attention_fwd",
-    [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
      _L, _L, _L, _L, _L, _L, _L, _L, _L,
      _I, _I, _I, _I, _F, _I, _I, _P, _P, _P])
 
@@ -142,9 +148,9 @@ def resolve_q_offset(sq: int, skv: int, q_offset: Optional[int],
 
 
 def flash_attention(
-    q: torch.Tensor,               # (B, Hq, Sq, D)
-    k: torch.Tensor,               # (B, Hkv, Skv, D)
-    v: torch.Tensor,               # (B, Hkv, Skv, D)
+    q: torch.Tensor,               # (B, Hq, Sq, DK)
+    k: torch.Tensor,               # (B, Hkv, Skv, DK)
+    v: torch.Tensor,               # (B, Hkv, Skv, DV)
     *,
     causal: bool = True,
     window: Optional[int] = None,
@@ -153,7 +159,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention of q rows at absolute positions ``q_offset + i`` (default
     ``Skv - Sq``; see :func:`resolve_q_offset`) over k/v with GQA
-    (``Hq % Hkv == 0``).  See
+    (``Hq % Hkv == 0``), scaled by ``scale`` (default ``DK ** -0.5``):
+    (B, Hq, Sq, DV).  See
     :func:`~repro_torch.kernels.flash_attention.ref.attention_plain`."""
     offset = resolve_q_offset(q.shape[2], k.shape[2], q_offset, causal,
                               window)
@@ -164,11 +171,13 @@ def flash_attention(
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     refuse_autograd("flash_attention", q, k, v)
-    qs, ks = q.shape, k.shape
+    qs, ks, vs = q.shape, k.shape, v.shape
     b, hq, sq, d = qs
-    if k.dim() != 4 or ks != v.shape or ks[0] != b or ks[3] != d:
+    if (k.dim() != 4 or v.dim() != 4 or vs[:3] != ks[:3] or ks[0] != b
+            or ks[3] != d):
         raise ValueError(f"flash_attention: shapes q {tuple(qs)} "
-                         f"k {tuple(ks)} v {tuple(v.shape)}")
+                         f"k {tuple(ks)} v {tuple(vs)}")
+    dv = vs[3]
     hkv, skv = ks[1], ks[2]
     if hkv == 0 or hq % hkv or sq == 0 or skv == 0 or b * hq > 65535:
         raise ValueError(f"flash_attention: batch {b}, heads {hq}/{hkv}, "
@@ -177,8 +186,9 @@ def flash_attention(
     if dtype not in _DTYPES or k.dtype != dtype or v.dtype != dtype:
         raise TypeError(f"flash_attention: dtypes {dtype}, {k.dtype}, "
                         f"{v.dtype}; supported: float32 or bfloat16, alike")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if (d, dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_attention: head dims (q/k {d}, v {dv}) not "
+                         f"in {HEAD_DIM_PAIRS}")
     if k.device != dev or v.device != dev:
         raise ValueError("flash_attention: q, k, v on different devices")
     qt, kt, vt = q.stride(), k.stride(), v.stride()
@@ -187,24 +197,24 @@ def flash_attention(
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     bf16 = dtype == torch.bfloat16
     if bf16 and not (_aligned16(qp, qs, qt) and _aligned16(kp, ks, kt)
-                     and _aligned16(vp, ks, vt)):
+                     and _aligned16(vp, vs, vt)):
         raise ValueError(
             "flash_attention: the bf16 kernel copies 16-byte chunks; q, k "
             "and v need 16-byte aligned bases and strides (got strides "
             f"{qt}, {kt}, {vt})")
     scale = float(scale) if scale is not None else d ** -0.5
-    out = torch.empty((b, hq, sq, d), dtype=dtype, device=dev)
+    out = torch.empty((b, hq, sq, dv), dtype=dtype, device=dev)
     plan = (kv_split_plan(sq, skv, offset, causal, window, hq) if bf16
             else _ONE)
     part = part_o = part_ml = None
-    if plan.splits > 1:        # (splits, B·Hq, Sq, D) O, then (…, 2) m, l
+    if plan.splits > 1:        # (splits, B·Hq, Sq, DV) O, then (…, 2) m, l
         rows = plan.splits * b * hq * sq
-        part = torch.empty(rows * (d + 2), dtype=torch.float32, device=dev)
+        part = torch.empty(rows * (dv + 2), dtype=torch.float32, device=dev)
         part_o = part.data_ptr()
-        part_ml = part_o + rows * d * 4
+        part_ml = part_o + rows * dv * 4
     FLASH.check(launch_on(dev, FLASH.fn(), (
-        _DTYPES[dtype], d, qp, kp, vp, out.data_ptr(), b, hq, hkv, sq, skv,
-        qt[0], qt[1], qt[2], kt[0], kt[1], kt[2], vt[0], vt[1], vt[2],
+        _DTYPES[dtype], d, dv, qp, kp, vp, out.data_ptr(), b, hq, hkv, sq,
+        skv, qt[0], qt[1], qt[2], kt[0], kt[1], kt[2], vt[0], vt[1], vt[2],
         offset, int(causal), int(window is not None), int(window or 0),
         scale, plan.splits, plan.tiles_per_split, part_o, part_ml)))
     FLASH.launches += 1

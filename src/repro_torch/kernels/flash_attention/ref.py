@@ -2,7 +2,8 @@
 
 The oracle of ``csrc/flash_attention.cu``: the same function — GQA, an
 explicit ``q_offset``, causal and sliding-window masks, fully masked rows
-output 0 — written as one dense score matrix in fp32
+output 0, v's head dim its own (MLA's 64 beside q/k's 96) — written as one
+dense score matrix in fp32
 (:func:`attention_plain`), and the bf16 kernel's split-KV arithmetic
 written out in plain PyTorch (:func:`attention_split_plain`: each split's
 unnormalised output, row max and row sum, merged in split order).  The CPU
@@ -28,9 +29,9 @@ def _mask(rows: torch.Tensor, cols: torch.Tensor, skv: int, causal: bool,
 
 
 def attention_plain(
-    q: torch.Tensor,               # (B, Hq, Sq, D)
-    k: torch.Tensor,               # (B, Hkv, Skv, D)
-    v: torch.Tensor,               # (B, Hkv, Skv, D)
+    q: torch.Tensor,               # (B, Hq, Sq, DK)
+    k: torch.Tensor,               # (B, Hkv, Skv, DK)
+    v: torch.Tensor,               # (B, Hkv, Skv, DV)
     *,
     causal: bool = True,
     window: Optional[int] = None,
@@ -39,7 +40,8 @@ def attention_plain(
 ) -> torch.Tensor:
     """q row ``i`` sits at absolute position ``q_offset + i`` (default
     ``Skv - Sq``, right-aligned) and sees columns ``c`` with ``c <= row``
-    (causal) and ``c > row - window`` (window).  Returns q's dtype."""
+    (causal) and ``c > row - window`` (window); ``scale`` defaults to
+    ``DK ** -0.5``.  Returns (B, Hq, Sq, DV) in q's dtype."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -64,9 +66,9 @@ def attention_plain(
 
 
 def attention_split_plain(
-    q: torch.Tensor,               # (B, Hq, Sq, D)
-    k: torch.Tensor,               # (B, Hkv, Skv, D)
-    v: torch.Tensor,               # (B, Hkv, Skv, D)
+    q: torch.Tensor,               # (B, Hq, Sq, DK)
+    k: torch.Tensor,               # (B, Hkv, Skv, DK)
+    v: torch.Tensor,               # (B, Hkv, Skv, DV)
     plan,                          # ops.KvSplitPlan
     *,
     causal: bool = True,
@@ -79,7 +81,7 @@ def attention_split_plain(
     (``ops.split_ranges``), the split's unnormalised output ``O_s``, row
     max ``m_s`` and row sum ``l_s``; then ``Σ O_s e^(m_s − M) / Σ l_s
     e^(m_s − M)`` with ``M = max m_s``, the splits taken in order.  Rows
-    no split sees output 0.  Returns q's dtype."""
+    no split sees output 0.  Returns (B, Hq, Sq, DV) in q's dtype."""
     from repro_torch.kernels.flash_attention.ops import (
         BLOCK_KV,
         BLOCK_Q,
@@ -93,7 +95,8 @@ def attention_split_plain(
     offset = skv - sq if q_offset is None else q_offset
     qg = q.reshape(b, hkv, group, sq, d).float() * scale
     kf, vf = k.float(), v.float()
-    out = torch.zeros(b, hkv, group, sq, d, dtype=torch.float32,
+    dv = v.shape[-1]
+    out = torch.zeros(b, hkv, group, sq, dv, dtype=torch.float32,
                       device=q.device)
     for qt in range(-(-sq // BLOCK_Q)):
         i0, i1 = qt * BLOCK_Q, min((qt + 1) * BLOCK_Q, sq)
@@ -127,4 +130,4 @@ def attention_split_plain(
             den = den + l_s * w
         den = torch.where(den == 0.0, torch.ones_like(den), den)
         out[..., i0:i1, :] = num / den
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    return out.reshape(b, hq, sq, dv).to(q.dtype)

@@ -3,7 +3,9 @@
 Continuous batching with chunked streamed prefill on one GPU, random
 weights from seed 0.  ``--arch`` takes ``smollm-360m``,
 ``h2o-danube-1.8b``, ``nemotron-4-340b`` (at ``reduced()`` only: it does
-not fit one card), ``mamba2-2.7b``, ``zamba2-7b`` (the hybrid: Mamba-2
+not fit one card), ``minicpm3-4b`` (multi-head latent attention: its
+cache is the latent and a shared rope key, attended at q/k head dim 96
+and v head dim 64), ``mamba2-2.7b``, ``zamba2-7b`` (the hybrid: Mamba-2
 layers with shared attention blocks), ``internvl2-2b`` (the VLM: each
 request carries ``frontend_tokens`` patch embeddings, prefilled before its
 text) or ``whisper-tiny`` (the encoder-decoder: each request carries its
@@ -14,7 +16,7 @@ default is the arch's
 ``reduced()`` config, as in the reference launcher; ``--full`` serves the
 full-width config in bf16.  ``--prefill-chunk 0`` admits with bulk
 per-request prefill; ``--paged`` needs an arch with a paged KV layout (not
-mamba2, whose cache is its constant-size state, nor zamba2, whose cache is
+minicpm3, whose cache is its latent rows, nor mamba2, whose cache is its constant-size state, nor zamba2, whose cache is
 that state beside one K/V ring a shared application, nor whisper, whose
 cross K/V stay contiguous).  A VLM's ``--max-seq`` must hold its patch
 rows as well as the prompt.

@@ -1,8 +1,9 @@
 """Serving decode: the K/V ring cache, the paged block pool, the SSM state
 cache, the hybrid's pair of them and one decode step.
 
-The counterpart of the dense GQA, ``ssm`` and ``hybrid`` subset of
-``repro.models.decode``.  The layouts are the reference's:
+The counterpart of the dense GQA and MLA, ``ssm``, ``hybrid`` and
+``encdec`` subset of ``repro.models.decode``.  The layouts are the
+reference's:
 
 * contiguous cache ``k``/``v`` (L, B, Hkv, S_buf, hd) in the param dtype,
   with per-row ``pos`` (B,) and ``slot_pos`` (B, S_buf) (−1 = empty); ring
@@ -10,6 +11,11 @@ The counterpart of the dense GQA, ``ssm`` and ``hybrid`` subset of
 * paged cache ``kp``/``vp`` (L, N_blocks, Hkv, blk, hd) plus the per-slot
   table ``block_ids`` (B, S_buf/blk); blocks ``[0, B)`` are the rows'
   parking blocks;
+* MLA cache (minicpm3): the latent ``ckv`` (L, B, S_buf, kv_lora_rank)
+  and the shared rope key ``krope`` (L, B, S_buf, qk_rope) a layer, with
+  ``pos`` and ``slot_pos`` (contiguous only, as in the reference): 288
+  values a token and layer at full width, where per-head K/V would take
+  40 × (96 + 64);
 * SSM cache ``ssm_state`` (L, B, H, N, P) fp32 and ``conv_state``
   (L, B, conv−1, C) of raw pre-conv rows in the param dtype, with ``pos``:
   constant size, whatever the sequence length (no paged layout);
@@ -24,8 +30,8 @@ The counterpart of the dense GQA, ``ssm`` and ``hybrid`` subset of
 
 Where the reference returns a new cache from a donated one, the port
 updates the cache tensors in place and returns the same dict.  Decode
-attention and the one-token SSD recurrence are plain tensor code (jnp in
-the reference too).
+attention (MLA's absorbed form over the latent too) and the one-token SSD
+recurrence are plain tensor code (jnp in the reference too).
 """
 
 from __future__ import annotations
@@ -91,10 +97,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         if cfg.family == "ssm":
             return cache
     sb = kv_buf_len(cfg, max_seq)
-    names, depth = kv_stacks(cfg)
-    shape = (depth, batch, cfg.n_kv_heads, sb, cfg.resolved_head_dim)
-    for name in names:
-        cache[name] = torch.zeros(shape, dtype=L.pdtype(cfg), device=device)
+    if cfg.attn_type == "mla":
+        for name, width in (("ckv", cfg.kv_lora_rank),
+                            ("krope", cfg.qk_rope_dim)):
+            cache[name] = torch.zeros((cfg.n_layers, batch, sb, width),
+                                      dtype=L.pdtype(cfg), device=device)
+    else:
+        names, depth = kv_stacks(cfg)
+        shape = (depth, batch, cfg.n_kv_heads, sb, cfg.resolved_head_dim)
+        for name in names:
+            cache[name] = torch.zeros(shape, dtype=L.pdtype(cfg),
+                                      device=device)
     if cfg.family == "encdec":
         xshape = shape[:3] + (cfg.encoder_seq, shape[4])
         for name in ("cross_k", "cross_v"):
@@ -239,6 +252,44 @@ def cross_attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return (out @ p["wo"].to(cd)).to(x.dtype)
 
 
+def mla_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               ckv: torch.Tensor, krope: torch.Tensor,
+               slot_pos: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """MLA's absorbed decode: x (B, D) one token per row at ``pos`` (B,).
+    Writes the row's latent and rope key into ``ckv`` (B, S_buf, r) and
+    ``krope`` (B, S_buf, qk_rope) in place, then attends over the latent
+    itself: ``q_nope · W_uk`` per head against ``ckv``, plus the roped q
+    against ``krope``, in fp32 over every whole ring (as the reference),
+    and the latent output through ``W_uv``.  Returns (B, D)."""
+    b = x.shape[0]
+    h, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    cd = L.cdtype(cfg)
+    posv = pos[:, None, None]
+    q = L.mla_q(cfg, p, x[:, None, :], posv)[:, :, 0]     # (B, H, dn + dr)
+    q_eff = torch.einsum("bhd,rhd->bhr", q[..., :dn],
+                         p["w_uk"].to(cd).reshape(r, h, dn))   # absorb W_uk
+    c_new, kr_new = L.mla_latent(cfg, p, x[:, None, :], posv[:, 0])
+    rows = torch.arange(b, device=x.device)
+    slot = (pos % ckv.shape[1]).long()
+    ckv[rows, slot] = c_new[:, 0].to(ckv.dtype)
+    krope[rows, slot] = kr_new[:, 0].to(krope.dtype)
+    cf = ckv.float()
+    scores = (torch.einsum("bhr,bsr->bhs", q_eff.float(), cf)
+              + torch.einsum("bhd,bsd->bhs", q[..., dn:].float(),
+                             krope.float())) * L.mla_scale(cfg)
+    valid = _valid_slots(slot_pos, pos, None)
+    scores = scores.masked_fill(~valid[:, None, :], -1e30)
+    m = scores.amax(-1, keepdim=True)
+    pr = torch.where(scores <= -1e29, torch.zeros_like(scores),
+                     torch.exp(scores - m))
+    pr = pr / pr.sum(-1, keepdim=True).clamp_min(1e-30)
+    out_lat = torch.einsum("bhs,bsr->bhr", pr, cf)
+    out = torch.einsum("bhr,rhd->bhd", out_lat.to(cd),
+                       p["w_uv"].to(cd).reshape(r, h, dv))    # absorb W_uv
+    return (out.reshape(b, h * dv) @ p["wo"].to(cd)).to(x.dtype)
+
+
 def mamba2_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                   ssm_state: torch.Tensor, conv_state: torch.Tensor):
     """One Mamba-2 token.  x (B, D); ssm_state (B, H, N, P) fp32;
@@ -317,6 +368,20 @@ def _decode_hybrid(cfg: ModelConfig, params: Params, cache: Cache,
     return x
 
 
+def _decode_mla(cfg: ModelConfig, params: Params, cache: Cache,
+                x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Every MLA layer on one token a row, each over its own latent ring
+    ``ckv[li]``/``krope[li]`` (no window, as the reference)."""
+    _stamp_slot(cache, pos)
+    for li, lp in enumerate(params["layers"]):
+        x = x + mla_decode(cfg, lp["attn"],
+                           L.rms_norm(lp["ln1"], x, cfg.norm_eps),
+                           cache["ckv"][li], cache["krope"][li],
+                           cache["slot_pos"], pos)
+        x = x + L.mlp(cfg, lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps))
+    return x
+
+
 def _decode_gqa(cfg: ModelConfig, params: Params, cache: Cache,
                 x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     rows = torch.arange(x.shape[0], device=x.device)
@@ -377,6 +442,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         x = _decode_hybrid(cfg, params, cache, x, pos)
     elif cfg.family == "encdec":
         x = _decode_encdec(cfg, params, cache, x, pos)
+    elif cfg.attn_type == "mla":
+        x = _decode_mla(cfg, params, cache, x, pos)
     else:
         x = _decode_gqa(cfg, params, cache, x, pos)
     cache["pos"] = pos + 1

@@ -1,8 +1,12 @@
-"""Layers: norms, positions, GQA attention, the MLP and the Mamba-2 block.
+"""Layers: norms, positions, GQA and MLA attention, the MLP and the Mamba-2
+block.
 
 The counterpart of the dense, encoder-decoder and SSM subset of
 ``repro.models.layers``: RMSNorm and (whisper) LayerNorm, RoPE and the
-sinusoidal encoder positions, self- and cross-attention.
+sinusoidal encoder positions, self- and cross-attention, and minicpm3's
+multi-head latent attention (:func:`mla_attention`: K/V expanded from a
+256-wide latent and a shared rope key, attended at q/k head dim 96 and v
+head dim 64).
 Parameters are plain dicts of tensors laid out as the reference's (weights
 ``(d_in, d_out)``), and attention tensors are ``(B, H, S, D)``.  Serving
 attention has one path: :func:`attention_core` calls the flash-attention
@@ -91,11 +95,13 @@ def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: Optional[int] = None,
+                   scale: Optional[float] = None,
                    q_offset: Optional[int] = None) -> torch.Tensor:
-    """q (B, Hq, Sq, D) against k/v (B, Hkv, Skv, D); q row ``i`` at
+    """q (B, Hq, Sq, DK) against k (B, Hkv, Skv, DK) and v (B, Hkv, Skv,
+    DV), scaled by ``scale`` (default ``DK ** -0.5``); q row ``i`` at
     absolute position ``q_offset + i`` (default right-aligned)."""
     return flash_attention(q, k, v, causal=causal, window=window,
-                           q_offset=q_offset)
+                           scale=scale, q_offset=q_offset)
 
 
 def blockwise_core(cfg: ModelConfig):
@@ -103,11 +109,12 @@ def blockwise_core(cfg: ModelConfig):
     :func:`blockwise_attention` at the config's chunks and causal skip:
     the training route (the reference's ``attention_core`` off the TPU)."""
     def core(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+             scale: Optional[float] = None,
              q_offset: Optional[int] = None) -> torch.Tensor:
         return blockwise_attention(
-            q, k, v, causal=causal, window=window, q_chunk=cfg.attn_q_chunk,
-            kv_chunk=cfg.attn_kv_chunk, causal_skip=cfg.causal_block_skip,
-            q_offset=q_offset)
+            q, k, v, causal=causal, window=window, scale=scale,
+            q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
+            causal_skip=cfg.causal_block_skip, q_offset=q_offset)
 
     return core
 
@@ -240,7 +247,8 @@ def cross_kv(cfg: ModelConfig, p: Params, enc_out: torch.Tensor):
 
 def out_proj(cfg: ModelConfig, p: Params, out: torch.Tensor,
              dtype: torch.dtype) -> torch.Tensor:
-    """Attention output (B, Hq, S, hd) → (B, S, D) through ``wo``."""
+    """Attention output (B, Hq, S, hd) (MLA's: v_head_dim) → (B, S, D)
+    through ``wo``."""
     b, _, s, _ = out.shape
     cd = cdtype(cfg)
     flat = out.transpose(1, 2).reshape(b, s, -1)
@@ -268,6 +276,80 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     y = out_proj(cfg, p, out, x.dtype)
     if return_kv:
         return y, (k, v)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (minicpm3)
+# ---------------------------------------------------------------------------
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """MLA's softmax scale, ``(qk_nope + qk_rope) ** -0.5``."""
+    return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+
+
+def mla_q(cfg: ModelConfig, p: Params, x: torch.Tensor,
+          positions: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) → q (B, H, S, qk_nope + qk_rope) in the compute dtype:
+    the low-rank ``w_dq``, its RMSNorm, ``w_uq``, and rope on the last
+    ``qk_rope`` columns of each head."""
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    cd = cdtype(cfg)
+    q_lat = rms_norm(p["q_norm"], x.to(cd) @ p["w_dq"].to(cd), cfg.norm_eps)
+    q = (q_lat @ p["w_uq"].to(cd)).reshape(b, s, h, dn + dr).transpose(1, 2)
+    return torch.cat([q[..., :dn],
+                      apply_rope(q[..., dn:], positions, cfg.rope_theta)],
+                     dim=-1)
+
+
+def mla_latent(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               positions: torch.Tensor):
+    """x (B, S, D) → what MLA caches: the normed latent ``c_kv`` (B, S,
+    kv_lora_rank) and the shared rope key (B, S, qk_rope), roped at
+    ``positions``, both in the compute dtype."""
+    r = cfg.kv_lora_rank
+    cd = cdtype(cfg)
+    dkv = x.to(cd) @ p["w_dkv"].to(cd)
+    return (rms_norm(p["kv_norm"], dkv[..., :r], cfg.norm_eps),
+            apply_rope(dkv[..., r:], positions, cfg.rope_theta))
+
+
+def mla_expand(cfg: ModelConfig, p: Params, c_kv: torch.Tensor,
+               k_rope: torch.Tensor):
+    """The latent rows (B, S, r) and rope keys (B, S, qk_rope) → per-head
+    k (B, H, S, qk_nope + qk_rope), contiguous, each head's rope columns
+    the shared key, and v (B, H, S, v_head_dim), a transposed view of the
+    ``w_uv`` product."""
+    b, s, _ = c_kv.shape
+    h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    cd = cdtype(cfg)
+    k_nope = (c_kv @ p["w_uk"].to(cd)).reshape(b, s, h, dn).transpose(1, 2)
+    k = torch.cat([k_nope, k_rope[:, None].expand(b, h, s, dr)], dim=-1)
+    v = (c_kv @ p["w_uv"].to(cd)).reshape(b, s, h, dv).transpose(1, 2)
+    return k, v
+
+
+def mla_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                  positions: torch.Tensor, *, return_cache: bool = False,
+                  core=None):
+    """Multi-head latent attention, x (B, S, D) → (B, S, D), causal: q
+    through its low-rank path, K/V expanded from the latent to every
+    head (:func:`mla_expand`), attended at q/k head dim ``qk_nope +
+    qk_rope`` and v head dim ``v_head_dim`` with :func:`mla_scale`, then
+    ``wo``.  ``return_cache`` also returns the cache contents (``c_kv``
+    (B, S, r), ``k_rope`` (B, S, qk_rope)); ``core`` is
+    :func:`attention`'s."""
+    q = mla_q(cfg, p, x, positions)
+    c_kv, k_rope = mla_latent(cfg, p, x, positions)
+    k, v = mla_expand(cfg, p, c_kv, k_rope)
+    out = (core or attention_core)(q, k, v, causal=True,
+                                   scale=mla_scale(cfg))
+    y = out_proj(cfg, p, out, x.dtype)
+    if return_cache:
+        return y, (c_kv, k_rope)
     return y
 
 

@@ -1,7 +1,8 @@
 """Model assembly: init, embed, blocks, forward and the LM head.
 
-The counterpart of the dense GQA, ``vlm`` (internvl2: projected patch
-embeddings before the text), ``encdec`` (whisper: a bidirectional encoder
+The counterpart of the dense GQA and MLA (minicpm3: multi-head latent
+attention), ``vlm`` (internvl2: projected patch embeddings before the
+text), ``encdec`` (whisper: a bidirectional encoder
 over frame embeddings, a decoder with cross-attention), ``ssm`` (Mamba-2)
 and ``hybrid`` (zamba2: a Mamba-2 backbone with shared attention blocks)
 families of ``repro.models.model``.  Parameters
@@ -66,6 +67,28 @@ def _init_attention(cfg: ModelConfig, gen, device) -> Params:
     }
 
 
+def _init_mla(cfg: ModelConfig, gen, device) -> Params:
+    """The reference's ``init_mla``: the low-rank q path (``w_dq``, its
+    norm, ``w_uq``), the latent's down projection ``w_dkv`` (latent and
+    shared rope key), its norm, the up projections ``w_uk``/``w_uv`` and
+    a depth-scaled ``wo``."""
+    d, r, rq = cfg.d_model, cfg.kv_lora_rank, cfg.q_lora_rank
+    h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    dt = L.pdtype(cfg)
+    depth_scale = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
+    return {
+        "w_dq": _init((d, rq), dt, gen, device),
+        "q_norm": {"scale": torch.ones(rq, dtype=dt, device=device)},
+        "w_uq": _init((rq, h * (dn + dr)), dt, gen, device),
+        "w_dkv": _init((d, r + dr), dt, gen, device),
+        "kv_norm": {"scale": torch.ones(r, dtype=dt, device=device)},
+        "w_uk": _init((r, h * dn), dt, gen, device),
+        "w_uv": _init((r, h * dv), dt, gen, device),
+        "wo": _init((h * dv, d), dt, gen, device, depth_scale),
+    }
+
+
 def _init_dense_layer(cfg: ModelConfig, gen, device,
                       cross: bool = False) -> Params:
     """A pre-norm block: attention and the MLP; ``cross`` adds the
@@ -78,7 +101,8 @@ def _init_dense_layer(cfg: ModelConfig, gen, device,
     if cfg.gated_mlp:
         mlp["w_gate"] = _init((d, f), dt, gen, device)
     p = {"ln1": _init_norm(cfg, device),
-         "attn": _init_attention(cfg, gen, device),
+         "attn": (_init_mla(cfg, gen, device) if cfg.attn_type == "mla"
+                  else _init_attention(cfg, gen, device)),
          "ln2": _init_norm(cfg, device),
          "mlp": mlp}
     if cross:
@@ -119,11 +143,12 @@ def _init_ssm_layer(cfg: ModelConfig, gen, device) -> Params:
 
 def _check_ported(cfg: ModelConfig) -> None:
     if not ((cfg.family in ("dense", "hybrid", "vlm", "encdec")
-             and cfg.attn_type == "gqa") or cfg.family == "ssm"):
+             and cfg.attn_type == "gqa")
+            or (cfg.family == "dense" and cfg.attn_type == "mla")
+            or cfg.family == "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA, vlm, encdec, ssm and hybrid "
-            f"families are ported (MLA and MoE: ROADMAP queue 1 items 5.4 "
-            f"and 5.3)")
+            f"{cfg.name}: only the dense GQA and MLA, vlm, encdec, ssm and "
+            f"hybrid families are ported (MoE: ROADMAP queue 1 item 5.3)")
 
 
 def n_applications(cfg: ModelConfig) -> int:
@@ -252,12 +277,17 @@ def dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, *,
                 core: Optional[Callable] = None,
                 causal: bool = True) -> torch.Tensor:
-    """One pre-norm dense block: attention, then the MLP, each added to
-    the residual.  ``core`` is the attention core (``layers.attention``'s:
-    by default the flash kernel, which has no backward); ``causal=False``
-    is the whisper encoder's bidirectional block."""
-    h = x + L.attention(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
-                        positions, core=core, causal=causal)
+    """One pre-norm dense block: attention (MLA's where the config says
+    so, as the reference picks), then the MLP, each added to the
+    residual.  ``core`` is the attention core (``layers.attention``'s: by
+    default the flash kernel, which has no backward); ``causal=False`` is
+    the whisper encoder's bidirectional block."""
+    normed = L.apply_norm(cfg, p["ln1"], x)
+    if cfg.attn_type == "mla":
+        h = x + L.mla_attention(cfg, p["attn"], normed, positions, core=core)
+    else:
+        h = x + L.attention(cfg, p["attn"], normed, positions, core=core,
+                            causal=causal)
     return h + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h))
 
 
@@ -439,7 +469,7 @@ def count_params(params: Any) -> int:
 
 def count_params_analytic(cfg: ModelConfig) -> int:
     """Scalars in ``init_params(cfg)`` from the config alone: the dense
-    GQA, ``vlm``, ``encdec``, ``ssm`` and ``hybrid`` terms of
+    GQA and MLA, ``vlm``, ``encdec``, ``ssm`` and ``hybrid`` terms of
     ``repro.models.model.count_params_analytic``."""
     _check_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
@@ -454,9 +484,14 @@ def count_params_analytic(cfg: ModelConfig) -> int:
            + 3 * cfg.ssm_heads + d_in + d_in * d + d)
     if cfg.family == "ssm":
         return total + cfg.n_layers * ssm
-    hd = cfg.resolved_head_dim
-    attn = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
-            + cfg.n_heads * hd * d)
+    hd, h = cfg.resolved_head_dim, cfg.n_heads
+    r, rq = cfg.kv_lora_rank, cfg.q_lora_rank
+    if cfg.attn_type == "mla":
+        attn = (d * rq + rq + rq * h * (cfg.qk_nope_dim + cfg.qk_rope_dim)
+                + d * (r + cfg.qk_rope_dim) + r + r * h * cfg.qk_nope_dim
+                + r * h * cfg.v_head_dim + h * cfg.v_head_dim * d)
+    else:
+        attn = (d * h * hd + 2 * d * cfg.n_kv_heads * hd + h * hd * d)
     mlp = (3 if cfg.gated_mlp else 2) * d * cfg.d_ff
     if cfg.family == "encdec":
         enc = attn + mlp + 2 * norm

@@ -1,7 +1,7 @@
 """Prefill into the decode cache: bulk, chunked, and to paged blocks.
 
-The counterpart of the GQA ``ring`` (dense and vlm), SSM ``state``,
-``hybrid`` and ``encdec`` carries of ``repro.models.prefill``.
+The counterpart of the GQA ``ring`` (dense and vlm), MLA ``latent``, SSM
+``state``, ``hybrid`` and ``encdec`` carries of ``repro.models.prefill``.
 Ring fill: the cache keeps the last ``sb`` positions, position ``p`` at
 slot ``p % sb``; for a prompt shorter than ``sb`` the tail slots stay empty
 (``slot_pos = −1``).
@@ -12,6 +12,15 @@ kernel takes that offset, so on the card bulk and chunked prefill both run
 through it (the reference gates chunks to its blockwise jnp path, whose
 result, ``blockwise_attention(q_offset=lo)``, is what is computed here).
 Scratch updates are in place.
+
+The ``latent`` carry of MLA (minicpm3) is a full-length scratch of the
+latent rows ``ckv`` and shared rope keys ``krope`` a layer: each chunk
+writes its rows at ``lo``, expands rows ``[0, hi)`` to per-head K/V
+(``layers.mla_expand``) and attends at ``q_offset = lo`` through the flash
+kernel at q/k head dim 96 and v head dim 64.  The reference expands the
+whole scratch and masks the zero rows past the chunk; expanding only the
+rows a chunk can see is the same function (tests hold the two at 1e-5).
+The finished scratch ring-fills into ``ckv``/``krope``.
 
 The ``state`` carry of the SSM family is constant-size: per layer the SSD
 state and the (conv−1) raw pre-conv rows.  Each chunk resumes every layer
@@ -112,6 +121,25 @@ def _prefill_gqa(cfg: ModelConfig, params: Params, x: torch.Tensor,
         vs.append(v)
     slot_pos, _ = _slot_map(x.shape[1], sb, x.device)
     return x, {"k": torch.stack(ks), "v": torch.stack(vs),
+               "slot_pos": slot_pos}
+
+
+def _prefill_mla(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                 positions: torch.Tensor, sb: int):
+    """Every MLA block over the prompt, each keeping its latent rows and
+    rope keys ring-filled to ``sb`` slots in the param dtype."""
+    dt = L.pdtype(cfg)
+    cks, krs = [], []
+    for lp in params["layers"]:
+        normed = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
+        a, (ckv, krope) = L.mla_attention(cfg, lp["attn"], normed, positions,
+                                          return_cache=True)
+        x = x + a
+        x = x + L.mlp(cfg, lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps))
+        cks.append(_ring_fill(ckv, sb, seq_axis=1).to(dt))
+        krs.append(_ring_fill(krope, sb, seq_axis=1).to(dt))
+    slot_pos, _ = _slot_map(x.shape[1], sb, x.device)
+    return x, {"ckv": torch.stack(cks), "krope": torch.stack(krs),
                "slot_pos": slot_pos}
 
 
@@ -218,7 +246,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     else:
         sb = kv_buf_len(cfg, cache_len or s_total)
         positions = torch.arange(s_total, device=x.device)
-        body = _prefill_hybrid if cfg.family == "hybrid" else _prefill_gqa
+        body = (_prefill_hybrid if cfg.family == "hybrid" else
+                _prefill_mla if cfg.attn_type == "mla" else _prefill_gqa)
         x, cache = body(cfg, params, x, positions, sb)
     return (_finish_cache(cache, tokens.shape[0], s_total, x.device),
             _chunk_logits(cfg, params, x))
@@ -242,12 +271,13 @@ def _finish_cache(cache: Cache, batch: int, s_total: int, device) -> Cache:
 def chunk_support(cfg: ModelConfig) -> Tuple[bool, str]:
     """Whether streamed prefill can run, with the reason if not.  The
     flash kernel takes ``q_offset``, so the ported ``ring`` carry of the
-    dense and vlm families, the ``hybrid`` carry and the ``encdec`` carry
-    always chunk, and the SSM ``state`` carry has no attention; the other
-    carry kinds (MLA's ``latent``, MoE's ring) are not ported yet."""
+    dense and vlm families, MLA's ``latent`` carry, the ``hybrid`` carry
+    and the ``encdec`` carry always chunk, and the SSM ``state`` carry has
+    no attention; MoE's ring is not ported yet."""
     kind = chunk_carry_spec(cfg).kind
     if (kind, cfg.family) not in (("ring", "dense"), ("ring", "vlm"),
-                                  ("state", "ssm"), ("hybrid", "hybrid"),
+                                  ("latent", "dense"), ("state", "ssm"),
+                                  ("hybrid", "hybrid"),
                                   ("encdec", "encdec")):
         return False, f"the {kind!r} chunk carry of {cfg.family} is not ported"
     return True, ""
@@ -305,13 +335,20 @@ def init_prefill_scratch(cfg: ModelConfig, batch: int, prompt_len: int,
     kind both: the state pair of every layer and a K/V scratch
     (n_apps, B, Hkv, S, hd) a shared application, named ``attn_k`` and
     ``attn_v``; for the ``encdec`` kind the decoder's K/V scratch and the
-    cross K/V (L, B, Hkv, encoder_seq, hd) chunk 0 fills.  A VLM's
-    ``prompt_len`` counts its patch rows."""
+    cross K/V (L, B, Hkv, encoder_seq, hd) chunk 0 fills; for the
+    ``latent`` kind (MLA) the latent rows ``ckv`` (L, B, S, kv_lora_rank)
+    and rope keys ``krope`` (L, B, S, qk_rope) in the compute dtype.  A
+    VLM's ``prompt_len`` counts its patch rows."""
     ok, why = chunk_support(cfg)
     if not ok:
         raise ValueError(f"{cfg.name}: {why}")
     cd = L.cdtype(cfg)
     pos = {"pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+    if cfg.attn_type == "mla":
+        return {**{name: torch.zeros((cfg.n_layers, batch, prompt_len, width),
+                                     dtype=cd, device=device)
+                   for name, width in (("ckv", cfg.kv_lora_rank),
+                                       ("krope", cfg.qk_rope_dim))}, **pos}
     carry = {}
     if cfg.family in ("ssm", "hybrid"):
         carry = ssm_cache(cfg, batch, device)
@@ -351,6 +388,23 @@ def _chunk_dense_layer(cfg: ModelConfig, lp: Params, h: torch.Tensor,
     normed = L.apply_norm(cfg, lp["ln1"], h)
     h = h + _chunk_attention(cfg, lp["attn"], normed, kbuf, vbuf, lo)
     return h + L.mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], h))
+
+
+def _chunk_mla_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                         cbuf: torch.Tensor, kbuf: torch.Tensor,
+                         lo: int) -> torch.Tensor:
+    """``layers.mla_attention`` for chunk rows at ``[lo, hi)``: the
+    chunk's latent rows and rope keys are written into the scratch in
+    place, rows ``[0, hi)`` expanded to per-head K/V, and q attends
+    against them at ``q_offset = lo``."""
+    hi = lo + x.shape[1]
+    positions = torch.arange(lo, hi, device=x.device)
+    q = L.mla_q(cfg, p, x, positions)
+    cbuf[:, lo:hi], kbuf[:, lo:hi] = L.mla_latent(cfg, p, x, positions)
+    k, v = L.mla_expand(cfg, p, cbuf[:, :hi], kbuf[:, :hi])
+    out = L.attention_core(q, k, v, causal=True, scale=L.mla_scale(cfg),
+                           q_offset=lo)
+    return L.out_proj(cfg, p, out, x.dtype)
 
 
 def _chunk_encdec(cfg: ModelConfig, params: Params, scratch: Cache,
@@ -402,6 +456,13 @@ def prefill_chunk(cfg: ModelConfig, params: Params, scratch: Cache,
     if cfg.family == "ssm":
         h, _ = _ssm_stack(cfg, params, h, scratch["ssm_state"],
                           scratch["conv_state"])
+    elif cfg.attn_type == "mla":
+        for li, lp in enumerate(params["layers"]):
+            h = h + _chunk_mla_attention(
+                cfg, lp["attn"], L.rms_norm(lp["ln1"], h, cfg.norm_eps),
+                scratch["ckv"][li], scratch["krope"][li], lo)
+            h = h + L.mlp(cfg, lp["mlp"],
+                          L.rms_norm(lp["ln2"], h, cfg.norm_eps))
     elif cfg.family == "hybrid":
         for kind, i in hybrid_order(cfg):
             if kind == "ssm":
@@ -425,8 +486,17 @@ def scratch_to_cache(cfg: ModelConfig, scratch: Cache,
     :func:`prefill` (ring fill, cast to the param dtype).  The ``state``
     carry already is the cache; the ``hybrid`` carry keeps its state pairs
     and ring-fills its applications' K/V; the ``encdec`` carry keeps its
-    cross K/V as they are."""
+    cross K/V as they are; the ``latent`` carry ring-fills its latent rows
+    and rope keys."""
     dt = L.pdtype(cfg)
+    if cfg.attn_type == "mla":
+        ckv = scratch["ckv"]
+        batch, s = ckv.shape[1], ckv.shape[2]
+        sb = kv_buf_len(cfg, cache_len or s)
+        cache = {n: _ring_fill(scratch[n], sb, seq_axis=2).to(dt)
+                 for n in ("ckv", "krope")}
+        cache["slot_pos"] = _slot_map(s, sb, ckv.device)[0]
+        return _finish_cache(cache, batch, s, ckv.device)
     cache = {}
     if cfg.family == "encdec":
         cache = {n: scratch[n].to(dt) for n in ("cross_k", "cross_v")}

@@ -4,9 +4,10 @@ The counterpart of ``repro.runtime.server`` on one device:
 
 * **Admission** is per slot: a request's prompt is prefilled into its
   chunk carry (a full-length K/V scratch for the dense family, the
-  constant-size SSD state and conv tail for the SSM family, both for the
-  hybrid: the states of its Mamba-2 layers and a K/V scratch a shared
-  attention application) by incremental chunk steps, at most one chunk
+  latent rows and shared rope keys for MLA, the constant-size SSD state
+  and conv tail for the SSM family, both for the hybrid: the states of
+  its Mamba-2 layers and a K/V scratch a shared attention application)
+  by incremental chunk steps, at most one chunk
   per server step, so prefill interleaves with decode instead of blocking
   it.  Chunks round up to the carry's ``chunk_multiple`` (``ssm_chunk``
   for the SSM and the hybrid).  The finished carry becomes a

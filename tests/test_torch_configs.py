@@ -24,7 +24,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.mark.parametrize("name", ["smollm-360m", "h2o-danube-1.8b",
                                   "mamba2-2.7b", "zamba2-7b",
                                   "internvl2-2b", "whisper-tiny",
-                                  "nemotron-4-340b"])
+                                  "nemotron-4-340b", "minicpm3-4b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_equal_reference(name, reduced):
     ours, ref = get_config(name), ref_get_config(name)
@@ -41,9 +41,10 @@ def test_config_fields_equal_reference(name, reduced):
 def test_registry_names_and_unknown_arch():
     assert set(ARCH_NAMES) == {"smollm-360m", "h2o-danube-1.8b",
                                "mamba2-2.7b", "zamba2-7b", "internvl2-2b",
-                               "whisper-tiny", "nemotron-4-340b"}
+                               "whisper-tiny", "nemotron-4-340b",
+                               "minicpm3-4b"}
     with pytest.raises(KeyError):
-        get_config("minicpm3-4b")
+        get_config("grok-1-314b")
 
 
 def test_package_imports_no_jax_and_no_reference():

@@ -90,6 +90,43 @@ def test_plain_q_offset_matches_blockwise(lo, c, window):
     np.testing.assert_allclose(ours, ref, **TOL)
 
 
+@pytest.mark.parametrize("sq,skv,lo,scale", [
+    (40, 40, None, None),           # bulk, the default DK ** -0.5 scale
+    (40, 40, None, 96 ** -0.5),     # bulk, MLA's scale passed explicitly
+    (17, 150, 70, 0.125),           # a ragged chunk at an offset
+    (64, 256, 128, None),           # a chunk the kernel would split
+])
+def test_unequal_head_dims_match_blockwise(sq, skv, lo, scale):
+    """MLA's q/k head dim 96 and v head dim 64 (40 heads, no GQA): both
+    plain versions against the reference's blockwise_attention (the route
+    the reference takes for unequal dims); a chunk's scratch rows past
+    its end are still zero.  The output takes v's head dim."""
+    rng = np.random.default_rng(sq + skv)
+    q = rng.standard_normal((1, 40, sq, 96), dtype=np.float32)
+    k = rng.standard_normal((1, 40, skv, 96), dtype=np.float32)
+    v = rng.standard_normal((1, 40, skv, 64), dtype=np.float32)
+    if lo is not None:
+        k[:, :, lo + sq:] = 0.0
+        v[:, :, lo + sq:] = 0.0
+    kw = dict(causal=True, scale=scale, q_offset=lo)
+    ours = _plain(q, k, v, **kw)
+    assert ours.shape == (1, 40, sq, 64)
+    ref = np.asarray(blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_chunk=16,
+        kv_chunk=32, **kw))
+    np.testing.assert_allclose(ours, ref, **TOL)
+    off = skv - sq if lo is None else lo
+    for plan in (kv_split_plan(sq, skv, off, True, None, 40),
+                 KvSplitPlan(-(-skv // BLOCK_KV), 1)):
+        split = attention_split_plain(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            plan, **kw).numpy()
+        np.testing.assert_allclose(split, ref, **TOL)
+    np.testing.assert_allclose(
+        port_flash(torch.from_numpy(q), torch.from_numpy(k),
+                   torch.from_numpy(v), **kw).numpy(), ours, rtol=0, atol=0)
+
+
 def test_default_offset_is_right_aligned():
     q, k, v = _qkv(1, 4, 2, 5, 12, 16, seed=3)
     np.testing.assert_array_equal(_plain(q, k, v),

@@ -1272,3 +1272,100 @@ def test_reduced_encdec_on_card_matches_cpu(cuda):
         c_gpu, d_gpu = decode_step(cfg, on_card, c_gpu, step.to(cuda))
         torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=1e-4, atol=1e-4)
     assert FLASH.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,sq,skv,q_offset", [
+    (40, 77, 77, None),          # ragged bulk
+    (40, 384, 384, None),        # bulk, six q tiles
+    (40, 128, 1024, 512),        # a chunk of a long scratch (split in bf16)
+    (40, 100, 1100, 1000),       # a ragged chunk at the scratch's end
+    (6, 24, 300, 200),           # few heads: a split even at Sq 24
+])
+def test_mla_head_dims_match_plain(cuda, dtype, hq, sq, skv, q_offset):
+    """MLA's (q/k 96, v 64) pair at minicpm3's 40 heads, k contiguous and
+    v a transposed (B, S, H, 64) view as the model passes them, MLA's
+    scale: fp32 at 2e-4 against the plain version; bf16 at 3e-2 and, to
+    the plain and the split-and-merge plain versions, at BF16_SPLIT_REL.
+    The output has v's head dim."""
+    g = torch.Generator(device=cuda).manual_seed(sq + skv)
+    q = torch.randn(1, hq, sq, 96, generator=g, device=cuda).to(dtype)
+    k = torch.randn(1, hq, skv, 96, generator=g, device=cuda).to(dtype)
+    v = torch.randn(1, skv, hq * 64, generator=g, device=cuda).to(
+        dtype).view(1, skv, hq, 64).transpose(1, 2)
+    kw = dict(scale=96 ** -0.5, q_offset=q_offset)
+    before = FLASH.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FLASH.launches == before + 1
+    assert got.dtype == dtype and got.shape == (1, hq, sq, 64)
+    assert torch.isfinite(got).all()
+    err = (got.float() - attention_plain(q, k, v, **kw).float()).abs().max()
+    assert err.item() <= TOL[dtype], err.item()
+    if dtype == torch.bfloat16:
+        errs = _split_rel_err(got, q, k, v, **kw)
+        assert max(errs) <= BF16_SPLIT_REL, errs
+
+
+def test_unsupported_head_dim_pair_raises(cuda):
+    """Only the pairs of ``ops.HEAD_DIM_PAIRS`` launch: (128, 64) or
+    (64, 96) raise, in either dtype, and launch nothing."""
+    before = FLASH.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        for dk, dv in ((128, 64), (64, 96), (96, 32)):
+            q = torch.randn(1, 2, 8, dk, device=cuda).to(dtype)
+            v = torch.randn(1, 2, 8, dv, device=cuda).to(dtype)
+            with pytest.raises(ValueError, match="head dims"):
+                flash_attention(q, q, v)
+    q = torch.randn(1, 2, 8, 96, device=cuda)
+    with pytest.raises(ValueError):             # v's rows are not k's
+        flash_attention(q, q, torch.randn(1, 2, 9, 64, device=cuda))
+    assert FLASH.launches == before
+
+
+def test_reduced_mla_on_card_matches_cpu(cuda):
+    """Reduced minicpm3-4b at the full width's head dims (q/k 96, v 64)
+    in fp32: bulk prefill of 37 tokens, the same rows in chunks (flash
+    n_layers times a pass or chunk at (96, 64)), and two decode steps (no
+    kernel: the absorbed form over the latent), on the card against the
+    plain versions on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.decode import decode_step
+    from repro_torch.models.model import init_params, params_to
+    from repro_torch.models.prefill import (
+        init_prefill_scratch,
+        prefill,
+        prefill_chunk,
+    )
+
+    cfg = dataclasses.replace(get_config("minicpm3-4b").reduced(),
+                              qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64,
+                              head_dim=96)
+    params = init_params(cfg, seed=0, device="cpu")
+    on_card = params_to(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 37))).long()
+    c_cpu, l_cpu = prefill(cfg, params, toks, cache_len=64)
+    before = FLASH.launches
+    c_gpu, l_gpu = prefill(cfg, on_card, toks.to(cuda), cache_len=64)
+    assert FLASH.launches == before + cfg.n_layers
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+    for key in ("ckv", "krope"):
+        torch.testing.assert_close(c_gpu[key].cpu(), c_cpu[key], rtol=1e-4,
+                                   atol=1e-4)
+    scr = init_prefill_scratch(cfg, 2, 37, cuda)
+    for lo, hi in ((0, 5), (5, 20), (20, 37)):
+        before = FLASH.launches
+        scr, l_chunk = prefill_chunk(cfg, on_card, scr,
+                                     toks[:, lo:hi].to(cuda), lo)
+        assert FLASH.launches == before + cfg.n_layers
+    torch.testing.assert_close(l_chunk.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+    step = torch.tensor([3, 7])
+    before = FLASH.launches
+    for _ in range(2):
+        c_cpu, d_cpu = decode_step(cfg, params, c_cpu, step)
+        c_gpu, d_gpu = decode_step(cfg, on_card, c_gpu, step.to(cuda))
+        torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=1e-4, atol=1e-4)
+    assert FLASH.launches == before
