@@ -11,7 +11,8 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    Flash attention: smollm-360m heads 15/5 at D 64, h2o-danube-1.8b heads
    32/8 at D 80, zamba2-7b heads 32/32 at D 112, internvl2-2b heads 16/8
    at D 128, minicpm3-4b heads 40/40 at q/k head dim 96 and v head dim 64
-   (MLA, at its scale 96^-½); bf16 and fp32; bulk
+   (MLA, at its scale 96^-½), llama4-scout-17b-a16e heads 40/8 (a GQA
+   group of 5) at D 128; bf16 and fp32; bulk
    S = 1000 and 2048, 128-row chunks at q_offset 0, 128, 896, 1024 and
    1920 of a 2048 scratch, a ragged 100-row chunk at 896, a 256 window at
    2048 and at the chunk at 1024, and a window of 0 at 2048 (only None
@@ -20,7 +21,7 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    bulk, the chunk at 1024 and the windows at 2048; bf16 at the other
    chunks, and every bf16 case against the split-and-merge plain version
    at the kernel's split plan, to 1e-2 of the largest plain output.  At
-   bulk-2048 and chunk-128@1024 of the five models in bf16, time the kernel,
+   bulk-2048 and chunk-128@1024 of the six models in bf16, time the kernel,
    the plain version, the bound and ``scaled_dot_product_attention`` over
    the same visible columns (the library yardstick, bottom-right causal
    for a chunk; the port never calls it), and name the kernel SDPA ran.
@@ -92,6 +93,23 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    and bulk pass, never in decode (the absorbed form over the latent),
    and no other kernel of the port; phase 4's fp32 check.  Printed as
    phase 3b.
+3e. Serve llama4-scout-17b-a16e in bf16 at full width with its depth cut
+   to 8 of its 48 layers (19.69 B parameters, random weights from a seed;
+   16 experts, top-1, a shared expert; heads 40/8 at D 128): phase 3's
+   recipe, contiguous and paged (chunks of 128), then bulk.  Held: the
+   parameter count against ``count_params_analytic``; every request
+   answered; flash launched 8 times a chunk or bulk pass (296 a chunked
+   run, 64 the bulk run), never in decode, and no other kernel of the
+   port; paged ≡ contiguous tokens; no op of a profiled decode step or
+   chunk makes a new tensor the size of an expert weight (a copy or cast
+   of one).  Printed: prefill and decode tokens/s, TTFT, ITL, peak GiB,
+   the profiled step and chunk (idle share, top device ops).  Then, the
+   bf16 model freed, the same widths at 2 layers in fp32 (6.47 B
+   parameters) with ``capacity_factor = n_experts``: chunked ≡ bulk
+   first-token logits to 1e-4 of the largest, and layer 0's keep
+   decisions agree everywhere; at the published capacity factor (1.25)
+   the share of layer 0's (token, choice) keep decisions that chunk-local
+   and bulk routing decide differently is printed, not held.
 4. Serve full-width mamba2-2.7b in bf16 (random weights from a seed): 6
    requests with prompts of 256–1024 tokens, 16 new tokens each, batch 4,
    one arrival every 2 steps — chunked admission (128-token chunks), then
@@ -113,9 +131,12 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    Printed: the parameters, init time, prefill and decode tokens/s, TTFT,
    ITL, the peak memory of each run and the phase's wall time.
 5. The reduced configs in fp32: prefill logits (and mamba2's and
-   zamba2's final SSD states, minicpm3's latent cache) through the
-   kernels on the card against their plain versions on the CPU;
-   minicpm3 at its full width's head dims (q/k 96, v 64).
+   zamba2's final SSD states, minicpm3's latent cache, the MoE archs' K/V
+   cache) through the kernels on the card against their plain versions
+   on the CPU; minicpm3 at its full width's head dims (q/k 96, v 64);
+   llama4-scout and grok-1 with every layer's routing decisions (``idx``,
+   ``keep``) equal on the two (a flipped choice is printed with its
+   top-k margin; one above 1e-5 fails).
 6. The fused collective matmul's three hop kernels (``cc_matmul.cu``)
    against their plain versions at the shapes full-width h2o-danube-1.8b
    gives them at TP 4 (B 2, 512 rows a rank, bidirectional half rings of
@@ -488,8 +509,9 @@ def sdpa_yardstick(q, k, v, window, q_offset, causal=True):
 def phase_kernels():
     """Kernel vs plain on the card; returns the main-path shapes' numbers
     (bulk-2048 and chunk-128@1024 of smollm-360m in bf16; h2o-danube-1.8b's,
-    zamba2-7b's, internvl2-2b's and minicpm3-4b's (q/k head dim 96, v 64)
-    under ``h2o_*``, ``zamba2_*``, ``internvl2_*`` and ``minicpm3_*``;
+    zamba2-7b's, internvl2-2b's, minicpm3-4b's (q/k head dim 96, v 64) and
+    llama4-scout-17b-a16e's (40/8 heads) under ``h2o_*``, ``zamba2_*``,
+    ``internvl2_*``, ``minicpm3_*`` and ``llama4_*``;
     whisper-tiny's non-causal encoder and cross calls under ``whisper_*``,
     from :func:`flash_noncausal`)."""
     import torch
@@ -520,7 +542,8 @@ def phase_kernels():
              "h2o-danube-1.8b": (32, 8, 80, 80),
              "zamba2-7b": (32, 32, 112, 112),
              "internvl2-2b": (16, 8, 128, 128),
-             "minicpm3-4b": (40, 40, 96, 64)}
+             "minicpm3-4b": (40, 40, 96, 64),
+             "llama4-scout-17b-a16e": (40, 8, 128, 128)}
     # (label, Sq, Skv, q_offset, window); the first five at TOL, the rest
     # (in bf16) at BF16_SPLIT_REL.  window-0: no row sees a column, every
     # output 0 (only None means no window)
@@ -620,7 +643,9 @@ def phase_kernels():
             ("internvl2-2b", "bulk-2048", "internvl2_bulk"),
             ("internvl2-2b", "chunk-128@1024", "internvl2_chunk"),
             ("minicpm3-4b", "bulk-2048", "minicpm3_bulk"),
-            ("minicpm3-4b", "chunk-128@1024", "minicpm3_chunk")):
+            ("minicpm3-4b", "chunk-128@1024", "minicpm3_chunk"),
+            ("llama4-scout-17b-a16e", "bulk-2048", "llama4_bulk"),
+            ("llama4-scout-17b-a16e", "chunk-128@1024", "llama4_chunk")):
         out.update({f"{tag}_{key}": main[(arch, label)][key]
                     for key in keys})
     for tag, case in flash_noncausal(gen).items():
@@ -1464,6 +1489,227 @@ def phase_serve_runs(arch):
     return launches
 
 
+#: phase 3e: llama4-scout-17b-a16e at full width, its depth cut to 8 of
+#: 48 layers (19.69 B parameters, 36.7 GiB in bf16), then the fp32 check
+#: at 2 layers (6.47 B parameters, 25.9 GB)
+MOE_ARCH, MOE_LAYERS, MOE_CHECK_LAYERS = "llama4-scout-17b-a16e", 8, 2
+MOE_RUNS = (("contiguous", dict(prefill_chunk=128)),
+            ("paged", dict(prefill_chunk=128, paged=True, block_size=128)),
+            ("bulk", dict(prefill_chunk=None)))
+
+
+def new_large_tensors(fn, numel):
+    """The ops of one call of ``fn`` whose output is a new tensor (not a
+    view of, or written into, one of its inputs) of at least ``numel``
+    elements: [(op, shape, dtype)].  At an expert weight's size, such an
+    op copies or casts one."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    def tensors(tree):
+        return [t for t in tree_flatten(tree)[0]
+                if isinstance(t, torch.Tensor)]
+
+    hits = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = {t.untyped_storage().data_ptr()
+                   for t in tensors((args, kwargs))}
+            hits.extend((str(func), tuple(t.shape), str(t.dtype))
+                        for t in tensors(out) if t.numel() >= numel
+                        and t.untyped_storage().data_ptr() not in ins)
+            return out
+
+    with Watch():
+        fn()
+    torch.cuda.synchronize()
+    return hits
+
+
+def moe_layer0_input(cfg, params, toks):
+    """Layer 0's MoE input rows of a prompt (B, S, D): the embedding,
+    attention and its residual, then the second norm."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    lp = params["layers"][0]
+    x = params["embed"][toks]
+    pos = torch.arange(x.shape[1], device=x.device)
+    h = x + L.attention(cfg, lp["attn"], L.rms_norm(lp["ln1"], x,
+                                                     cfg.norm_eps), pos)
+    return L.rms_norm(lp["ln2"], h, cfg.norm_eps)
+
+
+def phase_serve_moe():
+    """llama4-scout-17b-a16e at full width and 8 of its 48 layers in bf16
+    through the server (``MOE_RUNS``), one profiled decode step and
+    prefill chunk with the expert-weight copy check, then the fp32 check
+    at 2 layers.  Returns the flash launches of the three server runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.steps import serve_step
+    from repro_torch.models.decode import init_cache
+    from repro_torch.models.model import (
+        count_params,
+        count_params_analytic,
+        init_params,
+    )
+    from repro_torch.models.prefill import (
+        init_prefill_scratch,
+        moe_chunk_agree_mask,
+        prefill,
+        prefill_chunk,
+        prefill_chunk_cuts,
+    )
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    tag = "llama4"
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    t_phase = t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    print(f"[{tag}] {cfg.name} full width, depth cut n_layers "
+          f"{full.n_layers} -> {cfg.n_layers}: {n_params} params "
+          f"(count_params_analytic {count_params_analytic(cfg)}; "
+          f"{count_params_analytic(full)} at {full.n_layers} layers) in "
+          f"{cfg.param_dtype}, {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB, init {time.perf_counter() - t0:.1f}s", flush=True)
+    if n_params != count_params_analytic(cfg):
+        fail(f"{tag}: {n_params} params, expected "
+             f"{count_params_analytic(cfg)}")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(256, 1025, size=8)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in lens]
+    chunk, max_new = 128, 32
+    out, launches = {}, {}
+    for mode, extra in MOE_RUNS:
+        admit = extra["prefill_chunk"]
+        passes = (sum(-(-int(n) // admit) for n in lens) if admit
+                  else len(lens))
+        srv = Server(cfg, params, ServerConfig(
+            max_batch=4, max_seq=2048, max_new_tokens=max_new, **extra))
+        steps, wall, peak, counts, first = drive_recorded(srv, prompts)
+        want = dict.fromkeys(counts, 0)
+        want["flash_attention"] = cfg.n_layers * passes
+        launches[mode] = counts["flash_attention"]
+        st = srv.stats()
+        print(f"[{tag}:{mode}] {st['requests']} requests, {st['tokens']} "
+              f"tokens in {steps} steps, {wall:.2f}s; prefill "
+              f"{st['prefill_tokens']} rows, {st['prefill_tok_s']:.1f} "
+              f"tok/s, decode {st['decode_tok_s']:.1f} tok/s, ttft "
+              f"{st['mean_ttft_s']*1e3:.1f} ms, itl "
+              f"{st['mean_itl_s']*1e3:.2f} ms, peak {peak:.2f} GiB; flash "
+              f"launches {counts['flash_attention']} over "
+              f"{st['prefill_chunks']} prefill passes", flush=True)
+        if st["requests"] != len(prompts) or any(
+                len(r.out_tokens) != max_new for r in srv.done):
+            fail(f"{tag} {mode}: not every request answered with "
+                 f"{max_new} tokens")
+        if st["prefill_chunks"] != passes or counts != want:
+            fail(f"{tag} {mode}: {st['prefill_chunks']} prefill passes "
+                 f"(expected {passes}), launches {counts} (expected "
+                 f"{want})")
+        if not all(torch.isfinite(v).all() for v in first.values()):
+            fail(f"{tag} {mode}: non-finite first-token logits")
+        out[mode] = ({r.rid: r.out_tokens for r in srv.done}, first)
+        del srv
+    if out["paged"][0] != out["contiguous"][0]:
+        fail(f"{tag}: paged tokens differ from contiguous tokens")
+    (tok_c, first_c), (tok_b, first_b) = out["contiguous"], out["bulk"]
+    agree = sum(x == y for r in tok_b for x, y in zip(tok_c[r], tok_b[r]))
+    total = sum(len(t) for t in tok_b.values())
+    err16 = max(((first_c[r] - first_b[r]).abs().max()
+                 / first_b[r].abs().max()).item() for r in first_b)
+    print(f"[{tag}] paged == contiguous: {len(tok_c)} requests "
+          f"token-identical; bf16 chunked vs bulk first-token logits "
+          f"max_err/max {err16:.3g} and generated tokens agree "
+          f"{agree}/{total} (chunk-local capacity at factor "
+          f"{cfg.capacity_factor}: not held)", flush=True)
+
+    # one decode step of a full batch over 2048 slots, and one 128-row
+    # chunk at 512 of a 1024-row carry, each under torch.profiler, then
+    # once more under a dispatch mode that lists every op making a new
+    # tensor the size of an expert weight (none expected: the experts'
+    # products take the stacked weights as they lie)
+    cache = init_cache(cfg, 4, 2048, "cuda")
+    step_toks = torch.zeros(4, dtype=torch.long, device="cuda")
+    scr = init_prefill_scratch(cfg, 1, 1024, "cuda")
+    chunk_toks = torch.as_tensor(prompts[0][None, :chunk], dtype=torch.long,
+                                 device="cuda")
+    calls = (("decode step, batch 4 over 2048 slots",
+              lambda: serve_step(cfg, params, cache, step_toks)),
+             (f"prefill chunk, {chunk} rows at 512",
+              lambda: prefill_chunk(cfg, params, scr, chunk_toks, 512)))
+    print_profiles(tag, calls)
+    expert_numel = params["layers"][0]["moe"]["w_up"].numel()
+    for label, call in calls:
+        hits = new_large_tensors(call, expert_numel)
+        print(f"[{tag}] {label}: ops making a new tensor of >= "
+              f"{expert_numel} elements (an expert weight's size): "
+              f"{hits or 'none'}", flush=True)
+        if hits:
+            fail(f"{tag}: {label} copies or casts an expert weight: {hits}")
+    del cache, scr, calls, params
+    torch.cuda.empty_cache()
+
+    # fp32 at 2 layers with capacity_factor = n_experts, where no choice
+    # drops in either program: chunked ≡ bulk on the first-token logits
+    # (only the GEMMs' summation order differs), and layer 0's keep
+    # decisions agree everywhere.  At the published capacity factor the
+    # share of layer 0's keep decisions that differ is reported: a
+    # 128-row chunk has cap 10 against a mean load of 8
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(full, n_layers=MOE_CHECK_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32",
+                                capacity_factor=float(full.n_experts))
+    torch.cuda.reset_peak_memory_stats()
+    params32 = init_params(cfg32, seed=0, device="cuda")
+    n32 = count_params(params32)
+    err, differ, decisions = 0.0, 0, 0
+    for prompt in prompts:
+        toks = torch.as_tensor(prompt[None, :], dtype=torch.long,
+                               device="cuda")
+        _, b32 = prefill(cfg32, params32, toks)
+        scr = init_prefill_scratch(cfg32, 1, toks.shape[1], "cuda")
+        cuts = prefill_chunk_cuts(toks.shape[1], chunk_len=chunk)
+        for lo, hi in cuts:
+            scr, c32 = prefill_chunk(cfg32, params32, scr, toks[:, lo:hi], lo)
+        err = max(err, ((c32 - b32).abs().max() / b32.abs().max()).item())
+        x0 = moe_layer0_input(cfg32, params32, toks)
+        moe0 = params32["layers"][0]["moe"]
+        agree, _, _ = moe_chunk_agree_mask(cfg32, moe0, x0, cuts)
+        if not bool(agree.all()):
+            fail(f"{tag}: at capacity factor {cfg32.capacity_factor} layer "
+                 f"0's chunk-local keep decisions differ from bulk's")
+        _, kb, kc = moe_chunk_agree_mask(
+            dataclasses.replace(cfg32, capacity_factor=full.capacity_factor),
+            moe0, x0, cuts)
+        differ += int((kb != kc).sum())
+        decisions += kb.numel()
+    del params32, scr
+    peak32 = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{tag}] fp32 at {cfg32.n_layers} layers ({n32} params, "
+          f"capacity factor {cfg32.capacity_factor}): first-token logits "
+          f"chunked vs bulk max_err/max {err:.3g} over the {len(prompts)} "
+          f"requests (tol 1e-4); layer 0's keep decisions agree "
+          f"everywhere; at capacity factor {full.capacity_factor} they "
+          f"differ for {differ}/{decisions} (token, choice) decisions "
+          f"({differ / decisions:.2%}); fp32 check peak {peak32:.2f} GiB; "
+          f"phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    if not err <= 1e-4:
+        fail(f"{tag}: fp32 chunked vs bulk first-token logits {err} > 1e-4")
+    return launches
+
+
 def widen(tree):
     """A copy of a parameter tree with its bf16 leaves in fp32."""
     import torch
@@ -1481,6 +1727,62 @@ MLA_FULL_DIMS = dict(qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64,
                      head_dim=96)
 
 
+def recorded_routes(fn):
+    """``fn()`` with ``layers.moe_route`` recording every call: (fn's
+    result, [(router probabilities, idx, keep)] on the CPU, one a MoE
+    layer in order)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    route, calls = L.moe_route, []
+
+    def record(cfg, router, xc):
+        out = route(cfg, router, xc)
+        probs = torch.softmax(xc.float() @ router.float(), dim=-1)
+        calls.append((probs.cpu(), out[1].cpu(), out[2].cpu()))
+        return out
+
+    L.moe_route = record
+    try:
+        return fn(), calls
+    finally:
+        L.moe_route = route
+
+
+def check_routes(name, k, cpu_calls, gpu_calls):
+    """Every MoE layer's idx and keep equal on the card and the CPU; a
+    flipped choice is printed with its top-k margin (the CPU's gap
+    between the k-th and the next probability of that token), and one
+    above 1e-5 fails, as does a keep decision that differs without a
+    flip."""
+    if len(cpu_calls) != len(gpu_calls):
+        fail(f"reduced {name}: {len(gpu_calls)} routing calls on the card, "
+             f"{len(cpu_calls)} on the CPU")
+    flips = 0
+    for li, ((probs, idx_c, keep_c), (_, idx_g, keep_g)) in enumerate(
+            zip(cpu_calls, gpu_calls)):
+        bad = (idx_c != idx_g).any(-1)
+        for b, t in bad.nonzero().tolist():
+            top = probs[b, t].sort(descending=True).values
+            margin = (top[k - 1] - top[k]).item() if k < top.numel() \
+                else float("inf")
+            flips += 1
+            print(f"[reduced] {name} layer {li} token ({b}, {t}): choice "
+                  f"{idx_c[b, t].tolist()} on the CPU, {idx_g[b, t].tolist()}"
+                  f" on the card, top-k margin {margin:.3g}", flush=True)
+            if margin > 1e-5:
+                fail(f"reduced {name}: a choice with top-k margin {margin} "
+                     f"flipped")
+        if not bad.any() and not (keep_c == keep_g).all():
+            fail(f"reduced {name} layer {li}: keep decisions differ with "
+                 f"no flipped choice")
+    print(f"[reduced] {name} routing, card vs CPU: {len(cpu_calls)} MoE "
+          f"layer calls, {flips} flipped choices; idx and keep "
+          f"{'equal' if not flips else 'equal but for the flips'}",
+          flush=True)
+
+
 def phase_reduced_vs_cpu():
     import numpy as np
     import torch
@@ -1490,16 +1792,21 @@ def phase_reduced_vs_cpu():
     from repro_torch.models.prefill import prefill
 
     for name in ("smollm-360m", "h2o-danube-1.8b", "mamba2-2.7b",
-                 "zamba2-7b", "minicpm3-4b"):
+                 "zamba2-7b", "minicpm3-4b", "llama4-scout-17b-a16e",
+                 "grok-1-314b"):
         cfg = get_config(name).reduced()
         if cfg.attn_type == "mla":
             cfg = dataclasses.replace(cfg, **MLA_FULL_DIMS)
         params = init_params(cfg, seed=1, device="cpu")
         toks = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab_size, size=(2, 300))).long()
-        c_cpu, l_cpu = prefill(cfg, params, toks, cache_len=512)
-        c_gpu, l_gpu = prefill(cfg, params_to(params, "cuda"), toks.cuda(),
-                               cache_len=512)
+        (c_cpu, l_cpu), r_cpu = recorded_routes(
+            lambda: prefill(cfg, params, toks, cache_len=512))
+        (c_gpu, l_gpu), r_gpu = recorded_routes(
+            lambda: prefill(cfg, params_to(params, "cuda"), toks.cuda(),
+                            cache_len=512))
+        if cfg.family == "moe":
+            check_routes(name, cfg.experts_per_token, r_cpu, r_gpu)
         err = (l_gpu.cpu() - l_cpu).abs().max().item()
         print(f"[reduced] {name} fp32 prefill logits, card vs CPU: max abs "
               f"diff {err:.3g} (tol 1e-4)", flush=True)
@@ -1519,6 +1826,13 @@ def phase_reduced_vs_cpu():
                   f"vs CPU: max abs diff {err:.3g} (tol 1e-4)", flush=True)
             if not err <= 1e-4:
                 fail(f"reduced {name}: card vs CPU ckv differ by {err}")
+        if cfg.family == "moe":
+            err = max((c_gpu[n].cpu() - c_cpu[n]).abs().max().item()
+                      for n in ("k", "v"))
+            print(f"[reduced] {name} K/V cache, card vs CPU: max abs diff "
+                  f"{err:.3g} (tol 1e-4)", flush=True)
+            if not err <= 1e-4:
+                fail(f"reduced {name}: card vs CPU K/V differ by {err}")
 
 
 HOP_TOL = {("float32", "float32"): 1e-5, ("float32", "bfloat16"): 1e-5,
@@ -2756,6 +3070,7 @@ def main() -> int:
                              "whisper-tiny")
     minicpm3_launches = timed("3d minicpm3 serving", phase_serve_runs,
                               "minicpm3-4b")
+    llama4_launches = timed("3e llama4-scout serving", phase_serve_moe)
     ssd_launches = timed("4 mamba2 serving", phase_serve_state,
                          "mamba2-2.7b")["ssd"]
     zamba2_launches = timed("4b zamba2 serving", phase_serve_state,
@@ -2791,7 +3106,11 @@ def main() -> int:
              zamba2_launches=zamba2_launches["flash"],
              internvl2_launches=internvl2_launches,
              whisper_launches=whisper_launches,
-             minicpm3_launches=minicpm3_launches, **flash_main),
+             minicpm3_launches=minicpm3_launches,
+             llama4_launches=sum(llama4_launches.values()),
+             llama4_chunked_launches=llama4_launches["contiguous"]
+             + llama4_launches["paged"],
+             llama4_bulk_launches=llama4_launches["bulk"], **flash_main),
         dict(name="ssd", route="cuda",
              source="src/repro_torch/kernels/ssd/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd/kernel.py:96",

@@ -1,11 +1,12 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-The dense GQA archs (smollm, h2o-danube and nemotron, the last held at
-``reduced()``), the dense MLA arch minicpm3 (multi-head latent
-attention), the pure-SSM mamba2, the zamba2 hybrid (a Mamba-2 backbone
-with shared attention blocks), the internvl2 VLM (patch embeddings before
-the text) and the whisper encoder-decoder are ported; the reference's
-other two (MoE) land with their family.
+Every arch of the reference: the dense GQA archs (smollm, h2o-danube and
+nemotron, the last held at ``reduced()``), the dense MLA arch minicpm3
+(multi-head latent attention), the pure-SSM mamba2, the zamba2 hybrid (a
+Mamba-2 backbone with shared attention blocks), the internvl2 VLM (patch
+embeddings before the text), the whisper encoder-decoder, and the MoE
+archs llama4-scout (served with its depth cut) and grok-1 (held at
+``reduced()``).
 """
 
 from __future__ import annotations
@@ -16,8 +17,10 @@ from repro_torch.configs.base import (
     chunk_carry_spec,
     serving_features,
 )
+from repro_torch.configs.grok_1_314b import config as _grok1
 from repro_torch.configs.h2o_danube_1p8b import config as _h2o_danube
 from repro_torch.configs.internvl2_2b import config as _internvl2
+from repro_torch.configs.llama4_scout_17b_a16e import config as _llama4
 from repro_torch.configs.mamba2_2p7b import config as _mamba2
 from repro_torch.configs.minicpm3_4b import config as _minicpm3
 from repro_torch.configs.nemotron_4_340b import config as _nemotron
@@ -27,7 +30,7 @@ from repro_torch.configs.zamba2_7b import config as _zamba2
 
 _CONFIGS = {c.name: c for c in (_smollm, _h2o_danube, _mamba2, _zamba2,
                                 _internvl2, _whisper, _nemotron,
-                                _minicpm3)}
+                                _minicpm3, _llama4, _grok1)}
 
 ARCH_NAMES = tuple(_CONFIGS)
 

@@ -1,0 +1,24 @@
+"""grok-1-314b — MoE 8 experts top-2, GQA kv=8, GeGLU experts.
+
+[hf:xai-org/grok-1; unverified]  316.5 B parameters: the port holds it at
+``reduced()`` (its full width needs the expert-parallel path, ROADMAP
+queue 1 item 7).
+"""
+from repro_torch.configs.base import ModelConfig
+
+config = ModelConfig(
+    name="grok-1-314b",
+    family="moe",
+    n_layers=64,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    d_ff=32_768,
+    vocab_size=131_072,
+    head_dim=128,
+    n_experts=8,
+    experts_per_token=2,
+    moe_layer_period=1,
+    activation="gelu",
+    gated_mlp=True,
+)

@@ -4,7 +4,8 @@ TP training run (the TP part of ``repro.configs.presets``).
 ``tp_transport="fused"`` pins the fused collective matmuls
 (``kernels/cc_matmul``, hand-written CUDA kernels) at the QKV/up
 all_gather and O/down reduce_scatter edges of every dense block.  The EP
-presets of the reference wait for the MoE family.
+presets of the reference come with expert parallelism (ROADMAP queue 1
+item 7).
 """
 
 from __future__ import annotations

@@ -57,11 +57,15 @@ Cache = Dict[str, Any]
 
 
 def serve_step(cfg: ModelConfig, params: Params, cache: Cache,
-               tokens: torch.Tensor) -> Tuple[Cache, torch.Tensor]:
+               tokens: torch.Tensor, *,
+               moe_runner: Optional[Any] = None
+               ) -> Tuple[Cache, torch.Tensor]:
     """One batched decode step, greedy-sampled on the device: returns the
     cache and the (B,) int32 next-token ids (``build_serve_step`` with
-    ``sample=True``)."""
-    cache, logits = decode_step(cfg, params, cache, tokens)
+    ``sample=True``).  A MoE model decodes with every expert on every row;
+    an expert-parallel ``moe_runner`` raises (``decode_step``)."""
+    cache, logits = decode_step(cfg, params, cache, tokens,
+                                moe_runner=moe_runner)
     return cache, torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -197,6 +201,12 @@ def _check_path(cfg: ModelConfig, group, scfg: StepConfig,
             f"data axis {data_axis} is not ported: {ROADMAP_DATA}")
     if scfg.microbatches < 1:
         raise ValueError(f"microbatches={scfg.microbatches} < 1")
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training is not ported: it trains through "
+            f"expert parallelism (the reference's models/moe_ep.py, "
+            f"all_to_all dispatch over an expert axis), ROADMAP queue 1 "
+            f"item 7")
     if cfg.family not in ("dense", "ssm", "hybrid"):
         raise ValueError(f"{cfg.name}: the train step takes the dense, "
                          f"ssm and hybrid families (vlm and encdec training: "

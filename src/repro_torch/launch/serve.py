@@ -8,18 +8,26 @@ cache is the latent and a shared rope key, attended at q/k head dim 96
 and v head dim 64), ``mamba2-2.7b``, ``zamba2-7b`` (the hybrid: Mamba-2
 layers with shared attention blocks), ``internvl2-2b`` (the VLM: each
 request carries ``frontend_tokens`` patch embeddings, prefilled before its
-text) or ``whisper-tiny`` (the encoder-decoder: each request carries its
+text), ``whisper-tiny`` (the encoder-decoder: each request carries its
 frame embeddings, and its decoder prompt is capped at
-``decoder_max_seq``).  A frontend arch's embeddings are drawn per request
-from the seeded generator, as the reference launcher draws them.  The
-default is the arch's
-``reduced()`` config, as in the reference launcher; ``--full`` serves the
-full-width config in bf16.  ``--prefill-chunk 0`` admits with bulk
-per-request prefill; ``--paged`` needs an arch with a paged KV layout (not
-minicpm3, whose cache is its latent rows, nor mamba2, whose cache is its constant-size state, nor zamba2, whose cache is
-that state beside one K/V ring a shared application, nor whisper, whose
-cross K/V stay contiguous).  A VLM's ``--max-seq`` must hold its patch
-rows as well as the prompt.
+``decoder_max_seq``), or the MoE archs ``llama4-scout-17b-a16e`` (16
+experts, top-1, a shared expert) and ``grok-1-314b`` (8 experts, top-2).
+A frontend arch's embeddings are drawn per request from the seeded
+generator, as the reference launcher draws them.  The default is the
+arch's ``reduced()`` config, as in the reference launcher; ``--full``
+serves the full-width config in bf16, and refuses, before it draws a
+parameter, a config whose weights exceed the card's memory (the MoE
+archs and nemotron at their published depth).  ``--layers N`` cuts the
+depth and keeps every width: ``--arch llama4-scout-17b-a16e --full
+--layers 8`` (19.69 B parameters, 39.4 GB) fits one card; the published
+depth needs the experts spread over cards (expert parallelism: ROADMAP
+queue 1 item 7).  ``--prefill-chunk 0`` admits with bulk per-request
+prefill; ``--paged`` needs an arch with a paged KV layout (not minicpm3,
+whose cache is its latent rows, nor mamba2, whose cache is its
+constant-size state, nor zamba2, whose cache is that state beside one K/V
+ring a shared application, nor whisper, whose cross K/V stay
+contiguous).  A VLM's ``--max-seq`` must hold its patch rows as well as
+the prompt.
 ``--device cpu`` runs on the CPU (with the kernels' plain versions);
 without it the launcher needs a CUDA device and fails if there is none.
 """
@@ -27,9 +35,35 @@ without it the launcher needs a CUDA device and fails if there is none.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import numpy as np
+
+#: bytes of device memory of one H100, the card ``--full`` is sized for
+#: when the launcher runs on the CPU
+CARD_BYTES = 80e9
+
+
+def check_fits(cfg, device) -> None:
+    """Raise unless ``cfg``'s weights fit the card (its own memory on a
+    CUDA device, :data:`CARD_BYTES` otherwise), before a parameter is
+    drawn."""
+    import torch
+
+    from repro_torch.models.model import count_params_analytic
+
+    itemsize = torch.empty((), dtype=getattr(torch, cfg.param_dtype)
+                           ).element_size()
+    need = count_params_analytic(cfg) * itemsize
+    have = (torch.cuda.get_device_properties(device).total_memory
+            if device.type == "cuda" else CARD_BYTES)
+    if need > have:
+        raise SystemExit(
+            f"{cfg.name} at {cfg.n_layers} layers needs {need / 1e9:.1f} GB "
+            f"of {cfg.param_dtype} weights; the card holds {have / 1e9:.1f} "
+            f"GB. Cut the depth with --layers (every width kept), or serve "
+            f"it across cards (expert parallelism: ROADMAP queue 1 item 7)")
 
 
 def main(argv=None):
@@ -37,6 +71,8 @@ def main(argv=None):
     p.add_argument("--arch", default="smollm-360m")
     p.add_argument("--full", action="store_true",
                    help="serve the full-width config (default: reduced())")
+    p.add_argument("--layers", type=int, default=0,
+                   help="cut the depth to N layers (0: the config's own)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; required to exist)")
     p.add_argument("--requests", type=int, default=16)
@@ -67,6 +103,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.full:
+        check_fits(cfg, device)
     params = init_params(cfg, seed=0, device=device)
     srv = Server(cfg, params, ServerConfig(
         max_batch=args.max_batch, max_seq=args.max_seq,

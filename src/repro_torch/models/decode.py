@@ -1,8 +1,10 @@
 """Serving decode: the K/V ring cache, the paged block pool, the SSM state
 cache, the hybrid's pair of them and one decode step.
 
-The counterpart of the dense GQA and MLA, ``ssm``, ``hybrid`` and
-``encdec`` subset of ``repro.models.decode``.  The layouts are the
+The counterpart of the dense and MoE GQA, MLA, ``ssm``, ``hybrid`` and
+``encdec`` paths of ``repro.models.decode``; a MoE layer decodes its one
+token a row with ``layers.moe(dense_combine=True)``, every expert on
+every row.  The layouts are the
 reference's:
 
 * contiguous cache ``k``/``v`` (L, B, Hkv, S_buf, hd) in the param dtype,
@@ -46,6 +48,7 @@ from repro_torch.kernels.ssd import ssd_decode_step
 from repro_torch.models import layers as L
 from repro_torch.models.model import (
     _lm_logits,
+    ffn,
     hybrid_order,
     n_applications,
     shared_block,
@@ -406,7 +409,8 @@ def _decode_gqa(cfg: ModelConfig, params: Params, cache: Cache,
                                slot)
             scatter_block_rows(cache["vp"][li], bids, vc[rows, :, slot, :],
                                slot)
-        x = x + L.mlp(cfg, lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps))
+        normed = L.rms_norm(lp["ln2"], x, cfg.norm_eps)[:, None]
+        x = x + ffn(cfg, lp, normed, dense_combine=True)[:, 0]
     return x
 
 
@@ -430,10 +434,19 @@ def _decode_encdec(cfg: ModelConfig, params: Params, cache: Cache,
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
-                tokens: torch.Tensor) -> Tuple[Cache, torch.Tensor]:
+                tokens: torch.Tensor, *,
+                moe_runner: Optional[Any] = None
+                ) -> Tuple[Cache, torch.Tensor]:
     """tokens (B,) → (cache, logits (B, V) fp32).  Every row advances at
     its own ``pos``; the cache is updated in place.  A VLM decodes as the
-    dense family (its patches are rows of the cache)."""
+    dense family (its patches are rows of the cache), a MoE model with
+    every expert on every row (``dense_combine``).  ``moe_runner``, the
+    reference's expert-parallel decode, is not ported: passing one
+    raises."""
+    if moe_runner is not None:
+        raise NotImplementedError(
+            "expert-parallel MoE decode (models/moe_ep.py over an expert "
+            "axis) is not ported: ROADMAP queue 1 item 7")
     pos = cache["pos"]
     x = params["embed"][tokens]                              # (B, D)
     if cfg.family == "ssm":

@@ -1,12 +1,15 @@
-"""Layers: norms, positions, GQA and MLA attention, the MLP and the Mamba-2
-block.
+"""Layers: norms, positions, GQA and MLA attention, the MLP, the MoE layer
+and the Mamba-2 block.
 
-The counterpart of the dense, encoder-decoder and SSM subset of
-``repro.models.layers``: RMSNorm and (whisper) LayerNorm, RoPE and the
-sinusoidal encoder positions, self- and cross-attention, and minicpm3's
-multi-head latent attention (:func:`mla_attention`: K/V expanded from a
-256-wide latent and a shared rope key, attended at q/k head dim 96 and v
-head dim 64).
+The counterpart of ``repro.models.layers``: RMSNorm and (whisper)
+LayerNorm, RoPE and the sinusoidal encoder positions, self- and
+cross-attention, minicpm3's multi-head latent attention
+(:func:`mla_attention`: K/V expanded from a 256-wide latent and a shared
+rope key, attended at q/k head dim 96 and v head dim 64), and the MoE
+layer (:func:`moe`: top-k routing, per-row capacity, scatter dispatch to
+the experts' batched products and the weighted gather back; every expert
+on every row in decode).  As in the reference, MoE has no kernel: its
+expert products are ``torch.bmm`` over the stacked weights.
 Parameters are plain dicts of tensors laid out as the reference's (weights
 ``(d_in, d_out)``), and attention tensors are ``(B, H, S, D)``.  Serving
 attention has one path: :func:`attention_core` calls the flash-attention
@@ -373,6 +376,133 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         up = _act(cfg.activation, up)
     return (up @ p["w_down"].to(cd)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing, capacity-based scatter dispatch per batch row
+# ---------------------------------------------------------------------------
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: the ``k`` largest values and
+    their indices, largest first, a tie going to the lower index (a
+    stable descending sort; ``torch.topk`` promises no order among
+    ties on either device)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _expert_ffn(cfg: ModelConfig, p: Params, xe: torch.Tensor) -> torch.Tensor:
+    """xe (..., E, C, D) → (..., E, C, D): each expert's MLP on its rows.
+    The rows are regrouped expert-major, (E, N·C, D), and multiplied by
+    the (E, D, F) and (E, F, D) weights as they lie (``torch.bmm``): no
+    expert weight is copied or cast when its type is the compute type."""
+    *lead, e, c, d = xe.shape
+    cd = cdtype(cfg)
+    rows = xe.reshape(-1, e, c, d).transpose(0, 1).reshape(e, -1, d)
+    up = torch.bmm(rows, p["w_up"].to(cd))
+    if cfg.gated_mlp:
+        up = _act(cfg.activation, torch.bmm(rows, p["w_gate"].to(cd))) * up
+    else:
+        up = _act(cfg.activation, up)
+    out = torch.bmm(up, p["w_down"].to(cd))
+    return out.reshape(e, -1, c, d).transpose(0, 1).reshape(*lead, e, c, d)
+
+
+def moe_route(cfg: ModelConfig, router: torch.Tensor, xc: torch.Tensor):
+    """Top-k routing and per-row capacity bookkeeping (the reference's
+    ``moe_route``).  Logits are the fp32 product of the upcast rows with
+    the fp32 router; the softmax runs in fp32; the top-k weights are
+    renormalised over the k chosen (floor 1e-9: at k = 1 a weight is
+    exactly 1).  Capacity is ``max(1, int(S·k/E·capacity_factor))`` a
+    row; a choice's slot is the exclusive count of earlier choices of its
+    expert over the token-major (S·k) choices, and a choice at or past
+    capacity goes to the overflow bin ``E·cap``.
+
+    Returns ``(weights (B, S, K) fp32, idx (B, S, K), keep (B, S, K)
+    bool, dst (B, S, K), cap)``."""
+    b, s, _ = xc.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    probs = torch.softmax(xc.float() @ router.float(), dim=-1)
+    weights, idx = top_k(probs, k)
+    weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = max(1, int(s * k / e * cfg.capacity_factor))
+    flat = F.one_hot(idx, e).reshape(b, s * k, e)
+    pos_in_e = torch.cumsum(flat, dim=1) - flat
+    slot = pos_in_e.reshape(b, s, k, e).gather(-1, idx[..., None])[..., 0]
+    keep = slot < cap
+    dst = torch.where(keep, idx * cap + slot, e * cap)
+    return weights, idx, keep, dst, cap
+
+
+def moe_dispatch(xc: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
+                 e: int, cap: int) -> torch.Tensor:
+    """Scatter rows (B, S, D) into the per-expert capacity buffer (B, E,
+    cap, D).  A kept choice owns its slot alone; a dropped one is written
+    to a row of its own past the buffer (the reference adds it, times
+    zero, into its overflow bin) and sliced away, so no index repeats and
+    the result does not depend on the order of writes."""
+    b, s, d = xc.shape
+    k = dst.shape[-1]
+    n = s * k
+    spill = e * cap + torch.arange(n, device=xc.device)
+    rows_dst = torch.where(keep.reshape(b, n), dst.reshape(b, n), spill)
+    xin = xc.new_zeros(b, e * cap + n, d)
+    src = xc[:, :, None, :].expand(b, s, k, d).reshape(b, n, d)
+    xin[torch.arange(b, device=xc.device)[:, None], rows_dst] = src
+    return xin[:, :e * cap].reshape(b, e, cap, d)
+
+
+def moe_combine(ye: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
+                weights: torch.Tensor) -> torch.Tensor:
+    """Expert outputs (B, E, cap, D) back to token order, mixed by the
+    router weights: ``weights · keep`` cast to the expert dtype, the k
+    choices summed in it; a dropped choice reads the zero overflow row.
+    Returns (B, S, D)."""
+    b, e, cap, d = ye.shape
+    s, k = dst.shape[1], dst.shape[2]
+    flat = torch.cat([ye.reshape(b, e * cap, d), ye.new_zeros(b, 1, d)], 1)
+    gathered = flat.gather(1, dst.reshape(b, s * k, 1).expand(b, s * k, d))
+    mix = (weights * keep).to(ye.dtype)[..., None]
+    return (gathered.reshape(b, s, k, d) * mix).sum(dim=2)
+
+
+def moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
+        dense_combine: bool = False) -> torch.Tensor:
+    """The MoE layer, x (B, S, D) → (B, S, D), routing and capacity per
+    batch row (the reference's ``moe``): dropped choices fall through on
+    the residual.  ``dense_combine=True`` (decode) runs every expert on
+    every row and mixes by the fp32 (B, S, E) combine matrix cast to the
+    compute dtype: a decode step reads every expert's weights either way.
+    The shared expert (``mlp`` over ``p["shared"]``, ``d_ff ·
+    n_shared_experts`` wide) adds after the routed sum."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    cd = cdtype(cfg)
+    xc = x.to(cd)
+    if dense_combine:
+        weights, idx, _, _, _ = moe_route(cfg, p["router"], xc)
+        combine = torch.zeros(b, s, e, dtype=torch.float32,
+                              device=x.device).scatter_(2, idx, weights)
+        dense = _expert_ffn(cfg, p, xc[:, None].expand(b, e, s, d))
+        y = torch.einsum("besd,bse->bsd", dense, combine.to(cd))
+    else:
+        weights, _, keep, dst, cap = moe_route(cfg, p["router"], xc)
+        ye = _expert_ffn(cfg, p, moe_dispatch(xc, dst, keep, e, cap))
+        y = moe_combine(ye, dst, keep, weights)
+    if cfg.n_shared_experts:
+        y = y + mlp(cfg, p["shared"], xc)
+    return y.to(x.dtype)
+
+
+def moe_aux_loss(cfg: ModelConfig, x: torch.Tensor, p: Params) -> torch.Tensor:
+    """Switch-style load-balancing loss over the whole batch: ``E · Σ_e
+    f_e · p_e``, f the share of top-k choices and p the mean router
+    probability of expert e."""
+    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    _, idx = top_k(probs, cfg.experts_per_token)
+    hard = F.one_hot(idx, cfg.n_experts).sum(2).float()
+    return cfg.n_experts * (hard.mean((0, 1)) * probs.mean((0, 1))).sum()
 
 
 # ---------------------------------------------------------------------------

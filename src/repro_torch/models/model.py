@@ -1,8 +1,9 @@
 """Model assembly: init, embed, blocks, forward and the LM head.
 
 The counterpart of the dense GQA and MLA (minicpm3: multi-head latent
-attention), ``vlm`` (internvl2: projected patch embeddings before the
-text), ``encdec`` (whisper: a bidirectional encoder
+attention), ``moe`` (llama4-scout, grok-1: attention then a MoE layer, a
+Switch load-balancing loss a layer), ``vlm`` (internvl2: projected patch
+embeddings before the text), ``encdec`` (whisper: a bidirectional encoder
 over frame embeddings, a decoder with cross-attention), ``ssm`` (Mamba-2)
 and ``hybrid`` (zamba2: a Mamba-2 backbone with shared attention blocks)
 families of ``repro.models.model``.  Parameters
@@ -89,22 +90,48 @@ def _init_mla(cfg: ModelConfig, gen, device) -> Params:
     }
 
 
-def _init_dense_layer(cfg: ModelConfig, gen, device,
-                      cross: bool = False) -> Params:
-    """A pre-norm block: attention and the MLP; ``cross`` adds the
-    encoder-decoder's cross-attention ``xattn`` and its norm ``ln_x``."""
-    d, f = cfg.d_model, cfg.d_ff
+def _init_mlp(cfg: ModelConfig, gen, device, d_ff: int) -> Params:
+    """The MLP's ``w_up`` (and ``w_gate``) (D, d_ff) and depth-scaled
+    ``w_down`` (d_ff, D)."""
+    d, dt = cfg.d_model, L.pdtype(cfg)
+    depth_scale = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
+    mlp = {"w_up": _init((d, d_ff), dt, gen, device),
+           "w_down": _init((d_ff, d), dt, gen, device, depth_scale)}
+    if cfg.gated_mlp:
+        mlp["w_gate"] = _init((d, d_ff), dt, gen, device)
+    return mlp
+
+
+def _init_moe(cfg: ModelConfig, gen, device) -> Params:
+    """The reference's ``init_moe``: an fp32 router (D, E), the stacked
+    experts ``w_up``/``w_gate`` (E, D, F) and depth-scaled ``w_down`` (E,
+    F, D), and the shared expert, an MLP ``d_ff · n_shared_experts``
+    wide."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     dt = L.pdtype(cfg)
     depth_scale = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
-    mlp = {"w_up": _init((d, f), dt, gen, device),
-           "w_down": _init((f, d), dt, gen, device, depth_scale)}
+    p = {"router": _init((d, e), torch.float32, gen, device),
+         "w_up": _init((e, d, f), dt, gen, device),
+         "w_down": _init((e, f, d), dt, gen, device, depth_scale)}
     if cfg.gated_mlp:
-        mlp["w_gate"] = _init((d, f), dt, gen, device)
+        p["w_gate"] = _init((e, d, f), dt, gen, device)
+    if cfg.n_shared_experts:
+        p["shared"] = _init_mlp(cfg, gen, device, f * cfg.n_shared_experts)
+    return p
+
+
+def _init_dense_layer(cfg: ModelConfig, gen, device,
+                      cross: bool = False) -> Params:
+    """A pre-norm block: attention and the MLP (a MoE arch's: the MoE
+    layer, ``moe``); ``cross`` adds the encoder-decoder's cross-attention
+    ``xattn`` and its norm ``ln_x``."""
+    # the feed-forward is drawn first, then attention
+    ff = ({"moe": _init_moe(cfg, gen, device)} if cfg.family == "moe"
+          else {"mlp": _init_mlp(cfg, gen, device, cfg.d_ff)})
     p = {"ln1": _init_norm(cfg, device),
          "attn": (_init_mla(cfg, gen, device) if cfg.attn_type == "mla"
                   else _init_attention(cfg, gen, device)),
-         "ln2": _init_norm(cfg, device),
-         "mlp": mlp}
+         "ln2": _init_norm(cfg, device), **ff}
     if cross:
         p["ln_x"] = _init_norm(cfg, device)
         p["xattn"] = _init_attention(cfg, gen, device)
@@ -142,13 +169,14 @@ def _init_ssm_layer(cfg: ModelConfig, gen, device) -> Params:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if not ((cfg.family in ("dense", "hybrid", "vlm", "encdec")
+    if not ((cfg.family in ("dense", "moe", "hybrid", "vlm", "encdec")
              and cfg.attn_type == "gqa")
             or (cfg.family == "dense" and cfg.attn_type == "mla")
             or cfg.family == "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA and MLA, vlm, encdec, ssm and "
-            f"hybrid families are ported (MoE: ROADMAP queue 1 item 5.3)")
+            f"{cfg.name}: the port takes the dense GQA and MLA, moe (GQA), "
+            f"vlm, encdec, ssm and hybrid families, not {cfg.family} with "
+            f"{cfg.attn_type} attention")
 
 
 def n_applications(cfg: ModelConfig) -> int:
@@ -291,6 +319,27 @@ def dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return h + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h))
 
 
+def ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
+        dense_combine: bool = False) -> torch.Tensor:
+    """A block's feed-forward on its normed rows: the MoE layer for the
+    ``moe`` family (``dense_combine`` in decode), else the MLP."""
+    if cfg.family == "moe":
+        return L.moe(cfg, p["moe"], x, dense_combine=dense_combine)
+    return L.mlp(cfg, p["mlp"], x)
+
+
+def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One MoE block (the reference's ``_moe_block``): attention, then
+    the MoE layer, each added to the residual.  Returns (h, the layer's
+    load-balancing loss over the MoE layer's input)."""
+    h = x + L.attention(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
+                        positions)
+    normed = L.apply_norm(cfg, p["ln2"], h)
+    return (h + L.moe(cfg, p["moe"], normed),
+            L.moe_aux_loss(cfg, normed, p["moe"]))
+
+
 def cross_block_tail(cfg: ModelConfig, p: Params, h: torch.Tensor,
                      kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """What follows a decoder layer's self-attention: cross-attention over
@@ -359,8 +408,8 @@ def _forward_encdec_hidden(cfg: ModelConfig, params: Params,
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    positions: Optional[torch.Tensor] = None, *,
                    runner: Optional[Callable] = None,
-                   frontend_embeds: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   frontend_embeds: Optional[torch.Tensor] = None,
+                   return_aux: bool = False):
     """tokens (B, S) → final-norm hidden (B, S, D); a VLM's hidden holds
     its ``frontend_tokens`` patch rows first (B, N + S, D), and the
     encoder-decoder's is the decoder's, the encoder run over
@@ -377,19 +426,35 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ``remat`` policy of the reference's scan body).  A hybrid runs its
     Mamba-2 layers and shared applications in :func:`hybrid_order`, each
     application a dense block over its shared parameters (autograd sums a
-    shared block's gradient over its applications)."""
+    shared block's gradient over its applications).  A MoE model runs
+    :func:`moe_block`s (no runner: its training is expert-parallel, ROADMAP
+    queue 1 item 7); ``return_aux`` returns (hidden, the sum of its
+    layers' load-balancing losses, fp32; 0 for every other family)."""
     _check_ported(cfg)
     if cfg.family == "encdec":
-        return _forward_encdec_hidden(cfg, params, tokens, frontend_embeds)
+        x = _forward_encdec_hidden(cfg, params, tokens, frontend_embeds)
+        return (x, x.new_zeros((), dtype=torch.float32)) if return_aux \
+            else x
     if cfg.family == "vlm" and frontend_embeds is None:
         raise ValueError(f"{cfg.name} needs patch embeddings")
     x = _embed(cfg, params, tokens, frontend_embeds)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
+    aux = x.new_zeros((), dtype=torch.float32)
     ssm = _maybe_remat(cfg, lambda h, lp: _ssm_block(cfg, lp, h))
     dense = _maybe_remat(
         cfg, lambda h, lp: _dense_block(cfg, lp, h, positions, runner))
-    if cfg.family == "hybrid":
+    if cfg.family == "moe":
+        if runner is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: a MoE block takes no block runner (MoE "
+                f"training: ROADMAP queue 1 item 7)")
+        block = _maybe_remat(cfg, lambda h, lp: moe_block(cfg, lp, h,
+                                                          positions))
+        for lp in params["layers"]:
+            x, a = block(x, lp)
+            aux = aux + a
+    elif cfg.family == "hybrid":
         for kind, i in hybrid_order(cfg):
             x = (ssm(x, params["layers"][i]) if kind == "ssm"
                  else dense(x, shared_block(cfg, params, i)))
@@ -397,17 +462,22 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         block = ssm if cfg.family == "ssm" else dense
         for lp in params["layers"]:
             x = block(x, lp)
-    return L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return (x, aux) if return_aux else x
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None, *,
-            runner: Optional[Callable] = None) -> torch.Tensor:
+            runner: Optional[Callable] = None, return_aux: bool = False):
     """tokens (B, S) → fp32 logits (B, S, V) (a VLM's: (B, N + S, V), its
-    patch rows first)."""
-    return _lm_logits(cfg, params,
-                      forward_hidden(cfg, params, tokens, runner=runner,
-                                     frontend_embeds=frontend_embeds))
+    patch rows first); ``return_aux``: (logits, the MoE load-balancing
+    loss summed over layers)."""
+    out = forward_hidden(cfg, params, tokens, runner=runner,
+                         frontend_embeds=frontend_embeds,
+                         return_aux=return_aux)
+    if return_aux:
+        return _lm_logits(cfg, params, out[0]), out[1]
+    return _lm_logits(cfg, params, out)
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -419,14 +489,16 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     ``frontend_embeds`` (a VLM's logits over its patch rows are dropped).
     Returns (total, metrics) with the
     masked mean cross-entropy ``ce``, ``z_loss`` (``z_loss`` × the masked
-    mean of logsumexp²), ``moe_aux`` (0: no ported family routes experts)
-    and the ``tokens`` counted.  ``runner`` is :func:`forward_hidden`'s:
-    on the card a dense or hybrid model's gradient needs one
+    mean of logsumexp²), ``moe_aux`` (a MoE model's load-balancing loss
+    summed over its layers, weighted by ``moe_aux_weight`` in the total;
+    0 for every other family) and the ``tokens`` counted.  ``runner`` is
+    :func:`forward_hidden`'s: on the card a dense or hybrid model's gradient needs one
     (``dist.steps`` builds it), since the default attention is the
     forward-only flash kernel; an ssm model needs none.  The training
     step streams the head instead (``dist/loss.py``)."""
-    logits = forward(cfg, params, batch["tokens"],
-                     batch.get("frontend_embeds"), runner=runner)
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          batch.get("frontend_embeds"), runner=runner,
+                          return_aux=True)
     labels = batch["labels"]
     logits = logits[:, logits.shape[1] - labels.shape[1]:]
     mask = (labels >= 0).float()
@@ -436,7 +508,6 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     denom = mask.sum().clamp_min(1.0)
     ce = ((lse - gold) * mask).sum() / denom
     zl = z_loss * ((lse * mask) ** 2).sum() / denom
-    aux = logits.new_zeros(())
     total = ce + zl + moe_aux_weight * aux
     return total, {"ce": ce, "z_loss": zl, "moe_aux": aux,
                    "tokens": mask.sum()}
@@ -467,10 +538,11 @@ def count_params(params: Any) -> int:
     return sum(count_params(v) for v in params)
 
 
-def count_params_analytic(cfg: ModelConfig) -> int:
-    """Scalars in ``init_params(cfg)`` from the config alone: the dense
-    GQA and MLA, ``vlm``, ``encdec``, ``ssm`` and ``hybrid`` terms of
-    ``repro.models.model.count_params_analytic``."""
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Scalars in ``init_params(cfg)`` from the config alone, as
+    ``repro.models.model.count_params_analytic``; ``active_only`` counts a
+    MoE layer's ``experts_per_token`` experts (the router and the shared
+    expert always), and changes no other family's count."""
     _check_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     norm = 2 * d if cfg.family == "encdec" else d     # LayerNorm's bias
@@ -498,6 +570,11 @@ def count_params_analytic(cfg: ModelConfig) -> int:
         dec = 2 * attn + mlp + 3 * norm
         return (total + cfg.n_encoder_layers * enc + cfg.n_layers * dec
                 + norm + DEC_POS * d)
+    if cfg.family == "moe":
+        n_e = cfg.experts_per_token if active_only else cfg.n_experts
+        moe = (d * cfg.n_experts + n_e * mlp
+               + cfg.n_shared_experts * mlp)
+        return total + cfg.n_layers * (attn + moe + 2 * d)
     dense = attn + mlp + 2 * d
     if cfg.family == "hybrid":
         return (total + cfg.n_layers * ssm

@@ -1,7 +1,8 @@
 """Prefill into the decode cache: bulk, chunked, and to paged blocks.
 
-The counterpart of the GQA ``ring`` (dense and vlm), MLA ``latent``, SSM
-``state``, ``hybrid`` and ``encdec`` carries of ``repro.models.prefill``.
+The counterpart of the GQA ``ring`` (dense, vlm and moe), MLA ``latent``,
+SSM ``state``, ``hybrid`` and ``encdec`` carries of
+``repro.models.prefill``.
 Ring fill: the cache keeps the last ``sb`` positions, position ``p`` at
 slot ``p % sb``; for a prompt shorter than ``sb`` the tail slots stay empty
 (``slot_pos = −1``).
@@ -12,6 +13,15 @@ kernel takes that offset, so on the card bulk and chunked prefill both run
 through it (the reference gates chunks to its blockwise jnp path, whose
 result, ``blockwise_attention(q_offset=lo)``, is what is computed here).
 Scratch updates are in place.
+
+MoE rides the ``ring`` carry with **chunk-local capacity**, as the
+reference: ``layers.moe_route`` bookkeeps capacity over the rows it sees,
+the whole prompt in bulk and the chunk's rows alone in a chunk, so the two
+drop different (token, expert) choices wherever an expert overflows
+(``chunk_carry_spec`` declares the carry inexact).
+:func:`moe_chunk_agree_mask` names the rows whose keep decisions differ;
+where they agree everywhere (a ``capacity_factor`` of at least
+``n_experts``) chunked prefill computes bulk's function.
 
 The ``latent`` carry of MLA (minicpm3) is a full-length scratch of the
 latent rows ``ckv`` and shared rope keys ``krope`` a layer: each chunk
@@ -65,6 +75,7 @@ from repro_torch.models.model import (
     cross_block_tail,
     decoder_embed,
     encode,
+    ffn,
     hybrid_order,
     shared_block,
 )
@@ -100,14 +111,15 @@ def _ring_fill(seq_t: torch.Tensor, sb: int, seq_axis: int) -> torch.Tensor:
 
 def _dense_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                  positions: torch.Tensor, sb: int):
-    """One dense block over the prompt: (x, its K/V ring-filled to ``sb``
-    slots in the param dtype)."""
+    """One dense (or MoE) block over the prompt: (x, its K/V ring-filled
+    to ``sb`` slots in the param dtype).  A MoE layer's capacity is
+    bookkept over the whole prompt."""
     dt = L.pdtype(cfg)
     normed = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
     a, (k, v) = L.attention(cfg, lp["attn"], normed, positions,
                             return_kv=True)
     x = x + a
-    x = x + L.mlp(cfg, lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps))
+    x = x + ffn(cfg, lp, L.rms_norm(lp["ln2"], x, cfg.norm_eps))
     return (x, _ring_fill(k, sb, seq_axis=2).to(dt),
             _ring_fill(v, sb, seq_axis=2).to(dt))
 
@@ -270,12 +282,14 @@ def _finish_cache(cache: Cache, batch: int, s_total: int, device) -> Cache:
 
 def chunk_support(cfg: ModelConfig) -> Tuple[bool, str]:
     """Whether streamed prefill can run, with the reason if not.  The
-    flash kernel takes ``q_offset``, so the ported ``ring`` carry of the
-    dense and vlm families, MLA's ``latent`` carry, the ``hybrid`` carry
-    and the ``encdec`` carry always chunk, and the SSM ``state`` carry has
-    no attention; MoE's ring is not ported yet."""
+    flash kernel takes ``q_offset``, so the ``ring`` carry of the dense,
+    vlm and moe families (MoE's with chunk-local capacity: inexact, as
+    ``chunk_carry_spec`` declares), MLA's ``latent`` carry, the
+    ``hybrid`` carry and the ``encdec`` carry always chunk, and the SSM
+    ``state`` carry has no attention."""
     kind = chunk_carry_spec(cfg).kind
     if (kind, cfg.family) not in (("ring", "dense"), ("ring", "vlm"),
+                                  ("ring", "moe"),
                                   ("latent", "dense"), ("state", "ssm"),
                                   ("hybrid", "hybrid"),
                                   ("encdec", "encdec")):
@@ -384,10 +398,12 @@ def _chunk_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
 def _chunk_dense_layer(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                        kbuf: torch.Tensor, vbuf: torch.Tensor,
                        lo: int) -> torch.Tensor:
-    """One dense block over chunk rows, its K/V scratch written in place."""
+    """One dense (or MoE) block over chunk rows, its K/V scratch written
+    in place.  A MoE layer's capacity is bookkept over the chunk's rows
+    alone (chunk-local, as the reference)."""
     normed = L.apply_norm(cfg, lp["ln1"], h)
     h = h + _chunk_attention(cfg, lp["attn"], normed, kbuf, vbuf, lo)
-    return h + L.mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], h))
+    return h + ffn(cfg, lp, L.apply_norm(cfg, lp["ln2"], h))
 
 
 def _chunk_mla_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -513,6 +529,26 @@ def scratch_to_cache(cfg: ModelConfig, scratch: Cache,
         cache[n] = _ring_fill(scratch[n], sb, seq_axis=3).to(dt)
     cache["slot_pos"] = _slot_map(s, sb, kbuf.device)[0]
     return _finish_cache(cache, batch, s, kbuf.device)
+
+
+def moe_chunk_agree_mask(cfg: ModelConfig, moe_params: Params,
+                         x: torch.Tensor, cuts: List[Tuple[int, int]]):
+    """The MoE chunk-local capacity bound, stated operationally (the
+    reference's ``moe_chunk_agree_mask``).  ``x`` (B, S, D): one MoE
+    layer's input rows; ``cuts``: the chunk boundaries.  Returns
+    ``(agree (B, S), keep_bulk (B, S, K), keep_chunk (B, S, K))``: the
+    keep decisions with capacity bookkept over S and per chunk, and
+    where they agree for every choice of a token.  Routing and the
+    renormalised weights are per row, so this layer's output is equal at
+    every token where ``agree`` holds; the whole forward is exact when it
+    holds everywhere at every layer (e.g. ``capacity_factor ≥
+    n_experts``)."""
+    xc = x.to(L.cdtype(cfg))
+    keep_bulk = L.moe_route(cfg, moe_params["router"], xc)[2]
+    keep_chunk = torch.cat(
+        [L.moe_route(cfg, moe_params["router"], xc[:, lo:hi])[2]
+         for lo, hi in cuts], dim=1)
+    return (keep_bulk == keep_chunk).all(-1), keep_bulk, keep_chunk
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,10 @@ The counterpart of ``repro.runtime.server`` on one device:
   it.  Chunks round up to the carry's ``chunk_multiple`` (``ssm_chunk``
   for the SSM and the hybrid).  The finished carry becomes a
   single-request cache written into its batch row (contiguous) or into
-  pool blocks (paged: dense and vlm).  ``prefill_chunk`` of
+  pool blocks (paged: dense, vlm and moe).  A MoE model's chunks bookkeep
+  expert capacity over their own rows (chunk-local, as the reference;
+  ``chunk_carry_spec`` declares the carry inexact), and decode runs every
+  expert on every row.  ``prefill_chunk`` of
   ``None``/0 admits with one bulk prefill per request instead.
 * **Decode** runs one batched step per server step; every cache row
   advances at its own position, argmax runs on the device and the server

@@ -24,7 +24,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.mark.parametrize("name", ["smollm-360m", "h2o-danube-1.8b",
                                   "mamba2-2.7b", "zamba2-7b",
                                   "internvl2-2b", "whisper-tiny",
-                                  "nemotron-4-340b", "minicpm3-4b"])
+                                  "nemotron-4-340b", "minicpm3-4b",
+                                  "llama4-scout-17b-a16e", "grok-1-314b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_equal_reference(name, reduced):
     ours, ref = get_config(name), ref_get_config(name)
@@ -39,12 +40,18 @@ def test_config_fields_equal_reference(name, reduced):
 
 
 def test_registry_names_and_unknown_arch():
+    """The port registers the reference's ten archs, and a name neither
+    package registers raises."""
+    from repro.configs import ARCH_NAMES as REF_ARCH_NAMES
+
     assert set(ARCH_NAMES) == {"smollm-360m", "h2o-danube-1.8b",
                                "mamba2-2.7b", "zamba2-7b", "internvl2-2b",
                                "whisper-tiny", "nemotron-4-340b",
-                               "minicpm3-4b"}
+                               "minicpm3-4b", "llama4-scout-17b-a16e",
+                               "grok-1-314b"}
+    assert set(ARCH_NAMES) == set(REF_ARCH_NAMES)
     with pytest.raises(KeyError):
-        get_config("grok-1-314b")
+        get_config("gpt-2-124m")
 
 
 def test_package_imports_no_jax_and_no_reference():

@@ -1369,3 +1369,97 @@ def test_reduced_mla_on_card_matches_cpu(cuda):
         c_gpu, d_gpu = decode_step(cfg, on_card, c_gpu, step.to(cuda))
         torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=1e-4, atol=1e-4)
     assert FLASH.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the MoE family (llama4-scout, grok-1): flash at a GQA group of 5, and the
+# reduced models card against CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,q_offset", [
+    (384, 384, None),            # bulk, six q tiles
+    (2048, 2048, None),          # bulk at the smoke's timed length
+    (128, 1024, 512),            # a chunk of a long scratch (split in bf16)
+    (100, 1100, 1000),           # a ragged chunk at the scratch's end
+])
+def test_gqa_group_of_five_matches_plain(cuda, dtype, sq, skv, q_offset):
+    """llama4-scout's 40 q heads over 8 kv heads at D 128: fp32 at 2e-4;
+    bf16 at 3e-2 and, to the plain and the split-and-merge plain
+    versions, at BF16_SPLIT_REL."""
+    q, k, v = _qkv((1, 40, sq, 128), (1, 8, skv, 128), dtype, cuda,
+                   seed=sq + skv + 5)
+    before = FLASH.launches
+    got = flash_attention(q, k, v, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert FLASH.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    err = (got.float() - attention_plain(q, k, v, q_offset=q_offset)
+           .float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    if dtype == torch.bfloat16:
+        errs = _split_rel_err(got, q, k, v, q_offset=q_offset)
+        assert max(errs) <= BF16_SPLIT_REL, errs
+
+
+@pytest.mark.parametrize("name", ["llama4-scout-17b-a16e", "grok-1-314b"])
+def test_reduced_moe_on_card_matches_cpu(cuda, name, monkeypatch):
+    """Reduced llama4-scout (top-1, a shared expert) and grok-1 (top-2)
+    in fp32: bulk prefill of 37 tokens (every MoE layer's routing
+    decisions equal on the two: idx and keep), the same rows in chunks
+    (flash n_layers times a chunk), and two decode steps (every expert on
+    every row, no kernel), on the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.decode import decode_step
+    from repro_torch.models.model import init_params, params_to
+    from repro_torch.models.prefill import (
+        init_prefill_scratch,
+        prefill,
+        prefill_chunk,
+    )
+
+    cfg = get_config(name).reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    on_card = params_to(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 37))).long()
+    route, routes = L.moe_route, []
+
+    def record(cfg_, router, xc):
+        out = route(cfg_, router, xc)
+        routes.append((out[1].cpu(), out[2].cpu()))
+        return out
+
+    monkeypatch.setattr(L, "moe_route", record)
+    c_cpu, l_cpu = prefill(cfg, params, toks, cache_len=64)
+    cpu_routes, routes[:] = list(routes), []
+    before = FLASH.launches
+    c_gpu, l_gpu = prefill(cfg, on_card, toks.to(cuda), cache_len=64)
+    assert FLASH.launches == before + cfg.n_layers
+    assert len(routes) == len(cpu_routes) == cfg.n_layers
+    for (idx_c, keep_c), (idx_g, keep_g) in zip(cpu_routes, routes):
+        assert torch.equal(idx_c, idx_g) and torch.equal(keep_c, keep_g)
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+    for key in ("k", "v"):
+        torch.testing.assert_close(c_gpu[key].cpu(), c_cpu[key], rtol=1e-4,
+                                   atol=1e-4)
+    scr_cpu = init_prefill_scratch(cfg, 2, 37, "cpu")
+    scr = init_prefill_scratch(cfg, 2, 37, cuda)
+    for lo, hi in ((0, 5), (5, 20), (20, 37)):
+        scr_cpu, want = prefill_chunk(cfg, params, scr_cpu, toks[:, lo:hi],
+                                      lo)
+        before = FLASH.launches
+        scr, got = prefill_chunk(cfg, on_card, scr, toks[:, lo:hi].to(cuda),
+                                 lo)
+        assert FLASH.launches == before + cfg.n_layers
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    step = torch.tensor([3, 7])
+    before = FLASH.launches
+    for _ in range(2):
+        c_cpu, d_cpu = decode_step(cfg, params, c_cpu, step)
+        c_gpu, d_gpu = decode_step(cfg, on_card, c_gpu, step.to(cuda))
+        torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=1e-4, atol=1e-4)
+    assert FLASH.launches == before
