@@ -258,6 +258,40 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
     fmaps) at batch 1 and 64, within 2e-4 of one ``conv2d``; the group's
     wall time of each call.
 
+14. Family training: every family the port serves trained at full width
+    on the card, tp 1, in a process of its own (``--train-families``):
+    3 steps from seed 0 in bf16, 2 microbatches, seq_chunk 512, the AdamW
+    state by the reference's ``step_config`` rule on the published config
+    (``launch.train.optimizer_state``), every attention through blockwise
+    attention (flash has no backward).  14a zamba2-7b at 24 of its 81
+    layers (2 511 909 248 parameters), ``remat="dots"``, 4 × 2048 tokens
+    through the Trainer; 14b llama4-scout-17b-a16e at 1 of its 48 layers
+    (4 271 078 400: the 16 stacked experts, the router, the shared expert,
+    the 202 048-row embedding and head), bf16 moments and no master, 4 ×
+    2048 tokens through the Trainer; 14c minicpm3-4b at 32 of 62 layers,
+    the same; 14d internvl2-2b at all 24 layers through
+    ``build_train_step``, 4 rows of 256 patch embeddings (width 1024,
+    standard normal from a seed) and 1792 text tokens; 14e whisper-tiny
+    at all 4 + 4 layers, 8 rows of 1500 frames (width 384) and 448 decoder
+    tokens.  Held: the parameter count against ``count_params_analytic``;
+    the optimizer state's dtype; every loss and grad norm finite; every
+    step's launches exact (zamba2: SSD forward 24 × 2 × 2 = 96, the
+    forward and the recompute that ``"dots"`` leaves to the scan, and
+    backward 24 × 2 = 48; every other kernel 0, flash included), and in
+    zamba2's profiled step 3 and ``ops.SSD_BWD_KERNELS`` SSD device events
+    a launch; zamba2's products with no batch dimension that run in one
+    step of 1 × 512 tokens (a dispatch mode below selective checkpointing's
+    cache) equal under ``"dots"`` and ``"none"`` and fewer than under
+    ``"full"``; llama4's ``moe_aux`` > 0, and no op of a step (forward,
+    backward, AdamW) copies or casts a whole expert weight (1.34 GB).
+    Printed: each step's time, tokens/s, loss, grad norm and peak memory,
+    zamba2's step and peak under ``"full"`` beside ``"dots"``, one profiled
+    step's idle share, top device ops and GEMM kernels (by name).  Then
+    the reduced configs in fp32, 2 tp-1 steps on the card and on the CPU,
+    held as in phase 10: llama4-scout, grok-1, minicpm3, internvl2 and
+    whisper (the last two with frontend embeddings from a seed), and
+    zamba2 under ``remat="dots"``.
+
 Prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Exits nonzero, printing
 no result, when there is no CUDA device or the port cannot be imported.
@@ -2313,12 +2347,12 @@ def reset_kernel_counts():
     FLASH.launches = SSD.launches = SSD_BWD.launches = MATMUL.launches = 0
 
 
-def profile_call(fn):
+def profile_call(fn, patterns=None):
     """One call of ``fn`` (a train step, a serving step) under
     torch.profiler: (top ten device ops by self device time [(name, ms,
     count)], the device's idle share of the call's window, the call's
-    wall ms, device events of the port's kernels by family,
-    ``PORT_EVENTS``).  The window runs from the call's start on the host
+    wall ms, device events by the name patterns ``patterns``, by default
+    the port's kernels by family, ``PORT_EVENTS``).  The window runs from the call's start on the host
     to the later of its end and the last device event; busy is the union
     of the device events inside it (kernels, copies, fills)."""
     import torch
@@ -2342,7 +2376,7 @@ def profile_call(fn):
            if e.device_type == torch.autograd.DeviceType.CUDA
            and e.name != "smoke_profiled_call"]
     port = {k: sum(1 for e in dev if pat.search(e.name))
-            for k, pat in PORT_EVENTS.items()}
+            for k, pat in (patterns or PORT_EVENTS).items()}
     if not win or not dev:
         return [], None, wall_ms, port
     lo = win[0].time_range.start
@@ -2515,12 +2549,14 @@ def phase_train_1gpu(smi_line):
     tp1_card_vs_cpu(cfg, "[train-1gpu]")
 
 
-def tp1_card_vs_cpu(cfg, tag):
-    """The reduced ``cfg`` in fp32, 2 tp-1 steps (microbatches 2) on the
-    card and on the CPU from the same parameters: loss and grad norm
-    within 1e-4 relative, every parameter leaf by the parameter rule at
-    1e-4 (mean |d| <= 1e-4 x the leaf's mean magnitude, max |d| <=
-    2 peak_lr + 1e-4 x its max)."""
+def tp1_card_vs_cpu(cfg, tag, remat=None):
+    """The reduced ``cfg`` in fp32 (its ``remat`` replaced by ``remat``
+    when given), 2 tp-1 steps (microbatches 2) on the card and on the CPU
+    from the same parameters and batches (a frontend arch's with
+    ``frontend_embeds`` drawn from a seed): loss and grad norm within 1e-4
+    relative, every parameter leaf by the parameter rule at 1e-4 (mean
+    |d| <= 1e-4 x the leaf's mean magnitude, max |d| <= 2 peak_lr + 1e-4
+    x its max)."""
     import numpy as np
     import torch
 
@@ -2536,9 +2572,22 @@ def tp1_card_vs_cpu(cfg, tag):
     from repro_torch.models.model import params_to
 
     rcfg = cfg.reduced()
+    if remat:
+        rcfg = dataclasses.replace(rcfg, remat=remat)
     rscfg = StepConfig(microbatches=2, seq_chunk=8, warmup_steps=1)
-    rdata = SyntheticLM(DataConfig(vocab_size=rcfg.vocab_size, seq_len=65,
-                                   global_batch=4))
+    # the encoder-decoder's decoder takes decoder_max_seq rows
+    seq = rcfg.decoder_max_seq if rcfg.family == "encdec" else 64
+    rdata = SyntheticLM(DataConfig(vocab_size=rcfg.vocab_size,
+                                   seq_len=seq + 1, global_batch=4))
+    rng = np.random.default_rng(0)
+
+    def batch_of(k):
+        batch = rdata.global_batch(k)
+        if rcfg.frontend:
+            batch["frontend_embeds"] = torch.from_numpy(rng.standard_normal(
+                (4, rcfg.frontend_tokens, rcfg.frontend_dim)
+            ).astype(np.float32))
+        return batch
     cpu = Group(rank=0, size=1, device=torch.device("cpu"))
     card = Group(rank=0, size=1, device=torch.device("cuda"))
     p_cpu, o_cpu = build_init(rcfg, cpu, rscfg)(0)
@@ -2549,7 +2598,7 @@ def tp1_card_vs_cpu(cfg, tag):
     t = 1e-4
     worst = 0.0
     for k in range(2):
-        batch = rdata.global_batch(k)
+        batch = batch_of(k)
         p_cpu, o_cpu, m_cpu = step_cpu(p_cpu, o_cpu, batch, k)
         p_gpu, o_gpu, m_gpu = step_gpu(p_gpu, o_gpu, batch, k)
         for key in ("loss", "grad_norm"):
@@ -2566,8 +2615,8 @@ def tp1_card_vs_cpu(cfg, tag):
                 and d.max() <= 2 * rscfg.peak_lr + t * np.abs(b).max()):
             fail(f"{tag} reduced {path}: card vs CPU mean |d| "
                  f"{d.mean()}, max |d| {d.max()}")
-    print(f"{tag} reduced {rcfg.name} fp32, 2 tp-1 steps "
-          f"(microbatches 2), card vs CPU: loss/grad_norm max rel "
+    print(f"{tag} reduced {rcfg.name} fp32 (remat {rcfg.remat}), 2 tp-1 "
+          f"steps (microbatches 2), card vs CPU: loss/grad_norm max rel "
           f"{worst:.3g} (tol {t}); params mean |d|/mean |p| max "
           f"{worst_mean:.3g} (tol {t})", flush=True)
     if worst > t:
@@ -2772,6 +2821,364 @@ def train_mamba2_process(out_path) -> int:
     ``out_path``."""
     phase_build()
     out = phase_train_mamba2(card_name_and_limit())
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+#: phase 14: every family the port serves, trained at full width on the
+#: card: (depth trained or None for the published depth, rows, text
+#: tokens a row); 2 microbatches, seq_chunk 512, 3 steps from seed 0
+FAMILY_RUNS = {
+    "zamba2-7b": (24, 4, 2048),
+    "llama4-scout-17b-a16e": (1, 4, 2048),
+    "minicpm3-4b": (32, 4, 2048),
+    "internvl2-2b": (None, 4, 1792),       # after 256 patch rows a row
+    "whisper-tiny": (None, 8, 448),         # over 1500 frames a row
+}
+FAMILY_MICRO, FAMILY_CHUNK, FAMILY_STEPS = 2, 512, 3
+#: the remat policies' product count takes one row of this many tokens
+COUNT_SEQ = 512
+#: GEMM kernels by name in a device profile (cuBLAS, cuBLASLt)
+GEMM_EVENT = re.compile(r"gemm|nvjet|xmma|cutlass", re.I)
+#: products with no batch dimension (kept by remat "dots") and batched
+PRODUCT_KINDS = ("unbatched", "batched")
+
+
+def count_products(fn):
+    """``fn()`` under a dispatch mode that counts the products that run:
+    with no batch dimension (``models.model._is_saved_product``) and
+    batched ``bmm``s.  Entered outside the checkpoints, it sits below
+    selective checkpointing's own modes: a product that ``"dots"`` serves
+    from its cache in the recompute never reaches it."""
+    import collections
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models.model import _is_saved_product
+
+    seen = collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if _is_saved_product(func, args):
+                seen["unbatched"] += 1
+            elif func is torch.ops.aten.bmm.default:
+                seen["batched"] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return {k: seen[k] for k in PRODUCT_KINDS}
+
+
+def weight_copies(fn, weights):
+    """The ops of one call of ``fn`` (forward, backward and the AdamW
+    update) that read one of ``weights`` and write a tensor of at least
+    its size outside it, products excepted: a copy or a cast of a whole
+    weight.  [(op, shape, dtype)]."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    aten = torch.ops.aten
+    products = {aten.mm.default, aten.addmm.default, aten.bmm.default,
+                aten.baddbmm.default}
+    stores = {w.untyped_storage().data_ptr() for w in weights}
+    numel = min(w.numel() for w in weights)
+    hits = []
+
+    def tensors(tree):
+        return [t for t in tree_flatten(tree)[0]
+                if isinstance(t, torch.Tensor)]
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func not in products and any(
+                    t.untyped_storage().data_ptr() in stores
+                    for t in tensors((args, kwargs))):
+                hits.extend((str(func), tuple(t.shape), str(t.dtype))
+                            for t in tensors(out) if t.numel() >= numel
+                            and t.untyped_storage().data_ptr() not in stores)
+            return out
+
+    with Watch():
+        fn()
+    torch.cuda.synchronize()
+    return hits
+
+
+def phase_train_family(name, smi_line):
+    """``name`` at full width (its depth cut by ``FAMILY_RUNS``) trained
+    on the card: 3 tp-1 steps from seed 0 in bf16, the optimizer state by
+    the reference's step_config rule (``launch.train.optimizer_state``),
+    the text families through the Trainer, the frontend ones through
+    ``build_train_step`` with embeddings from a seed; every step's kernel
+    launches exact; one profiled step.  zamba2 (``remat="dots"``) also
+    counts the products each remat policy runs and takes a step under
+    ``"full"`` for its peak; llama4-scout checks that no op copies or
+    casts an expert weight.  Returns the numbers PERF.md keeps."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist import sharding
+    from repro_torch.dist.group import Group
+    from repro_torch.dist.steps import StepConfig, build_init, build_train_step
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.train import optimizer_state
+    from repro_torch.models.model import count_params_analytic
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    layers, rows, seq = FAMILY_RUNS[name]
+    published = get_config(name)
+    cfg = (dataclasses.replace(published, n_layers=layers) if layers
+           else published)
+    opt_kw = optimizer_state(published)
+    scfg = StepConfig(microbatches=FAMILY_MICRO, seq_chunk=FAMILY_CHUNK,
+                      warmup_steps=1, total_steps=100, **opt_kw)
+    tag = f"[train-family] {name} ({smi_line})"
+    card = Group(rank=0, size=1, device=torch.device("cuda"))
+    want = dict.fromkeys(kernel_counts(), 0)
+    if cfg.family in ("ssm", "hybrid"):
+        # the forward and the recompute ("dots" and "full" both rerun the
+        # scan) of every Mamba-2 layer a microbatch; one backward each
+        want.update(ssd=2 * cfg.n_layers * FAMILY_MICRO,
+                    ssd_bwd=cfg.n_layers * FAMILY_MICRO)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def frontend_batch(k):
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=seq + 1, global_batch=rows))
+        batch = {key: v.cuda() for key, v in data.global_batch(k).items()}
+        batch["frontend_embeds"] = torch.randn(
+            (rows, cfg.frontend_tokens, cfg.frontend_dim),
+            generator=gen, device="cuda")
+        return batch
+
+    steps = []
+
+    def on_step(step, m):
+        counts = kernel_counts()
+        reset_kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        steps.append(dict(m, peak_gib=peak, counts=counts))
+        print(f"{tag} step {step - 1}: {m['step_time_s']:.3f} s, "
+              f"{m['tokens'] / m['step_time_s']:.1f} tokens/s, loss "
+              f"{m['loss']:.6f} (moe_aux {m['moe_aux']:.6f}), grad_norm "
+              f"{m['grad_norm']:.6f}; peak memory {peak:.2f} GiB; "
+              f"launches {counts}", flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if cfg.frontend:
+        params, opt = build_init(cfg, card, scfg)(0)
+        step_fn = build_train_step(cfg, card, scfg)
+        for k in range(FAMILY_STEPS):
+            batch = frontend_batch(k)
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch, k)
+            torch.cuda.synchronize()
+            m = {key: float(v) for key, v in m.items()}
+            on_step(k + 1, dict(m, step_time_s=time.perf_counter() - ts))
+        next_batch = frontend_batch(FAMILY_STEPS)
+    else:
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=seq + 1, global_batch=rows))
+        run = Trainer(cfg, scfg, TrainerConfig(
+            total_steps=FAMILY_STEPS, log_interval=1000,
+            ckpt_dir=str(ROOT / "build" / "smoke_family_ckpt")), data,
+            device="cuda", log_fn=lambda line: print(f"{tag} {line}",
+                                                     flush=True))
+        run.ckpt = NoCheckpoints()
+        params, opt, _ = run.train(on_step=on_step)
+        step_fn = run.step_fn
+        next_batch = data.global_batch(FAMILY_STEPS)
+    wall = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in sharding.leaves(params))
+    n_want = count_params_analytic(cfg)
+    moments = str(opt["mu"][0].dtype).replace("torch.", "")
+    master = "master" in opt
+    cut = (f"{layers} of {published.n_layers} layers" if layers
+           else f"all {published.n_layers} layers")
+    extra = (f" + {cfg.frontend_tokens} x {cfg.frontend_dim} embeddings"
+             if cfg.frontend else "")
+    print(f"{tag} full width, {cut} ({n_params} parameters in "
+          f"{cfg.param_dtype}; count_params_analytic {n_want}), AdamW "
+          f"moments {moments}, fp32 master {master}, remat {cfg.remat}: "
+          f"{rows} x {seq} tokens{extra} a step in {FAMILY_MICRO} "
+          f"microbatches, {FAMILY_STEPS} steps in {wall:.1f} s with init",
+          flush=True)
+    if n_params != n_want:
+        fail(f"train-family {name}: {n_params} parameters, "
+             f"count_params_analytic {n_want}")
+    if moments != opt_kw["moment_dtype"] or master != opt_kw["master_fp32"]:
+        fail(f"train-family {name}: optimizer state {moments}, master "
+             f"{master}; the rule gives {opt_kw}")
+    for k, st in enumerate(steps):
+        if not (math.isfinite(st["loss"]) and math.isfinite(
+                st["grad_norm"])):
+            fail(f"train-family {name}: step {k} not finite: {st}")
+        if st["counts"] != want:
+            fail(f"train-family {name}: step {k} launches {st['counts']}, "
+                 f"expected {want}")
+        if cfg.family == "moe" and not st["moe_aux"] > 0:
+            fail(f"train-family {name}: step {k} moe_aux {st['moe_aux']}")
+    print(f"{tag} step-0 loss {steps[0]['loss']:.6f} vs ln "
+          f"{cfg.vocab_size} = {math.log(cfg.vocab_size):.6f} (printed, "
+          f"not held); every step's launches {want}", flush=True)
+
+    out = dict(name=name, layers=cfg.n_layers, params=n_params,
+               moments=moments, master=master, remat=cfg.remat,
+               tokens=steps[0]["tokens"],
+               step_s=[st["step_time_s"] for st in steps],
+               tokens_s=[st["tokens"] / st["step_time_s"] for st in steps],
+               peak_gib=max(st["peak_gib"] for st in steps),
+               loss=[st["loss"] for st in steps],
+               moe_aux=[st["moe_aux"] for st in steps],
+               launches=steps[0]["counts"])
+
+    if name == "llama4-scout-17b-a16e":
+        experts = [t for path, t in sharding.leaves(params)
+                   if path[-2:-1] == ("moe",) and path[-1] in (
+                       "w_up", "w_gate", "w_down")]
+        hits = weight_copies(lambda: step_fn(params, opt, next_batch,
+                                             FAMILY_STEPS), experts)
+        reset_kernel_counts()
+        print(f"{tag} one step under a dispatch watch: {len(hits)} ops "
+              f"copy or cast an expert weight ({experts[0].numel()} "
+              f"elements, {experts[0].numel() * 2 / 1e9:.2f} GB each): "
+              f"{hits[:4]}", flush=True)
+        if hits:
+            fail(f"train-family {name}: ops copy or cast an expert "
+                 f"weight: {hits[:4]}")
+        out["expert_copies"] = len(hits)
+
+    if cfg.remat == "dots":
+        counts = {}
+        one = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=COUNT_SEQ + 1, global_batch=1))
+        cscfg = dataclasses.replace(scfg, microbatches=1)
+        for remat in ("full", "none", "dots"):
+            fn = build_train_step(dataclasses.replace(cfg, remat=remat),
+                                  card, cscfg)
+            counts[remat] = count_products(
+                lambda: fn(params, opt, one.global_batch(0), FAMILY_STEPS))
+        reset_kernel_counts()
+        print(f"{tag} products run in one step of 1 x {COUNT_SEQ} tokens "
+              f"(unbatched: mm, addmm, bmm of batch 1; batched: bmm): "
+              f"{counts}", flush=True)
+        c = {r: counts[r]["unbatched"] for r in counts}
+        if not (c["dots"] == c["none"] < c["full"]):
+            fail(f"train-family {name}: unbatched products dots "
+                 f"{c['dots']}, none {c['none']}, full {c['full']}: "
+                 f"expected dots == none < full")
+        fn = build_train_step(dataclasses.replace(cfg, remat="full"), card,
+                              scfg)
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        _, _, m = fn(params, opt, next_batch, FAMILY_STEPS)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - ts
+        full_peak = torch.cuda.max_memory_allocated() / 2**30
+        reset_kernel_counts()
+        print(f"{tag} the same step under remat full: {full_s:.3f} s, peak "
+              f"{full_peak:.2f} GiB, against dots' {out['peak_gib']:.2f} "
+              f"GiB and {max(out['step_s'][1:]):.3f} s", flush=True)
+        out.update(products=counts, full_peak_gib=full_peak,
+                   full_step_s=full_s)
+
+    top, idle, wall_ms, events = profile_call(
+        lambda: step_fn(params, opt, next_batch, FAMILY_STEPS),
+        dict(PORT_EVENTS, gemm=GEMM_EVENT))
+    prof_counts = kernel_counts()
+    reset_kernel_counts()
+    print(f"{tag} profiled step: {wall_ms:.1f} ms wall, device idle share "
+          f"{'not measured' if idle is None else f'{idle:.4f}'}; port "
+          f"device events {events}; launches {prof_counts}", flush=True)
+    if prof_counts != want:
+        fail(f"train-family {name}: profiled step launches {prof_counts}, "
+             f"expected {want}")
+    bwd_kernels = ssd_ops.SSD_BWD_KERNELS
+    if top and name == next(iter(FAMILY_RUNS)) and (
+            events["ssd"], events["ssd_bwd"]) != (
+            3 * want["ssd"], bwd_kernels * want["ssd_bwd"]):
+        fail(f"train-family {name}: profiled step's SSD device events "
+             f"{events}, expected {3 * want['ssd']} and "
+             f"{bwd_kernels * want['ssd_bwd']} (3 and {bwd_kernels} CUDA "
+             f"kernels a launch)")
+    for ev, ms, n in top:
+        print(f"{tag}   {ms:9.3f} ms  x{n:<5} {ev[:100]}", flush=True)
+    if not top:
+        print(f"{tag} torch.profiler saw no device time: top ops and idle "
+              f"share not measured", flush=True)
+    times = out["step_s"][1:]
+    toks = out["tokens_s"][1:]
+    print(f"{tag} steps 2-3: {min(times):.3f}-{max(times):.3f} s, "
+          f"{min(toks):.1f}-{max(toks):.1f} tokens/s, peak "
+          f"{out['peak_gib']:.2f} GiB", flush=True)
+    out.update(idle=idle, profiled_ms=wall_ms, top=top, events=events)
+    del params, opt, step_fn
+    return out
+
+
+def phase_train_families():
+    """Phase 14 in a process of its own (``--train-families``): the runs
+    of ``FAMILY_RUNS`` (zamba2 first, where no profile came before its
+    own, so its profiled step's SSD events are held to its launches: a
+    profile of a whole step spoils the later ones in its process), then
+    the new families' reduced tp-1 steps, card against CPU.  Returns each
+    family's numbers by name."""
+    import torch
+
+    torch.cuda.empty_cache()
+    path = ROOT / "build" / "smoke_train_families.json"
+    path.unlink(missing_ok=True)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    try:
+        rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                             "--train-families", str(path)], cwd=ROOT,
+                            timeout=900).returncode
+    except subprocess.TimeoutExpired:
+        fail("train-family: its process outlasted 900 s")
+    if rc != 0:
+        fail(f"train-family: its process exited with code {rc}")
+    return json.loads(path.read_text())
+
+
+def train_families_process(out_path) -> int:
+    """The process ``phase_train_families`` starts: the kernels (built
+    already, so loaded), each family's run in ``FAMILY_RUNS``' order, the
+    reduced card-vs-CPU steps, the numbers written to ``out_path``."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    phase_build()
+    smi = card_name_and_limit()
+    out = {}
+    for name in FAMILY_RUNS:
+        t0 = time.perf_counter()
+        out[name] = phase_train_family(name, smi)
+        torch.cuda.empty_cache()
+        print(f"[smoke] phase 14 {name}: {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    t0 = time.perf_counter()
+    for name in ("llama4-scout-17b-a16e", "grok-1-314b", "minicpm3-4b",
+                 "internvl2-2b", "whisper-tiny"):
+        tp1_card_vs_cpu(get_config(name), "[train-family]")
+    tp1_card_vs_cpu(get_config("zamba2-7b"), "[train-family]", remat="dots")
+    print(f"[smoke] phase 14 reduced card vs cpu: "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     Path(out_path).write_text(json.dumps(out))
     return 0
 
@@ -3120,6 +3527,7 @@ def main() -> int:
     m2_train = timed("10b mamba2 training", phase_train_mamba2_alone)
     timed("10b reduced zamba2 tp-1", tp1_card_vs_cpu,
           get_config("zamba2-7b"), "[train-zamba2]")
+    families = timed("14 family training", phase_train_families)
     dla_launches, dla_main = timed("11 dla matmul", phase_dla)
     timed("12-13 pgas and case study",
           lambda: phase_case_study(phase_pgas()))
@@ -3166,6 +3574,9 @@ def main() -> int:
              zamba2_bound_ms=ssd_z["bound_ms"],
              zamba2_serve_launches=zamba2_launches["ssd"],
              train_launches=m2_train["train_launches"],
+             zamba2_train_launches=families["zamba2-7b"]["launches"]["ssd"],
+             zamba2_train_bwd_launches=families["zamba2-7b"]["launches"][
+                 "ssd_bwd"],
              bwd_source="src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
              bwd_replaces="XLA's gradient of src/repro/models/layers.py:640 "
                           "ssd_jnp (no Pallas counterpart)",
@@ -3205,4 +3616,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-mamba2"]:
         sys.exit(train_mamba2_process(sys.argv[2]))
+    if sys.argv[1:2] == ["--train-families"]:
+        sys.exit(train_families_process(sys.argv[2]))
     sys.exit(main())

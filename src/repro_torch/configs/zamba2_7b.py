@@ -27,8 +27,7 @@ config = ModelConfig(
     n_shared_blocks=2,
     activation="gelu",
     gated_mlp=True,
-    # the reference's choice for its TPU runs; the port has no "dots"
-    # policy yet, so full-width training raises on it (ROADMAP queue 1
-    # item 7), and reduced() sets remat="none"
+    # keep the products with no batch dimension, recompute the rest
+    # (models/model.py::_maybe_remat); reduced() sets remat="none"
     remat="dots",
 )

@@ -31,20 +31,29 @@ def chunked_ce_loss(
     *,
     seq_chunk: int,
     z_loss: float = 1e-4,
+    moe_aux_weight: float = 1e-2,
     group=None,
     positions: Optional[torch.Tensor] = None,
     runner: Optional[Callable] = None,
+    core: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """batch: tokens (B, S_loc), labels (B, S_loc) with -1 = masked — this
-    rank's rows.  Returns (this rank's loss, metrics), where the metrics'
-    ``loss``, ``ce``, ``z_loss`` and ``tokens`` are the group's totals
-    (the reference's ``total`` and metrics; the dense family has no MoE
-    aux term).  ``group`` None means one rank holding the whole
-    sequence.  ``positions`` and ``runner`` (the TP block runner) are
-    ``forward_hidden``'s."""
-    hidden = forward_hidden(cfg, params, batch["tokens"], positions,
-                            runner=runner)
+    rank's rows — and a frontend arch's ``frontend_embeds`` (a VLM's
+    patches, whose hidden rows are cropped away before the head; the
+    encoder-decoder's frames).  Returns (this rank's loss, metrics), where
+    the metrics' ``loss``, ``ce``, ``z_loss``, ``moe_aux`` and ``tokens``
+    are the group's totals (the reference's ``total`` and metrics: the
+    loss adds ``moe_aux_weight`` × a MoE model's load-balancing loss,
+    summed over its layers).  ``group`` None means one rank holding the
+    whole sequence.  ``positions``, ``runner`` (the TP block runner) and
+    ``core`` (the attention core) are ``forward_hidden``'s."""
+    hidden, aux = forward_hidden(cfg, params, batch["tokens"], positions,
+                                 runner=runner, core=core,
+                                 frontend_embeds=batch.get("frontend_embeds"),
+                                 return_aux=True)
     labels = batch["labels"]
+    if hidden.shape[1] != labels.shape[1]:      # a VLM's patch rows
+        hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]
     cd = L.cdtype(cfg)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"]).to(cd)
@@ -66,14 +75,15 @@ def chunked_ce_loss(
         z_sum = z_sum + ((lse * mask) ** 2).sum()
         tokens = tokens + mask.sum()
 
-    sums = torch.stack([nll_sum, z_sum, tokens]).detach().double().cpu()
+    sums = torch.stack([nll_sum, z_sum, tokens, aux]).detach().double().cpu()
     if group is not None:
         sums = group.all_reduce(sums)
-    nll_all, z_all, tok_all = sums.tolist()
+    nll_all, z_all, tok_all, aux_all = sums.tolist()
     denom = max(tok_all, 1.0)
-    loss = nll_sum / denom + z_loss * z_sum / denom
+    loss = nll_sum / denom + z_loss * z_sum / denom + moe_aux_weight * aux
     ce, zl = nll_all / denom, z_loss * z_all / denom
-    metrics = {"loss": ce + zl, "ce": ce, "z_loss": zl, "tokens": tok_all}
+    metrics = {"loss": ce + zl + moe_aux_weight * aux_all, "ce": ce,
+               "z_loss": zl, "moe_aux": aux_all, "tokens": tok_all}
     return loss, metrics
 
 

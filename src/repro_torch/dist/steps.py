@@ -11,22 +11,26 @@ itself.
 Training: :class:`TransportPolicy`, :class:`StepConfig`,
 :func:`build_init` and :func:`build_train_step`, the group standing in
 for the ``model`` axis.  At tp 1 (``Group(rank=0, size=1, device=…)``,
-no process pool) it is the reference's one-device step: the dense block
-attends through ``layers.blockwise_attention``, as the reference does off
-the TPU, and the ssm (Mamba-2) block is the model's own, its SSD scan
-the kernel with its backward (``kernels/ssd``); the hybrid takes both,
-its shared attention applications through the dense block.  At tp ≥ 2
-it is the path the reference takes with ``TransportPolicy(tp="fused")``
-on a ``(1, tp)`` mesh: every dense block's TP edges on the fused ring of
-``kernels/cc_matmul``.  Both take fp32 microbatch accumulation, into
-flat buckets with ``grad_bucket_bytes``.  A data axis and the other TP
-transports raise, each naming its ROADMAP item; ART-TP is dense-only.
+no process pool) it is the reference's one-device step for every family
+the port serves: the model's own blocks, every attention through
+``layers.blockwise_attention`` (``layers.blockwise_core``), as the
+reference attends off the TPU: the dense and VLM blocks, MLA's, the MoE
+blocks (their expert products ``torch.bmm`` over the stacked weights,
+the reference's ``TransportPolicy.moe="xla"``), the encoder-decoder's
+encoder, self- and cross-attention, and the hybrid's shared
+applications; the ssm (Mamba-2) block's SSD scan is the kernel with its
+backward (``kernels/ssd``).  At tp ≥ 2 it is the path the reference
+takes with ``TransportPolicy(tp="fused")`` on a ``(1, tp)`` mesh: every
+dense block's TP edges on the fused ring of ``kernels/cc_matmul``.  Both
+sum microbatch gradients in fp32, leaf by leaf, and lay the sums out in
+flat buckets with ``grad_bucket_bytes``.  A data axis, the other TP transports and the
+other families at tp ≥ 2 raise, each naming its ROADMAP item; ART-TP is
+dense-only.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -43,7 +47,7 @@ from repro_torch.dist.loss import chunked_ce_loss
 from repro_torch.models import artblock
 from repro_torch.models import layers as L
 from repro_torch.models.decode import decode_step
-from repro_torch.models.model import dense_block, init_params
+from repro_torch.models.model import init_params
 from repro_torch.optim import (
     AdamWConfig,
     adamw_init,
@@ -152,6 +156,7 @@ class StepConfig:
     transport: Optional[TransportPolicy] = None
     grad_bucket_bytes: Optional[int] = None
     z_loss: float = 1e-4
+    moe_aux_weight: float = 1e-2
 
     def resolved_transport(self) -> TransportPolicy:
         return self.transport if self.transport is not None \
@@ -191,42 +196,33 @@ def _art_runner(cfg: ModelConfig, policy: TransportPolicy,
 
 
 def _check_path(cfg: ModelConfig, group, scfg: StepConfig,
-                data_axis: int) -> Callable:
-    """The block runner of this group's train step (None: the model's own
-    ssm block; a hybrid's Mamba-2 layers are the model's own too, and the
-    runner runs its shared attention applications), or the raise that
-    names the ROADMAP item of a path not ported."""
+                data_axis: int) -> Optional[Callable]:
+    """The block runner of this group's train step (None at tp 1: the
+    model's own blocks, attending through ``layers.blockwise_core``), or
+    the raise that names the ROADMAP item of a path not ported."""
     if data_axis != 1:
         raise NotImplementedError(
             f"data axis {data_axis} is not ported: {ROADMAP_DATA}")
     if scfg.microbatches < 1:
         raise ValueError(f"microbatches={scfg.microbatches} < 1")
+    if group.size == 1:
+        return None
     if cfg.family == "moe":
         raise NotImplementedError(
-            f"{cfg.name}: MoE training is not ported: it trains through "
-            f"expert parallelism (the reference's models/moe_ep.py, "
-            f"all_to_all dispatch over an expert axis), ROADMAP queue 1 "
-            f"item 7")
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise ValueError(f"{cfg.name}: the train step takes the dense, "
-                         f"ssm and hybrid families (vlm and encdec training: "
-                         f"ROADMAP queue 1 item 7)")
+            f"{cfg.name}: MoE training at tp {group.size} is not ported: "
+            f"it trains through expert parallelism (the reference's "
+            f"models/moe_ep.py, all_to_all dispatch over an expert axis), "
+            f"ROADMAP queue 1 item 7")
     if cfg.attn_type == "mla":
         raise NotImplementedError(
-            f"{cfg.name}: MLA training is not ported (the tp-1 runner needs "
-            f"mla_attention over blockwise_core, and full width needs its "
-            f"fp32 AdamW state on more than one card): ROADMAP queue 1 "
-            f"item 7")
-    if group.size == 1:
-        if cfg.family == "ssm":
-            # forward_hidden's ssm branch: the Mamba-2 block, whose SSD
-            # scan is the kernel with its backward
-            return None
-        # the model's own dense block (a hybrid's shared applications),
-        # attending through blockwise attention at the config's chunks
-        # (the reference's one-device step off the TPU): never the flash
-        # kernel, which has no backward
-        return functools.partial(dense_block, core=L.blockwise_core(cfg))
+            f"{cfg.name}: MLA training at tp {group.size} is not ported "
+            f"(the reference's _art_runner skips MLA; its TP split is the "
+            f"sharding rules'): ROADMAP queue 1 item 7")
+    if cfg.family in ("vlm", "encdec"):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.family} training at tp {group.size} is not "
+            f"ported (the sharding rules and the frontend's TP split): "
+            f"ROADMAP queue 1 item 7")
     if cfg.family != "dense":
         raise ValueError(
             f"{cfg.name}: ART-TP is dense-only (the reference's _art_runner "
@@ -285,28 +281,38 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
     this rank of the group.
 
     ``batch`` is the global batch (tokens and labels (B, S); at tp ≥ 2 S
-    a multiple of the group size), the same on every rank.  The step cuts
+    a multiple of the group size; a frontend arch's ``frontend_embeds``
+    (B, N, frontend_dim) at tp 1), the same on every rank.  The step cuts
     it into ``scfg.microbatches`` microbatches; for each it (1) embeds the
-    rank's sequence shard, rows ``r·S/tp + arange(S/tp)`` (all of them at
-    tp 1); (2) runs the blocks through the runner (the ART-TP block, or
-    the dense block over blockwise attention); (3) applies the final norm
-    and the chunked CE over its rows; (4) runs backward on its own loss
-    and sums the gradients in fp32 (into the flat buckets of
-    ``dist/bucketing.py`` with ``grad_bucket_bytes``: the same bits).
-    Then it divides the sums by the microbatch count, (5) sums the
-    replicated leaves' gradients over the group, (6) clips by the global
-    norm and (7) takes an AdamW step at ``warmup_cosine(step)``.
+    rank's sequence shard, rows ``r·S/tp + arange(S/tp)`` (all of them,
+    a VLM's patch rows before them, at tp 1); (2) runs the blocks, the
+    dense ones through the ART-TP runner at tp ≥ 2, every attention
+    through blockwise attention at tp 1; (3) applies the final norm and
+    the chunked CE over its rows, plus ``moe_aux_weight`` × a MoE model's
+    load-balancing loss; (4) runs backward on its own loss
+    and sums the gradients in fp32, leaf by leaf in place.  Then it
+    divides the sums by the microbatch count (in the flat buckets of
+    ``dist/bucketing.py`` with ``grad_bucket_bytes``: the same bits),
+    (5) sums the replicated leaves' gradients over the group, (6) clips
+    by the global norm and (7) takes an AdamW step at
+    ``warmup_cosine(step)``.
     Parameters and optimizer state are updated in place.  ``metrics``:
-    the microbatches' mean loss, ce and z_loss and their summed token
-    count (the group's), the pre-clip grad norm and the learning rate."""
+    the microbatches' mean loss, ce, z_loss and moe_aux and their summed
+    token count (the group's), the pre-clip grad norm and the learning
+    rate."""
     runner = _check_path(cfg, group, scfg, data_axis)
+    core = L.blockwise_core(cfg) if group.size == 1 else None
     acfg = _adamw_config(scfg)
     tp, rank = group.size, group.rank
     n_micro = int(scfg.microbatches)
     loss_group = group if tp > 1 else None
 
-    def micro_grads(params, leaves, micro):
-        """Backward of one microbatch: (fp32 grads in leaf order, metrics)."""
+    def micro_grads(params, leaves, micro, acc):
+        """Backward of one microbatch, its gradients summed in fp32 into
+        ``acc`` in place (leaf order; a ``None`` entry takes the cast of
+        the first); returns its metrics.  Each leaf's gradient is freed as
+        soon as it is added, so at full width no second list of gradients
+        is held beside the sums."""
         tokens, labels = micro["tokens"], micro["labels"]
         s = tokens.shape[1]
         if s % tp:
@@ -315,42 +321,59 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
         rows = slice(rank * s_loc, (rank + 1) * s_loc)
         local = {"tokens": tokens[:, rows].to(group.device),
                  "labels": labels[:, rows].to(group.device)}
-        positions = torch.arange(s, device=group.device)
+        if micro.get("frontend_embeds") is not None:
+            local["frontend_embeds"] = micro["frontend_embeds"].to(
+                group.device)
+        # at tp 1 the rows rope at their own index (a VLM's text after its
+        # patch rows); the TP runner ropes the gathered sequence
+        positions = (torch.arange(s, device=group.device) if tp > 1
+                     else None)
         for t in leaves:
             t.requires_grad_(True)
         try:
             loss, metrics = chunked_ce_loss(
                 cfg, params, local, seq_chunk=scfg.seq_chunk,
-                z_loss=scfg.z_loss, group=loss_group, positions=positions,
-                runner=runner)
+                z_loss=scfg.z_loss, moe_aux_weight=scfg.moe_aux_weight,
+                group=loss_group, positions=positions, runner=runner,
+                core=core)
             loss.backward()
-            grads = [t.grad.float() for t in leaves]
+            for i, t in enumerate(leaves):
+                g, t.grad = t.grad, None
+                if g is None:
+                    continue
+                if acc[i] is None:
+                    acc[i] = g.float()
+                else:
+                    acc[i].add_(g)      # the fp32 sum of the cast
         finally:
             for t in leaves:
                 t.grad = None
                 t.requires_grad_(False)
-        return grads, metrics
+        return metrics
 
     def step_fn(params, opt, batch, step: int):
         paths, leaves = zip(*sharding.leaves(params))
+        acc = [None] * len(leaves)
+        mets = [micro_grads(params, leaves, mb, acc)
+                for mb in _microbatches(batch, n_micro)]
+        # a leaf the loss does not reach (a hybrid cut below one shared
+        # application) has no gradient: zero, as the reference's
+        grads = [torch.zeros_like(t, dtype=torch.float32) if a is None
+                 else a for a, t in zip(acc, leaves)]
+        del acc
         plan = None
         if scfg.grad_bucket_bytes and n_micro > 1:
+            # the sums in flat buckets, the layout a bucketed sync ships
+            # (the data axis: not ported); per element the same fp32 sums
+            # and division, so the same bits
             plan = bucketing.bucket_plan(
                 list(leaves), target_bytes=scfg.grad_bucket_bytes)
-        acc, mets = None, []
-        for mb in _microbatches(batch, n_micro):
-            g, m = micro_grads(params, leaves, mb)
-            parts = g if plan is None else bucketing.pack(g, plan)
-            if acc is None:
-                acc = parts
-            else:
-                for a, part in zip(acc, parts):
-                    a.add_(part)
-            mets.append(m)
+            grads = bucketing.pack(grads, plan)
         if n_micro > 1:
-            acc = [a / n_micro for a in acc]
-        grads = acc if plan is None else bucketing.unpack(acc, plan,
-                                                          torch.float32)
+            for g in grads:
+                g.div_(n_micro)
+        if plan is not None:
+            grads = bucketing.unpack(grads, plan, torch.float32)
         metrics = {k: (sum(m[k] for m in mets) if k == "tokens"
                        else sum(m[k] for m in mets) / n_micro)
                    for k in mets[0]}

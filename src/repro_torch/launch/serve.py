@@ -45,10 +45,18 @@ import numpy as np
 CARD_BYTES = 80e9
 
 
+def card_bytes(device) -> int:
+    """The card's memory: its own on a CUDA device, :data:`CARD_BYTES`
+    otherwise."""
+    import torch
+
+    return (torch.cuda.get_device_properties(device).total_memory
+            if device.type == "cuda" else CARD_BYTES)
+
+
 def check_fits(cfg, device) -> None:
-    """Raise unless ``cfg``'s weights fit the card (its own memory on a
-    CUDA device, :data:`CARD_BYTES` otherwise), before a parameter is
-    drawn."""
+    """Raise unless ``cfg``'s weights fit the card (:func:`card_bytes`),
+    before a parameter is drawn."""
     import torch
 
     from repro_torch.models.model import count_params_analytic
@@ -56,8 +64,7 @@ def check_fits(cfg, device) -> None:
     itemsize = torch.empty((), dtype=getattr(torch, cfg.param_dtype)
                            ).element_size()
     need = count_params_analytic(cfg) * itemsize
-    have = (torch.cuda.get_device_properties(device).total_memory
-            if device.type == "cuda" else CARD_BYTES)
+    have = card_bytes(device)
     if need > have:
         raise SystemExit(
             f"{cfg.name} at {cfg.n_layers} layers needs {need / 1e9:.1f} GB "

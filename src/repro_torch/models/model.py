@@ -12,12 +12,16 @@ hybrid's ``shared_blocks``, the encoder-decoder's ``enc_layers`` and
 ``dec_layers``) is a list with one dict per layer (block) where the
 reference stacks a leading axis for ``lax.scan``
 (``repro_torch.bridge`` converts one into the other); the layer stack is a
-Python loop.  In training each dense block, the hybrid's shared
-applications too, runs through the block runner the step passes in (the
-ART-TP block, or at tp 1 the dense block with blockwise attention), each
-ssm block is the model's own (its SSD scan the kernel with its backward),
-and every block goes through the config's ``remat`` policy (remat full
-recomputes the block, and with it the scan's forward, in backward).
+Python loop.  In training at tp 1 every block is the model's own and
+every attention (dense and VLM blocks, MLA's, a MoE block's, the hybrid's
+shared applications, the encoder's, the decoder's self- and
+cross-attention) goes through the attention core the step passes in
+(``layers.blockwise_core``); each ssm block's SSD scan is the kernel with
+its backward.  At tp ≥ 2 each dense block runs through the block runner
+the step passes in (the ART-TP block).  Every block goes
+through the config's ``remat`` policy: ``"full"`` recomputes the block,
+and with it the scan's forward, in backward; ``"dots"`` keeps the
+products with no batch dimension and recomputes the rest.
 """
 
 from __future__ import annotations
@@ -272,31 +276,56 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 
 def check_remat(cfg: ModelConfig) -> None:
-    """Raise unless the port trains with ``cfg.remat``: ``"full"`` and
-    ``"none"``.  The reference's ``"dots"`` policy (keep the matmul
-    outputs) has no counterpart here."""
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            f"{cfg.name}: remat='dots' (save the matmul outputs, recompute "
-            f"the rest) is not ported; use 'full' or 'none' (ROADMAP queue "
-            f"1 item 7)")
-    if cfg.remat not in ("full", "none"):
+    """Raise unless ``cfg.remat`` is a policy the port trains with:
+    ``"full"``, ``"dots"`` or ``"none"``."""
+    if cfg.remat not in ("full", "dots", "none"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
 
+def _is_saved_product(op, args) -> bool:
+    """A product with no batch dimension: ``aten.mm``, ``aten.addmm``
+    (``x @ w`` folds a 3-D ``x`` into one), or an ``aten.bmm`` of batch
+    1 (an einsum without a batch dimension).  Attention's per-head
+    einsums and the experts' (E, C, D) @ (E, D, F) products are batched
+    ``bmm``s; the SSD scan launches its kernel through ``ctypes``, out of
+    the dispatcher's sight."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default):
+        return True
+    return op is aten.bmm.default and args[0].shape[0] == 1
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of :func:`_is_saved_product`, recompute every other op."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if _is_saved_product(op, args)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _maybe_remat(cfg: ModelConfig, fn):
-    """Per-block activation checkpointing while gradients are recorded:
-    ``remat="full"`` keeps only each block's input and recomputes the
-    block in backward (``torch.utils.checkpoint``, non-reentrant), and
-    ``"none"`` keeps everything; any other policy raises
-    (:func:`check_remat`)."""
+    """Per-block activation checkpointing while gradients are recorded
+    (``torch.utils.checkpoint``, non-reentrant): ``remat="full"`` keeps
+    only each block's input and recomputes the block in backward,
+    ``"dots"`` keeps the outputs of its products with no batch dimension
+    as well (selective checkpointing, :func:`_dots_policy`) and
+    recomputes everything else, the SSD scan's forward among it (its
+    kernel gives the same bits again), and ``"none"`` keeps everything."""
+    check_remat(cfg)
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
-    check_remat(cfg)
+    kw = {"context_fn": _dots_context} if cfg.remat == "dots" else {}
 
     def remat(*args):
         return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+                                                 use_reentrant=False, **kw)
 
     return remat
 
@@ -329,34 +358,38 @@ def ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-              positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One MoE block (the reference's ``_moe_block``): attention, then
-    the MoE layer, each added to the residual.  Returns (h, the layer's
-    load-balancing loss over the MoE layer's input)."""
+              positions: torch.Tensor, *, core: Optional[Callable] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One MoE block (the reference's ``_moe_block``): attention (through
+    ``core``, :func:`dense_block`'s), then the MoE layer, each added to
+    the residual.  Returns (h, the layer's load-balancing loss over the
+    MoE layer's input)."""
     h = x + L.attention(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
-                        positions)
+                        positions, core=core)
     normed = L.apply_norm(cfg, p["ln2"], h)
     return (h + L.moe(cfg, p["moe"], normed),
             L.moe_aux_loss(cfg, normed, p["moe"]))
 
 
 def cross_block_tail(cfg: ModelConfig, p: Params, h: torch.Tensor,
-                     kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+                     kv: Tuple[torch.Tensor, torch.Tensor], *,
+                     core: Optional[Callable] = None) -> torch.Tensor:
     """What follows a decoder layer's self-attention: cross-attention over
-    the encoder's K/V ``kv`` (:func:`layers.cross_kv`), then the MLP."""
+    the encoder's K/V ``kv`` (:func:`layers.cross_kv`) through ``core``,
+    then the MLP."""
     h = h + L.attention(cfg, p["xattn"], L.apply_norm(cfg, p["ln_x"], h),
-                        None, causal=False, kv_override=kv)
+                        None, causal=False, kv_override=kv, core=core)
     return h + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h))
 
 
 def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor,
-                 runner: Optional[Callable] = None) -> torch.Tensor:
+                 runner: Optional[Callable] = None,
+                 core: Optional[Callable] = None) -> torch.Tensor:
     if runner is not None:
-        # the train step's block: the ART-TP block (models/artblock.py) or,
-        # at tp 1, dense_block over blockwise attention (dist/steps.py)
+        # the TP train step's block: the ART-TP block (models/artblock.py)
         return runner(cfg, p, x, positions)
-    return dense_block(cfg, p, x, positions)
+    return dense_block(cfg, p, x, positions, core=core)
 
 
 def _ssm_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -365,17 +398,21 @@ def _ssm_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def encode(cfg: ModelConfig, params: Params,
-           frontend_embeds: torch.Tensor) -> torch.Tensor:
+           frontend_embeds: torch.Tensor, *,
+           core: Optional[Callable] = None) -> torch.Tensor:
     """The whisper encoder: frame embeddings (B, S_enc, frontend_dim)
     through ``frontend_proj``, plus sinusoidal positions, then the
-    bidirectional blocks and ``enc_norm``: (B, S_enc, D)."""
+    bidirectional blocks (attention through ``core``, each block through
+    the ``remat`` policy) and ``enc_norm``: (B, S_enc, D)."""
     enc = project_frontend(cfg, params, frontend_embeds)
     enc = enc + L.sinusoidal_positions(enc.shape[1], cfg.d_model,
                                        enc.device).to(enc.dtype)
     enc = enc.to(L.pdtype(cfg))
     positions = torch.arange(enc.shape[1], device=enc.device)
+    block = _maybe_remat(cfg, lambda h, lp: dense_block(
+        cfg, lp, h, positions, core=core, causal=False))
     for lp in params["enc_layers"]:
-        enc = dense_block(cfg, lp, enc, positions, causal=False)
+        enc = block(enc, lp)
     return L.apply_norm(cfg, params["enc_norm"], enc)
 
 
@@ -389,25 +426,34 @@ def decoder_embed(params: Params, tokens: torch.Tensor,
 
 def _forward_encdec_hidden(cfg: ModelConfig, params: Params,
                            tokens: torch.Tensor,
-                           frontend_embeds: Optional[torch.Tensor]
-                           ) -> torch.Tensor:
+                           frontend_embeds: Optional[torch.Tensor],
+                           core: Optional[Callable] = None) -> torch.Tensor:
     """Encoder once, then the decoder: causal self-attention (no rope),
-    cross-attention over each layer's K/V of the encoder output, MLP."""
+    cross-attention over each layer's K/V of the encoder output, MLP;
+    every attention through ``core``, each layer through the ``remat``
+    policy (the reference's scan bodies)."""
     if frontend_embeds is None:
         raise ValueError(f"{cfg.name} needs frame embeddings")
-    enc = encode(cfg, params, frontend_embeds)
+    enc = encode(cfg, params, frontend_embeds, core=core)
     x = decoder_embed(params, tokens)
     dpos = torch.arange(x.shape[1], device=x.device)
+
+    def dec_block(h, lp, enc_out):
+        a = h + L.attention(cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], h),
+                            dpos, core=core)
+        return cross_block_tail(cfg, lp, a, L.cross_kv(cfg, lp["xattn"],
+                                                       enc_out), core=core)
+
+    block = _maybe_remat(cfg, dec_block)
     for lp in params["dec_layers"]:
-        h = x + L.attention(cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x),
-                            dpos)
-        x = cross_block_tail(cfg, lp, h, L.cross_kv(cfg, lp["xattn"], enc))
+        x = block(x, lp, enc)
     return L.apply_norm(cfg, params["final_norm"], x)
 
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    positions: Optional[torch.Tensor] = None, *,
                    runner: Optional[Callable] = None,
+                   core: Optional[Callable] = None,
                    frontend_embeds: Optional[torch.Tensor] = None,
                    return_aux: bool = False):
     """tokens (B, S) → final-norm hidden (B, S, D); a VLM's hidden holds
@@ -416,23 +462,30 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ``frontend_embeds`` (its frames).
 
     ``positions`` (default ``arange`` over the rows) is what the blocks
-    rope with.
-    A block runner (``runner(cfg, layer_params, x, positions)``, training)
-    runs each dense block in place of :func:`dense_block`.  With the TP
-    runner ``tokens`` is this rank's sequence shard and ``positions``
-    the whole sequence's: rank r holds rows ``r·S_loc + arange(S_loc)``,
-    and the runner ropes after gathering.
+    rope with.  ``core`` is the attention core of every block
+    (``layers.attention``'s default, the flash kernel, when None; the
+    tp-1 train step passes ``layers.blockwise_core``, since flash has no
+    backward).  A block runner (``runner(cfg, layer_params, x,
+    positions)``, the TP train step) runs each dense block in place of
+    :func:`dense_block`: ``tokens`` is then this rank's sequence shard and
+    ``positions`` the whole sequence's: rank r holds rows ``r·S_loc +
+    arange(S_loc)``, and the runner ropes after gathering.
     Each block goes through :func:`_maybe_remat` (the per-layer
-    ``remat`` policy of the reference's scan body).  A hybrid runs its
+    ``remat`` policy of the reference's scan bodies).  A hybrid runs its
     Mamba-2 layers and shared applications in :func:`hybrid_order`, each
     application a dense block over its shared parameters (autograd sums a
-    shared block's gradient over its applications).  A MoE model runs
-    :func:`moe_block`s (no runner: its training is expert-parallel, ROADMAP
-    queue 1 item 7); ``return_aux`` returns (hidden, the sum of its
-    layers' load-balancing losses, fp32; 0 for every other family)."""
+    shared block's gradient over its applications).  The reference
+    checkpoints a hybrid's group of ``hybrid_period`` Mamba-2 layers and
+    its shared application as one body, and each Mamba-2 layer inside it
+    again; checkpointing each block alone recomputes the same ops from the
+    same saved values, so the values and gradients are the same.  A MoE
+    model runs :func:`moe_block`s (a runner, ART-TP, is dense-only);
+    ``return_aux`` returns (hidden, the sum of its layers' load-balancing
+    losses, fp32; 0 for every other family)."""
     _check_ported(cfg)
     if cfg.family == "encdec":
-        x = _forward_encdec_hidden(cfg, params, tokens, frontend_embeds)
+        x = _forward_encdec_hidden(cfg, params, tokens, frontend_embeds,
+                                   core)
         return (x, x.new_zeros((), dtype=torch.float32)) if return_aux \
             else x
     if cfg.family == "vlm" and frontend_embeds is None:
@@ -443,14 +496,15 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     aux = x.new_zeros((), dtype=torch.float32)
     ssm = _maybe_remat(cfg, lambda h, lp: _ssm_block(cfg, lp, h))
     dense = _maybe_remat(
-        cfg, lambda h, lp: _dense_block(cfg, lp, h, positions, runner))
+        cfg, lambda h, lp: _dense_block(cfg, lp, h, positions, runner, core))
     if cfg.family == "moe":
         if runner is not None:
             raise NotImplementedError(
-                f"{cfg.name}: a MoE block takes no block runner (MoE "
-                f"training: ROADMAP queue 1 item 7)")
-        block = _maybe_remat(cfg, lambda h, lp: moe_block(cfg, lp, h,
-                                                          positions))
+                f"{cfg.name}: a MoE block takes no TP block runner (MoE "
+                f"across ranks trains through expert parallelism: ROADMAP "
+                f"queue 1 item 7)")
+        block = _maybe_remat(cfg, lambda h, lp: moe_block(
+            cfg, lp, h, positions, core=core))
         for lp in params["layers"]:
             x, a = block(x, lp)
             aux = aux + a
@@ -468,11 +522,12 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None, *,
-            runner: Optional[Callable] = None, return_aux: bool = False):
+            runner: Optional[Callable] = None,
+            core: Optional[Callable] = None, return_aux: bool = False):
     """tokens (B, S) → fp32 logits (B, S, V) (a VLM's: (B, N + S, V), its
     patch rows first); ``return_aux``: (logits, the MoE load-balancing
     loss summed over layers)."""
-    out = forward_hidden(cfg, params, tokens, runner=runner,
+    out = forward_hidden(cfg, params, tokens, runner=runner, core=core,
                          frontend_embeds=frontend_embeds,
                          return_aux=return_aux)
     if return_aux:
@@ -482,7 +537,8 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, z_loss: float = 1e-4, moe_aux_weight: float = 1e-2,
-            runner: Optional[Callable] = None
+            runner: Optional[Callable] = None,
+            core: Optional[Callable] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's ``loss_fn`` over full logits: batch tokens (B, S),
     labels (B, S) with -1 = masked, and a frontend arch's
@@ -491,14 +547,14 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     masked mean cross-entropy ``ce``, ``z_loss`` (``z_loss`` × the masked
     mean of logsumexp²), ``moe_aux`` (a MoE model's load-balancing loss
     summed over its layers, weighted by ``moe_aux_weight`` in the total;
-    0 for every other family) and the ``tokens`` counted.  ``runner`` is
-    :func:`forward_hidden`'s: on the card a dense or hybrid model's gradient needs one
-    (``dist.steps`` builds it), since the default attention is the
-    forward-only flash kernel; an ssm model needs none.  The training
-    step streams the head instead (``dist/loss.py``)."""
+    0 for every other family) and the ``tokens`` counted.  ``runner`` and
+    ``core`` are :func:`forward_hidden`'s: on the card a gradient through
+    attention needs ``core=layers.blockwise_core(cfg)``, since the default
+    attention is the forward-only flash kernel; an ssm model needs none.
+    The training step streams the head instead (``dist/loss.py``)."""
     logits, aux = forward(cfg, params, batch["tokens"],
                           batch.get("frontend_embeds"), runner=runner,
-                          return_aux=True)
+                          core=core, return_aux=True)
     labels = batch["labels"]
     logits = logits[:, logits.shape[1] - labels.shape[1]:]
     mask = (labels >= 0).float()

@@ -15,7 +15,11 @@ Fault tolerance lives around the step, as in the reference:
                           init from ``seed`` when there is none
 
 The data pipeline is stateless (a batch is a function of the step), so a
-restored step needs nothing else.  The reference's elastic paths
+restored step needs nothing else.  The step is ``dist.steps``'s, so the
+Trainer trains every family the port serves at tp 1: dense, MLA, MoE
+(every expert on the one device), ssm and the hybrid from ``SyntheticLM``
+tokens, and the VLM and the encoder-decoder from a data source whose
+batches carry their ``frontend_embeds``.  The reference's elastic paths
 (re-meshing after a device loss, scaling out) are ROADMAP queue 1 item 8
 and raise here.  The group stands in for the reference's mesh: one rank
 on ``cuda`` by default; a TP group's checkpoints (one shard a rank) are

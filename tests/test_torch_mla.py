@@ -306,13 +306,17 @@ def test_paged_raises(served):
 
 
 def test_train_step_raises_naming_the_roadmap():
-    """MLA training is not ported: the tp-1 step raises before it builds
-    anything, naming ROADMAP queue 1 item 7."""
+    """MLA trains at tp 1 (its attention through blockwise attention; the
+    parity with the reference's step is ``test_torch_train_families.py``)
+    and raises at tp 2 before it builds anything, naming ROADMAP queue 1
+    item 7 (the reference's ART-TP runner skips MLA)."""
     from repro_torch.dist.group import Group
     from repro_torch.dist.steps import StepConfig, build_train_step
 
+    scfg = StepConfig(seq_chunk=8, warmup_steps=1)
     for cfg in (get_config(ARCH).reduced(), get_config(ARCH)):
+        assert callable(build_train_step(
+            cfg, Group(rank=0, size=1, device=torch.device("cpu")), scfg))
         with pytest.raises(NotImplementedError, match="MLA.*item 7"):
-            build_train_step(cfg, Group(rank=0, size=1,
-                                        device=torch.device("cpu")),
-                             StepConfig(seq_chunk=8, warmup_steps=1))
+            build_train_step(cfg, Group(rank=0, size=2,
+                                        device=torch.device("cpu")), scfg)

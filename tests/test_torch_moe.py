@@ -452,7 +452,8 @@ def test_tokens_equal_reference_server(served, mode):
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_expert_parallel_paths_raise_naming_the_roadmap(name, monkeypatch):
-    """MoE training (the tp-1 step, before it builds anything) and an
+    """MoE training across ranks (the step at tp 2, before it builds
+    anything; tp 1 trains, every expert on the one device) and an
     expert-parallel decode runner raise, naming ROADMAP queue 1 item 7;
     ``launch/serve.py --full`` at the published depth refuses before it
     draws a parameter, stating the bytes, and passes the depth cut on."""
@@ -461,10 +462,12 @@ def test_expert_parallel_paths_raise_naming_the_roadmap(name, monkeypatch):
     from repro_torch.launch import serve as launch_serve
 
     cfg = get_config(name).reduced()
+    scfg = StepConfig(seq_chunk=8, warmup_steps=1)
+    assert callable(build_train_step(
+        cfg, Group(rank=0, size=1, device=torch.device("cpu")), scfg))
     with pytest.raises(NotImplementedError, match="moe_ep.*item 7"):
-        build_train_step(cfg, Group(rank=0, size=1,
-                                    device=torch.device("cpu")),
-                         StepConfig(seq_chunk=8, warmup_steps=1))
+        build_train_step(cfg, Group(rank=0, size=2,
+                                    device=torch.device("cpu")), scfg)
     cache = decode.init_cache(cfg, 1, 8, "cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         serve_step(cfg, {}, cache, torch.zeros(1, dtype=torch.long),

@@ -268,12 +268,30 @@ def test_transport_policy_validates_like_reference():
 
 
 def test_remat_dots_raises():
+    """``remat="dots"`` (keep the products with no batch dimension,
+    recompute the rest) trains: the dense model's hidden and every
+    gradient bitwise equal to ``"none"``'s; only a policy the reference
+    lacks raises (the name is kept from when ``"dots"`` raised)."""
     from repro_torch.models.model import forward_hidden, init_params
 
-    cfg = dataclasses.replace(get_config(ARCH).reduced(), remat="dots")
-    params = init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="dots"):
-        forward_hidden(cfg, params, torch.zeros(1, 4, dtype=torch.long))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, size=(2, 20)))
+    outs = []
+    for remat in ("none", "dots"):
+        cfg = dataclasses.replace(get_config(ARCH).reduced(), remat=remat)
+        params = init_params(cfg, seed=0, device="cpu")
+        for _, t in sharding.leaves(params):
+            t.requires_grad_(True)
+        hidden = forward_hidden(cfg, params, toks,
+                                core=layers.blockwise_core(cfg))
+        (hidden.float() ** 2).sum().backward()
+        outs.append([hidden.detach()] + [t.grad for _, t in
+                                         sharding.leaves(params)])
+    for a, b in zip(*outs):                 # (lm_head has no gradient here)
+        assert (a is None and b is None) or torch.equal(a, b)
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), remat="offload")
+    with pytest.raises(ValueError, match="offload"):
+        forward_hidden(cfg, init_params(cfg, seed=0, device="cpu"), toks)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,8 @@
 * the training forward never reaches the flash kernel's wrapper, the
   ssm family raises at tp ≥ 2 (ART-TP is dense-only), and the launcher
   and the example run on the CPU (smollm and mamba2; the launcher also
-  reduced zamba2, and refuses full-width zamba2's ``remat="dots"``).
+  reduced zamba2, and refuses full-width zamba2 at its published depth on
+  memory).
 """
 
 import dataclasses
@@ -42,7 +43,7 @@ from repro.models import model as ref_model
 from repro_torch.bridge import params_from_reference
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, SyntheticLM
-from repro_torch.dist import bucketing, sharding
+from repro_torch.dist import bucketing, sharding, steps
 from repro_torch.dist.group import Group
 from repro_torch.dist.steps import (
     StepConfig,
@@ -385,9 +386,12 @@ def test_launcher_and_example_train_mamba2(tmp_path, capsys):
 
 
 def test_launcher_trains_reduced_zamba2_and_refuses_full(tmp_path,
-                                                         monkeypatch):
-    """Reduced zamba2 through the launcher (2 steps); ``--full`` raises on
-    the config's ``remat="dots"`` before any parameter is drawn."""
+                                                         monkeypatch,
+                                                         capsys):
+    """Reduced zamba2 through the launcher (2 steps); ``--full`` at its
+    published 81 layers refuses on memory, stating the bytes, before any
+    parameter is drawn; ``--full --layers 2`` is admitted (it reaches the
+    draw), printed as a depth cut."""
     from repro_torch.launch import train as launch_train
 
     t = launch_train.main(["--arch", "zamba2-7b", "--device", "cpu",
@@ -400,9 +404,14 @@ def test_launcher_trains_reduced_zamba2_and_refuses_full(tmp_path,
         raise AssertionError("parameters drawn")
 
     monkeypatch.setattr(model, "init_params", no_init)
-    with pytest.raises(NotImplementedError, match="dots.*item 7"):
-        launch_train.main(["--arch", "zamba2-7b", "--full", "--device",
-                           "cpu", "--ckpt-dir", str(tmp_path / "full")])
+    monkeypatch.setattr(steps, "init_params", no_init)
+    full = ["--arch", "zamba2-7b", "--full", "--device", "cpu",
+            "--ckpt-dir", str(tmp_path / "full")]
+    with pytest.raises(SystemExit, match=r"81 layers needs 139\.1 GB"):
+        launch_train.main(full)
+    with pytest.raises(AssertionError, match="parameters drawn"):
+        launch_train.main(full + ["--layers", "2"])
+    assert "n_layers 81 → 2" in capsys.readouterr().out
 
 
 def test_trainer_and_launcher_raise_without_device(monkeypatch, tmp_path):
