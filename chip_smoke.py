@@ -153,16 +153,24 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    ``consume_matmul`` at the q edge and at the up|gate edge (bf16) and,
    as ``fp32_*``, fp32 × bf16 at the o edge backward (the q edge's
    shape).
-7. The two whole-ring kernels (``ag_matmul_ring``/``rs_matmul_ring``)
-   in four rank processes sharing the card, each mapping its ring
+7. The two whole-ring ops (``ag_matmul_ring``/``rs_matmul_ring``) in
+   four rank processes sharing the card, each mapping its ring
    neighbours' channels, against their plain versions (the unfused
    gather-then-matmul and matmul-then-reduce-scatter over the gloo
    group) at every TP-4 edge shape of full-width h2o-danube-1.8b, both
    ring directions, plus a ragged case.  Same tolerances as the hop
-   kernels.  Time the kernel and the plain version as the group's wall
-   time per call (the slowest rank, from a barrier); no single PyTorch
-   call computes a collective matmul across processes (NCCL takes one
-   card a rank), so there is no library yardstick.
+   kernels.  A call is n hop products (the hop kernel, counted by the
+   launcher into the group's ``ring_kernels`` and by torch.profiler:
+   both must be 4 a rank), n − 1 forwards by the copy engine and
+   stream-ordered waits (``kernels/cc_matmul/ring.py``).  Time the ring
+   and the plain version as the group's wall time per call over 5 calls
+   (the slowest rank, from a barrier; the ring over 20 calls beside it),
+   and, by torch.profiler in every
+   rank, the device time of the group's hop products a call (the
+   serialized floor: 4 x 4 products run one after another) and of its
+   forwards; no single PyTorch call computes a collective matmul across
+   processes (NCCL takes one card a rank), so there is no library
+   yardstick.
 8. TP training of full-width h2o-danube-1.8b (``get_tp_preset``'s
    transport, model axis 4): four rank processes sharing the card, bf16
    parameters from seed 0, fp32 AdamW moments, remat full, SyntheticLM
@@ -170,12 +178,17 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    take the in-kernel ring (the ranks map each other's channels, the
    reference's remote-DMA path), 3 steps; the rest of the group's traffic
    (weight-gradient gathers, the K/V ring, the gradient all-reduce) goes
-   over gloo staged through host memory.  Held: every step's ring-kernel
-   launches equal the schedule's count and no hop kernel or plain
-   version runs; the step-0 loss is within 0.5 of ln 32000; every
+   over gloo staged through host memory.  Held: every step's ring calls
+   equal the schedule's count, each of them 4 hop products
+   (``ring_kernels``), and no hop kernel's wrapper or plain version runs;
+   the step-0 loss is within 0.5 of ln 32000; every
    replicated leaf is bitwise equal on the four ranks after the last
    step; a TP 2 run of the same parameters and batch agrees at step 0
-   (loss 2e-2, grad norm 5e-2 relative).  Then step 0 again on the
+   (loss 2e-2, grad norm 5e-2 relative).  The last TP-4 step runs under
+   torch.profiler in every rank: the share of its wall with no kernel of
+   any rank from the ranks' kernel spans summed (a lower bound: a
+   preempted kernel's span stays open) and from their union on the
+   profiler's host clock.  Then step 0 again on the
    emulated schedule (a group without peer memory: every hop over the
    gloo wire, each arrival consumed by a hop kernel): its hop-kernel
    launches equal the schedule's count, no ring kernel or plain version
@@ -2055,6 +2068,13 @@ RING_CASES = [
 ]
 
 
+#: ring calls each rank profiles a case (phase 7)
+RING_PROFILE_CALLS = 5
+#: calls a group time averages (phase 7): the reported time over 5 as
+#: before, and the ring's over 20 beside it
+RING_ITERS, RING_LONG_ITERS = 5, 20
+
+
 def ring_bound_ms(op, tp, bsz, b, n, k, dx, dw):
     """Least time for one ring call of the whole group on the one card:
     every rank's product (2·n·b·K·N each) at the peak of the operand types
@@ -2070,8 +2090,8 @@ def ring_bound_ms(op, tp, bsz, b, n, k, dx, dw):
 
 
 def phase_ring_kernels():
-    """The two whole-ring kernels vs their plain versions in four ranks on
-    the card; returns each kernel's main-path numbers."""
+    """The two whole-ring ops vs their plain versions in four ranks on the
+    card; returns each op's main-path numbers."""
     from repro_torch.dist import rank_tasks
     from repro_torch.dist.group import RankPool
 
@@ -2079,7 +2099,9 @@ def phase_ring_kernels():
     cases = [dict(op=op, direction=d, B=bsz, b=b, N=n, K=k, dx=dx, dw=dw)
              for _, op, d, bsz, b, n, k, dx, dw in RING_CASES]
     with RankPool(tp, device="cuda") as pool:
-        res = pool.run(rank_tasks.ring_kernels, cases)
+        res = pool.run(rank_tasks.ring_kernels, cases,
+                       iters=RING_ITERS, long_iters=RING_LONG_ITERS,
+                       profile_calls=RING_PROFILE_CALLS)
     main_case = {"ag": "q edge fwd", "rs": "o edge fwd"}
     out = {}
     for i, (label, op, d, bsz, b, n, k, dx, dw) in enumerate(RING_CASES):
@@ -2089,13 +2111,26 @@ def phase_ring_kernels():
         err = err_abs / max(r["max_plain"] for r in rows)
         tol = HOP_TOL[(dx, dw)]
         ms, plain_ms = rows[0]["ms"], rows[0]["plain_ms"]
+        ms_long = rows[0]["ms_long"]
         bound_ms, bound_by = ring_bound_ms(op, tp, bsz, b, n, k, dx, dw)
         launched = [r["launches"][entry] for r in rows]
+        kernels = [r["ring_kernels"] for r in rows]
+        # the group's hop products of one call by torch.profiler (tp ranks
+        # x tp hops): the time the card needs if it runs them one after
+        # another, the serialized floor of a call
+        hop_ms = sum(r["hop_ms"] for r in rows)
+        events = [r["hop_events"] for r in rows]
+        copy_ms = sum(r["copy_ms"] for r in rows)
         print(f"[ring] {entry} {label} dir {d:+d} B{bsz} b{b} N{n} K{k} "
               f"{dx} x {dw}, {tp} ranks: max_err/max {err:.3g} (tol {tol}),"
-              f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (gloo), bound "
-              f"{bound_ms:.5f} ms ({bound_by}), the group's wall time a "
-              f"call", flush=True)
+              f" ring {ms:.4f} ms ({ms_long:.4f} ms over "
+              f"{RING_LONG_ITERS} calls), plain {plain_ms:.4f} ms (gloo), "
+              f"the group's wall time a call over {RING_ITERS} calls; hop "
+              f"products {kernels} a call a rank as launched (profiled "
+              f"{events}), {hop_ms:.4f} ms of device time "
+              f"a call over the group (the serialized floor, {tp}x{tp} x "
+              f"{hop_ms / (tp * tp):.4f} ms), forwards {copy_ms:.4f} ms; "
+              f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
         if not all(r["finite"] for r in rows):
             fail(f"{entry} {label}: non-finite output")
         if not err <= tol:
@@ -2103,10 +2138,17 @@ def phase_ring_kernels():
         if launched != [1] * tp or any(
                 v for name, v in rows[0]["launches"].items() if name != entry):
             fail(f"{entry} {label}: launches {rows[0]['launches']}")
-        if label == main_case[op] and op not in out:
+        if kernels != [tp] * tp or events != [float(tp)] * tp:
+            fail(f"{entry} {label}: {kernels} hop products launched and "
+                 f"{events} profiled a call, expected {tp} a rank")
+        if label == main_case[op] and entry not in out:
             out[entry] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by,
-                              library_ms=None,
+                              library_ms=None, ms_long=ms_long,
+                              long_calls=RING_LONG_ITERS,
+                              hop_kernels_a_call=kernels[0],
+                              profiled_hop_kernels_a_call=events[0],
+                              hop_device_ms=hop_ms, copy_device_ms=copy_ms,
                               shape=f"TP{tp} B{bsz} b{b} N{n} K{k} "
                                     f"{dx} x {dw}, one direction")
     return out
@@ -2182,15 +2224,21 @@ def phase_tp_train():
                   f"{wall:.2f}s, loss {m['loss']:.6f}, "
                   f"grad_norm {m['grad_norm']:.6f}, lr {m['lr']:.3g}; "
                   f"cc_matmul launches a rank {launched}; {hops} ring hops "
-                  f"a rank, {forwarded / 2**30:.2f} GiB forwarded through "
-                  f"peer memory and {staged / 2**30:.2f} GiB staged "
+                  f"and {res[0]['stats'][k]['ring_kernels']} ring hop "
+                  f"products a rank, {forwarded / 2**30:.2f} GiB forwarded "
+                  f"through peer memory and {staged / 2**30:.2f} GiB staged "
                   f"through the host (all ranks), {wire:.2f}s in the wire "
                   f"(host clock, the slowest rank); peak memory a rank "
                   f"{', '.join(f'{p:.1f}' for p in peak)} GiB", flush=True)
+            rings = want["ag_matmul_ring"] + want["rs_matmul_ring"]
             for rank, r in enumerate(res):
                 if r["launches"][k] != want:
                     fail(f"{tag} step {k} rank {rank}: cc_matmul launches "
                          f"{r['launches'][k]}, expected {want}")
+                if r["stats"][k]["ring_kernels"] != tp * rings:
+                    fail(f"{tag} step {k} rank {rank}: "
+                         f"{r['stats'][k]['ring_kernels']} hop products in "
+                         f"{rings} ring calls, expected {tp} a call")
                 if any(r["plain"][k].values()):
                     fail(f"{tag} step {k} rank {rank}: plain versions ran "
                          f"{r['plain'][k]}")
@@ -2202,19 +2250,40 @@ def phase_tp_train():
             if all(p and p["kernel_ms"] > 0 for p in prof):
                 spans = sum(p["kernel_ms"] for p in prof) / 1e3
                 cc = sum(p["cc_ms"] for p in prof) / 1e3
-                # a ring kernel's span runs from its start to its end,
-                # through the time the card runs the other ranks'
-                # contexts while it waits for them: spans overlap, so
-                # no idle share follows from them
+                # a kernel that the card preempts for another rank's
+                # context keeps its span open, so spans of different
+                # ranks may overlap: their sum bounds the card's busy time
+                # from above (1 - sum/wall bounds the time with no kernel
+                # running from below), and the union of the spans on the
+                # profiler's host clock is the time with some kernel of
+                # some rank in flight
                 print(f"[tp4] step {profile_step} on the card (torch.profiler,"
                       f" summed over the ranks): kernel spans {spans:.2f}s "
-                      f"against {wall:.2f}s wall, of which cc_matmul "
-                      f"{cc:.2f}s (ring spans include their waits for the "
-                      f"other ranks, so the card's idle share is not "
-                      f"measured) and the other kernels {spans - cc:.2f}s; "
-                      f"host<->device copies "
+                      f"against {wall:.2f}s wall (at least "
+                      f"{100 * (1 - spans / wall):.2f}% of the wall with "
+                      f"no kernel of any rank running), of which "
+                      f"cc_matmul hop products {cc:.2f}s and the other "
+                      f"kernels {spans - cc:.2f}s; copies (host<->device and "
+                      f"the ring's forwards) "
                       f"{sum(p['copy_ms'] for p in prof) / 1e3:.2f}s",
                       flush=True)
+                union = rank_tasks.union_spans(
+                    [sp for p in prof for sp in p["kernel_spans"]])
+                extent = ((union[-1][1] - union[0][0]) / 1e9 if union
+                          else float("inf"))
+                if extent <= 1.05 * wall:
+                    busy = sum(e - s for s, e in union) / 1e9
+                    print(f"[tp4] step {profile_step}: the union of the "
+                          f"ranks' kernel spans is {busy:.4f}s of the "
+                          f"{wall:.2f}s wall ({100 * (1 - busy / wall):.2f}%"
+                          f" of the wall with no kernel of any rank in "
+                          f"flight; the spans lie within {extent:.2f}s)",
+                          flush=True)
+                else:
+                    print(f"[tp4] step {profile_step}: the ranks' kernel "
+                          f"spans lie {extent:.2f}s apart against "
+                          f"{wall:.2f}s wall, so their clocks do not agree: "
+                          f"the union not measured", flush=True)
                 for name, ms, count in prof[0]["top"]:
                     print(f"[tp4]   rank 0: {ms:9.1f} ms  x{count:<6} "
                           f"{name[:90]}", flush=True)

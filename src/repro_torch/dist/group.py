@@ -6,16 +6,17 @@ Three things live here:
 * :class:`Group` — one rank's handle on a gloo process group: its rank,
   the group size, its device (``cuda:0`` on the card, ``cpu`` when
   asked), the wire every collective of the port rides, and, on the card,
-  the peer memory the ring kernels forward through (``peer``: each rank
+  the peer memory the ring ops forward through (``peer``: each rank
   maps its ring neighbours' channels, ``kernels/cc_matmul/peer.py``).  On
   the card the wire is gloo over host memory, and the staging is
   explicit: each message is copied from the device into a host buffer,
   sent, received into a host buffer and copied back to the device.
   ``stats`` counts the ring hops (over the wire or the peer memory), the
-  bytes staged through the host, the bytes forwarded through peer memory
-  and the host seconds spent in the wire (``wire_s``: from the moment the
-  device has produced the payload to the moment the arrival is back on
-  the device).
+  bytes staged through the host, the bytes forwarded through peer memory,
+  the hop products the whole-ring ops launched (``ring_kernels``, as the
+  launcher counts its launches: n a ring call) and the host seconds spent in the wire (``wire_s``: from the
+  moment the device has produced the payload to the moment the arrival is
+  back on the device).
   :meth:`Group.permute` is the reference's ``lax.ppermute`` with any
   static ``(src, dst)`` list; :meth:`Group.permute_start` starts one and
   returns a :class:`Pending` to wait on, so a caller can compute while
@@ -52,7 +53,8 @@ GROUP_TIMEOUT_S = 900
 
 
 def _new_stats() -> Dict[str, float]:
-    return {"hops": 0, "staged_bytes": 0, "peer_bytes": 0, "wire_s": 0.0}
+    return {"hops": 0, "staged_bytes": 0, "peer_bytes": 0,
+            "ring_kernels": 0, "wire_s": 0.0}
 
 
 def _ready(tensors: Sequence[torch.Tensor]) -> float:

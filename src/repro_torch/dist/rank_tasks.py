@@ -11,8 +11,9 @@ reference.
 * :func:`ring_op` — one whole-ring wrapper on per-rank inputs.
 * :func:`ring_collectives` — the conduit's bare ring gather and
   reduce-scatter, and the gather's gradient.
-* :func:`ring_kernels` — the two whole-ring kernels against their plain
-  versions on the card, each timed with the group.
+* :func:`ring_kernels` — the two whole-ring ops against their plain
+  versions on the card, each timed with the group, their hop products
+  counted and (optionally) profiled.
 * :func:`train` — the TP train step of ``dist/steps.py`` for a few steps,
   with per-step metrics, hop-kernel launches, wire and staging counts,
   step times and peak device memory.
@@ -136,16 +137,23 @@ def _group_ms(group, fn, iters: int) -> float:
     return float(ms.item())
 
 
-def ring_kernels(group, cases: Sequence[Dict[str, Any]],
-                 iters: int = 5) -> List[Dict[str, Any]]:
+def ring_kernels(group, cases: Sequence[Dict[str, Any]], iters: int = 5,
+                 long_iters: int = 0,
+                 profile_calls: int = 0) -> List[Dict[str, Any]]:
     """Each case — ``op`` (``"ag"``/``"rs"``), ``direction``, ``B``,
     ``b`` (rows a rank holds in the gather, or receives from the
     reduce-scatter), ``N``, ``K`` and the dtypes ``dx``/``dw`` — on
     inputs drawn on this rank's device from a per-rank seed, through the
-    whole-ring kernel and through its plain version (``ref.py``'s
-    unfused composition, TF32 off).  x and w are strided views (a row
-    block, a column slice).  Returns per case the launches, the max
-    error, the plain version's max magnitude, and both times."""
+    whole-ring op and through its plain version (``ref.py``'s unfused
+    composition, TF32 off).  x and w are strided views (a row block, a
+    column slice).  Returns per case the launches, the hop products one
+    call launched (``Group.stats["ring_kernels"]``, as the launcher counts
+    them), the max error, the plain version's max magnitude, both times
+    over ``iters`` calls, with ``long_iters`` the ring's time over that
+    many calls too (``ms_long``), and, with ``profile_calls``, this
+    rank's device time a call by ``torch.profiler``: its hop products
+    (``hop_ms``, over ``hop_events`` of them) and its forwards
+    (``copy_ms``)."""
     from repro_torch.kernels.cc_matmul import ref as cc_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -169,25 +177,58 @@ def ring_kernels(group, cases: Sequence[Dict[str, Any]],
             return kernel(x, w, group, direction=c["direction"])
 
         cc_ops.reset_counts()
+        before = group.stats["ring_kernels"]
         got = run()
         _sync(dev)
         launched = cc_ops.launches()
         want = plain(x, w, group)
         out.append(dict(
             launches=launched,
+            ring_kernels=group.stats["ring_kernels"] - before,
             finite=bool(torch.isfinite(got).all()),
             max_abs_err=float((got - want).abs().max()),
             max_plain=float(want.abs().max()),
             ms=_group_ms(group, run, iters),
             plain_ms=_group_ms(group, lambda: plain(x, w, group), iters)))
+        if long_iters:
+            out[-1]["ms_long"] = _group_ms(group, run, long_iters)
+        if profile_calls:
+            out[-1].update(_ring_profile(group, run, profile_calls))
     return out
+
+
+def _ring_profile(group, run, calls: int) -> Dict[str, float]:
+    """This rank's device time a ring call by ``torch.profiler``: the hop
+    products (and how many), and the forwards (device-to-device
+    copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(group.device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        _sync(group.device)
+    hop_ms = copy_ms = hop_events = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if "hop_gemm" in ev.key:
+            hop_ms += us / 1e3
+            hop_events += ev.count
+        elif ev.key.startswith("Memcpy DtoD"):
+            copy_ms += us / 1e3
+    return {"hop_ms": hop_ms / calls, "hop_events": hop_events / calls,
+            "copy_ms": copy_ms / calls}
 
 
 def _device_summary(prof) -> Dict[str, Any]:
     """Device time of one profiled step from ``torch.profiler``: the
     events it files under the card, summed by name — kernels (the cc_matmul
-    kernels among them) and host↔device copies.  (gloo's own events come
-    under the card too; they count in neither.)"""
+    kernels among them) and host↔device copies, and the union of the
+    kernels' spans (``kernel_spans``).  (gloo's own events come under the
+    card too; they count in neither.)"""
     rows = []
     for ev in prof.key_averages():
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
@@ -202,14 +243,45 @@ def _device_summary(prof) -> Dict[str, Any]:
     def total(pred):
         return sum(ms for name, ms, _ in rows if pred(name))
 
-    def is_copy(name):
-        return name.startswith(("Memcpy", "Memset"))
-
-    return {"kernel_ms": total(lambda n: not is_copy(n)
-                               and not n.startswith("gloo")),
-            "cc_ms": total(lambda n: "hop_gemm" in n or "_ring" in n),
-            "copy_ms": total(is_copy),
+    return {"kernel_ms": total(_is_kernel),
+            "cc_ms": total(lambda n: "hop_gemm" in n),
+            "copy_ms": total(_is_copy),
+            "kernel_spans": _kernel_spans(prof),
             "top": rows[:10]}
+
+
+def _is_copy(name: str) -> bool:
+    return name.startswith(("Memcpy", "Memset"))
+
+
+def _is_kernel(name: str) -> bool:
+    return not _is_copy(name) and not name.startswith("gloo")
+
+
+def union_spans(spans: Sequence[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    """The union of ``(start, end)`` intervals, as disjoint intervals in
+    order."""
+    out: List[Tuple[int, int]] = []
+    for start, end in sorted(spans):
+        if out and start <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], end))
+        else:
+            out.append((start, end))
+    return out
+
+
+def _kernel_spans(prof) -> List[Tuple[int, int]]:
+    """The union of this rank's kernel spans on the card, in ns on the
+    host clock torch.profiler stamps every process's events with (empty
+    where the profiler does not expose its raw events)."""
+    try:
+        return union_spans([
+            (e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if str(e.device_type()).endswith("CUDA")
+            and _is_kernel(e.name())])
+    except AttributeError:
+        return []
 
 
 def _digest(t: torch.Tensor) -> str:

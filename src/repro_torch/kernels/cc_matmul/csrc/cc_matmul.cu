@@ -7,54 +7,60 @@
 //   matmul_tile        (kernel.py:65)   out = x @ w
 //   consume_matmul     (kernel.py:84)   out = scratch[slot] @ w
 //   consume_matmul_acc (kernel.py:106)  out = scratch[slot] + x @ w
-// and the whole ring in one kernel, one ring direction a launch:
+// and the whole ring, one ring direction a call, as a stream-ordered
+// sequence of those same hop products:
 //   ag_matmul_ring     (kernel.py:170)  out = all_gather(x) @ w
 //   rs_matmul_ring     (kernel.py:223)  out = reduce_scatter(x @ w)
 //
-// All five run one output tile at a time through a main loop of the shared
-// GEMM header (kernels/include/gemm.cuh), chosen by the operand types and
-// the shape (gemm::with_path): bf16 x bf16 (the forward AG edges) on the
-// tensor cores (WgmmaPath: wgmma fed by TMA in the hop kernels, by
-// cp.async.cg in the ring kernels), any other mix of fp32 and bf16 (the fp32
-// activations of the RS edges and of the backward meet bf16 weights there)
-// on the CUDA cores in full fp32 (SimtPath: 8 x 8 outputs a thread, four
-// k-groups a block, a cp.async.cg ring).  The epilogue adds an optional fp32
-// accumulator in the reference's order (arrived + dot) and stores fp32
-// (gemm::AddStore).  Every output element is summed over K in an order
-// that depends on K alone, and the hop and ring kernels take the same tile
-// for the same (B, rows, N): the emulated schedule and the in-kernel ring
-// agree bit for bit.
+// Every product runs one output tile a block through a main loop of the
+// shared GEMM header (kernels/include/gemm.cuh), chosen by the operand
+// types and the shape (gemm::with_path): bf16 x bf16 (the forward AG
+// edges) on the tensor cores (WgmmaPath: wgmma fed by TMA when rows are
+// 16-byte aligned), any other mix of fp32 and bf16 (the fp32 activations of
+// the RS edges and of the backward meet bf16 weights there) on the CUDA
+// cores in full fp32 (SimtPath: 8 x 8 outputs a thread, four or eight
+// k-groups a block, a cp.async.cg ring).  The epilogue adds an optional
+// fp32 accumulator in the reference's order (arrived + dot) and stores fp32
+// (gemm::AddStore).  Every output element is summed over K in an order that
+// depends on K alone, and the emulated schedule and the ring launch the
+// same kernel for the same (B, rows, N): the two agree bit for bit.
 // Operands: x (B, M, K) with element strides (sxb, sxm, 1), w (K, N) with
 // row stride swk and unit column stride; the accumulator and the output
 // are fp32 with strides (batch, row, 1).  Ragged M, N and K are masked in
 // the kernel (out-of-range elements load as zero and are not stored).
 //
-// The ring kernels: the rank processes of the TP group share the card,
-// and each maps its ring neighbour's channel (device memory exported with
-// CUDA IPC).  A channel is a header of flags and two slots.  Each launch
-// is cooperative (every block resident) and walks the ring as the TPU
-// kernel does: at hop h the block in slot h%2 is forwarded into the next
-// rank's other slot (the remote DMA, here stores into the mapped memory)
-// while this rank's blocks multiply it.  Two counters stand in for the
-// DMA semaphores:
-//   arrive  (receiver's header) — the sender's blocks each add 1 once
-//           their share of a forwarded slot is written; the receiver
-//           waits for the count its host expects for this hop;
-//   done    (owner's header) — the last hop this rank has finished; a
-//           sender writes a slot of the next rank only once the next
-//           rank is done with the hop that last read that slot.
-// Both only grow (the host passes the bases for the call), so neither
-// is ever reset.  Waits poll with acquire loads; the data a wait guards
-// is read with L2-only loads (ld.global.cg), never through L1.  A wait
-// that lasts longer than the caller's timeout traps: the launch fails
-// instead of hanging the card.
-// Every C entry point returns cudaGetLastError() right after its launch.
+// The ring: the rank processes of the TP group share the card, and each
+// maps its next rank's channel (device memory exported with CUDA IPC).  A
+// channel is a header of two 64-bit counters and two slots.  The host
+// passes the call's plan (ring.py's ring_plan: the protocol is written
+// there once), and run_plan below enqueues it as it stands on PyTorch's
+// current stream: the n hop products (one hop_gemm launch each) and the
+// n - 1 forwards (cudaMemcpyAsync device to device into the next rank's
+// mapped slot: the copy engine moves it), each after the one before.  The
+// two counters stand in for the TPU kernel's DMA semaphores:
+//   arrive  (receiver's header) -- the number of slots forwarded into the
+//           channel this call, written by the sender after its copy;
+//   done    (owner's header) -- the hops this rank has finished (product,
+//           and for AG the forward: every read of the hop's slot); a
+//           sender copies into a slot of the next rank only once that
+//           rank is done with the hop that last read it.
+// Every hand-off between ranks is a wait the card's front end holds in
+// stream order: cuStreamWaitValue64 (greater or equal) on a counter, and
+// cuStreamWriteValue64 (with its memory barrier) after the copy or product
+// it publishes.  No kernel spins: a rank whose neighbour is behind has no
+// runnable work, so the card runs another rank's context.  Both counters
+// only grow (the host passes the bases for the call), so neither is ever
+// reset.  A wait has no timeout: a neighbour that never arrives leaves the
+// stream waiting until its process goes (the rank pool's timeout kills
+// the ranks, and their contexts with them).
+// Every C entry point returns cudaGetLastError() (or the first error of an
+// enqueued call; a driver error as streamops::DRIVER_ERROR + its CUresult).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <cstdio>
 
 #include "gemm.cuh"
+#include "stream_ops.cuh"
 
 namespace {
 
@@ -62,11 +68,10 @@ using bf16 = __nv_bfloat16;
 using ll = long long;
 using ull = unsigned long long;
 using gemm::AddStore;
-using gemm::NoWait;
 using gemm::TmaMaps;
 
 // ---------------------------------------------------------------------------
-// the hop kernels: one output tile a block, batch on blockIdx.z
+// the hop kernel: one output tile a block, batch on blockIdx.z
 // ---------------------------------------------------------------------------
 
 template <class Path, bool ACC>
@@ -74,267 +79,26 @@ __global__ void __launch_bounds__(Path::THREADS)
 hop_gemm(const typename Path::TX* __restrict__ x,
          const typename Path::TW* __restrict__ w,
          const float* __restrict__ acc, float* __restrict__ out, int M,
-         int N, int K, ll sxb, ll sxm, ll swk, ll sab, ll sam, int vec,
-         const __grid_constant__ TmaMaps tm, int use_tma) {
+         int N, int K, ll sxb, ll sxm, ll swk, ll sab, ll sam, ll sob,
+         ll som, int vec, const __grid_constant__ TmaMaps tm, int use_tma) {
   extern __shared__ __align__(128) unsigned char dsmem[];
   const int b = blockIdx.z;
   const int m0 = blockIdx.y * Path::BM, n0 = blockIdx.x * Path::BN;
-  Path::template tile<false>(
-      x + (ll)b * sxb, sxm, w, swk, M, N, K, m0, n0, vec != 0, dsmem,
-      NoWait{},
-      AddStore<false>{ACC ? acc + (ll)b * sab : nullptr, sam,
-                      out + (ll)b * M * N, N},
-      use_tma ? &tm : nullptr, b);
-}
-
-// ---------------------------------------------------------------------------
-// the ring kernels
-// ---------------------------------------------------------------------------
-
-constexpr ll HEADER = 256;   // channel header bytes; the slots follow
-
-// channel header: [0] arrive (u64), [8] done (u64), [64] grid barrier
-// count (u32), [68] grid barrier generation (u32)
-struct Ring {
-  char* mine;      // this rank's channel
-  char* next;      // the next rank's channel (mapped), in this direction
-  ll slot_stride;  // bytes between the two slots
-  ull done_base;   // `done` before this call (calls on the channel × n)
-  ull arrive_base; // `arrive` before this call
-  ull timeout_ns;  // the longest a wait may last before the kernel traps
-  int n, rank, dir;
-};
-
-__device__ __forceinline__ ull* arrive_of(char* ch) { return (ull*)ch; }
-__device__ __forceinline__ ull* done_of(char* ch) { return (ull*)(ch + 8); }
-__device__ __forceinline__ char* slot_of(char* ch, ll stride, int s) {
-  return ch + HEADER + s * stride;
-}
-
-__device__ __forceinline__ ull ld_acquire(const ull* p) {
-  ull v;
-  asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(ull* p, ull v) {
-  asm volatile("st.release.sys.global.u64 [%0], %1;"
-               :: "l"(p), "l"(v) : "memory");
-}
-__device__ __forceinline__ ull global_ns() {
-  ull t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// thread 0 polls until *p >= target, then the block goes on
-__device__ void block_wait(const ull* p, ull target, const Ring& R,
-                           const char* what) {
-  if (threadIdx.x == 0) {
-    const ull t0 = global_ns();
-    while (ld_acquire(p) < target) {
-      if (global_ns() - t0 > R.timeout_ns) {
-        printf("cc_matmul ring: rank %d block %d waited %llu ns for %s "
-               "(%llu < %llu)\n", R.rank, blockIdx.x, R.timeout_ns, what,
-               ld_acquire(p), target);
-        __trap();
-      }
-      __nanosleep(256);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// every block of the (cooperative, all-resident) grid meets here
-__device__ void grid_sync(char* ch) {
-  unsigned* count = (unsigned*)(ch + 64);
-  volatile unsigned* gen = (volatile unsigned*)(ch + 68);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned g = *gen;
-    if (atomicAdd(count, 1u) == gridDim.x - 1) {
-      atomicExch(count, 0u);
-      __threadfence();
-      atomicAdd((unsigned*)gen, 1u);
-    } else {
-      while (*gen == g) __nanosleep(64);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// this block's share of a slot forwarded into the next rank's channel,
-// then one count on the next rank's `arrive`
-template <int THREADS>
-__device__ void forward_slot(const char* src, char* dst, ll bytes,
-                             ull* next_arrive) {
-  const int4* s = (const int4*)src;
-  int4* d = (int4*)dst;
-  const ll n16 = (bytes + 15) / 16;
-  for (ll i = (ll)blockIdx.x * THREADS + threadIdx.x; i < n16;
-       i += (ll)gridDim.x * THREADS)
-    __stcg(d + i, __ldcg(s + i));
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x == 0) atomicAdd_system(next_arrive, 1ull);
-}
-
-__device__ __forceinline__ int mod(int a, int n) { return ((a % n) + n) % n; }
-
-struct AgArgs {
-  const void* x;   // (B, b, K), strides (sxb, sxm, 1)
-  const void* w;   // (K, N), row stride swk
-  float* out;      // (B, n, b, N) view, strides (sob, sos, som, 1)
-  int B, b, N, K;
-  ll sxb, sxm, swk, sob, sos, som;
-  int vec;         // rows of the slot and of w start 16-byte aligned
-  Ring ring;
-};
-
-// all_gather(x) @ w over one ring direction (ag_matmul_ring_tpu): hop h
-// multiplies the block of rank (rank - dir*h) mod n from slot h%2 while
-// forwarding it into the next rank's slot (h+1)%2
-template <class Path>
-__global__ void __launch_bounds__(Path::THREADS)
-ag_ring(AgArgs a) {
-  using TX = typename Path::TX;
-  using TW = typename Path::TW;
-  extern __shared__ __align__(128) unsigned char dsmem[];
-  const Ring& R = a.ring;
-  const ll slot_elems = (ll)a.B * a.b * a.K;
-  const ll slot_bytes = slot_elems * (ll)sizeof(TX);
-
-  // seed slot 0 with the resident block (contiguous (B, b, K))
-  TX* s0 = (TX*)slot_of(R.mine, R.slot_stride, 0);
-  const TX* x = (const TX*)a.x;
-  for (ll i = (ll)blockIdx.x * Path::THREADS + threadIdx.x; i < slot_elems;
-       i += (ll)gridDim.x * Path::THREADS) {
-    const ll bb = i / ((ll)a.b * a.K), r = (i / a.K) % a.b, k = i % a.K;
-    s0[i] = x[bb * a.sxb + r * a.sxm + k];
-  }
-  grid_sync(R.mine);
-
-  const int mt = (a.b + Path::BM - 1) / Path::BM;
-  const int nt = (a.N + Path::BN - 1) / Path::BN;
-  const int tiles = a.B * mt * nt;
-  const ull per_hop = gridDim.x;
-  for (int hop = 0; hop < R.n; ++hop) {
-    const int cur = hop & 1;
-    char* slot = slot_of(R.mine, R.slot_stride, cur);
-    if (hop > 0)
-      block_wait(arrive_of(R.mine), R.arrive_base + per_hop * hop, R,
-                 "an arrival");
-    if (hop + 1 < R.n) {
-      // the next rank last read its slot (hop+1)%2 at its hop - 1
-      block_wait(done_of(R.next), R.done_base + hop, R, "the next rank");
-      forward_slot<Path::THREADS>(slot, slot_of(R.next, R.slot_stride,
-                                                cur ^ 1),
-                                  slot_bytes, arrive_of(R.next));
-    }
-    const int src = mod(R.rank - R.dir * hop, R.n);
-    const TX* xs = (const TX*)slot;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int bb = t / (mt * nt), m0 = (t / nt) % mt * Path::BM,
-                n0 = t % nt * Path::BN;
-      Path::template tile<true>(
-          xs + (ll)bb * a.b * a.K, a.K, (const TW*)a.w, a.swk, a.b, a.N,
-          a.K, m0, n0, a.vec != 0, dsmem, NoWait{},
-          AddStore<false>{nullptr, 0, a.out + bb * a.sob + src * a.sos,
-                          a.som});
-    }
-    grid_sync(R.mine);
-    if (blockIdx.x == 0 && threadIdx.x == 0)
-      st_release(done_of(R.mine), R.done_base + hop + 1);
-  }
-}
-
-struct RsArgs {
-  const void* x;   // (B, n*b, K), strides (sxb, sxm, 1)
-  const void* w;   // (K, N), row stride swk
-  float* out;      // (B, b, N) view, strides (sob, som, 1)
-  int B, b, N, K;
-  ll sxb, sxm, swk, sob, som;
-  int vec;         // rows of x and w start 16-byte aligned
-  Ring ring;
-};
-
-// reduce_scatter(x @ w) over one ring direction (rs_matmul_ring_tpu):
-// the fp32 accumulator rides the ring; at hop h it arrives in slot h%2
-// and gets the local partial of row block (rank - dir*(h+1)) mod n added
-template <class Path>
-__global__ void __launch_bounds__(Path::THREADS)
-rs_ring(RsArgs a) {
-  using TX = typename Path::TX;
-  using TW = typename Path::TW;
-  extern __shared__ __align__(128) unsigned char dsmem[];
-  const Ring& R = a.ring;
-  const ll slot_bytes = (ll)a.B * a.b * a.N * 4;
-  const ll ssb = (ll)a.b * a.N;   // slot batch stride (contiguous slot)
-  const int mt = (a.b + Path::BM - 1) / Path::BM;
-  const int nt = (a.N + Path::BN - 1) / Path::BN;
-  const int tiles = a.B * mt * nt;
-  const ull per_hop = gridDim.x;
-  const TX* x = (const TX*)a.x;
-
-  for (int hop = 0; hop < R.n; ++hop) {
-    const int cur = hop & 1;
-    float* slot = (float*)slot_of(R.mine, R.slot_stride, cur);
-    if (hop > 0) {
-      // the accumulator of hop - 1 rides on; the next rank last read its
-      // slot hop%2 at its hop - 1
-      block_wait(done_of(R.next), R.done_base + hop, R, "the next rank");
-      forward_slot<Path::THREADS>(
-          slot_of(R.mine, R.slot_stride, cur ^ 1),
-          slot_of(R.next, R.slot_stride, cur), slot_bytes,
-          arrive_of(R.next));
-    }
-    const ll row0 = (ll)mod(R.rank - R.dir * (hop + 1), R.n) * a.b;
-    const bool last = hop + 1 == R.n;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int bb = t / (mt * nt), m0 = (t / nt) % mt * Path::BM,
-                n0 = t % nt * Path::BN;
-      // the local partial is computed before the arrival is waited for
-      auto arrival = [&]() {
-        if (hop > 0)
-          block_wait(arrive_of(R.mine), R.arrive_base + per_hop * hop, R,
-                     "an arrival");
-      };
-      const float* acc = hop > 0 ? slot + bb * ssb : nullptr;
-      Path::template tile<false>(
-          x + bb * a.sxb + row0 * a.sxm, a.sxm, (const TW*)a.w, a.swk, a.b,
-          a.N, a.K, m0, n0, a.vec != 0, dsmem, arrival,
-          AddStore<true>{acc, a.N,
-                         last ? a.out + bb * a.sob : slot + bb * ssb,
-                         last ? a.som : a.N});
-    }
-    grid_sync(R.mine);
-    if (blockIdx.x == 0 && threadIdx.x == 0)
-      st_release(done_of(R.mine), R.done_base + hop + 1);
-  }
+  Path::tile(x + (ll)b * sxb, sxm, w, swk, M, N, K, m0, n0, vec != 0,
+             dsmem,
+             AddStore{ACC ? acc + (ll)b * sab : nullptr, sam,
+                      out + (ll)b * sob, som},
+             use_tma ? &tm : nullptr, b);
 }
 
 // ---------------------------------------------------------------------------
 // launchers; dtype codes of the wrapper: 0 fp32, 1 bf16
 // ---------------------------------------------------------------------------
 
-// the card's SM count (a cooperative ring launch is sized by it)
-int sm_count() {
-  static int sms = 0;   // the port runs on one model of card
-  int dev = 0;
-  if (sms == 0 && cudaGetDevice(&dev) == cudaSuccess &&
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    sms = 0;
-  return sms;
-}
-
 template <class Path, bool ACC>
 int launch_hop(const void* x, const void* w, const float* acc, float* out,
                int B, int M, int N, int K, ll sxb, ll sxm, ll swk, ll sab,
-               ll sam, cudaStream_t stream) {
+               ll sam, ll sob, ll som, cudaStream_t stream) {
   if ((M + Path::BM - 1) / Path::BM > 65535)   // grid.y
     return (int)cudaErrorInvalidValue;
   cudaError_t e =
@@ -343,8 +107,7 @@ int launch_hop(const void* x, const void* w, const float* acc, float* out,
   const int vec = gemm::rows_aligned(x, w, B, sxb, sxm, swk,
                                      sizeof(typename Path::TX),
                                      sizeof(typename Path::TW));
-  // bf16 operands with aligned rows go by TMA (the cooperative ring
-  // kernels keep the per-thread copies)
+  // bf16 operands with aligned rows go by TMA
   TmaMaps tm{};
   int use_tma = 0;
   if (Path::TMA && vec && K > 0) {
@@ -356,64 +119,178 @@ int launch_hop(const void* x, const void* w, const float* acc, float* out,
                   (M + Path::BM - 1) / Path::BM, B);
   hop_gemm<Path, ACC><<<grid, Path::THREADS, Path::SMEM, stream>>>(
       (const typename Path::TX*)x, (const typename Path::TW*)w, acc, out, M,
-      N, K, sxb, sxm, swk, sab, sam, vec, tm, use_tma);
+      N, K, sxb, sxm, swk, sab, sam, sob, som, vec, tm, use_tma);
   return (int)cudaGetLastError();
 }
 
+// one hop product: out (strides sob, som) = [acc +] x @ w
 template <bool ACC>
 int hop(int dx, int dw, const void* x, const void* w, const float* acc,
         float* out, int B, int M, int N, int K, ll sxb, ll sxm, ll swk,
-        ll sab, ll sam, cudaStream_t stream) {
+        ll sab, ll sam, ll sob, ll som, cudaStream_t stream) {
   if (B <= 0 || M <= 0 || N <= 0 || K < 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
   return gemm::with_path(dx, dw, B, M, N, K, [&](auto path) {
     return launch_hop<decltype(path), ACC>(x, w, acc, out, B, M, N, K, sxb,
-                                           sxm, swk, sab, sam, stream);
+                                           sxm, swk, sab, sam, sob, som,
+                                           stream);
   });
-}
-
-// a cooperative launch of one ring kernel: as many blocks as there are
-// output tiles of a hop, at most as many as the card holds at once (the
-// occupancy query and the launch pass the same dynamic shared memory)
-template <class Path, class Args>
-int launch_ring(void (*kernel)(Args), int tiles, Args args, int* grid_out,
-                cudaStream_t stream) {
-  int per_sm = 0;
-  const int sms = sm_count();
-  cudaError_t e = sms > 0 ? hopper::set_smem((const void*)kernel, Path::SMEM)
-                          : cudaErrorInvalidDevice;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, Path::THREADS, Path::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  if (tiles < 0) return (int)cudaErrorInvalidValue;
-  int grid = sms * per_sm;
-  if (tiles < grid) grid = tiles;
-  if (grid < 1) return (int)cudaErrorInvalidConfiguration;
-  *grid_out = grid;
-  void* params[] = {&args};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                  dim3(Path::THREADS), params, Path::SMEM,
-                                  stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-// the output tiles of one hop (B batches of rows x N), or -1 when they
-// overflow the kernels' int tile index
-template <class Path>
-int ring_tiles(int B, int rows, int N) {
-  const ll t = (ll)B * ((rows + Path::BM - 1) / Path::BM) *
-               ((N + Path::BN - 1) / Path::BN);
-  return t > 0x7fffffffLL ? -1 : (int)t;
 }
 
 ll elem_bytes(int dtype) { return dtype == 1 ? 2 : 4; }
 
-bool ring_ok(const Ring& r) {
-  return r.n >= 2 && r.rank >= 0 && r.rank < r.n &&
-         (r.dir == 1 || r.dir == -1) && r.mine != nullptr &&
-         r.next != nullptr && r.slot_stride % 256 == 0;
+// ---------------------------------------------------------------------------
+// the ring: a plan of ring.py run on the rank's stream
+// ---------------------------------------------------------------------------
+
+constexpr ll HEADER = 256;   // channel header bytes; the slots follow
+// channel header: [0] arrive (u64), [8] done (u64)
+
+// ring.py's codes
+enum Kind { WAIT = 1, WRITE = 2, GEMM = 3, COPY = 4 };
+enum Buf { NONE = -1, X = 0, SLOT0 = 1, SLOT1 = 2, RES = 3, OUT = 4 };
+enum Counter { ARRIVE = 0, NEXT_DONE = 1, DONE = 2, NEXT_ARRIVE = 3 };
+constexpr int FIELDS = 5;    // kind, a, b, c, d
+
+// one ring call: AG x (B, b, K) strided, out (B, n, b, N) strides (sob,
+// sos, som); RS x (B, n*b, K) strided, out (B, b, N) strides (sob, som),
+// res a contiguous (B, b, N) fp32 accumulator
+struct RingCall {
+  bool ag;
+  int dx, dw;
+  const char* x;
+  const void* w;
+  float* out;
+  float* res;
+  int B, b, N, K, n;
+  ll sxb, sxm, swk, sob, sos, som;
+  char* mine;        // this rank's channel
+  char* next;        // the next rank's channel (mapped), in this direction
+  ll slot_stride;    // bytes between the two slots
+  ull done_base;     // `done` before this call
+  ull arrive_base;   // `arrive` before this call
+};
+
+char* slot_of(char* ch, ll stride, ll s) { return ch + HEADER + s * stride; }
+
+// bytes a slot carries: AG a (B, b, K) block, RS a (B, b, N) fp32 sum
+ll slot_bytes(const RingCall& c) {
+  return c.ag ? (ll)c.B * c.b * c.K * elem_bytes(c.dx)
+              : (ll)c.B * c.b * c.N * 4;
+}
+
+bool slot_buf(ll v) { return v == SLOT0 || v == SLOT1; }
+
+// every operation's codes in range, before anything is enqueued (a call
+// refused half way would leave the other ranks waiting)
+bool plan_ok(const RingCall& c, const ll* plan, int n_ops) {
+  for (int i = 0; i < n_ops; ++i) {
+    const ll* o = plan + (ll)i * FIELDS;
+    const ll a = o[1], b = o[2], acc = o[3], dst = o[4];
+    switch (o[0]) {
+      case WAIT:
+        if ((a != ARRIVE && a != NEXT_DONE) || b < 0) return false;
+        break;
+      case WRITE:
+        if ((a != DONE && a != NEXT_ARRIVE) || b < 0) return false;
+        break;
+      case GEMM:
+        if (b < 0 || b >= c.n) return false;
+        if (c.ag ? !((a == X || slot_buf(a)) && acc == NONE && dst == OUT)
+                 : !(a == X && (acc == NONE || slot_buf(acc)) &&
+                     (dst == OUT || dst == RES)))
+          return false;
+        break;
+      case COPY:
+        if (!(c.ag ? a == X || slot_buf(a) : a == RES) || b < 0 || b > 1)
+          return false;
+        break;
+      default:
+        return false;
+    }
+  }
+  return true;
+}
+
+int run_gemm(const RingCall& c, const ll* o, cudaStream_t s) {
+  if (c.ag) {
+    const bool from_x = o[1] == X;
+    const char* xs =
+        from_x ? c.x : slot_of(c.mine, c.slot_stride, o[1] - SLOT0);
+    const ll sb = from_x ? c.sxb : (ll)c.b * c.K, sm = from_x ? c.sxm : c.K;
+    return hop<false>(c.dx, c.dw, xs, c.w, nullptr, c.out + o[2] * c.sos,
+                      c.B, c.b, c.N, c.K, sb, sm, c.swk, 0, 0, c.sob, c.som,
+                      s);
+  }
+  const char* xs = c.x + o[2] * c.b * c.sxm * elem_bytes(c.dx);
+  const bool to_out = o[4] == OUT;
+  float* out = to_out ? c.out : c.res;
+  const ll sob = to_out ? c.sob : (ll)c.b * c.N, som = to_out ? c.som : c.N;
+  if (o[3] == NONE)
+    return hop<false>(c.dx, c.dw, xs, c.w, nullptr, out, c.B, c.b, c.N,
+                      c.K, c.sxb, c.sxm, c.swk, 0, 0, sob, som, s);
+  const float* acc =
+      (const float*)slot_of(c.mine, c.slot_stride, o[3] - SLOT0);
+  return hop<true>(c.dx, c.dw, xs, c.w, acc, out, c.B, c.b, c.N, c.K, c.sxb,
+                   c.sxm, c.swk, (ll)c.b * c.N, c.N, sob, som, s);
+}
+
+// a slot's payload into the next rank's slot `o[2]`
+int run_copy(const RingCall& c, const ll* o, cudaStream_t s) {
+  char* dst = slot_of(c.next, c.slot_stride, o[2]);
+  const ll bytes = slot_bytes(c);
+  if (bytes == 0) return 0;
+  if (o[1] == X) {   // AG hop 0: x straight from the caller's tensor
+    const ll ex = elem_bytes(c.dx), row = (ll)c.K * ex;
+    for (int bb = 0; bb < c.B; ++bb) {
+      const cudaError_t e = cudaMemcpy2DAsync(
+          dst + bb * c.b * row, row, c.x + bb * c.sxb * ex, c.sxm * ex, row,
+          c.b, cudaMemcpyDeviceToDevice, s);
+      if (e != cudaSuccess) return (int)e;
+    }
+    return 0;
+  }
+  const void* src = slot_buf(o[1])
+                        ? (const void*)slot_of(c.mine, c.slot_stride,
+                                               o[1] - SLOT0)
+                        : (const void*)c.res;
+  return (int)cudaMemcpyAsync(dst, src, bytes, cudaMemcpyDeviceToDevice, s);
+}
+
+// enqueue the plan; *hops counts the hop_gemm launches it made
+int run_plan(const RingCall& c, const ll* plan, int n_ops, int* hops,
+             cudaStream_t s) {
+  if (hops == nullptr) return (int)cudaErrorInvalidValue;
+  *hops = 0;
+  if (c.n < 2 || c.B <= 0 || c.b <= 0 || c.N <= 0 || c.K < 0 ||
+      c.mine == nullptr || c.next == nullptr || c.slot_stride % 256 != 0 ||
+      slot_bytes(c) > c.slot_stride || (!c.ag && c.res == nullptr) ||
+      !plan_ok(c, plan, n_ops))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_ops; ++i) {
+    const ll* o = plan + (ll)i * FIELDS;
+    int rc = 0;
+    switch (o[0]) {
+      case WAIT:
+        rc = o[1] == ARRIVE
+                 ? streamops::wait_geq(s, c.mine, c.arrive_base + o[2])
+                 : streamops::wait_geq(s, c.next + 8, c.done_base + o[2]);
+        break;
+      case WRITE:
+        rc = o[1] == DONE ? streamops::write(s, c.mine + 8, c.done_base + o[2])
+                          : streamops::write(s, c.next, c.arrive_base + o[2]);
+        break;
+      case GEMM:
+        rc = run_gemm(c, o, s);
+        if (rc == 0) ++*hops;
+        break;
+      case COPY:
+        rc = run_copy(c, o, s);
+        break;
+    }
+    if (rc != 0) return rc;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -425,7 +302,7 @@ int repro_cc_matmul_tile(int dx, int dw, const void* x, const void* w,
                          float* out, int B, int M, int N, int K, ll sxb,
                          ll sxm, ll swk, void* stream) {
   return hop<false>(dx, dw, x, w, nullptr, out, B, M, N, K, sxb, sxm, swk, 0,
-                    0, (cudaStream_t)stream);
+                    0, (ll)M * N, N, (cudaStream_t)stream);
 }
 
 // out = scratch[slot] @ w  (AG hop consume; the slot is s_slot elements
@@ -436,7 +313,7 @@ int repro_cc_consume_matmul(int dx, int dw, const void* scratch, int slot,
                             void* stream) {
   const char* xs = (const char*)scratch + (ll)slot * s_slot * elem_bytes(dx);
   return hop<false>(dx, dw, xs, w, nullptr, out, B, M, N, K, sxb, sxm, swk,
-                    0, 0, (cudaStream_t)stream);
+                    0, 0, (ll)M * N, N, (cudaStream_t)stream);
 }
 
 // out = scratch[slot] + x @ w  (RS hop consume: the arrived fp32
@@ -447,56 +324,44 @@ int repro_cc_consume_matmul_acc(int dx, int dw, const float* scratch,
                                 ll s_slot, ll sab, ll sam, ll sxb, ll sxm,
                                 ll swk, void* stream) {
   return hop<true>(dx, dw, x, w, scratch + (ll)slot * s_slot, out, B, M, N,
-                   K, sxb, sxm, swk, sab, sam, (cudaStream_t)stream);
+                   K, sxb, sxm, swk, sab, sam, (ll)M * N, N,
+                   (cudaStream_t)stream);
 }
 
-// out[:, src] = x_src @ w for every rank src of the ring: x (B, b, K);
-// out a (B, n, b, N) fp32 view.  `grid_out` receives the grid size: the
-// next rank's `arrive` grows by it for every slot forwarded.
+// 0 when the card takes the ring's waits: can_64 and can_nor receive its
+// CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS and
+// CU_DEVICE_ATTRIBUTE_CAN_USE_STREAM_WAIT_VALUE_NOR
+int repro_cc_stream_ops(int* can_64, int* can_nor) {
+  return streamops::query(can_64, can_nor);
+}
+
+// all_gather(x) @ w over one ring direction: x (B, b, K); out a
+// (B, n, b, N) fp32 view; plan the n_ops x 5 codes of ring.ring_plan;
+// *hops receives the hop products it launched (n for a whole plan)
 int repro_cc_ag_matmul_ring(int dx, int dw, const void* x, const void* w,
                             float* out, int B, int b, int N, int K, ll sxb,
                             ll sxm, ll swk, ll sob, ll sos, ll som,
                             void* mine, void* next, ll slot_stride, int n,
-                            int rank, int dir, ull done_base,
-                            ull arrive_base, ull timeout_ns, int* grid_out,
-                            void* stream) {
-  AgArgs a{x, w, out, B, b, N, K, sxb, sxm, swk, sob, sos, som,
-           // the slot holds x contiguous: rows K elements apart
-           gemm::rows_aligned(mine, w, B, (ll)b * K, K, swk, elem_bytes(dx),
-                              elem_bytes(dw)),
-           Ring{(char*)mine, (char*)next, slot_stride, done_base,
-                arrive_base, timeout_ns, n, rank, dir}};
-  if (B <= 0 || b <= 0 || N <= 0 || K < 0 || !ring_ok(a.ring) ||
-      (ll)B * b * K * elem_bytes(dx) > slot_stride)
-    return (int)cudaErrorInvalidValue;
-  return gemm::with_path(dx, dw, B, b, N, K, [&](auto path) {
-    using Path = decltype(path);
-    return launch_ring<Path>(ag_ring<Path>, ring_tiles<Path>(B, b, N), a,
-                             grid_out, (cudaStream_t)stream);
-  });
+                            ull done_base, ull arrive_base, const ll* plan,
+                            int n_ops, int* hops, void* stream) {
+  const RingCall c{true, dx, dw, (const char*)x, w, out, nullptr, B, b, N,
+                   K, n, sxb, sxm, swk, sob, sos, som, (char*)mine,
+                   (char*)next, slot_stride, done_base, arrive_base};
+  return run_plan(c, plan, n_ops, hops, (cudaStream_t)stream);
 }
 
-// out = this rank's row block of sum over ranks of x @ w: x (B, n*b, K);
-// out a (B, b, N) fp32 view
+// this rank's row block of sum over ranks of x @ w: x (B, n*b, K); out a
+// (B, b, N) fp32 view; res a contiguous (B, b, N) fp32 accumulator
 int repro_cc_rs_matmul_ring(int dx, int dw, const void* x, const void* w,
-                            float* out, int B, int b, int N, int K, ll sxb,
-                            ll sxm, ll swk, ll sob, ll som, void* mine,
-                            void* next, ll slot_stride, int n, int rank,
-                            int dir, ull done_base, ull arrive_base,
-                            ull timeout_ns, int* grid_out, void* stream) {
-  RsArgs a{x, w, out, B, b, N, K, sxb, sxm, swk, sob, som,
-           gemm::rows_aligned(x, w, B, sxb, sxm, swk, elem_bytes(dx),
-                              elem_bytes(dw)),
-           Ring{(char*)mine, (char*)next, slot_stride, done_base,
-                arrive_base, timeout_ns, n, rank, dir}};
-  if (B <= 0 || b <= 0 || N <= 0 || K < 0 || !ring_ok(a.ring) ||
-      (ll)B * b * N * 4 > slot_stride)
-    return (int)cudaErrorInvalidValue;
-  return gemm::with_path(dx, dw, B, b, N, K, [&](auto path) {
-    using Path = decltype(path);
-    return launch_ring<Path>(rs_ring<Path>, ring_tiles<Path>(B, b, N), a,
-                             grid_out, (cudaStream_t)stream);
-  });
+                            float* out, float* res, int B, int b, int N,
+                            int K, ll sxb, ll sxm, ll swk, ll sob, ll som,
+                            void* mine, void* next, ll slot_stride, int n,
+                            ull done_base, ull arrive_base, const ll* plan,
+                            int n_ops, int* hops, void* stream) {
+  const RingCall c{false, dx, dw, (const char*)x, w, out, res, B, b, N, K,
+                   n, sxb, sxm, swk, sob, 0, som, (char*)mine, (char*)next,
+                   slot_stride, done_base, arrive_base};
+  return run_plan(c, plan, n_ops, hops, (cudaStream_t)stream);
 }
 
 // a zeroed channel of `bytes` this rank exports: its pointer, and the

@@ -6,12 +6,21 @@ remote-DMA and emulated paths (``repro.kernels.cc_matmul.ops``):
 
 * **in-kernel ring** — when the group's ranks have mapped each other's
   channels (``Group.peer``: the ranks share a card, CUDA IPC) and the
-  activations are on the card: the whole ring of one direction inside one
-  kernel, :func:`ag_matmul_ring` / :func:`rs_matmul_ring` (the
-  counterparts of ``ag_matmul_ring_tpu`` / ``rs_matmul_ring_tpu``); the
-  bidirectional composition runs two counter-rotating half rings.  Unlike
-  the TPU kernels these take any row count and width, so nothing is
-  padded.
+  activations are on the card: the whole ring of one direction enqueued
+  at once, :func:`ag_matmul_ring` / :func:`rs_matmul_ring` (the
+  counterparts of ``ag_matmul_ring_tpu`` / ``rs_matmul_ring_tpu``): n hop
+  products on the tensor cores or CUDA cores and n − 1 forwards by the
+  copy engine, on PyTorch's current stream, and every hand-off between
+  ranks a wait the card holds in stream order (``ring.py``, the protocol;
+  ``csrc/cc_matmul.cu``, the launcher).  The bidirectional composition
+  runs two counter-rotating half rings.  Unlike the TPU kernels these take
+  any row count and width, so nothing is padded.  A ring's waits have no
+  deadline: a rank whose
+  neighbour never arrives (a rank that raised, or ranks that issued
+  different fused ops: every rank must issue the same ones in the same
+  order) waits until the rank pool gives up on the group after
+  ``dist.group.GROUP_TIMEOUT_S`` and kills the rank processes, whose
+  contexts, and their waits, go with them.
 * **emulated** — everywhere else (the CPU, or a group without peer
   memory): the hop runs over the group's wire and each arrival is
   consumed by a hop kernel reading its scratch slot.
@@ -27,10 +36,12 @@ The module has four parts:
    nowhere else; ``PLAIN_CALLS`` counts the plain versions' runs.  A
    leading batch dim is part of the kernel's grid: the reference's
    ``jax.vmap`` over B is one launch here, with the same arithmetic.
-2. **The ring kernels' wrappers** — :func:`ag_matmul_ring` and
-   :func:`rs_matmul_ring`, with the launch counts ``AG_MATMUL_RING`` and
-   ``RS_MATMUL_RING``; on CPU tensors their plain versions are the
-   unfused compositions of ``ref.py``.
+2. **The ring's wrappers** — :func:`ag_matmul_ring` and
+   :func:`rs_matmul_ring`, with the counts ``AG_MATMUL_RING`` and
+   ``RS_MATMUL_RING`` (one a ring call: the hop products a call launches
+   go through the ring's own entry, count in ``Group.stats
+   ["ring_kernels"]``, and bump no hop kernel's count); on CPU tensors
+   their plain versions are the unfused compositions of ``ref.py``.
 3. **The emulated schedules** :func:`_ag` and :func:`_rs` — hop for hop the
    reference's ``_ag_2d``/``_rs_2d`` (the schedules of
    ``core/overlap.py``): the double-buffered scratch with hop k's arrival
@@ -60,6 +71,7 @@ from repro_torch.kernels.cc_matmul.ref import (
     matmul_reducescatter_ref,
     matmul_tile_plain,
 )
+from repro_torch.kernels.cc_matmul import ring
 from repro_torch.kernels.common import CudaKernel, current_stream
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,24 +94,21 @@ CONSUME_MATMUL_ACC = CudaKernel(
      _L, _L, _L, _L, _L, _L, _P])
 
 _U = ctypes.c_ulonglong
+# the ring's tail: (mine, next, slot_stride, n, done_base, arrive_base,
+#  plan, n_ops, hops (out: the hop products launched), stream)
+_RING_TAIL = [_P, _P, _L, _I, _U, _U, _P, _I, _P, _P]
 # (dtype_x, dtype_w, x, w, out, B, b, N, K, sxb, sxm, swk, sob, sos, som,
-#  mine, next, slot_stride, n, rank, dir, done_base, arrive_base,
-#  timeout_ns, grid_out, stream)
+#  ...tail)
 AG_MATMUL_RING = CudaKernel(
     "cc_matmul", "repro_cc_ag_matmul_ring",
-    [_I, _I, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
-     _P, _P, _L, _I, _I, _I, _U, _U, _U, ctypes.POINTER(_I), _P])
-# (dtype_x, dtype_w, x, w, out, B, b, N, K, sxb, sxm, swk, sob, som,
-#  mine, next, slot_stride, n, rank, dir, done_base, arrive_base,
-#  timeout_ns, grid_out, stream)
+    [_I, _I, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L]
+    + _RING_TAIL)
+# (dtype_x, dtype_w, x, w, out, res, B, b, N, K, sxb, sxm, swk, sob, som,
+#  ...tail)
 RS_MATMUL_RING = CudaKernel(
     "cc_matmul", "repro_cc_rs_matmul_ring",
-    [_I, _I, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L,
-     _P, _P, _L, _I, _I, _I, _U, _U, _U, ctypes.POINTER(_I), _P])
-
-#: how long a ring kernel waits for a neighbour before it traps (the
-#: ranks' hosts can be seconds apart, e.g. at the first step)
-RING_TIMEOUT_S = 300.0
+    [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L]
+    + _RING_TAIL)
 
 #: runs of each plain version (the CPU path); a card run expects zero
 PLAIN_CALLS: Dict[str, int] = {"matmul_tile": 0, "consume_matmul": 0,
@@ -110,7 +119,7 @@ PLAIN_CALLS: Dict[str, int] = {"matmul_tile": 0, "consume_matmul": 0,
 HOP_KERNELS = {"matmul_tile": MATMUL_TILE,
                "consume_matmul": CONSUME_MATMUL,
                "consume_matmul_acc": CONSUME_MATMUL_ACC}
-#: the two whole-ring kernels by entry name
+#: the two whole-ring ops by entry name
 RING_KERNELS = {"ag_matmul_ring": AG_MATMUL_RING,
                 "rs_matmul_ring": RS_MATMUL_RING}
 KERNELS = {**HOP_KERNELS, **RING_KERNELS}
@@ -244,7 +253,7 @@ def consume_matmul_acc(scratch: torch.Tensor, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# 2. the ring kernels' wrappers
+# 2. the ring's wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -271,27 +280,32 @@ def _peer_channel(group, direction: int, slot_bytes: int, fn: str):
     return group.peer.channel(direction, slot_bytes)
 
 
-def _ring_launch(kernel: CudaKernel, ch, group, direction: int,
+def _ring_launch(kernel: CudaKernel, op: str, ch, group, direction: int,
                  args) -> None:
-    """Launch one ring kernel on channel ``ch`` and advance the channel's
-    counters as the kernel advanced them."""
+    """Enqueue one ring call of ``op`` on channel ``ch`` (this rank's
+    plan, ``ring.ring_plan``) and advance the channel's bases as the call
+    advances its counters.  Nothing waits on the host.  The hop products
+    are counted where the launcher launches them."""
     n = group.size
-    grid = ctypes.c_int(0)
-    rc = kernel.fn()(*args, ch.mine, ch.next, ch.slot_bytes, n, group.rank,
-                     direction, ch.calls * n, ch.arrived,
-                     int(RING_TIMEOUT_S * 1e9), ctypes.byref(grid),
-                     current_stream(group.device))
+    rows, n_ops = ring.encode(op, n, group.rank, direction)
+    group.peer.require_stream_waits()
+    hops = ctypes.c_int(0)
+    rc = kernel.fn()(*args, ch.mine, ch.next, ch.slot_bytes, n,
+                     ch.calls * n, ch.arrived, ctypes.addressof(rows), n_ops,
+                     ctypes.byref(hops), current_stream(group.device))
     kernel.check(rc)
-    ch.calls += 1
-    ch.arrived += grid.value * (n - 1)
+    ch.calls += 1                       # `done` grows by n a call
+    ch.arrived += n - 1                 # and `arrive` by n − 1
     kernel.launches += 1
+    group.stats["ring_kernels"] += hops.value
 
 
 def ag_matmul_ring(x: torch.Tensor, w: torch.Tensor, group, *,
                    direction: int = 1,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``all_gather(x) @ w`` over one ring direction, the whole ring in one
-    kernel (``ag_matmul_ring_tpu``): x (b, K) or (B, b, K), w (K, N) with
+    """``all_gather(x) @ w`` over one ring direction, the whole ring
+    enqueued at once (``ag_matmul_ring_tpu``): x (b, K) or (B, b, K), w
+    (K, N) with
     a contiguous last dim.  Returns (…, n·b, N) fp32, blocks in rank order
     (the direction only changes the order in which they arrive).  ``out``,
     if given, is a (B, n, b, N) fp32 view the result is written into (the
@@ -312,7 +326,7 @@ def ag_matmul_ring(x: torch.Tensor, w: torch.Tensor, group, *,
     slot_bytes = bsz * b * k * x3.element_size()
     ch = _peer_channel(group, direction, slot_bytes, "ag_matmul_ring")
     if out4.numel():
-        _ring_launch(AG_MATMUL_RING, ch, group, direction, (
+        _ring_launch(AG_MATMUL_RING, "ag", ch, group, direction, (
             _DTYPES[x3.dtype], _DTYPES[w.dtype], x3.data_ptr(), w.data_ptr(),
             out4.data_ptr(), bsz, b, nout, k, x3.stride(0), x3.stride(1),
             w.stride(0), out4.stride(0), out4.stride(1), out4.stride(2)))
@@ -328,8 +342,8 @@ def rs_matmul_ring(x: torch.Tensor, w: torch.Tensor, group, *,
                    direction: int = 1,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``reduce_scatter(x @ w)`` over one ring direction, the whole ring
-    in one kernel (``rs_matmul_ring_tpu``): the fp32 accumulator rides the
-    ring.  x (n·b, K) or (B, n·b, K), w (K, N) with a contiguous last dim
+    enqueued at once (``rs_matmul_ring_tpu``): the fp32 accumulator rides
+    the ring.  x (n·b, K) or (B, n·b, K), w (K, N) with a contiguous last dim
     (a column slice is fine).  Returns this rank's (…, b, N) fp32 row
     block of the group's sum; ``out``, if given, is a (B, b, N) fp32 view
     the result is written into."""
@@ -352,10 +366,14 @@ def rs_matmul_ring(x: torch.Tensor, w: torch.Tensor, group, *,
     slot_bytes = bsz * b * nout * 4
     ch = _peer_channel(group, direction, slot_bytes, "rs_matmul_ring")
     if out3.numel():
-        _ring_launch(RS_MATMUL_RING, ch, group, direction, (
+        # the accumulator a rank forwards from (its reuse and its release
+        # are ordered after each forward on the one stream)
+        res = torch.empty((bsz, b, nout), dtype=torch.float32,
+                          device=x3.device)
+        _ring_launch(RS_MATMUL_RING, "rs", ch, group, direction, (
             _DTYPES[x3.dtype], _DTYPES[w.dtype], x3.data_ptr(), w.data_ptr(),
-            out3.data_ptr(), bsz, b, nout, k, x3.stride(0), x3.stride(1),
-            w.stride(0), out3.stride(0), out3.stride(1)))
+            out3.data_ptr(), res.data_ptr(), bsz, b, nout, k, x3.stride(0),
+            x3.stride(1), w.stride(0), out3.stride(0), out3.stride(1)))
         group.stats["hops"] += n - 1
         group.stats["peer_bytes"] += (n - 1) * slot_bytes
     if out is not None:
@@ -617,7 +635,7 @@ def reset_counts() -> None:
 
 __all__ = ["AG_MATMUL_RING", "CONSUME_MATMUL", "CONSUME_MATMUL_ACC",
            "HOP_KERNELS", "KERNELS", "MATMUL_TILE", "PLAIN_CALLS",
-           "RING_KERNELS", "RING_TIMEOUT_S", "RS_MATMUL_RING",
+           "RING_KERNELS", "RS_MATMUL_RING",
            "ag_matmul_ring", "allgather_matmul_fused", "consume_matmul",
            "consume_matmul_acc", "launches", "matmul_reducescatter_fused",
            "matmul_tile", "reset_counts", "rs_matmul_ring"]

@@ -1,22 +1,26 @@
 """Device memory the ranks of a TP group map from each other: the
-channels the whole-ring kernels (``ag_matmul_ring``/``rs_matmul_ring`` in
-``csrc/cc_matmul.cu``) forward their slots through.
+channels the whole-ring ops (``ag_matmul_ring``/``rs_matmul_ring``,
+``ring.py``'s protocol, ``csrc/cc_matmul.cu``'s launcher) forward their
+slots through.
 
 The ranks are processes that share one card.  Each rank allocates one
 channel per ring direction with ``cudaMalloc``, exports it as a CUDA IPC
 handle, and maps the channel of its next rank in that direction
 (``(rank + direction) % n``): the port's counterpart of the TPU's remote
 DMA into a neighbour's VMEM.  A channel is a 256-byte header (the
-``arrive`` and ``done`` counters and the kernel's grid barrier) and two
-slots.
+``arrive`` and ``done`` counters, 64 bits each) and two slots.  The
+pointers are device pointers in mapped memory, so nothing here assumes
+that the ranks share one card beyond the IPC mapping itself.
 
 Both counters only grow, so the host keeps, per channel, how many calls
-ran on it (``done`` advances by n a call) and how far ``arrive`` has
-counted (by the grid size for every slot forwarded).  Every rank issues
-the same ring calls in the same order, so these agree across ranks.  A
-call that needs bigger slots than the channel has re-allocates the
-channel on every rank at once (a collective over the group's gloo
-process group); the new channel starts from zero.
+ran on it (``done`` advances by n a call: one a hop) and how far
+``arrive`` has counted (one a forwarded slot, n − 1 a call).  Every rank
+issues the same ring calls in the same order, so these agree across
+ranks.  A call that needs bigger slots than the channel has re-allocates
+the channel on every rank at once (a collective over the group's gloo
+process group); the new channel starts from zero.  The first ring call
+checks that the card takes 64-bit stream waits
+(:meth:`PeerMemory.require_stream_waits`).
 
 The same memory serves the PGAS heap (``core/pgas.py``):
 :meth:`PeerMemory.map_partition` gives each rank a partition that every
@@ -45,6 +49,20 @@ _OPEN = CudaKernel("cc_matmul", "repro_cc_channel_open",
                    [_C, ctypes.POINTER(_P)])
 _CLOSE = CudaKernel("cc_matmul", "repro_cc_channel_close", [_P])
 _FREE = CudaKernel("cc_matmul", "repro_cc_channel_free", [_P])
+_I = ctypes.POINTER(ctypes.c_int)
+_STREAM_OPS = CudaKernel("cc_matmul", "repro_cc_stream_ops", [_I, _I])
+
+
+def stream_ops() -> Dict[str, int]:
+    """The current card's support for the ring's stream waits: the values
+    of ``CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS`` and
+    ``CU_DEVICE_ATTRIBUTE_CAN_USE_STREAM_WAIT_VALUE_NOR``."""
+    can_64, can_nor = ctypes.c_int(0), ctypes.c_int(0)
+    _check(_STREAM_OPS.fn()(ctypes.byref(can_64), ctypes.byref(can_nor)),
+           "stream-ops query")
+    return {"CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS": can_64.value,
+            "CU_DEVICE_ATTRIBUTE_CAN_USE_STREAM_WAIT_VALUE_NOR":
+                can_nor.value}
 
 
 class Channel:
@@ -54,7 +72,7 @@ class Channel:
         self.mine, self.next = mine, next_
         self.slot_bytes = slot_bytes
         self.calls = 0        # ring calls so far: `done` is calls × n
-        self.arrived = 0      # what this rank's `arrive` has counted
+        self.arrived = 0      # slots forwarded into this channel so far
 
 
 class PeerMemory:
@@ -69,6 +87,21 @@ class PeerMemory:
         #: every partition of :meth:`map_partition` not yet released, as
         #: pointers by rank, keyed by this rank's pointer
         self.partitions: Dict[int, List[int]] = {}
+        self._stream_waits = False
+
+    def require_stream_waits(self) -> None:
+        """Check once that the card takes the ring's 64-bit stream waits
+        (its only hand-off; there is no other path), and raise, naming
+        the attribute, when it does not."""
+        if self._stream_waits:
+            return
+        with torch.cuda.device(self.device):
+            name = "CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS"
+            if not stream_ops()[name]:
+                raise RuntimeError(f"the whole-ring ops wait on 64-bit "
+                                   f"counters in stream order, and this "
+                                   f"card reports {name} = 0")
+        self._stream_waits = True
 
     def channel(self, direction: int, slot_bytes: int) -> Channel:
         """The channel of ``direction`` with slots of at least
@@ -151,7 +184,7 @@ class PeerMemory:
 
     def close(self) -> None:
         """Unmap the peers' channels and partitions and free this rank's.
-        Call only when no rank has a ring kernel in flight or a store
+        Call only when no rank has a ring call in flight or a store
         pending (the rank pool does, after its last task)."""
         for ch in self.channels.values():
             _CLOSE.fn()(ch.next)
@@ -169,4 +202,4 @@ def _check(rc: int, what: str) -> None:
                            f"{rc}")
 
 
-__all__ = ["Channel", "HEADER_BYTES", "PeerMemory"]
+__all__ = ["Channel", "HEADER_BYTES", "PeerMemory", "stream_ops"]

@@ -5,16 +5,14 @@
 // A path computes one output tile, (x @ w)[m0 : m0 + BM, n0 : n0 + BN] with
 // fp32 sums, and hands each in-range element to the caller's epilogue
 // functor `epi(gm, gn, v)` (the hop kernels: "acc + v -> fp32"; the DLA:
-// "act(v + bias) -> TO").  Between the main loop and the epilogue it runs
-// the caller's `wait()` (the ring kernels wait there for an arrival).
+// "act(v + bias) -> TO").
 // Operands: x (M, K) with row stride sxm (a batch is the caller's offset),
 // w (K, N) with row stride swk, both with unit column stride.  Ragged M, N
 // and K are masked in the kernel: out-of-range elements load as zero and
 // are not stored.  `vec`: every row of x and w starts 16-byte aligned, so
 // the tiles are filled by 16-byte asynchronous copies; else by L2-only
 // scalar loads into the same tiles, so the same sums.  All fills read
-// through L2 only (cp.async.cg, ld.global.cg): the ring kernels' x slots
-// are written by the neighbour rank while the kernel runs.
+// through L2 only (cp.async.cg, ld.global.cg).
 //
 // bf16 x bf16 -- WgmmaPath (tensor cores):
 //  * one or two warpgroups (128 threads each, 64 output rows each) a
@@ -56,8 +54,7 @@
 //    ((p0 + p1) + p2) + ..., each p_g a chain of fmaf over its k in
 //    increasing order.  G is 8 for a K of DEEP_K or more, else 4: an
 //    output's sum order depends on K alone, not on the tile shape, the
-//    fill or which kernel runs it (no split of K across blocks: the
-//    cooperative ring kernels could not share it);
+//    fill or which kernel runs it (no split of K across blocks);
 //  * the epilogue walks the tile row by row, neighbouring threads on
 //    neighbouring columns (coalesced loads of an accumulator and stores),
 //    unrolled so that its loads are in flight together.
@@ -84,49 +81,16 @@ namespace gemm {
 using bf16 = __nv_bfloat16;
 using ll = long long;
 
-// ---------------------------------------------------------------------------
-// global loads and stores: plain, or L2-only for memory another block or
-// rank writes while the kernel runs
-// ---------------------------------------------------------------------------
-
-template <bool CG>
-__device__ __forceinline__ float ldf(const float* p) {
-  return CG ? __ldcg(p) : *p;
-}
-template <bool CG>
-__device__ __forceinline__ float ldf(const bf16* p) {
-  if (CG) {
-    unsigned short u = __ldcg(reinterpret_cast<const unsigned short*>(p));
-    return __bfloat162float(__ushort_as_bfloat16(u));
-  }
-  return __bfloat162float(*p);
-}
-
-template <bool CG>
-__device__ __forceinline__ void stf(float* p, float v) {
-  if (CG)
-    __stcg(p, v);
-  else
-    *p = v;
-}
-
-// no wait between a tile's main loop and its epilogue
-struct NoWait {
-  __device__ void operator()() const {}
-};
-
-// out[gm][gn] = (acc ? acc[gm][gn] : 0) + v, fp32 (the hop and ring
-// kernels, in the reference's order: arrived + dot).  CG: the accumulator
-// and the output are memory others write during the kernel.
-template <bool CG>
+// out[gm][gn] = (acc ? acc[gm][gn] : 0) + v, fp32 (the hop kernel, in
+// the reference's order: arrived + dot)
 struct AddStore {
   const float* acc;
   ll sam;
   float* out;
   ll som;
   __device__ __forceinline__ void operator()(int gm, int gn, float v) const {
-    if (acc != nullptr) v = ldf<CG>(acc + (ll)gm * sam + gn) + v;
-    stf<CG>(out + (ll)gm * som + gn, v);
+    if (acc != nullptr) v = acc[(ll)gm * sam + gn] + v;
+    out[(ll)gm * som + gn] = v;
   }
 };
 
@@ -268,14 +232,14 @@ struct WgmmaPath {
     }
   }
 
-  // the tile at (m0, n0), each in-range element through epi; `wait` runs
-  // between the main loop and the epilogue.  The stages are filled by TMA
-  // from the maps `tm` (batch `b` of x) when given, else by cp.async.
-  template <bool CG_X, class Wait, class Epi>
+  // the tile at (m0, n0), each in-range element through epi.  The stages
+  // are filled by TMA from the maps `tm` (batch `b` of x) when given, else
+  // by cp.async.
+  template <class Epi>
   __device__ static void tile(const bf16* __restrict__ x, ll sxm,
                               const bf16* __restrict__ w, ll swk, int M,
                               int N, int K, int m0, int n0, bool vec,
-                              unsigned char* smem, Wait wait, Epi epi,
+                              unsigned char* smem, Epi epi,
                               const TmaMaps* tm = nullptr, int b = 0) {
     __shared__ __align__(8) uint64_t bars[STAGES];   // TMA: one a stage
     const uint32_t base = hopper::align1024(hopper::smem_u32(smem));
@@ -344,7 +308,6 @@ struct WgmmaPath {
     hopper::wgmma_wait<0>();
     hopper::fence_regs(d);
     hopper::cp_async_wait<0>();
-    wait();
     const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -505,11 +468,11 @@ struct SimtPath {
   }
 
   // as WgmmaPath::tile (no tensor maps)
-  template <bool CG_X, class Wait, class Epi>
+  template <class Epi>
   __device__ static void tile(const TX* __restrict__ x, ll sxm,
                               const TW* __restrict__ w, ll swk, int M,
                               int N, int K, int m0, int n0, bool vec,
-                              unsigned char* smem, Wait wait, Epi epi,
+                              unsigned char* smem, Epi epi,
                               const TmaMaps* /*tm*/ = nullptr,
                               int /*b*/ = 0) {
     const uint32_t base = hopper::smem_u32(smem);
@@ -581,7 +544,6 @@ struct SimtPath {
             make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2],
                         acc[i][j + 3]);
     __syncthreads();
-    wait();
 #pragma unroll   // the accumulator loads of every element in flight
     for (int u = 0; u < BM * BN / THREADS; ++u) {
       const int e = threadIdx.x + u * THREADS, r = e / BN, cc = e % BN;

@@ -97,10 +97,9 @@ dla_gemm(const typename Path::TX* __restrict__ x,
          int use_tma) {
   extern __shared__ __align__(128) unsigned char dsmem[];
   const int m0 = blockIdx.x * Path::BM, n0 = blockIdx.y * Path::BN;
-  Path::template tile<false>(x, sxm, w, swk, M, N, K, m0, n0, vec != 0,
-                             dsmem, gemm::NoWait{},
-                             DlaStore<TO, ACT>{bias, bias_bf16, out, N},
-                             use_tma ? &tm : nullptr, 0);
+  Path::tile(x, sxm, w, swk, M, N, K, m0, n0, vec != 0, dsmem,
+             DlaStore<TO, ACT>{bias, bias_bf16, out, N},
+             use_tma ? &tm : nullptr, 0);
 }
 
 template <class Path, typename TO, int ACT>

@@ -894,6 +894,7 @@ def test_ring_kernel_matches_plain(card_pools, n, op, dx, dw, bsz, b, nn, k):
         rows = [r[i] for r in res]
         assert all(r["finite"] for r in rows)
         assert all(r["launches"][f"{op}_matmul_ring"] == 1 for r in rows)
+        assert all(r["ring_kernels"] == n for r in rows)
         err = max(r["max_abs_err"] for r in rows)
         assert err <= tol * max(r["max_plain"] for r in rows)
 

@@ -458,3 +458,11 @@ def test_synthetic_lm_is_step_indexed_ngram_stream():
     seq = full[:, :32].reshape(4, 4, cfg.gram_len)
     hits = (seq[:, :, None, :] == grams[None, None]).all(-1).any(-1)
     assert hits.float().mean() > 0.2
+
+
+def test_union_spans_merges_overlaps():
+    """The TP step's profiled kernel spans: overlapping and touching spans
+    merge, and the union comes in order."""
+    assert rank_tasks.union_spans([(5, 7), (1, 3), (2, 4), (7, 9),
+                                   (10, 11)]) == [(1, 4), (5, 9), (10, 11)]
+    assert rank_tasks.union_spans([]) == []
