@@ -198,6 +198,35 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    on the CPU (gloo both): loss and grad norm within 1e-4 relative, and
    every parameter leaf by the parameter rule at 1e-4 (mean |Δ| ≤ 1e-4 ×
    the leaf's mean magnitude, max |Δ| ≤ 2·peak_lr + 1e-4 × its max).
+9b. Expert parallelism (``models/moe_ep.py``), on phase 9's pools of 2
+   and 4 rank processes.  (a) Reduced llama4-scout and grok-1 in fp32,
+   their experts split over 2 and 4 ranks, 2 steps of the EP train step
+   (2 microbatches of 4 rows) with the exchange on ``ring`` and on
+   ``xla``, on the card and on the CPU from the same CPU-drawn
+   parameters: loss, grad norm and ``moe_aux`` within 1e-4 relative,
+   every leaf by the parameter rule at 1e-4, the replicated leaves
+   bitwise equal on every rank.  (b) One full-width llama4-scout MoE layer
+   in bf16 (D 5120, 16 experts, F 8192, top-1, capacity 160 a row at S
+   2048, the shared expert) at EP 4, a row of 2048 a rank, forward and
+   backward against the dense ``layers.moe`` and its autograd on all 16
+   experts in the main process (the inputs and the dense results reach
+   the ranks through CUDA IPC): the routing (``idx``, ``keep``) equal, y,
+   x's gradient and every parameter's (an expert shard's whole, a
+   replicated leaf's summed over the ranks) within ``EP_LAYER_TOL``
+   relative (Frobenius), a gradient that is zero up to rounding within
+   ``EP_ZERO_TOL``; the exchange's wire seconds printed.  (c) Full-width
+   llama4-scout cut to 4 layers served at EP 4 (each rank draws the same
+   seed on the card and keeps 4 of the 16 experts a layer), one row a
+   rank, the exchange on ``ring`` and then on ``xla``: bulk prefill of
+   128 tokens (flash launched a layer, counted), then 16 decode steps
+   through ``serve_step`` with the EP decode runner, fed the tokens of
+   the dense-combine decode of the same model run first in the main
+   process: the prefill logits and every step's within ``EP_SERVE_TOL``
+   of the dense run's maximum, and the greedy-token agreement printed,
+   with the decode wall ms and wire seconds a step, the device's idle
+   share of a profiled step (``ring``; the union of the ranks' kernel
+   spans) and the peak memory a rank.  (c) runs first on the 4-rank
+   pool, (b) last.
 
 10. One-GPU training of full-width smollm-360m through the Trainer (32
     layers, bf16 parameters from seed 0, fp32 AdamW masters and moments,
@@ -2329,25 +2358,62 @@ def phase_tp_train():
             for name in ring}
 
 
-def phase_tp_reduced():
-    """Reduced h2o-danube-1.8b in fp32 at TP 2 and 4: the card against the
-    CPU, same parameters (drawn on the CPU) and batches."""
+def params_rule(tag, rank, card_params, cpu_params, worst, t=1e-4):
+    """Phase 9's parameter rule on one rank's leaves, card against CPU:
+    mean |Δ| ≤ t × the leaf's mean magnitude, max |Δ| ≤ 2·peak_lr + t ×
+    its max; ``worst`` gathers the largest mean ratio and the elements
+    beyond t × max."""
     import numpy as np
 
-    from repro_torch.dist import rank_tasks
-    from repro_torch.dist.group import RankPool
     from repro_torch.dist.steps import StepConfig
 
-    peak_lr, t = StepConfig().peak_lr, 1e-4
+    peak_lr = StepConfig().peak_lr
+    for name, want in cpu_params.items():
+        d = np.abs(card_params[name] - want)
+        scale = np.abs(want).max()
+        worst["mean"] = max(worst["mean"], float(
+            d.mean() / max(np.abs(want).mean(), 1e-30)))
+        worst["beyond"] += int((d > t * scale).sum())
+        if not (d.mean() <= t * np.abs(want).mean()
+                and d.max() <= 2 * peak_lr + t * scale):
+            fail(f"{tag} rank {rank} {name}: card vs CPU mean |d| "
+                 f"{d.mean()}, max |d| {d.max()}")
+
+
+def phase_tp_reduced():
+    """Phase 9, reduced h2o-danube-1.8b in fp32 at TP 2 and 4: the card
+    against the CPU, same parameters (drawn on the CPU) and batches; and
+    on the same two pools phase 9b, expert parallelism (``phase_ep_*``),
+    each dense reference computed in this process while the ranks hold
+    nothing large (the served model's before the pools start)."""
+    from repro_torch.dist import rank_tasks
+    from repro_torch.dist.group import RankPool
+
+    t = 1e-4
     kw = dict(steps=2, reduced=True, seed=0, init_device="cpu",
               step_overrides=dict(seq_chunk=8, warmup_steps=1),
               data=dict(seq_len=17, global_batch=2), return_params=True)
+    smi = card_name_and_limit()
+    t0 = time.perf_counter()
+    serve_ref = ep_serve_dense(smi)
+    ep_s = time.perf_counter() - t0
     for tp in (2, 4):
         with RankPool(tp, device="cuda") as pool:
             card = pool.run(rank_tasks.train, "h2o-danube-1.8b",
                             device="cuda", **kw)
             cpu = pool.run(rank_tasks.train, "h2o-danube-1.8b",
                            device="cpu", **kw)
+            t0 = time.perf_counter()
+            if tp == 4:
+                # first: a profile taken in these ranks after the EP
+                # training runs recorded no device event in two runs
+                # (CUPTI did not initialize; cause not found)
+                phase_ep_serve(pool, serve_ref, smi)
+            phase_ep_train(pool, smi)
+            if tp == 4:
+                phase_ep_layer(pool, ep_layer_dense(smi), smi)
+                release_shared(pool)
+            ep_s += time.perf_counter() - t0
         worst = {"metric": 0.0, "mean": 0.0, "beyond": 0}
         for rank, (a, b) in enumerate(zip(card, cpu)):
             if not sum(s["ag_matmul_ring"] + s["rs_matmul_ring"]
@@ -2357,16 +2423,8 @@ def phase_tp_reduced():
                 for key in ("loss", "grad_norm"):
                     rel = abs(ma[key] - mb[key]) / abs(mb[key])
                     worst["metric"] = max(worst["metric"], rel)
-            for name, want in b["params"].items():
-                d = np.abs(a["params"][name] - want)
-                scale = np.abs(want).max()
-                worst["mean"] = max(worst["mean"], float(
-                    d.mean() / max(np.abs(want).mean(), 1e-30)))
-                worst["beyond"] += int((d > t * scale).sum())
-                if not (d.mean() <= t * np.abs(want).mean()
-                        and d.max() <= 2 * peak_lr + t * scale):
-                    fail(f"reduced tp{tp} rank {rank} {name}: card vs CPU "
-                         f"mean |d| {d.mean()}, max |d| {d.max()}")
+            params_rule(f"reduced tp{tp}", rank, a["params"], b["params"],
+                        worst, t)
         print(f"[tp-reduced] h2o-danube-1.8b fp32 tp{tp}, 2 steps, card vs "
               f"CPU: loss/grad_norm max rel {worst['metric']:.3g} (tol "
               f"{t}); params mean |d|/mean |p| max {worst['mean']:.3g} "
@@ -2376,6 +2434,318 @@ def phase_tp_reduced():
         if worst["metric"] > t:
             fail(f"reduced tp{tp}: card vs CPU metrics differ by "
                  f"{worst['metric']}")
+    print(f"[smoke] phase 9b expert parallelism: {ep_s:.1f}s (the dense "
+          f"references in this process and the EP runs on phase 9's "
+          f"pools; {smi})", flush=True)
+
+
+#: phase 9b: expert parallelism, llama4-scout at full width
+EP_ARCH = "llama4-scout-17b-a16e"
+EP_TRAIN_ARCHS = ("llama4-scout-17b-a16e", "grok-1-314b")
+EP_RANKS = 4
+EP_LAYER_SEQ = 2048                 # one row a rank
+EP_SERVE_LAYERS, EP_SERVE_PROMPT, EP_SERVE_STEPS = 4, 128, 16
+EP_SERVE_PROFILE_STEP = 8
+#: the bf16 tolerances of 9b.  bf16's unit roundoff is 2^-9 (1.95e-3);
+#: EP and the dense layer compute the same products, in other shapes
+#: (the shared expert over a rank's rows, the experts over the arriving
+#: buckets), so an output may round the other way a few times.  Relative
+#: Frobenius error of y and of each gradient:
+EP_LAYER_TOL = 1e-2
+#: a gradient that is zero in exact arithmetic (the router's at top-1,
+#: whose one renormalised weight is 1 whatever the logits), EP's and the
+#: dense layer's, against the layer's largest parameter gradient
+EP_ZERO_TOL = 1e-3
+#: max |Δ logit| / max |logit| of a row, prefill and every decode step,
+#: after 4 layers of such roundings and the head's bf16 product
+EP_SERVE_TOL = 3e-2
+
+
+def phase_ep_train(pool, smi):
+    """9b (a): reduced llama4-scout and grok-1 in fp32 trained by EP over
+    the pool, ``ring`` and ``xla``, on the card and on the CPU."""
+    from repro_torch.dist import rank_tasks
+
+    n, t = pool.size, 1e-4
+    kw = dict(steps=2, reduced=True, seed=0, init_device="cpu",
+              step_overrides=dict(seq_chunk=8, warmup_steps=1,
+                                  microbatches=2),
+              data=dict(seq_len=17, global_batch=8), return_params=True)
+    for arch in EP_TRAIN_ARCHS:
+        for transport in ("ring", "xla"):
+            t0 = time.perf_counter()
+            card = pool.run(rank_tasks.train, arch, device="cuda",
+                            moe_transport=transport, **kw)
+            cpu = pool.run(rank_tasks.train, arch, device="cpu",
+                           moe_transport=transport, **kw)
+            tag = f"ep-reduced {arch} ep{n} {transport}"
+            worst = {"metric": 0.0, "mean": 0.0, "beyond": 0}
+            for rank, (a, b) in enumerate(zip(card, cpu)):
+                for ma, mb in zip(a["metrics"], b["metrics"]):
+                    for key in ("loss", "grad_norm", "moe_aux"):
+                        rel = abs(ma[key] - mb[key]) / abs(mb[key])
+                        worst["metric"] = max(worst["metric"], rel)
+                params_rule(tag, rank, a["params"], b["params"], worst, t)
+            if worst["metric"] > t:
+                fail(f"{tag}: card vs CPU metrics differ by "
+                     f"{worst['metric']}")
+            if any(r["replicated"] != card[0]["replicated"] for r in card):
+                fail(f"{tag}: replicated leaves differ across ranks")
+            m = card[0]["metrics"]
+            steps_s = ", ".join(
+                "%.3f" % max(r["seconds"][k] for r in card)
+                for k in range(len(m)))
+            wire_s = max(sum(st["wire_s"] for st in r["stats"])
+                         for r in card)
+            print(f"[{tag}] fp32, 2 steps, card vs CPU: loss/grad_norm/"
+                  f"moe_aux max rel {worst['metric']:.3g} (tol {t}); "
+                  f"params mean |d|/mean |p| max {worst['mean']:.3g} (tol "
+                  f"{t}); {len(card[0]['replicated'])} replicated leaves "
+                  f"bitwise equal on {n} ranks; losses "
+                  f"{[round(x['loss'], 6) for x in m]}, moe_aux "
+                  f"{[round(x['moe_aux'], 6) for x in m]}; card steps "
+                  f"{steps_s}s, wire {wire_s:.3f}s; "
+                  f"{time.perf_counter() - t0:.1f}s ({smi})", flush=True)
+
+
+def release_shared(pool):
+    """Free this process's cached device memory, that shared with the
+    pool's ranks through CUDA IPC too: a rank drops a task's arguments
+    before it takes the next task, so a task that every rank runs (a
+    barrier) fences their release, then ``ipc_collect`` frees the
+    blocks."""
+    import torch
+
+    from repro_torch.dist import rank_tasks
+
+    pool.run(rank_tasks.collective_op, "xla", "barrier", None)
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+
+
+def ep_layer_dense(smi):
+    """9b (b)'s dense side: one full-width llama4-scout MoE layer (bf16,
+    seeded on the card), ``layers.moe`` over the 4 rows and its autograd
+    against a seeded cotangent.  Returns (cfg, params, x, cotangent, the
+    dense results, its seconds), every tensor on the card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.models import layers as L
+    from repro_torch.models import model
+
+    cfg = get_config(EP_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model._init_moe(cfg, gen, "cuda")
+    shape = (EP_RANKS, EP_LAYER_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    ct = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    p = sharding.map_leaves(lambda _, t: t.detach().requires_grad_(True),
+                            params)
+    xg = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = L.moe(cfg, p, xg)
+    (y.float() * ct.float()).sum().backward()
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    with torch.no_grad():
+        _, idx, keep, _, cap = L.moe_route(cfg, params["router"], x)
+    want = {"y": y.detach(), "x_grad": xg.grad, "idx": idx, "keep": keep,
+            "grads": {"/".join(map(str, path)): t.grad
+                      for path, t in sharding.leaves(p)}}
+    print(f"[ep-layer] dense layers.moe, {EP_ARCH} full width (D "
+          f"{cfg.d_model}, {cfg.n_experts} experts, F {cfg.d_ff}, top-"
+          f"{cfg.experts_per_token}, capacity {cap} a row at S "
+          f"{EP_LAYER_SEQ}), {EP_RANKS} rows, bf16, forward + backward on "
+          f"all experts: {dense_s:.3f}s; {int(keep.sum())} of "
+          f"{keep.numel()} choices kept; {smi}", flush=True)
+    return cfg, params, x, ct, want, dense_s
+
+
+def phase_ep_layer(pool, ref, smi):
+    """9b (b): the layer at EP 4 against the dense results."""
+    from repro_torch.dist import rank_tasks
+
+    cfg, params, x, ct, want, dense_s = ref
+    res = pool.run(rank_tasks.moe_ep_layer_check, cfg, params, x, ct, want,
+                   transport="ring")
+    for rank, r in enumerate(res):
+        if not (r["same_idx"] and r["same_keep"]):
+            fail(f"ep-layer rank {rank}: routing differs from the dense "
+                 f"layer's (idx {r['same_idx']}, keep {r['same_keep']})")
+        scale = max(e["ref_max"] for name, e in r["errors"].items()
+                    if name not in ("y", "x_grad"))
+        for name, e in r["errors"].items():
+            if name == "router" and cfg.experts_per_token == 1:
+                ok = max(e["max_abs"], e["ref_max"]) <= EP_ZERO_TOL * scale
+            else:
+                ok = e["rel_fro"] <= EP_LAYER_TOL
+            if not ok:
+                fail(f"ep-layer rank {rank} {name}: rel Frobenius "
+                     f"{e['rel_fro']:.3g}, max |d| {e['max_abs']:.3g} of "
+                     f"max {e['ref_max']:.3g} (the layer's largest "
+                     f"gradient {scale:.3g})")
+    worst = {name: max(r["errors"][name]["rel_fro"] for r in res)
+             for name in res[0]["errors"]}
+    router = max(max(r["errors"]["router"]["max_abs"],
+                     r["errors"]["router"]["ref_max"]) for r in res)
+    peak = ", ".join("%.2f" % (r["peak_bytes"] / 2**30) for r in res)
+    print(f"[ep-layer] {EP_ARCH} MoE layer at EP {pool.size} (ring "
+          f"exchange over gloo), a row of {EP_LAYER_SEQ} a rank, bf16: "
+          f"routing equal to dense on every rank ({res[0]['kept']} of "
+          f"{res[0]['choices']} choices kept on rank 0); worst rel "
+          f"Frobenius error against dense (tol {EP_LAYER_TOL}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f" (the router's gradient, zero in exact arithmetic at top-"
+          f"{cfg.experts_per_token}: max |g| {router:.3g}); forward "
+          f"{max(r['forward_s'] for r in res):.3f}s, backward "
+          f"{max(r['backward_s'] for r in res):.3f}s (the slowest rank), "
+          f"wire {max(r['wire_s'] for r in res):.3f}s (Group.stats "
+          f"wire_s of the 2 exchanges forward and the 2 backward), dense "
+          f"in one process {dense_s:.3f}s; peak "
+          f"{peak} GiB a rank; {smi}", flush=True)
+
+
+def ep_serve_dense(smi):
+    """9b (c)'s dense side: full-width llama4-scout cut to 4 layers, every
+    expert in this process, bulk prefill of the 4 prompts and 16
+    dense-combine decode steps, greedy.  Returns the prompts, the logits
+    (prefill, then each step) and the fed tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.decode import decode_step
+    from repro_torch.models.model import count_params, init_params
+    from repro_torch.models.prefill import prefill
+
+    cfg = dataclasses.replace(get_config(EP_ARCH), n_layers=EP_SERVE_LAYERS)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, size=(EP_RANKS,
+                                                    EP_SERVE_PROMPT))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    n_params = count_params(params)
+    logits_all, feed, step_s = [], [], []
+    with torch.no_grad():
+        cache, logits = prefill(
+            cfg, params, torch.as_tensor(prompts, device="cuda"),
+            cache_len=EP_SERVE_PROMPT + EP_SERVE_STEPS)
+        logits_all.append(logits.cpu().numpy())
+        for _ in range(EP_SERVE_STEPS):
+            nxt = torch.argmax(logits, dim=-1)
+            feed.append(nxt.cpu().numpy())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cache, logits = decode_step(cfg, params, cache, nxt)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            logits_all.append(logits.cpu().numpy())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    print(f"[ep-serve] dense-combine reference: {EP_ARCH} full width cut "
+          f"to {cfg.n_layers} layers, {n_params} params in "
+          f"{cfg.param_dtype} in one process, batch {EP_RANKS}, prompt "
+          f"{EP_SERVE_PROMPT}, {EP_SERVE_STEPS} steps; decode "
+          f"{1e3 * float(np.median(step_s)):.2f} ms a step (median); peak "
+          f"{peak:.2f} GiB; {time.perf_counter() - t0:.1f}s; {smi}",
+          flush=True)
+    return dict(prompts=prompts, logits=logits_all, feed=np.stack(feed),
+                n_params=n_params)
+
+
+def phase_ep_serve(pool, ref, smi):
+    """9b (c): the 4-layer model served at EP 4, a row a rank, against the
+    dense-combine run, the exchange on ``ring`` (one decode step
+    profiled) and on ``xla``."""
+    import torch
+
+    print(f"[ep-serve] this process holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card "
+          f"before the ranks draw; {smi}", flush=True)
+    for transport in ("ring", "xla"):
+        ep_serve_run(pool, ref, smi, transport,
+                     EP_SERVE_PROFILE_STEP if transport == "ring" else None)
+
+
+def ep_serve_run(pool, ref, smi, transport, profile_step):
+    import numpy as np
+
+    from repro_torch.dist import rank_tasks
+
+    t0 = time.perf_counter()
+    res = pool.run(rank_tasks.ep_serve, EP_ARCH, ref["prompts"],
+                   steps=EP_SERVE_STEPS, transport=transport,
+                   cfg_overrides={"n_layers": EP_SERVE_LAYERS}, seed=0,
+                   feed=ref["feed"], profile_step=profile_step)
+    pool_s = time.perf_counter() - t0
+    tag = f"ep-serve {transport}"
+    worst, agree = 0.0, 0
+    for rank, r in enumerate(res):
+        if r["prefill_flash_launches"] != EP_SERVE_LAYERS:
+            fail(f"{tag} rank {rank}: prefill launched flash "
+                 f"{r['prefill_flash_launches']} times, expected "
+                 f"{EP_SERVE_LAYERS}")
+        got = [r["prefill_logits"]] + r["logits"]
+        for k, (g, w) in enumerate(zip(got, ref["logits"])):
+            w = w[rank:rank + 1]
+            if not np.isfinite(g).all():
+                fail(f"{tag} rank {rank} step {k}: non-finite logits")
+            err = float(np.abs(g - w).max() / np.abs(w).max())
+            worst = max(worst, err)
+            if err > EP_SERVE_TOL:
+                fail(f"{tag} rank {rank} step {k}: logits max |d|/max "
+                     f"{err:.3g}, tol {EP_SERVE_TOL}")
+        agree += sum(int(r["ids"][k][0] == np.argmax(ref["logits"][k + 1]
+                                                     [rank]))
+                     for k in range(EP_SERVE_STEPS))
+    timed_steps = [k for k in range(1, EP_SERVE_STEPS) if k != profile_step]
+    wall = [max(r["seconds"][k] for r in res) for k in timed_steps]
+    wire = [max(r["wire_s"][k] for r in res) for k in timed_steps]
+    step0 = float(np.abs(res[0]["logits"][0] - ref["logits"][1][:1]).max()
+                  / np.abs(ref["logits"][1][:1]).max())
+    peak = ", ".join("%.2f" % (r["peak_bytes"] / 2**30) for r in res)
+    print(f"[{tag}] {EP_ARCH} full width cut to {EP_SERVE_LAYERS} "
+          f"layers at EP {pool.size} ({transport} exchange over gloo), one "
+          f"row a rank, {res[0]['n_params']} params a rank (of "
+          f"{ref['n_params']}): prefill {EP_SERVE_PROMPT} tokens (flash "
+          f"{EP_SERVE_LAYERS} launches a rank), {EP_SERVE_STEPS} decode "
+          f"steps fed the dense run's tokens; logits max |d|/max against "
+          f"dense-combine: step 0 {step0:.3g}, worst {worst:.3g} (tol "
+          f"{EP_SERVE_TOL}); greedy tokens agree {agree}/"
+          f"{EP_SERVE_STEPS * pool.size}; decode "
+          f"{1e3 * float(np.median(wall)):.2f} ms a step (median over "
+          f"{len(wall)} steps, the slowest rank; min "
+          f"{1e3 * min(wall):.2f}), wire {1e3 * float(np.median(wire)):.2f}"
+          f" ms a step; peak {peak} GiB a rank; pool {pool_s:.1f}s; {smi}",
+          flush=True)
+    if profile_step is None:
+        return
+    prof = [r.get("profile") for r in res]
+    step_wall = max(r["seconds"][profile_step] for r in res)
+    if all(p and p["kernel_spans"] for p in prof):
+        union = rank_tasks.union_spans(
+            [sp for p in prof for sp in p["kernel_spans"]])
+        busy = sum(e - b for b, e in union) / 1e9
+        extent = (union[-1][1] - union[0][0]) / 1e9
+        print(f"[{tag}] decode step {profile_step} under torch.profiler: "
+              f"the union of the ranks' kernel spans is {1e3 * busy:.3f} ms "
+              f"of the {1e3 * step_wall:.2f} ms wall (the slowest rank): "
+              f"{100 * (1 - busy / step_wall):.2f}% of the wall with no "
+              f"kernel of any rank in flight (spans within "
+              f"{1e3 * extent:.2f} ms; against the median unprofiled step, "
+              f"{100 * (1 - busy / float(np.median(wall))):.2f}%); rank 0's "
+              f"top device ops: "
+              + "; ".join(f"{name[:60]} {ms:.3f} ms x{n}"
+                          for name, ms, n in prof[0]["top"][:5]),
+              flush=True)
+    else:
+        print(f"[{tag}] torch.profiler saw no kernel spans: the idle share "
+              f"not measured", flush=True)
 
 
 #: the one-GPU training phase: full-width smollm-360m
@@ -3591,7 +3961,7 @@ def main() -> int:
     cc_main = timed("6 hop kernels", phase_cc_kernels)
     cc_main.update(timed("7 ring kernels", phase_ring_kernels))
     cc_launches = timed("8 tp training", phase_tp_train)
-    timed("9 reduced tp", phase_tp_reduced)
+    timed("9 reduced tp, 9b expert parallelism", phase_tp_reduced)
     timed("10 smollm training", phase_train_1gpu, card_name_and_limit())
     m2_train = timed("10b mamba2 training", phase_train_mamba2_alone)
     timed("10b reduced zamba2 tp-1", tp1_card_vs_cpu,

@@ -68,11 +68,13 @@ def params_from_reference(tree: Dict[str, Any],
     return out
 
 
-def shard_params(tree: Dict[str, Any], rank: int, tp: int,
-                 device: DeviceLike = "cpu") -> Dict[str, Any]:
+def shard_params(tree: Dict[str, Any], rank: int, size: int,
+                 device: DeviceLike = "cpu",
+                 axis: str = "model") -> Dict[str, Any]:
     """The reference's full parameter pytree (numpy leaves) → rank
-    ``rank``'s shard of it in the port's layout, under the TP placement of
-    ``repro_torch.dist.sharding``."""
+    ``rank``'s shard of it in the port's layout, under the placement of
+    ``repro_torch.dist.sharding`` on ``axis``: ``model`` (TP) or
+    ``expert`` (a MoE model's routed experts split over the group)."""
     from repro_torch.dist.sharding import shard_tree
 
-    return shard_tree(params_from_reference(tree, device), rank, tp)
+    return shard_tree(params_from_reference(tree, device), rank, size, axis)

@@ -41,5 +41,19 @@ def get_config(name: str) -> ModelConfig:
     return _CONFIGS[name]
 
 
-__all__ = ["ARCH_NAMES", "ChunkCarrySpec", "ModelConfig", "chunk_carry_spec",
-           "get_config", "serving_features"]
+# imported after get_config exists: a preset resolves its arch through it
+from repro_torch.configs.presets import (  # noqa: E402
+    EP_PRESET_NAMES,
+    EP_PRESETS,
+    TP_PRESET_NAMES,
+    TP_PRESETS,
+    EPPreset,
+    TPPreset,
+    get_ep_preset,
+    get_tp_preset,
+)
+
+__all__ = ["ARCH_NAMES", "ChunkCarrySpec", "EPPreset", "EP_PRESETS",
+           "EP_PRESET_NAMES", "ModelConfig", "TPPreset", "TP_PRESETS",
+           "TP_PRESET_NAMES", "chunk_carry_spec", "get_config",
+           "get_ep_preset", "get_tp_preset", "serving_features"]

@@ -1,8 +1,8 @@
 """grok-1-314b — MoE 8 experts top-2, GQA kv=8, GeGLU experts.
 
-[hf:xai-org/grok-1; unverified]  316.5 B parameters: the port holds it at
-``reduced()`` (its full width needs the expert-parallel path, ROADMAP
-queue 1 item 7).
+[hf:xai-org/grok-1; unverified]  316.5 B parameters: one card holds it at
+``reduced()`` only; its full width needs its experts split over cards
+(``models/moe_ep.py``), a host with more cards than one.
 """
 from repro_torch.configs.base import ModelConfig
 

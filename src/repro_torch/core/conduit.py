@@ -24,6 +24,11 @@ ART chunk size and a link model.  Ported transports:
     the bare collective delegates to the ``ring`` wire, as in the
     reference.
 
+The ``all_to_all`` of ``ring`` and of ``xla`` is differentiable too (the
+expert exchange of ``models/moe_ep.py`` trains through it): a tiled
+all-to-all is its own transpose, so its backward is the same transport's
+all-to-all of the cotangent.
+
 Every op can also run streamed (:meth:`Conduit.streamed`, the consumer
 pipeline of ``core/pipeline.py``).  The reference's ``bidir`` transports
 are known to :func:`transports`, so a policy that names them validates as
@@ -90,24 +95,31 @@ def register(op: str, name: str):
     return deco
 
 
+def unregister(op: str, name: str) -> None:
+    """Remove a transport registered with :func:`register`."""
+    del _REGISTRY[(op, name)]
+
+
 def transports(op: str) -> Tuple[str, ...]:
-    """Names of every transport the reference registers for ``op``."""
-    return _KNOWN[op]
+    """Names of every transport the reference registers for ``op``, and
+    of any the caller has registered since (sorted)."""
+    return tuple(sorted(set(_KNOWN[op])
+                        | {name for o, name in _REGISTRY if o == op}))
 
 
 def resolve(op: str, name: str) -> Callable:
     """The transport callable for ``(op, name)``: ``KeyError`` for a name
-    the reference does not know, ``NotImplementedError`` for one the port
-    has not ported yet."""
-    if name not in _KNOWN.get(op, ()):
+    neither the reference nor a caller registers, ``NotImplementedError``
+    for one the port has not ported yet."""
+    fn = _REGISTRY.get((op, name))
+    if fn is not None:
+        return fn
+    if name not in transports(op):
         raise KeyError(f"no transport {name!r} for {op!r}; registered: "
-                       f"{_KNOWN.get(op, ())}")
-    try:
-        return _REGISTRY[(op, name)]
-    except KeyError:
-        raise NotImplementedError(
-            f"transport {name!r} for {op!r} is not ported yet: "
-            f"{ROADMAP_SUBSTRATE}") from None
+                       f"{transports(op)}")
+    raise NotImplementedError(
+        f"transport {name!r} for {op!r} is not ported yet: "
+        f"{ROADMAP_SUBSTRATE}")
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +212,22 @@ class _RingReduceScatter(torch.autograd.Function):
                 None, None, None)
 
 
+class _AllToAll(torch.autograd.Function):
+    """A tiled all_to_all over dim 0 is its own transpose: the cotangent
+    of block q that arrived from rank q goes back to rank q by the same
+    exchange, over the same transport."""
+
+    @staticmethod
+    def forward(ctx, x, wire, group, chunk_bytes):
+        ctx.wire, ctx.group, ctx.chunk_bytes = wire, group, chunk_bytes
+        return wire(x, group, chunk_bytes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.wire(g.contiguous(), ctx.group, ctx.chunk_bytes), None,
+                None, None)
+
+
 @register("all_gather", "ring")
 def _all_gather_ring(x, *, axis, chunk_bytes=None, dim: int = 0):
     return _RingAllGather.apply(x, axis, dim, chunk_bytes)
@@ -282,12 +310,12 @@ def _all_reduce_ring(x, *, axis, chunk_bytes=None):
     return gathered[:x.numel()].reshape(x.shape)
 
 
-@register("all_to_all", "ring")
-def _all_to_all_ring(x, *, axis, chunk_bytes=None):
-    """All-to-all as n−1 single-block ring permutes: ``x`` (n·g, ...) with
-    rows [q·g, (q+1)·g) destined for rank q; returns the same shape with
-    slot q holding what rank q sent here."""
-    group = axis
+def ring_all_to_all(x: torch.Tensor, group,
+                    chunk_bytes: Optional[int] = None) -> torch.Tensor:
+    """The ``ring`` wire's all-to-all (no autograd) as n−1 single-block
+    ring permutes: ``x`` (n·g, ...) with rows [q·g, (q+1)·g) destined for
+    rank q; returns the same shape with slot q holding what rank q sent
+    here."""
     n, my = group.size, group.rank
     if n == 1:
         return x
@@ -312,6 +340,13 @@ def _all_to_all_ring(x, *, axis, chunk_bytes=None):
     else:
         out = torch.cat([piece(p) for p in pl.split(flat, c, axis=-1)], -1)
     return out.reshape(x.shape)
+
+
+@register("all_to_all", "ring")
+def _all_to_all_ring(x, *, axis, chunk_bytes=None):
+    """:func:`ring_all_to_all`, differentiable: its backward is the ring
+    all-to-all of the cotangent."""
+    return _AllToAll.apply(x, ring_all_to_all, axis, chunk_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -345,9 +380,15 @@ def _all_reduce_xla(x, *, axis, chunk_bytes=None):
     return axis.all_reduce(x)
 
 
+def _gloo_all_to_all(x, group, chunk_bytes=None):
+    return group.all_to_all(x)
+
+
 @register("all_to_all", "xla")
 def _all_to_all_xla(x, *, axis, chunk_bytes=None):
-    return axis.all_to_all(x)
+    """The group's gloo all-to-all, differentiable: its backward is the
+    gloo all-to-all of the cotangent."""
+    return _AllToAll.apply(x, _gloo_all_to_all, axis, chunk_bytes)
 
 
 @register("all_gather", "fused")
@@ -512,4 +553,5 @@ class Conduit:
 
 __all__ = ["Conduit", "LINKS", "OPS", "ROADMAP_AUTO", "ROADMAP_OVERLAP",
            "ROADMAP_SUBSTRATE", "estimate_time", "register", "resolve",
-           "ring_all_gather", "ring_reduce_scatter", "transports"]
+           "ring_all_gather", "ring_all_to_all", "ring_reduce_scatter",
+           "transports", "unregister"]

@@ -383,6 +383,10 @@ def _rank_main(rank: int, size: int, init_file: str, device: str,
                 outbox.put((rank, True, fn(group, *args, **kwargs)))
             except BaseException:       # report, and keep serving
                 outbox.put((rank, False, traceback.format_exc()))
+            # the task's arguments go with it: a CUDA tensor the parent
+            # shared through IPC stays pinned in the parent while a rank
+            # holds it
+            del task, fn, args, kwargs
     finally:
         if group.peer is not None:     # every task has synchronized
             group.peer.close()

@@ -11,6 +11,12 @@ the TP collectives' backward combines the ranks' cotangents, so no
 all-reduce sits inside autograd (one there would multiply the gradients
 by the group size).  The loss reported in the metrics is the all-reduced
 value.
+
+A MoE model's load-balancing term follows the same rule: with a group,
+each MoE layer returns this rank's share of the loss over the group's
+rows (``layers.moe_aux_loss``, its choice counts summed over the group),
+so the shares, like the cross-entropy partials, sum to the reference's
+term over the logical global batch.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ def chunked_ce_loss(
     positions: Optional[torch.Tensor] = None,
     runner: Optional[Callable] = None,
     core: Optional[Callable] = None,
+    moe_ffn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """batch: tokens (B, S_loc), labels (B, S_loc) with -1 = masked — this
     rank's rows — and a frontend arch's ``frontend_embeds`` (a VLM's
@@ -45,12 +52,15 @@ def chunked_ce_loss(
     are the group's totals (the reference's ``total`` and metrics: the
     loss adds ``moe_aux_weight`` × a MoE model's load-balancing loss,
     summed over its layers).  ``group`` None means one rank holding the
-    whole sequence.  ``positions``, ``runner`` (the TP block runner) and
-    ``core`` (the attention core) are ``forward_hidden``'s."""
+    whole sequence.  ``positions``, ``runner`` (the TP block runner),
+    ``core`` (the attention core) and ``moe_ffn`` (the expert-parallel
+    MoE runner) are ``forward_hidden``'s; the load-balancing loss is over
+    the group's rows (``aux_group``)."""
     hidden, aux = forward_hidden(cfg, params, batch["tokens"], positions,
                                  runner=runner, core=core,
                                  frontend_embeds=batch.get("frontend_embeds"),
-                                 return_aux=True)
+                                 return_aux=True, moe_ffn=moe_ffn,
+                                 aux_group=group)
     labels = batch["labels"]
     if hidden.shape[1] != labels.shape[1]:      # a VLM's patch rows
         hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]

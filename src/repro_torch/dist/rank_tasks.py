@@ -14,9 +14,18 @@ reference.
 * :func:`ring_kernels` — the two whole-ring ops against their plain
   versions on the card, each timed with the group, their hop products
   counted and (optionally) profiled.
-* :func:`train` — the TP train step of ``dist/steps.py`` for a few steps,
-  with per-step metrics, hop-kernel launches, wire and staging counts,
-  step times and peak device memory.
+* :func:`train` — the train step of ``dist/steps.py`` over the group (TP
+  for a dense model, expert parallelism for a MoE model) for a few
+  steps, with per-step metrics, hop-kernel launches, wire and staging
+  counts, step times and peak device memory.
+
+Expert parallelism (``models/moe_ep.py``):
+
+* :func:`all_to_all_grad` — the conduit all-to-all and its backward.
+* :func:`moe_ep_layer` — one MoE layer's EP forward (and backward) on
+  the rank's rows; :func:`moe_ep_layer_check` holds it to the dense
+  layer's results on the card.
+* :func:`ep_serve` — bulk prefill and decode steps on the rank's rows.
 
 The PGAS substrate (``core/pgas.py``, ``core/am.py``, ``core/art.py``):
 
@@ -51,9 +60,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _tensor(a: np.ndarray, device) -> torch.Tensor:
+def _tensor(a: Any, device) -> torch.Tensor:
+    """A numpy array, or a tensor (a CUDA tensor may arrive from the
+    parent through CUDA IPC), on ``device``."""
     from repro_torch.bridge import to_tensor
 
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     return to_tensor(a, device)
 
 
@@ -295,6 +308,8 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
           cfg_overrides: Optional[Dict[str, Any]] = None,
           step_overrides: Optional[Dict[str, Any]] = None,
           tp_transport: Optional[str] = None,
+          moe_transport: Optional[str] = None,
+          moe_stream_chunks: Optional[int] = None,
           seed: int = 0, params_np: Optional[Dict[str, Any]] = None,
           init_device: Optional[str] = None,
           device: Optional[str] = None,
@@ -305,8 +320,13 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
     """Train ``arch`` (``reduced()`` if asked, then ``cfg_overrides``)
     for ``steps`` steps of ``build_train_step`` on this rank.
 
+    A MoE arch trains by expert parallelism over the group (its experts
+    split, its rows of each microbatch its own), its exchange on
+    ``moe_transport`` (default ``xla``) in ``moe_stream_chunks`` chunks.
+
     Parameters: the reference's pytree ``params_np`` (numpy, through
-    ``bridge.shard_params``), or ``build_init``'s draw from ``seed`` —
+    ``bridge.shard_params`` on the group's axis), or ``build_init``'s
+    draw from ``seed`` —
     on ``init_device`` when given (a CPU draw gives the same numbers for a
     card run and a CPU run), moved to the run's device.  Batches: the
     given numpy ``batches`` (step k takes ``batches[k]``), or
@@ -331,6 +351,7 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
         TransportPolicy,
         build_init,
         build_train_step,
+        group_axis,
         init_opt,
     )
     from repro_torch.models.model import params_to
@@ -341,8 +362,10 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
         cfg = cfg.reduced()
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
-    scfg = StepConfig(transport=TransportPolicy(tp=tp_transport or "fused"),
-                      **(step_overrides or {}))
+    axis = group_axis(cfg)
+    scfg = StepConfig(transport=TransportPolicy(
+        tp=tp_transport or "fused", moe=moe_transport or "xla",
+        moe_stream_chunks=moe_stream_chunks), **(step_overrides or {}))
     # the group's wire is the group's; this run's tensors live on `dev`
     # (the peer memory serves tensors on the card only)
     run_group = dataclasses.replace(
@@ -351,7 +374,7 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
 
     t0 = time.perf_counter()
     if params_np is not None:
-        params = shard_params(params_np, group.rank, group.size, dev)
+        params = shard_params(params_np, group.rank, group.size, dev, axis)
         opt = init_opt(params, scfg)
     elif init_device is None or torch.device(init_device) == dev:
         params, opt = build_init(cfg, run_group, scfg)(seed)
@@ -407,11 +430,269 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
                     if dev.type == "cuda" else 0),
         n_params=sum(t.numel() for _, t in leaves),
         replicated={"/".join(map(str, p)): _digest(t) for p, t in leaves
-                    if sharding.placement(p) == "rep"})
+                    if sharding.placement(p, axis) == "rep"})
     if return_params:
         result["params"] = {"/".join(map(str, p)): _numpy(t)
                             for p, t in leaves}
     return result
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism
+# ---------------------------------------------------------------------------
+
+
+def all_to_all_grad(group, transport: str, xs: np.ndarray, gs: np.ndarray,
+                    chunk_bytes: Optional[int] = None
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Rank r: ``y = Conduit(group, transport).all_to_all(xs[r])`` under
+    autograd, backward with the cotangent ``gs[r]``; returns (y, the
+    gradient of ``xs[r]``, the same conduit's all_to_all of ``gs[r]``)."""
+    from repro_torch.core.conduit import Conduit
+
+    c = Conduit(axis=group, transport=transport, chunk_bytes=chunk_bytes)
+    x = _tensor(xs[group.rank], group.device).requires_grad_(True)
+    g = _tensor(gs[group.rank], group.device)
+    y = c.all_to_all(x)
+    y.backward(g)
+    return _numpy(y), _numpy(x.grad), _numpy(c.all_to_all(g))
+
+
+def _ep_layer(group, cfg, moe_params: Dict[str, Any], x: Any,
+              cotangent: Any, transport: str,
+              stream_chunks: Optional[int]):
+    """One MoE layer by expert parallelism on this rank's rows of the
+    global ``x`` (B, S, D), from the whole layer's ``moe_params`` (this
+    rank keeps its expert shard), backward with its rows of
+    ``cotangent`` when given.  Returns (y, this rank's parameters by
+    path, its rows of x, the time of the forward and of the backward)."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.steps import split_rows
+    from repro_torch.models.moe_ep import build_moe_ep_runner
+
+    dev = group.device
+    rows = split_rows(x.shape[0], group)
+    full = sharding.map_leaves(lambda _, a: _tensor(a, dev), moe_params)
+    p = sharding.shard_tree({"moe": full}, group.rank, group.size,
+                            "expert")["moe"]
+    p = sharding.map_leaves(lambda _, t: t.detach().requires_grad_(True), p)
+    x_loc = _tensor(x, dev)[rows].clone().requires_grad_(True)
+    runner = build_moe_ep_runner(cfg, group, transport=transport,
+                                 stream_chunks=stream_chunks)
+    _sync(dev)
+    t0 = time.perf_counter()
+    y = runner(cfg, p, x_loc)
+    _sync(dev)
+    fwd_s, bwd_s = time.perf_counter() - t0, 0.0
+    if cotangent is not None:
+        t0 = time.perf_counter()
+        (y.float() * _tensor(cotangent, dev)[rows].float()).sum().backward()
+        _sync(dev)
+        bwd_s = time.perf_counter() - t0
+    return y, p, x_loc, fwd_s, bwd_s
+
+
+def moe_ep_layer(group, cfg, moe_params: Dict[str, np.ndarray],
+                 x: np.ndarray, *, transport: str,
+                 cotangent: Optional[np.ndarray] = None,
+                 stream_chunks: Optional[int] = None,
+                 probe: bool = False) -> Dict[str, Any]:
+    """``models/moe_ep.py``'s runner over the group on this rank's rows of
+    ``x`` (numpy, the whole layer's ``moe_params`` as the reference's
+    numpy tree): returns ``y`` (its rows), and with ``cotangent`` the
+    gradients (``grads`` by path, this rank's part: its expert shard's
+    whole gradient, its tokens' share of a replicated leaf's, and its
+    rows of x's).  ``probe`` dispatches through a counting transport
+    registered for the call in front of ``transport``: ``calls`` lists
+    the elements of every all_to_all it carried."""
+    from repro_torch.core import conduit
+    from repro_torch.dist import sharding
+
+    calls: List[int] = []
+    if probe:
+        inner = conduit.resolve("all_to_all", transport)
+
+        @conduit.register("all_to_all", "probe")
+        def _probe(v, *, axis, chunk_bytes=None):
+            calls.append(v.numel())
+            return inner(v, axis=axis, chunk_bytes=chunk_bytes)
+
+    try:
+        y, p, x_loc, _, _ = _ep_layer(group, cfg, moe_params, x, cotangent,
+                                      "probe" if probe else transport,
+                                      stream_chunks)
+    finally:
+        if probe:
+            conduit.unregister("all_to_all", "probe")
+    out: Dict[str, Any] = {"y": _numpy(y), "calls": calls}
+    if cotangent is not None:
+        out["grads"] = {"/".join(map(str, k)): _numpy(t.grad)
+                        for k, t in sharding.leaves(p)}
+        out["x_grad"] = _numpy(x_loc.grad)
+    return out
+
+
+def _errors(got: torch.Tensor, want: torch.Tensor) -> Dict[str, float]:
+    d = (got.float() - want.float())
+    w = want.float()
+    return {"max_abs": float(d.abs().max()), "ref_max": float(w.abs().max()),
+            "rel_fro": float(d.norm() / w.norm().clamp_min(1e-30))}
+
+
+def moe_ep_layer_check(group, cfg, moe_params: Dict[str, Any], x: Any,
+                       cotangent: Any, want: Dict[str, Any], *,
+                       transport: str) -> Dict[str, Any]:
+    """The EP layer's forward and backward on this rank (as
+    :func:`moe_ep_layer`) held to the dense layer's results ``want`` (the
+    whole batch's ``y``, ``x_grad``, ``idx`` and ``keep``, and the whole
+    parameters' ``grads`` by path, from ``layers.moe`` and its autograd;
+    tensors on the card may come through CUDA IPC), on this rank's
+    device.  A replicated leaf's gradient is summed over the group before
+    it is compared.  Returns each tensor's errors (``_errors``), whether
+    the routing (``idx``, ``keep``) equals the dense layer's on the
+    rank's rows, the forward and backward seconds, the wire seconds and
+    the peak device memory."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.steps import split_rows
+    from repro_torch.models import layers as L
+
+    dev = group.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    wire0 = group.stats["wire_s"]
+    y, p, x_loc, fwd_s, bwd_s = _ep_layer(group, cfg, moe_params, x,
+                                          cotangent, transport, None)
+    wire_s = group.stats["wire_s"] - wire0
+    rows = split_rows(x.shape[0], group)
+    e_loc = cfg.n_experts // group.size
+    experts = slice(group.rank * e_loc, (group.rank + 1) * e_loc)
+    with torch.no_grad():
+        _, idx, keep, _, _ = L.moe_route(cfg, p["router"],
+                                         x_loc.to(L.cdtype(cfg)))
+        errs = {"y": _errors(y, _tensor(want["y"], dev)[rows]),
+                "x_grad": _errors(x_loc.grad,
+                                  _tensor(want["x_grad"], dev)[rows])}
+        for path, t in sharding.leaves(p):
+            name = "/".join(map(str, path))
+            w = _tensor(want["grads"][name], dev)
+            if sharding.placement(("moe",) + path, "expert") == "expert":
+                g, w = t.grad, w[experts]
+            else:
+                g = group.all_reduce(t.grad)
+            errs[name] = _errors(g, w)
+        same_idx = bool(torch.equal(idx, _tensor(want["idx"], dev)[rows]))
+        same_keep = bool(torch.equal(keep, _tensor(want["keep"], dev)[rows]))
+    out = {"errors": errs, "same_idx": same_idx, "same_keep": same_keep,
+           "kept": int(keep.sum()), "choices": keep.numel(),
+           "forward_s": fwd_s, "backward_s": bwd_s, "wire_s": wire_s,
+           "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                          if dev.type == "cuda" else 0)}
+    del y, p, x_loc
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def ep_serve(group, arch: str, prompts: np.ndarray, *, steps: int,
+             transport: str = "xla", reduced: bool = False,
+             cfg_overrides: Optional[Dict[str, Any]] = None,
+             params_np: Optional[Dict[str, Any]] = None, seed: int = 0,
+             feed: Optional[np.ndarray] = None,
+             cache_len: Optional[int] = None,
+             profile_step: Optional[int] = None) -> Dict[str, Any]:
+    """A MoE model served by expert parallelism: this rank's rows of the
+    global ``prompts`` (B, S) (``dist/steps.split_rows``) through bulk
+    prefill with the EP runner, then ``steps`` decode steps through
+    ``serve_step`` with the EP decode runner (``moe_decode_runner``), the
+    next tokens greedy or, with ``feed`` (steps, B), this rank's rows of
+    ``feed[k]`` (the same inputs as another run).
+
+    Parameters: the reference's whole pytree ``params_np`` (this rank
+    keeps its expert shard), or the draw of ``models.model.init_params``
+    from ``seed`` on this rank's device, each layer cut to the rank's
+    shard as it is drawn (every rank draws the same numbers).
+
+    Returns the rank's prefill logits and each step's logits (fp32) and
+    greedy ids, each decode step's wall seconds and wire seconds, the
+    flash launches of prefill, the peak device memory, and with
+    ``profile_step`` that step's device summary (``_device_summary``:
+    its kernel spans on the host clock)."""
+    from repro_torch.bridge import shard_params
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.dist.steps import (
+        TransportPolicy,
+        moe_decode_runner,
+        serve_step,
+        split_rows,
+    )
+    from repro_torch.kernels.flash_attention import FLASH
+    from repro_torch.models.model import init_params
+    from repro_torch.models.moe_ep import build_moe_ep_runner
+    from repro_torch.models.prefill import prefill
+
+    dev = group.device
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    if params_np is not None:
+        params = shard_params(params_np, group.rank, group.size, dev,
+                              "expert")
+    else:
+        params = init_params(cfg, seed, dev, layer_fn=lambda layer:
+                             sharding.shard_tree(layer, group.rank,
+                                                 group.size, "expert"))
+    rows = split_rows(prompts.shape[0], group)
+    toks = torch.as_tensor(np.asarray(prompts)[rows], dtype=torch.long,
+                           device=dev)
+    prefill_runner = build_moe_ep_runner(cfg, group, transport=transport)
+    decode_runner = moe_decode_runner(cfg, group,
+                                      TransportPolicy(moe=transport))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out: Dict[str, Any] = {k: [] for k in ("logits", "ids", "seconds",
+                                          "wire_s")}
+    with torch.no_grad():
+        flash0 = FLASH.launches
+        cache, logits = prefill(cfg, params, toks,
+                                cache_len=cache_len or toks.shape[1] + steps,
+                                moe_ffn=prefill_runner)
+        _sync(dev)
+        out["prefill_flash_launches"] = FLASH.launches - flash0
+        out["prefill_logits"] = _numpy(logits)
+        for k in range(steps):
+            nxt = (torch.argmax(logits, dim=-1) if feed is None else
+                   torch.as_tensor(np.asarray(feed[k])[rows],
+                                   dtype=torch.long, device=dev))
+            group.barrier()
+            wire0 = group.stats["wire_s"]
+            prof = None
+            if k == profile_step and dev.type == "cuda":
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            cache, logits = serve_step(cfg, params, cache, nxt.long(),
+                                       moe_runner=decode_runner,
+                                       sample=False)
+            _sync(dev)
+            out["seconds"].append(time.perf_counter() - t0)
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                out["profile"] = _device_summary(prof)
+            out["wire_s"].append(group.stats["wire_s"] - wire0)
+            out["logits"].append(_numpy(logits))
+            out["ids"].append(_numpy(torch.argmax(logits, dim=-1)))
+    out["n_params"] = sum(t.numel() for _, t in sharding.leaves(params))
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else 0)
+    del params, cache
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -864,8 +1145,9 @@ def collective_op(group, transport: str, op: str, xs: Optional[np.ndarray],
     return _numpy(getattr(c, op)(x, **kw))
 
 
-__all__ = ["accum_handler", "am_registry", "art_op", "art_send_op",
-           "case_study", "collective_op", "fused_op", "permute_op",
+__all__ = ["accum_handler", "all_to_all_grad", "am_registry", "art_op",
+           "art_send_op", "case_study", "collective_op", "ep_serve",
+           "fused_op", "moe_ep_layer", "moe_ep_layer_check", "permute_op",
            "pgas_program",
            "put_get_sweep", "quickstart", "quickstart_inputs",
            "ring_collectives", "ring_kernels", "ring_op", "scale_handler",

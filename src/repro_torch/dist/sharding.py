@@ -1,5 +1,6 @@
-"""TP placement of the dense block's parameters (the ``model``-axis part
-of ``repro.dist.sharding``'s rule table, for this port's TP path).
+"""Placement of the parameters over a group: the dense block's TP split
+(the ``model``-axis part of ``repro.dist.sharding``'s rule table, for this
+port's TP path) and the expert split of a MoE model.
 
   column shards (output dim split over the group):  ``wq``, ``w_up``,
                                                      ``w_gate``
@@ -13,6 +14,17 @@ The reference makes the embedding and LM head vocab-parallel and shards
 ART block does).  A replicated leaf's gradient is summed over the group
 before clipping; a sharded leaf's is complete already, from the fused
 ops' weight gradient.
+
+The ``expert`` axis (a MoE model's group, ``models/moe_ep.py``) has a
+rule of its own, the reference's ``_EXPERT_PARALLEL`` on an expert mesh
+(``repro/dist/sharding.py:101-131``): the routed experts' ``w_up``,
+``w_gate`` and ``w_down`` (a leaf whose parent is ``moe``) shard their
+leading E dim, and everything else is replicated — the router, the shared
+expert (``moe.shared.*``, the same names under ``shared``), attention,
+norms, embed and head.  The rule reads the path, since ``w_up`` under
+the ``model`` axis is a column shard wherever it sits.  The expert
+shards' gradients are complete from the exchange's backward; the
+replicated leaves' are summed over the group.
 """
 
 from __future__ import annotations
@@ -23,13 +35,23 @@ import torch
 
 COL_PARALLEL = frozenset({"wq", "w_up", "w_gate"})
 ROW_PARALLEL = frozenset({"wo", "w_down"})
+#: the routed experts' stacked (E, ·, ·) weights, directly under ``moe``
+EXPERT_PARALLEL = frozenset({"w_up", "w_gate", "w_down"})
+AXES = ("model", "expert")
 
 Path = Tuple[Any, ...]
 
 
-def placement(path: Path) -> str:
-    """``"col"``, ``"row"`` or ``"rep"`` for the leaf at ``path``."""
+def placement(path: Path, axis: str = "model") -> str:
+    """The leaf at ``path``'s placement over the group: on the ``model``
+    axis ``"col"``, ``"row"`` or ``"rep"``; on the ``expert`` axis
+    ``"expert"`` (dim 0 split) or ``"rep"``."""
+    if axis not in AXES:
+        raise ValueError(f"axis {axis!r} not in {AXES}")
     name = path[-1]
+    if axis == "expert":
+        return ("expert" if name in EXPERT_PARALLEL and len(path) >= 2
+                and path[-2] == "moe" else "rep")
     if name in COL_PARALLEL:
         return "col"
     if name in ROW_PARALLEL:
@@ -76,11 +98,14 @@ def map_leaves(fn: Callable[[Path, torch.Tensor], torch.Tensor], tree: Any,
     return fn(path, tree)
 
 
-def shard_tree(tree: Any, rank: int, size: int) -> Any:
-    """Every leaf of a full parameter tree replaced by this rank's part."""
+def shard_tree(tree: Any, rank: int, size: int,
+               axis: str = "model") -> Any:
+    """Every leaf of a full parameter tree replaced by this rank's part
+    under ``axis``'s placement.  A subtree (one layer's dict) is placed
+    by the path inside it, which ends as the full tree's does."""
     return map_leaves(
-        lambda p, t: shard_leaf(t, placement(p), rank, size), tree)
+        lambda p, t: shard_leaf(t, placement(p, axis), rank, size), tree)
 
 
-__all__ = ["COL_PARALLEL", "ROW_PARALLEL", "leaves", "map_leaves",
-           "placement", "shard_leaf", "shard_tree"]
+__all__ = ["AXES", "COL_PARALLEL", "EXPERT_PARALLEL", "ROW_PARALLEL",
+           "leaves", "map_leaves", "placement", "shard_leaf", "shard_tree"]

@@ -10,7 +10,8 @@ itself.
 
 Training: :class:`TransportPolicy`, :class:`StepConfig`,
 :func:`build_init` and :func:`build_train_step`, the group standing in
-for the ``model`` axis.  At tp 1 (``Group(rank=0, size=1, device=…)``,
+for the ``model`` axis (a dense model) or the ``expert`` axis (a MoE
+model).  At tp 1 (``Group(rank=0, size=1, device=…)``,
 no process pool) it is the reference's one-device step for every family
 the port serves: the model's own blocks, every attention through
 ``layers.blockwise_attention`` (``layers.blockwise_core``), as the
@@ -21,11 +22,20 @@ encoder, self- and cross-attention, and the hybrid's shared
 applications; the ssm (Mamba-2) block's SSD scan is the kernel with its
 backward (``kernels/ssd``).  At tp ≥ 2 it is the path the reference
 takes with ``TransportPolicy(tp="fused")`` on a ``(1, tp)`` mesh: every
-dense block's TP edges on the fused ring of ``kernels/cc_matmul``.  Both
-sum microbatch gradients in fp32, leaf by leaf, and lay the sums out in
-flat buckets with ``grad_bucket_bytes``.  A data axis, the other TP transports and the
-other families at tp ≥ 2 raise, each naming its ROADMAP item; ART-TP is
-dense-only.
+dense block's TP edges on the fused ring of ``kernels/cc_matmul``.  A
+MoE model on a group of n ≥ 2 trains by expert parallelism over it (the
+reference's ``models/moe_ep.py`` runner on an ``expert`` mesh axis): rank
+r holds experts ``[r·E/n, (r+1)·E/n)`` and rows ``[r·b, (r+1)·b)`` of
+each microbatch, its tokens ride the conduit all-to-all of
+``TransportPolicy.moe`` to their experts and back, and the replicated
+leaves' gradients are summed over the group.  Every path sums
+microbatch gradients in fp32, leaf by leaf, and lays the sums out in
+flat buckets with ``grad_bucket_bytes``.  A data axis, the other TP
+transports, ``moe="auto"``/``"bidir"`` and the other families at tp ≥ 2
+raise, each naming its ROADMAP item; ART-TP is dense-only.
+
+Serving over an expert group: :func:`serve_step` with the decode runner
+of :func:`moe_decode_runner` (each rank decodes its own rows).
 """
 
 from __future__ import annotations
@@ -40,12 +50,14 @@ from repro_torch.core.conduit import (
     ROADMAP_AUTO,
     ROADMAP_OVERLAP,
     Conduit,
+    resolve as conduit_resolve,
     transports as conduit_transports,
 )
 from repro_torch.dist import bucketing, sharding
 from repro_torch.dist.loss import chunked_ce_loss
 from repro_torch.models import artblock
 from repro_torch.models import layers as L
+from repro_torch.models import moe_ep
 from repro_torch.models.decode import decode_step
 from repro_torch.models.model import init_params
 from repro_torch.optim import (
@@ -62,14 +74,18 @@ Cache = Dict[str, Any]
 
 def serve_step(cfg: ModelConfig, params: Params, cache: Cache,
                tokens: torch.Tensor, *,
-               moe_runner: Optional[Any] = None
+               moe_runner: Optional[Any] = None, sample: bool = True
                ) -> Tuple[Cache, torch.Tensor]:
-    """One batched decode step, greedy-sampled on the device: returns the
-    cache and the (B,) int32 next-token ids (``build_serve_step`` with
-    ``sample=True``).  A MoE model decodes with every expert on every row;
-    an expert-parallel ``moe_runner`` raises (``decode_step``)."""
+    """One batched decode step (``build_serve_step``): returns the cache
+    and, greedy-sampled on the device, the (B,) int32 next-token ids, or
+    with ``sample=False`` the (B, V) fp32 logits.  A MoE model decodes
+    with every expert on every row, or by expert parallelism with
+    ``moe_runner`` (:func:`moe_decode_runner`: the cache, tokens and ids
+    are then this rank's rows)."""
     cache, logits = decode_step(cfg, params, cache, tokens,
                                 moe_runner=moe_runner)
+    if not sample:
+        return cache, logits
     return cache, torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -120,19 +136,34 @@ ROADMAP_DATA = ("ROADMAP queue 1 item 7 (distributed steps: a data axis "
 
 @dataclasses.dataclass(frozen=True)
 class TransportPolicy:
-    """The TP traffic class of ``repro.dist.steps.TransportPolicy``: its
-    ``tp`` transport, validated against the reference's transport names
-    as the reference validates it, and the conduit's ``chunk_bytes``.  Of
-    the TP values only ``fused`` is ported; the MoE and cross-pod classes
-    come with the slices that run them."""
+    """The TP and MoE traffic classes of
+    ``repro.dist.steps.TransportPolicy``, each validated against the
+    transports registered for the op it rides (``tp`` all_gather, ``moe``
+    all_to_all) as the reference validates it, the conduit's
+    ``chunk_bytes``, and ``moe_stream_chunks`` (the EP exchange split into
+    that many ART chunks, bit-identical to bulk; None/1 bulk).
+
+    Of the TP values only ``fused`` is ported.  ``moe`` names the
+    transport of the expert exchange: ``ring`` or ``xla`` (the group's
+    gloo all-to-all); ``auto`` and ``bidir`` raise when a step is built.
+    The port has no GSPMD, so where the reference's ``moe="xla"`` keeps
+    every expert on every device, a MoE model on a group of n ≥ 2 here
+    always splits its experts, and ``xla`` is its exchange's transport
+    (the reference holds ``auto`` ≡ ``xla`` ≡ ``ring`` in value).  The
+    cross-pod class comes with the data axis."""
 
     tp: str = "xla"
+    moe: str = "xla"
     chunk_bytes: Optional[int] = None
+    moe_stream_chunks: Optional[int] = None
 
     def __post_init__(self):
-        valid = ("auto",) + conduit_transports("all_gather")
-        if self.tp not in valid:
-            raise ValueError(f"TransportPolicy.tp={self.tp!r} not in {valid}")
+        for cls, op in (("tp", "all_gather"), ("moe", "all_to_all")):
+            name = getattr(self, cls)
+            valid = ("auto",) + conduit_transports(op)
+            if name not in valid:
+                raise ValueError(
+                    f"TransportPolicy.{cls}={name!r} not in {valid}")
 
     def tp_conduit(self, group) -> Conduit:
         """The conduit handle the ART-TP schedules run over."""
@@ -195,24 +226,71 @@ def _art_runner(cfg: ModelConfig, policy: TransportPolicy,
     return runner
 
 
-def _check_path(cfg: ModelConfig, group, scfg: StepConfig,
-                data_axis: int) -> Optional[Callable]:
-    """The block runner of this group's train step (None at tp 1: the
-    model's own blocks, attending through ``layers.blockwise_core``), or
-    the raise that names the ROADMAP item of a path not ported."""
+def _moe_transport(policy: TransportPolicy) -> str:
+    """``policy.moe`` if its all_to_all is ported; ``auto`` raises naming
+    ``ROADMAP_AUTO``, ``bidir`` naming ``ROADMAP_SUBSTRATE``."""
+    if policy.moe == "auto":
+        raise NotImplementedError(
+            f"TransportPolicy.moe='auto' is not ported: {ROADMAP_AUTO}")
+    conduit_resolve("all_to_all", policy.moe)
+    return policy.moe
+
+
+def _moe_runner(cfg: ModelConfig, group, policy: TransportPolicy,
+                decode: bool = False) -> Callable:
+    """The expert-parallel MoE runner of ``models/moe_ep.py`` over
+    ``group`` on ``policy.moe`` (the reference's ``_moe_runner``, and with
+    ``decode`` its ``_moe_decode_runner``); raises where the experts do
+    not split over the group."""
+    transport = _moe_transport(policy)
+    runner = moe_ep.build_moe_ep_runner(
+        cfg, group, transport=transport, chunk_bytes=policy.chunk_bytes,
+        stream_chunks=None if decode else policy.moe_stream_chunks,
+        decode=decode)
+    if runner is None:
+        raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not split "
+                         f"over {group.size} ranks")
+    return runner
+
+
+def moe_decode_runner(cfg: ModelConfig, group,
+                      policy: TransportPolicy) -> Callable:
+    """The latency-mode EP decode runner for :func:`serve_step` on this
+    rank of ``group`` (``decode_step(moe_runner=)``): the rank's decode
+    rows batched with the group's through ``policy.moe``'s all-to-all."""
+    if cfg.family != "moe":
+        raise ValueError(f"{cfg.name} is not a MoE model")
+    return _moe_runner(cfg, group, policy, decode=True)
+
+
+def split_rows(batch: int, group) -> slice:
+    """This rank's rows ``[r·b, (r+1)·b)`` of a batch split over the
+    expert group; a batch the group does not divide raises (a rank holds
+    E/n experts, so no rank can run a leftover row by the dense layer, the
+    reference's fallback)."""
+    n = group.size
+    if batch % n:
+        raise ValueError(f"batch {batch} does not split over the {n} ranks "
+                         f"of the expert group")
+    b = batch // n
+    return slice(group.rank * b, (group.rank + 1) * b)
+
+
+def _check_path(cfg: ModelConfig, group, scfg: StepConfig, data_axis: int
+                ) -> Tuple[Optional[Callable], Optional[Callable]]:
+    """(The dense-block runner, the MoE runner) of this group's train step
+    — (None, None) at tp 1: the model's own blocks, attending through
+    ``layers.blockwise_core`` — or the raise that names the ROADMAP item
+    of a path not ported."""
     if data_axis != 1:
         raise NotImplementedError(
             f"data axis {data_axis} is not ported: {ROADMAP_DATA}")
     if scfg.microbatches < 1:
         raise ValueError(f"microbatches={scfg.microbatches} < 1")
     if group.size == 1:
-        return None
+        return None, None
     if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training at tp {group.size} is not ported: "
-            f"it trains through expert parallelism (the reference's "
-            f"models/moe_ep.py, all_to_all dispatch over an expert axis), "
-            f"ROADMAP queue 1 item 7")
+        return None, _moe_runner(cfg, group, scfg.resolved_transport())
     if cfg.attn_type == "mla":
         raise NotImplementedError(
             f"{cfg.name}: MLA training at tp {group.size} is not ported "
@@ -238,7 +316,13 @@ def _check_path(cfg: ModelConfig, group, scfg: StepConfig,
     if not artblock.supports_art_tp(cfg, group.size):
         raise ValueError(f"{cfg.name} cannot run the ART-TP block at "
                          f"tp={group.size}")
-    return _art_runner(cfg, policy, group)
+    return _art_runner(cfg, policy, group), None
+
+
+def group_axis(cfg: ModelConfig) -> str:
+    """The axis a group of ranks stands for: ``expert`` for a MoE model
+    (its experts split over the group), ``model`` (TP) otherwise."""
+    return "expert" if cfg.family == "moe" else "model"
 
 
 def build_init(cfg: ModelConfig, group, scfg: StepConfig
@@ -246,11 +330,14 @@ def build_init(cfg: ModelConfig, group, scfg: StepConfig
     """``init_fn(seed) -> (params, opt_state)`` on this rank's device:
     every leaf drawn as ``models.model.init_params(cfg, seed)`` draws it
     (so every rank and every group size sees the same full model), then,
-    at tp ≥ 2, cut to this rank's shard (``dist/sharding.py``) layer by
-    layer."""
+    at tp ≥ 2, cut to this rank's shard (``dist/sharding.py``, on the
+    :func:`group_axis` placement) layer by layer."""
+    axis = group_axis(cfg)
+
     def init_fn(seed: int = 0):
         layer_fn = None if group.size == 1 else (
-            lambda layer: sharding.shard_tree(layer, group.rank, group.size))
+            lambda layer: sharding.shard_tree(layer, group.rank, group.size,
+                                              axis))
         params = init_params(cfg, seed, group.device, layer_fn=layer_fn)
         return params, init_opt(params, scfg)
 
@@ -281,15 +368,20 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
     this rank of the group.
 
     ``batch`` is the global batch (tokens and labels (B, S); at tp ≥ 2 S
-    a multiple of the group size; a frontend arch's ``frontend_embeds``
-    (B, N, frontend_dim) at tp 1), the same on every rank.  The step cuts
-    it into ``scfg.microbatches`` microbatches; for each it (1) embeds the
-    rank's sequence shard, rows ``r·S/tp + arange(S/tp)`` (all of them,
-    a VLM's patch rows before them, at tp 1); (2) runs the blocks, the
-    dense ones through the ART-TP runner at tp ≥ 2, every attention
-    through blockwise attention at tp 1; (3) applies the final norm and
-    the chunked CE over its rows, plus ``moe_aux_weight`` × a MoE model's
-    load-balancing loss; (4) runs backward on its own loss
+    a multiple of the group size for a dense model, B a multiple of
+    microbatches × group size for a MoE model; a frontend arch's
+    ``frontend_embeds`` (B, N, frontend_dim) at tp 1), the same on every
+    rank.  The step cuts it into ``scfg.microbatches`` microbatches, m
+    taking rows ``[m·B/M, (m+1)·B/M)``; for each it (1) embeds the rank's
+    part: a dense model's sequence shard, positions ``r·S/tp +
+    arange(S/tp)``, a MoE model's rows ``[r·b, (r+1)·b)`` of the
+    microbatch, whole (all of it, a VLM's patch rows before them, at tp
+    1); (2) runs the blocks, the dense ones through the ART-TP runner at
+    tp ≥ 2, the MoE layers through the expert-parallel runner, every
+    attention through blockwise attention but the ART-TP block's;
+    (3) applies the final norm and the chunked CE over its rows, plus
+    ``moe_aux_weight`` × a MoE model's load-balancing loss (its share of
+    the loss over the group's rows); (4) runs backward on its own loss
     and sums the gradients in fp32, leaf by leaf in place.  Then it
     divides the sums by the microbatch count (in the flat buckets of
     ``dist/bucketing.py`` with ``grad_bucket_bytes``: the same bits),
@@ -300,12 +392,15 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
     the microbatches' mean loss, ce, z_loss and moe_aux and their summed
     token count (the group's), the pre-clip grad norm and the learning
     rate."""
-    runner = _check_path(cfg, group, scfg, data_axis)
-    core = L.blockwise_core(cfg) if group.size == 1 else None
+    runner, moe_runner = _check_path(cfg, group, scfg, data_axis)
+    core = None if runner is not None else L.blockwise_core(cfg)
     acfg = _adamw_config(scfg)
     tp, rank = group.size, group.rank
     n_micro = int(scfg.microbatches)
     loss_group = group if tp > 1 else None
+    axis = group_axis(cfg)
+    # the TP group shards the sequence; the expert group (and tp 1) rows
+    seq_shards = tp if runner is not None else 1
 
     def micro_grads(params, leaves, micro, acc):
         """Backward of one microbatch, its gradients summed in fp32 into
@@ -315,19 +410,22 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
         is held beside the sums."""
         tokens, labels = micro["tokens"], micro["labels"]
         s = tokens.shape[1]
-        if s % tp:
+        if s % seq_shards:
             raise ValueError(f"sequence {s} does not split over {tp} ranks")
-        s_loc = s // tp
-        rows = slice(rank * s_loc, (rank + 1) * s_loc)
-        local = {"tokens": tokens[:, rows].to(group.device),
-                 "labels": labels[:, rows].to(group.device)}
+        s_loc = s // seq_shards
+        cols = (slice(rank * s_loc, (rank + 1) * s_loc)
+                if runner is not None else slice(None))
+        rows = (split_rows(tokens.shape[0], group)
+                if moe_runner is not None else slice(None))
+        local = {"tokens": tokens[rows, cols].to(group.device),
+                 "labels": labels[rows, cols].to(group.device)}
         if micro.get("frontend_embeds") is not None:
-            local["frontend_embeds"] = micro["frontend_embeds"].to(
+            local["frontend_embeds"] = micro["frontend_embeds"][rows].to(
                 group.device)
-        # at tp 1 the rows rope at their own index (a VLM's text after its
+        # whole rows rope at their own index (a VLM's text after its
         # patch rows); the TP runner ropes the gathered sequence
-        positions = (torch.arange(s, device=group.device) if tp > 1
-                     else None)
+        positions = (torch.arange(s, device=group.device)
+                     if runner is not None else None)
         for t in leaves:
             t.requires_grad_(True)
         try:
@@ -335,7 +433,7 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
                 cfg, params, local, seq_chunk=scfg.seq_chunk,
                 z_loss=scfg.z_loss, moe_aux_weight=scfg.moe_aux_weight,
                 group=loss_group, positions=positions, runner=runner,
-                core=core)
+                core=core, moe_ffn=moe_runner)
             loss.backward()
             for i, t in enumerate(leaves):
                 g, t.grad = t.grad, None
@@ -378,7 +476,7 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
                        else sum(m[k] for m in mets) / n_micro)
                    for k in mets[0]}
 
-        places = [sharding.placement(p) for p in paths]
+        places = [sharding.placement(p, axis) for p in paths]
         sharded = None
         if tp > 1:
             rep = [i for i, pl in enumerate(places) if pl == "rep"]

@@ -20,14 +20,16 @@ parameter, a config whose weights exceed the card's memory (the MoE
 archs and nemotron at their published depth).  ``--layers N`` cuts the
 depth and keeps every width: ``--arch llama4-scout-17b-a16e --full
 --layers 8`` (19.69 B parameters, 39.4 GB) fits one card; the published
-depth needs the experts spread over cards (expert parallelism: ROADMAP
-queue 1 item 7).  ``--prefill-chunk 0`` admits with bulk per-request
-prefill; ``--paged`` needs an arch with a paged KV layout (not minicpm3,
-whose cache is its latent rows, nor mamba2, whose cache is its
-constant-size state, nor zamba2, whose cache is that state beside one K/V
-ring a shared application, nor whisper, whose cross K/V stay
-contiguous).  A VLM's ``--max-seq`` must hold its patch rows as well as
-the prompt.
+depth needs its experts split over cards.  Expert parallelism is ported
+(``models/moe_ep.py``: bulk prefill and decode on a rank's rows,
+``dist/rank_tasks.py::ep_serve``), but the ``Server`` over an expert
+group and ``--expert-axis`` are not (ROADMAP queue 1 item 7.6).
+``--prefill-chunk 0`` admits with bulk per-request prefill; ``--paged``
+needs an arch with a paged KV layout (not minicpm3, whose cache is its
+latent rows, nor mamba2, whose cache is its constant-size state, nor
+zamba2, whose cache is that state beside one K/V ring a shared
+application, nor whisper, whose cross K/V stay contiguous).  A VLM's
+``--max-seq`` must hold its patch rows as well as the prompt.
 ``--device cpu`` runs on the CPU (with the kernels' plain versions);
 without it the launcher needs a CUDA device and fails if there is none.
 """
@@ -70,7 +72,8 @@ def check_fits(cfg, device) -> None:
             f"{cfg.name} at {cfg.n_layers} layers needs {need / 1e9:.1f} GB "
             f"of {cfg.param_dtype} weights; the card holds {have / 1e9:.1f} "
             f"GB. Cut the depth with --layers (every width kept), or serve "
-            f"it across cards (expert parallelism: ROADMAP queue 1 item 7)")
+            f"its experts split over cards (the Server over an expert "
+            f"group: ROADMAP queue 1 item 7.6)")
 
 
 def main(argv=None):

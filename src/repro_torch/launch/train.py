@@ -9,7 +9,11 @@ on the card), ``zamba2-7b`` (the hybrid: its Mamba-2 layers as mamba2's,
 its shared attention blocks through blockwise attention, under the
 config's ``remat="dots"`` at full width), and the MoE archs
 ``llama4-scout-17b-a16e`` and ``grok-1-314b`` (every expert on this one
-device, as the reference's ``TransportPolicy.moe="xla"``).  Its data is
+device, as the reference's ``TransportPolicy.moe="xla"``; split over a
+group of rank processes they train by expert parallelism through
+``dist.steps.build_train_step``, ``dist/rank_tasks.py::train``, but not
+through this launcher: ``--expert-axis`` needs the ``Trainer`` over a
+group, ``ROADMAP_TP_CKPT``).  Its data is
 ``SyntheticLM`` tokens, so ``internvl2-2b`` and ``whisper-tiny`` raise:
 their step takes ``batch["frontend_embeds"]`` too, and trains through
 ``dist.steps.build_train_step`` with embeddings the caller draws.

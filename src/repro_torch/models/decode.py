@@ -4,8 +4,9 @@ cache, the hybrid's pair of them and one decode step.
 The counterpart of the dense and MoE GQA, MLA, ``ssm``, ``hybrid`` and
 ``encdec`` paths of ``repro.models.decode``; a MoE layer decodes its one
 token a row with ``layers.moe(dense_combine=True)``, every expert on
-every row.  The layouts are the
-reference's:
+every row, or by expert parallelism (``decode_step(moe_runner=)``: the
+rank's rows sent to the ranks that hold their experts).  The layouts are
+the reference's:
 
 * contiguous cache ``k``/``v`` (L, B, Hkv, S_buf, hd) in the param dtype,
   with per-row ``pos`` (B,) and ``slot_pos`` (B, S_buf) (−1 = empty); ring
@@ -386,7 +387,8 @@ def _decode_mla(cfg: ModelConfig, params: Params, cache: Cache,
 
 
 def _decode_gqa(cfg: ModelConfig, params: Params, cache: Cache,
-                x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor, pos: torch.Tensor,
+                moe_runner: Optional[Any] = None) -> torch.Tensor:
     rows = torch.arange(x.shape[0], device=x.device)
     slot = _stamp_slot(cache, pos)
     slot_pos = cache["slot_pos"]
@@ -410,7 +412,8 @@ def _decode_gqa(cfg: ModelConfig, params: Params, cache: Cache,
             scatter_block_rows(cache["vp"][li], bids, vc[rows, :, slot, :],
                                slot)
         normed = L.rms_norm(lp["ln2"], x, cfg.norm_eps)[:, None]
-        x = x + ffn(cfg, lp, normed, dense_combine=True)[:, 0]
+        x = x + ffn(cfg, lp, normed, dense_combine=True,
+                    moe_ffn=moe_runner)[:, 0]
     return x
 
 
@@ -440,13 +443,13 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     """tokens (B,) → (cache, logits (B, V) fp32).  Every row advances at
     its own ``pos``; the cache is updated in place.  A VLM decodes as the
     dense family (its patches are rows of the cache), a MoE model with
-    every expert on every row (``dense_combine``).  ``moe_runner``, the
-    reference's expert-parallel decode, is not ported: passing one
-    raises."""
-    if moe_runner is not None:
-        raise NotImplementedError(
-            "expert-parallel MoE decode (models/moe_ep.py over an expert "
-            "axis) is not ported: ROADMAP queue 1 item 7")
+    every expert on every row (``dense_combine``), or, with
+    ``moe_runner`` (``models/moe_ep.build_moe_ep_runner(decode=True)``),
+    by expert parallelism: this rank's B rows batched with the group's
+    through the conduit all-to-all, one slot a routed expert, the
+    dense-combine decode's values."""
+    if moe_runner is not None and cfg.family != "moe":
+        raise ValueError(f"{cfg.name}: moe_runner= is for the moe family")
     pos = cache["pos"]
     x = params["embed"][tokens]                              # (B, D)
     if cfg.family == "ssm":
@@ -458,7 +461,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     elif cfg.attn_type == "mla":
         x = _decode_mla(cfg, params, cache, x, pos)
     else:
-        x = _decode_gqa(cfg, params, cache, x, pos)
+        x = _decode_gqa(cfg, params, cache, x, pos, moe_runner)
     cache["pos"] = pos + 1
     x = L.apply_norm(cfg, params["final_norm"], x)
     return cache, _lm_logits(cfg, params, x[:, None, :])[:, 0]

@@ -495,14 +495,32 @@ def moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return y.to(x.dtype)
 
 
-def moe_aux_loss(cfg: ModelConfig, x: torch.Tensor, p: Params) -> torch.Tensor:
+def moe_aux_loss(cfg: ModelConfig, x: torch.Tensor, p: Params,
+                 group=None) -> torch.Tensor:
     """Switch-style load-balancing loss over the whole batch: ``E · Σ_e
     f_e · p_e``, f the share of top-k choices and p the mean router
-    probability of expert e."""
+    probability of expert e.
+
+    With a ``group`` whose ranks hold disjoint rows of the batch, the
+    batch is the group's (the reference's GSPMD loss sees the logical
+    global batch), and a product of local means is not the global one:
+    the choice counts and the row count are summed over the group (they
+    carry no gradient), and this rank returns its share ``E · Σ_e f_g[e]
+    · Σ_local p[e] / N_g``.  The shares sum to the loss over the group's
+    rows, and each rank's gradient through its own probabilities is
+    exact."""
     probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
     _, idx = top_k(probs, cfg.experts_per_token)
     hard = F.one_hot(idx, cfg.n_experts).sum(2).float()
-    return cfg.n_experts * (hard.mean((0, 1)) * probs.mean((0, 1))).sum()
+    if group is None:
+        return cfg.n_experts * (hard.mean((0, 1)) * probs.mean((0, 1))).sum()
+    counts = torch.cat([hard.sum((0, 1)),
+                        hard.new_full((1,), float(hard.shape[0]
+                                                  * hard.shape[1]))])
+    counts = group.all_reduce(counts)
+    rows = counts[-1]
+    return cfg.n_experts * ((counts[:-1] / rows)
+                            * probs.sum((0, 1))).sum() / rows
 
 
 # ---------------------------------------------------------------------------

@@ -349,26 +349,34 @@ def dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
-        dense_combine: bool = False) -> torch.Tensor:
+        dense_combine: bool = False,
+        moe_ffn: Optional[Callable] = None) -> torch.Tensor:
     """A block's feed-forward on its normed rows: the MoE layer for the
-    ``moe`` family (``dense_combine`` in decode), else the MLP."""
+    ``moe`` family (``dense_combine`` in decode; ``moe_ffn(cfg,
+    moe_params, x)`` in its place when given, the expert-parallel runner
+    of ``models/moe_ep.py``), else the MLP."""
     if cfg.family == "moe":
+        if moe_ffn is not None:
+            return moe_ffn(cfg, p["moe"], x)
         return L.moe(cfg, p["moe"], x, dense_combine=dense_combine)
     return L.mlp(cfg, p["mlp"], x)
 
 
 def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-              positions: torch.Tensor, *, core: Optional[Callable] = None
+              positions: torch.Tensor, *, core: Optional[Callable] = None,
+              moe_ffn: Optional[Callable] = None, aux_group=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One MoE block (the reference's ``_moe_block``): attention (through
-    ``core``, :func:`dense_block`'s), then the MoE layer, each added to
-    the residual.  Returns (h, the layer's load-balancing loss over the
-    MoE layer's input)."""
+    ``core``, :func:`dense_block`'s), then the MoE layer (``moe_ffn``, the
+    expert-parallel runner, in place of ``layers.moe`` when given), each
+    added to the residual.  Returns (h, the layer's load-balancing loss
+    over the MoE layer's input: with ``aux_group``, this rank's share of
+    the loss over the group's rows, ``layers.moe_aux_loss``)."""
     h = x + L.attention(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
                         positions, core=core)
     normed = L.apply_norm(cfg, p["ln2"], h)
-    return (h + L.moe(cfg, p["moe"], normed),
-            L.moe_aux_loss(cfg, normed, p["moe"]))
+    return (h + ffn(cfg, p, normed, moe_ffn=moe_ffn),
+            L.moe_aux_loss(cfg, normed, p["moe"], group=aux_group))
 
 
 def cross_block_tail(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -455,7 +463,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    runner: Optional[Callable] = None,
                    core: Optional[Callable] = None,
                    frontend_embeds: Optional[torch.Tensor] = None,
-                   return_aux: bool = False):
+                   return_aux: bool = False,
+                   moe_ffn: Optional[Callable] = None, aux_group=None):
     """tokens (B, S) → final-norm hidden (B, S, D); a VLM's hidden holds
     its ``frontend_tokens`` patch rows first (B, N + S, D), and the
     encoder-decoder's is the decoder's, the encoder run over
@@ -479,9 +488,13 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     its shared application as one body, and each Mamba-2 layer inside it
     again; checkpointing each block alone recomputes the same ops from the
     same saved values, so the values and gradients are the same.  A MoE
-    model runs :func:`moe_block`s (a runner, ART-TP, is dense-only);
-    ``return_aux`` returns (hidden, the sum of its layers' load-balancing
-    losses, fp32; 0 for every other family)."""
+    model runs :func:`moe_block`s (a runner, ART-TP, is dense-only; its
+    group trains by expert parallelism): ``moe_ffn`` is the
+    expert-parallel MoE runner (``models/moe_ep.py``, the reference's
+    ``shardctx.moe_ffn_runner()``), and ``aux_group`` the group whose
+    rows the load-balancing loss is over.  ``return_aux`` returns
+    (hidden, the sum of its layers' load-balancing losses, fp32; this
+    rank's share with ``aux_group``; 0 for every other family)."""
     _check_ported(cfg)
     if cfg.family == "encdec":
         x = _forward_encdec_hidden(cfg, params, tokens, frontend_embeds,
@@ -500,11 +513,12 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     if cfg.family == "moe":
         if runner is not None:
             raise NotImplementedError(
-                f"{cfg.name}: a MoE block takes no TP block runner (MoE "
-                f"across ranks trains through expert parallelism: ROADMAP "
-                f"queue 1 item 7)")
+                f"{cfg.name}: a MoE block takes no TP block runner: MoE "
+                f"across ranks trains by expert parallelism (moe_ffn=, "
+                f"models/moe_ep.py)")
         block = _maybe_remat(cfg, lambda h, lp: moe_block(
-            cfg, lp, h, positions, core=core))
+            cfg, lp, h, positions, core=core, moe_ffn=moe_ffn,
+            aux_group=aux_group))
         for lp in params["layers"]:
             x, a = block(x, lp)
             aux = aux + a
@@ -523,13 +537,14 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None, *,
             runner: Optional[Callable] = None,
-            core: Optional[Callable] = None, return_aux: bool = False):
+            core: Optional[Callable] = None, return_aux: bool = False,
+            moe_ffn: Optional[Callable] = None):
     """tokens (B, S) → fp32 logits (B, S, V) (a VLM's: (B, N + S, V), its
     patch rows first); ``return_aux``: (logits, the MoE load-balancing
-    loss summed over layers)."""
+    loss summed over layers).  ``moe_ffn`` is :func:`forward_hidden`'s."""
     out = forward_hidden(cfg, params, tokens, runner=runner, core=core,
                          frontend_embeds=frontend_embeds,
-                         return_aux=return_aux)
+                         return_aux=return_aux, moe_ffn=moe_ffn)
     if return_aux:
         return _lm_logits(cfg, params, out[0]), out[1]
     return _lm_logits(cfg, params, out)

@@ -62,7 +62,7 @@ unmasked.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -110,25 +110,29 @@ def _ring_fill(seq_t: torch.Tensor, sb: int, seq_axis: int) -> torch.Tensor:
 
 
 def _dense_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                 positions: torch.Tensor, sb: int):
+                 positions: torch.Tensor, sb: int,
+                 moe_ffn: Optional[Callable] = None):
     """One dense (or MoE) block over the prompt: (x, its K/V ring-filled
     to ``sb`` slots in the param dtype).  A MoE layer's capacity is
-    bookkept over the whole prompt."""
+    bookkept over the whole prompt, a row at a time; ``moe_ffn`` is the
+    expert-parallel runner in its place."""
     dt = L.pdtype(cfg)
     normed = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
     a, (k, v) = L.attention(cfg, lp["attn"], normed, positions,
                             return_kv=True)
     x = x + a
-    x = x + ffn(cfg, lp, L.rms_norm(lp["ln2"], x, cfg.norm_eps))
+    x = x + ffn(cfg, lp, L.rms_norm(lp["ln2"], x, cfg.norm_eps),
+                moe_ffn=moe_ffn)
     return (x, _ring_fill(k, sb, seq_axis=2).to(dt),
             _ring_fill(v, sb, seq_axis=2).to(dt))
 
 
 def _prefill_gqa(cfg: ModelConfig, params: Params, x: torch.Tensor,
-                 positions: torch.Tensor, sb: int):
+                 positions: torch.Tensor, sb: int,
+                 moe_ffn: Optional[Callable] = None):
     ks, vs = [], []
     for lp in params["layers"]:
-        x, k, v = _dense_layer(cfg, lp, x, positions, sb)
+        x, k, v = _dense_layer(cfg, lp, x, positions, sb, moe_ffn)
         ks.append(k)
         vs.append(v)
     slot_pos, _ = _slot_map(x.shape[1], sb, x.device)
@@ -235,12 +239,21 @@ def _prefill_encdec(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None, *,
-            cache_len: Optional[int] = None) -> Tuple[Cache, torch.Tensor]:
+            cache_len: Optional[int] = None,
+            moe_ffn: Optional[Callable] = None
+            ) -> Tuple[Cache, torch.Tensor]:
     """Run the prompt (B, S), build the decode cache, return next-token
     logits (B, V).  ``frontend_embeds``: a VLM's patches (B, N,
     frontend_dim), which take the first N rows, or the encoder-decoder's
     frames (B, S_enc, frontend_dim).  ``cache_len``: ring capacity
-    (default: the rows prefilled; the SSM cache has none)."""
+    (default: the rows prefilled; the SSM cache has none).
+
+    ``moe_ffn`` runs a MoE model's layers by expert parallelism
+    (``models/moe_ep.py``) on a rank that holds E/n experts and its own
+    rows of the batch: routing and capacity are per row, so the result
+    is ``layers.moe``'s on the same rows."""
+    if moe_ffn is not None and cfg.family != "moe":
+        raise ValueError(f"{cfg.name}: moe_ffn= is for the moe family")
     if cfg.family == "encdec":
         sb = kv_buf_len(cfg, cache_len or tokens.shape[1])
         x, cache = _prefill_encdec(cfg, params, tokens, frontend_embeds, sb)
@@ -258,9 +271,12 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     else:
         sb = kv_buf_len(cfg, cache_len or s_total)
         positions = torch.arange(s_total, device=x.device)
-        body = (_prefill_hybrid if cfg.family == "hybrid" else
-                _prefill_mla if cfg.attn_type == "mla" else _prefill_gqa)
-        x, cache = body(cfg, params, x, positions, sb)
+        if cfg.family == "hybrid":
+            x, cache = _prefill_hybrid(cfg, params, x, positions, sb)
+        elif cfg.attn_type == "mla":
+            x, cache = _prefill_mla(cfg, params, x, positions, sb)
+        else:
+            x, cache = _prefill_gqa(cfg, params, x, positions, sb, moe_ffn)
     return (_finish_cache(cache, tokens.shape[0], s_total, x.device),
             _chunk_logits(cfg, params, x))
 

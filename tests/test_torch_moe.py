@@ -14,8 +14,8 @@ reference's chunks (chunk-local capacity) and, without overflow, against
 bulk; decode steps at mixed positions; the parameter count at full
 depth, at the cut depth and active-only; the bridge's per-layer dicts;
 token identity with the reference ``Server`` (chunked), and paged ≡
-contiguous; and the refusals of what is expert-parallel (ROADMAP queue 1
-item 7).
+contiguous; and the refusals of what of expert parallelism is not
+ported (ROADMAP queue 1 items 6 and 7).
 
 The reference's parameters cross to the port through
 ``repro_torch.bridge``; inputs are numpy arrays from a seed.  fp32
@@ -452,34 +452,47 @@ def test_tokens_equal_reference_server(served, mode):
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_expert_parallel_paths_raise_naming_the_roadmap(name, monkeypatch):
-    """MoE training across ranks (the step at tp 2, before it builds
-    anything; tp 1 trains, every expert on the one device) and an
-    expert-parallel decode runner raise, naming ROADMAP queue 1 item 7;
-    ``launch/serve.py --full`` at the published depth refuses before it
-    draws a parameter, stating the bytes, and passes the depth cut on."""
+    """Expert parallelism trains and decodes (``tests/test_torch_moe_ep.py``);
+    what of it still raises names its ROADMAP item: the ``auto`` MoE
+    transport (``ROADMAP_AUTO``, a preset's own policy), ``bidir``
+    (``ROADMAP_SUBSTRATE``) and a data axis (``ROADMAP_DATA``), each when
+    the step is built; ``launch/serve.py --full`` at the published depth
+    refuses before it draws a parameter, stating the bytes and naming the
+    ``Server`` over an expert group (item 7.6), and passes the depth cut
+    on."""
+    import re
+
+    from repro_torch.configs import EP_PRESETS
+    from repro_torch.core.conduit import ROADMAP_AUTO, ROADMAP_SUBSTRATE
     from repro_torch.dist.group import Group
-    from repro_torch.dist.steps import StepConfig, build_train_step, serve_step
+    from repro_torch.dist.steps import (
+        ROADMAP_DATA,
+        StepConfig,
+        TransportPolicy,
+        build_train_step,
+    )
     from repro_torch.launch import serve as launch_serve
 
     cfg = get_config(name).reduced()
-    scfg = StepConfig(seq_chunk=8, warmup_steps=1)
-    assert callable(build_train_step(
-        cfg, Group(rank=0, size=1, device=torch.device("cpu")), scfg))
-    with pytest.raises(NotImplementedError, match="moe_ep.*item 7"):
-        build_train_step(cfg, Group(rank=0, size=2,
-                                    device=torch.device("cpu")), scfg)
-    cache = decode.init_cache(cfg, 1, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve_step(cfg, {}, cache, torch.zeros(1, dtype=torch.long),
-                   moe_runner=object())
+    group = Group(rank=0, size=2, device=torch.device("cpu"))
+    preset = next(p for p in EP_PRESETS.values() if p.arch == name)
+    assert callable(build_train_step(cfg, group, StepConfig(
+        transport=TransportPolicy(moe="ring"))))
+    for scfg, match in ((preset.step, ROADMAP_AUTO),
+                        (StepConfig(transport=TransportPolicy(moe="bidir")),
+                         ROADMAP_SUBSTRATE)):
+        with pytest.raises(NotImplementedError, match=re.escape(match)):
+            build_train_step(cfg, group, scfg)
+    with pytest.raises(NotImplementedError, match=re.escape(ROADMAP_DATA)):
+        build_train_step(cfg, group, StepConfig(), data_axis=2)
 
     def no_init(*a, **k):
         raise AssertionError("a parameter was drawn")
 
     monkeypatch.setattr(model, "init_params", no_init)
-    with pytest.raises(SystemExit, match=r"48 layers needs 215\.5 GB"
+    with pytest.raises(SystemExit, match=(r"48 layers needs 215\.5 GB"
                        if name.startswith("llama4") else
-                       r"64 layers needs 633\.0 GB"):
+                       r"64 layers needs 633\.0 GB") + r".*item 7\.6"):
         launch_serve.main(["--device", "cpu", "--arch", name, "--full"])
     cut = "8" if name.startswith("llama4") else "2"
     with pytest.raises(AssertionError, match="a parameter was drawn"):
