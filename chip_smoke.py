@@ -2385,7 +2385,9 @@ def phase_tp_reduced():
     against the CPU, same parameters (drawn on the CPU) and batches; and
     on the same two pools phase 9b, expert parallelism (``phase_ep_*``),
     each dense reference computed in this process while the ranks hold
-    nothing large (the served model's before the pools start)."""
+    nothing large (the served model's before the pools start); then, on
+    the four-rank pool, phase 9c, the data axis (:func:`phase_grid`).
+    Returns 9c's ring launches, all ranks and steps."""
     from repro_torch.dist import rank_tasks
     from repro_torch.dist.group import RankPool
 
@@ -2414,6 +2416,10 @@ def phase_tp_reduced():
                 phase_ep_layer(pool, ep_layer_dense(smi), smi)
                 release_shared(pool)
             ep_s += time.perf_counter() - t0
+            if tp == 4:
+                t0 = time.perf_counter()
+                grid_launches = phase_grid(pool, smi)
+                grid_s = time.perf_counter() - t0
         worst = {"metric": 0.0, "mean": 0.0, "beyond": 0}
         for rank, (a, b) in enumerate(zip(card, cpu)):
             if not sum(s["ag_matmul_ring"] + s["rs_matmul_ring"]
@@ -2437,6 +2443,218 @@ def phase_tp_reduced():
     print(f"[smoke] phase 9b expert parallelism: {ep_s:.1f}s (the dense "
           f"references in this process and the EP runs on phase 9's "
           f"pools; {smi})", flush=True)
+    print(f"[smoke] phase 9c the data axis: {grid_s:.1f}s on phase 9's "
+          f"four-rank pool ({smi})", flush=True)
+    return grid_launches
+
+
+#: phase 9c: the data axis.  h2o-danube-1.8b at full width, its depth cut
+#: to 8 of 24 layers (~455 M parameters a rank at model 2, ~9 GB of
+#: training state a rank, ~36 GB for the four ranks before activations;
+#: the full depth, ~19 GB a rank, does not fit four ranks on one card),
+#: on a data 2 × model 2 grid, one 2049-token sequence a data rank
+GRID_ARCH, GRID_LAYERS, GRID_SEQ = "h2o-danube-1.8b", 8, 2049
+GRID_SHAPE = dict(data=2, model=2)
+GRID_BUCKET_KB = 64 << 10           # the data sync's buckets: 64 MiB
+GRID_REDUCED = (("h2o-danube-1.8b", dict(data=2, model=2), {}),
+                ("h2o-danube-1.8b", dict(data=4, model=1), {}),
+                ("llama4-scout-17b-a16e", dict(data=2, expert=2),
+                 dict(moe_transport="ring", global_batch=8,
+                      microbatches=2)))
+
+
+def phase_grid(pool, smi):
+    """9c: the data axis on the four-rank pool.  (a) full-width
+    h2o-danube-1.8b (8 layers, bf16, the fused ring in each model line)
+    at data 2 × model 2 through the Trainer: 2 steps with a checkpoint at
+    step 2, the uninterrupted step 3 (profiled), then a fresh Trainer
+    that restores step 2, takes step 3 bit for bit and checkpoints it;
+    (b) the data
+    line's int8 sync of (a)'s step-0 gradients; (c) reduced configs, card
+    against CPU in fp32.  Returns the ring launches of (a)'s steps."""
+    import math
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import rank_tasks
+
+    cfg = get_config(GRID_ARCH)
+    held = pool.run(rank_tasks.free_memory)
+    print(f"[grid] before 9c the ranks hold "
+          f"{', '.join('%.2f' % (h['reserved'] / 2**30) for h in held)} GiB "
+          f"reserved ({smi})", flush=True)
+    ckpt_dir = ROOT / "build" / "smoke_grid_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(cfg_overrides=dict(n_layers=GRID_LAYERS),
+              step_overrides=dict(seq_chunk=512, warmup_steps=1),
+              dataset=dict(seq_len=GRID_SEQ, global_batch=2))
+    t0 = time.perf_counter()
+    # no interval save: each Trainer's checkpoint is its final save, the
+    # first's at step 2, the restored one's at step 3
+    res = pool.run(rank_tasks.train_grid, GRID_ARCH, steps=3,
+                   ckpt_dir=str(ckpt_dir), ckpt_interval=100,
+                   grad_bucket_kb=GRID_BUCKET_KB, resume_check=True,
+                   profile=True, log=False, cleanup=True,
+                   **GRID_SHAPE, **kw)
+    tag = (f"[grid] {GRID_ARCH} full width at {GRID_LAYERS} layers, data 2 "
+           f"x model 2")
+    print(f"{tag}: Trainer run {time.perf_counter() - t0:.1f}s ({smi})",
+          flush=True)
+    want = tp_launches(GRID_LAYERS, 2, cfg.remat, True)
+    for r in res:
+        if not r["resumed"]:
+            fail(f"{tag} rank {r['coords']}: the restored step 3 differs "
+                 f"from the uninterrupted one")
+        if [s for s, _ in r["ckpt_seconds"]] != [2, 3]:
+            fail(f"{tag} rank {r['coords']}: checkpoints at steps "
+                 f"{[s for s, _ in r['ckpt_seconds']]}, expected [2, 3]")
+        for k, got in enumerate(r["launches"] + [r["next_launches"]]):
+            if got != want:
+                fail(f"{tag} rank {r['coords']} step {k}: cc_matmul "
+                     f"launches {got}, expected {want}")
+    for m in (0, 1):
+        line = [r["digests"] for r in res if r["coords"][1] == m]
+        if any(d != line[0] for d in line[1:]):
+            fail(f"{tag}: parameters differ across the data ranks of "
+                 f"model rank {m}")
+    hist = res[0]["history"]
+    if not all(math.isfinite(h["loss"]) for h in hist) or abs(
+            hist[0]["loss"] - math.log(cfg.vocab_size)) > 0.5:
+        fail(f"{tag}: losses {[h['loss'] for h in hist]}")
+    for k, h in enumerate(hist):
+        lines = [r["line_stats"][k] for r in res]
+        parts = []
+        for axis in ("data", "model"):
+            wire = max(ls[axis]["wire_s"] for ls in lines)
+            staged = sum(ls[axis]["staged_bytes"] for ls in lines)
+            parts.append(f"{axis} line wire {wire:.3f}s, staged "
+                         f"{staged / 2**30:.3f} GiB")
+        print(f"{tag} step {k + 1}{' (restored run)' if k == 2 else ''}: "
+              f"{h['step_time_s']:.3f}s (the slowest rank), loss "
+              f"{h['loss']:.6f}, grad_norm {h['grad_norm']:.6f}; "
+              f"{'; '.join(parts)} (the slowest rank's wire, all ranks' "
+              f"bytes)", flush=True)
+    r0 = res[0]
+    nxt = "; ".join(
+        f"{axis} line wire {max(r['next_line_stats'][axis]['wire_s'] for r in res):.3f}s"
+        for axis in ("data", "model"))
+    print(f"{tag}: uninterrupted step 3 {max(r['next_seconds'] for r in res):.3f}s"
+          f" under torch.profiler ({nxt}); checkpoint writes (gather + write + "
+          f"barrier, rank 0) {[(s, round(t, 3)) for s, t in r0['ckpt_seconds']]}"
+          f" s; restore {max(r['restore_seconds'] for r in res):.3f}s (the "
+          f"slowest rank, a warm read); peak memory a rank "
+          f"{', '.join('%.2f' % (r['peak_bytes'] / 2**30) for r in res)} GiB; "
+          f"restored step 3 == uninterrupted bit for bit on every rank; "
+          f"{len(r0['digests'])} leaves bitwise equal across data ranks",
+          flush=True)
+    prof = [r.get("profile") for r in res]
+    wall = max(r["next_seconds"] for r in res)
+    if all(p and p["kernel_ms"] > 0 for p in prof):
+        union = rank_tasks.union_spans(
+            [sp for p in prof for sp in p["kernel_spans"]])
+        extent = ((union[-1][1] - union[0][0]) / 1e9 if union
+                  else float("inf"))
+        if extent <= 1.05 * wall:
+            busy = sum(e - s for s, e in union) / 1e9
+            print(f"{tag} step 3: the union of the ranks' kernel spans is "
+                  f"{busy:.4f}s of the {wall:.3f}s wall "
+                  f"({100 * (1 - busy / wall):.2f}% of the wall with no "
+                  f"kernel of any rank in flight); cc_matmul hop products "
+                  f"{sum(p['cc_ms'] for p in prof) / 1e3:.3f}s, all kernels "
+                  f"{sum(p['kernel_ms'] for p in prof) / 1e3:.3f}s, copies "
+                  f"{sum(p['copy_ms'] for p in prof) / 1e3:.3f}s (summed "
+                  f"over the ranks)", flush=True)
+        else:
+            print(f"{tag} step 3: the ranks' kernel spans lie {extent:.2f}s "
+                  f"apart against {wall:.2f}s wall: the union not measured",
+                  flush=True)
+    else:
+        print(f"{tag}: torch.profiler saw no device time: the idle share "
+              f"not measured", flush=True)
+    launches = {n: sum(sum(step[n] for step in r["launches"])
+                       + r["next_launches"][n] for r in res) for n in want}
+
+    # (b) the data line's sync of the step-0 gradients, int8 and exact
+    t0 = time.perf_counter()
+    sync = pool.run(rank_tasks.grid_sync, GRID_ARCH,
+                    bucket_bytes=GRID_BUCKET_KB << 10, **GRID_SHAPE, **kw)
+    for r in sync:
+        runs = r["runs"]
+        exact, bulk, stream = (runs["exact"], runs["int8 bulk"],
+                               runs["int8 streamed"])
+        if bulk["digest"] != stream["digest"]:
+            fail(f"[grid-sync] rank {r['coords']}: int8 streamed != bulk")
+        if not (bulk["max_err"] <= 2 * r["scale"] + 1e-6
+                and bulk["max_residual"] <= r["scale"] + 1e-6):
+            fail(f"[grid-sync] rank {r['coords']}: mean error "
+                 f"{bulk['max_err']} or residual {bulk['max_residual']} "
+                 f"beyond the bound (scale {r['scale']})")
+        reckoned = r["wire_int8"] / r["wire_fp32"]
+        for kind in ("staged_bytes", "sent_bytes"):
+            ratio = bulk[kind] / exact[kind]
+            if abs(ratio / reckoned - 1) > 1e-3:
+                fail(f"[grid-sync] rank {r['coords']}: {kind} int8 / fp32 "
+                     f"{ratio}, bucket_wire_bytes {reckoned}")
+    r = sync[0]
+    runs = r["runs"]
+
+    def ratio(kind):
+        fp32 = runs["exact"][kind]
+        return "%.4f" % (runs["int8 bulk"][kind] / fp32) if fp32 else "-"
+
+    print(f"[grid-sync] step-0 gradients, {r['elements'] / 1e6:.1f}M fp32 a "
+          f"rank in {GRID_BUCKET_KB >> 10} MiB buckets over each data line "
+          f"of 2 (exact: the step's own mean_buckets): " + "; ".join(
+              f"{name} {run['seconds']:.3f}s, wire {run['wire_s']:.3f}s, "
+              f"staged {run['staged_bytes'] / 2**30:.3f} GiB, sent "
+              f"{run['sent_bytes'] / 2**30:.3f} GiB"
+              for name, run in runs.items())
+          + f"; int8/fp32 sent {ratio('sent_bytes')}, staged "
+          f"{ratio('staged_bytes')} (bucket_wire_bytes "
+          f"{r['wire_int8'] / r['wire_fp32']:.4f}); "
+          f"int8 mean max |err| {max(x['runs']['int8 bulk']['max_err'] for x in sync):.3g}"
+          f" within 2 x scale {2 * max(x['scale'] for x in sync):.3g}, "
+          f"residual max {max(x['runs']['int8 bulk']['max_residual'] for x in sync):.3g};"
+          f" streamed == bulk bit for bit; "
+          f"{time.perf_counter() - t0:.1f}s ({smi})", flush=True)
+
+    # (c) reduced configs in fp32, card against CPU
+    t = 1e-4
+    for arch, grid, extra in GRID_REDUCED:
+        extra = dict(extra)
+        batch = extra.pop("global_batch", 4)
+        micro = extra.pop("microbatches", 1)
+        rkw = dict(steps=2, reduced=True, seed=0, init_device="cpu",
+                   step_overrides=dict(seq_chunk=8, warmup_steps=1,
+                                       microbatches=micro),
+                   data=dict(seq_len=17, global_batch=batch),
+                   return_params=True, grid=grid, **extra)
+        t0 = time.perf_counter()
+        card = pool.run(rank_tasks.train, arch, device="cuda", **rkw)
+        cpu = pool.run(rank_tasks.train, arch, device="cpu", **rkw)
+        name = f"[grid-reduced] {arch} " + " x ".join(
+            f"{a} {n}" for a, n in grid.items())
+        worst = {"metric": 0.0, "mean": 0.0, "beyond": 0}
+        for rank, (a, b) in enumerate(zip(card, cpu)):
+            for ma, mb in zip(a["metrics"], b["metrics"]):
+                for key in ("loss", "grad_norm", "moe_aux"):
+                    if mb.get(key):
+                        rel = abs(ma[key] - mb[key]) / abs(mb[key])
+                        worst["metric"] = max(worst["metric"], rel)
+            params_rule(name, rank, a["params"], b["params"], worst, t)
+        if worst["metric"] > t:
+            fail(f"{name}: card vs CPU metrics differ by {worst['metric']}")
+        inner = {}
+        for a in card:
+            inner.setdefault(a["coords"][1], []).append(a["digests"])
+        if any(d != v[0] for v in inner.values() for d in v[1:]):
+            fail(f"{name}: parameters differ across data ranks")
+        print(f"{name} fp32, 2 steps, card vs CPU: metrics max rel "
+              f"{worst['metric']:.3g} (tol {t}); params mean |d|/mean |p| "
+              f"max {worst['mean']:.3g}; losses "
+              f"{[round(m['loss'], 6) for m in card[0]['metrics']]}; "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return launches
 
 
 #: phase 9b: expert parallelism, llama4-scout at full width
@@ -3080,7 +3298,7 @@ class NoCheckpoints:
     def save(self, step, tree, *, extra=None):
         return "(not written)"
 
-    def restore_or_none(self, template, device=None):
+    def restore_or_none(self, template, device=None, **kw):
         return None
 
 
@@ -3961,7 +4179,8 @@ def main() -> int:
     cc_main = timed("6 hop kernels", phase_cc_kernels)
     cc_main.update(timed("7 ring kernels", phase_ring_kernels))
     cc_launches = timed("8 tp training", phase_tp_train)
-    timed("9 reduced tp, 9b expert parallelism", phase_tp_reduced)
+    grid_launches = timed("9 reduced tp, 9b expert parallelism, 9c data "
+                          "axis", phase_tp_reduced)
     timed("10 smollm training", phase_train_1gpu, card_name_and_limit())
     m2_train = timed("10b mamba2 training", phase_train_mamba2_alone)
     timed("10b reduced zamba2 tp-1", tp1_card_vs_cpu,
@@ -4038,7 +4257,9 @@ def main() -> int:
             name=f"cc_matmul.{entry}", route="cuda",
             source="src/repro_torch/kernels/cc_matmul/csrc/cc_matmul.cu",
             replaces=f"src/repro/kernels/cc_matmul/kernel.py:{line}",
-            launches=cc_launches[entry], **cc_main[entry]))
+            launches=cc_launches[entry], **cc_main[entry],
+            **({"grid_launches": grid_launches[entry]}
+               if entry.endswith("_ring") else {})))
     kernels.append(dict(
         name="matmul", route="cuda",
         source="src/repro_torch/kernels/matmul/csrc/matmul.cu",

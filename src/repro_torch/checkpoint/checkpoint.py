@@ -21,7 +21,9 @@ bf16 leaves are stored as a ``uint16`` view with ``"bfloat16"`` as their
 logical dtype (numpy has no bf16; this module keeps its own copy of that
 view).  Python numbers in a tree (AdamW's ``step``) are stored as 0-d
 arrays and restored as numbers.  Restore places the tensors on the
-caller's device.
+caller's device, or copies them into the template's own tensors
+(``into``); ``cut`` restores a rank's part of each logical leaf (a grid's
+shard, ``runtime/trainer.py``), reading the leaf through a memory map.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import json
 import os
 import shutil
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +62,8 @@ def _to_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
 
 
 def _from_numpy(arr: np.ndarray, logical: str) -> torch.Tensor:
+    if not arr.flags.writeable:         # a memory map: read it
+        arr = np.array(arr)
     if logical == _BF16:
         return torch.from_numpy(
             np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
@@ -141,12 +145,19 @@ def list_checkpoints(directory: str) -> List[Tuple[int, str]]:
 
 def load_checkpoint(directory: str, template: Any, *,
                     step: Optional[int] = None,
-                    device: DeviceLike = None) -> Tuple[Any, Dict[str, Any]]:
+                    device: DeviceLike = None,
+                    cut: Optional[Callable[[Any, np.ndarray],
+                                           np.ndarray]] = None,
+                    into: bool = False) -> Tuple[Any, Dict[str, Any]]:
     """Restore the latest committed checkpoint (or ``step``) into the
     structure of ``template``, a tree of tensors and numbers.  Returns
     (tree, manifest).  Each tensor comes back with the stored dtype and
-    bits, on ``device`` (default: the template leaf's device); a number
-    comes back as the template's type."""
+    bits, on ``device`` (default: the template leaf's device), or with
+    ``into`` copied into the template's tensor, which comes back (a
+    stored dtype other than the template's raises: a copy would round
+    it); a number comes back as the template's type.  ``cut(path, array)``
+    takes the stored (logical) array, read through a memory map, to the
+    part of it this template holds."""
     ckpts = list_checkpoints(directory)
     if not ckpts:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -166,14 +177,22 @@ def load_checkpoint(directory: str, template: Any, *,
         entry = by_name.get(name)
         if entry is None:
             raise KeyError(f"leaf {name!r} missing from checkpoint {path}")
-        t = _from_numpy(np.load(os.path.join(path, entry["file"])),
-                        entry["dtype"])
+        arr = np.load(os.path.join(path, entry["file"]),
+                      mmap_mode="r" if cut is not None else None)
+        if cut is not None:
+            arr = cut(p, arr)
+        t = _from_numpy(arr, entry["dtype"])
         want = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
         if tuple(t.shape) != want:
             raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != "
                              f"template {want}")
         if not isinstance(leaf, torch.Tensor):
             return type(leaf)(t.item())
+        if into:
+            if t.dtype != leaf.dtype:
+                raise ValueError(f"{name}: checkpoint dtype {t.dtype} != "
+                                 f"template {leaf.dtype}")
+            return leaf.copy_(t)
         return t.to(leaf.device if device is None else device)
 
     return map_leaves(restore, template), manifest
@@ -195,9 +214,13 @@ class CheckpointManager:
         self._gc()
         return path
 
-    def restore_or_none(self, template: Any, device: DeviceLike = None):
+    def restore_or_none(self, template: Any, device: DeviceLike = None,
+                        **kw):
+        """:func:`load_checkpoint` of the latest step (``kw``: its
+        ``cut`` and ``into``), or None when there is none."""
         try:
-            return load_checkpoint(self.directory, template, device=device)
+            return load_checkpoint(self.directory, template, device=device,
+                                   **kw)
         except FileNotFoundError:
             return None
 

@@ -1,5 +1,6 @@
-"""Size-targeted gradient buckets (``repro.dist.bucketing``): the part the
-microbatch accumulation of ``dist/steps.py`` uses.
+"""Size-targeted gradient buckets (``repro.dist.bucketing``): the layout
+the microbatch accumulation of ``dist/steps.py`` sums into and the data
+axis's bucketed sync (``dist/grad_sync.py``) ships.
 
 A plan puts whole leaves, in flatten order (``dist.sharding.leaves``:
 dict keys sorted, lists in order, the reference's pytree order), into
@@ -85,6 +86,18 @@ def bucket_plan(tree: Any, *, target_bytes: int = DEFAULT_BUCKET_BYTES,
         tuple(buckets))
 
 
+def span_scaled_target(target_bytes: int, old_span: int,
+                       new_span: int) -> int:
+    """The bucket target re-fitted to a changed sync span: a ring
+    all-reduce of a ``target_bytes`` bucket over ``n`` ranks puts
+    ``target/n`` bytes on each hop, so holding the per-hop message when the
+    data axis goes from ``old_span`` to ``new_span`` ranks scales the
+    target by ``new_span / old_span`` (floored, at least 1)."""
+    if old_span < 1 or new_span < 1:
+        raise ValueError(f"spans must be >= 1 ({old_span} -> {new_span})")
+    return max(1, int(target_bytes) * int(new_span) // int(old_span))
+
+
 def pack(tree: Any, plan: BucketPlan,
          dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
     """``tree``'s leaves in the plan's buckets: one 1-D ``dtype`` buffer a
@@ -129,4 +142,4 @@ def unpack(buffers: Sequence[torch.Tensor], plan: BucketPlan,
 
 
 __all__ = ["DEFAULT_BUCKET_BYTES", "BucketPlan", "bucket_plan", "pack",
-           "unpack"]
+           "span_scaled_target", "unpack"]

@@ -1,26 +1,34 @@
-"""The TP process group: the port's counterpart of the reference's
-``model`` mesh axis (``launch/mesh.py::make_host_mesh``).
+"""Process groups of rank processes and grids of them: the port's
+counterpart of the reference's device mesh (``launch/mesh.py``).
 
-Three things live here:
+Four things live here:
 
-* :class:`Group` — one rank's handle on a gloo process group: its rank,
-  the group size, its device (``cuda:0`` on the card, ``cpu`` when
-  asked), the wire every collective of the port rides, and, on the card,
-  the peer memory the ring ops forward through (``peer``: each rank
-  maps its ring neighbours' channels, ``kernels/cc_matmul/peer.py``).  On
-  the card the wire is gloo over host memory, and the staging is
-  explicit: each message is copied from the device into a host buffer,
-  sent, received into a host buffer and copied back to the device.
-  ``stats`` counts the ring hops (over the wire or the peer memory), the
-  bytes staged through the host, the bytes forwarded through peer memory,
-  the hop products the whole-ring ops launched (``ring_kernels``, as the
-  launcher counts its launches: n a ring call) and the host seconds spent in the wire (``wire_s``: from the
-  moment the device has produced the payload to the moment the arrival is
-  back on the device).
-  :meth:`Group.permute` is the reference's ``lax.ppermute`` with any
-  static ``(src, dst)`` list; :meth:`Group.permute_start` starts one and
-  returns a :class:`Pending` to wait on, so a caller can compute while
-  the message is in flight (the ART overlap).
+* :class:`Group` — one rank's handle on a gloo process group: its rank
+  in the group, the group size, its device (``cuda:0`` on the card,
+  ``cpu`` when asked), the wire every collective of the port rides, and,
+  on the card, the peer memory the ring ops forward through (``peer``:
+  each rank maps its ring neighbours' channels,
+  ``kernels/cc_matmul/peer.py``).  On the card the wire is gloo over
+  host memory, and the staging is explicit: each message is copied from
+  the device into a host buffer, sent, received into a host buffer and
+  copied back to the device.  ``stats`` counts the ring hops (over the
+  wire or the peer memory), the bytes staged through the host, the bytes
+  this rank sent point to point (``sent_bytes``: the payloads of the
+  ring transports' hops, counted on the CPU too), the bytes forwarded
+  through peer memory, the hop products the whole-ring ops launched
+  (``ring_kernels``, as the launcher counts its launches: n a ring call)
+  and the host seconds spent in the wire (``wire_s``: from the moment the
+  device has produced the payload to the moment the arrival is back on
+  the device).  :meth:`Group.permute` is the reference's ``lax.ppermute``
+  with any static ``(src, dst)`` list; :meth:`Group.permute_start` starts
+  one and returns a :class:`Pending` to wait on, so a caller can compute
+  while the message is in flight (the ART overlap).
+* :class:`Grid` — one rank's place in a grid of ranks ``("data",
+  "model")`` or ``("data", "expert")``: its coordinates, the world group
+  and one :class:`Group` for each axis line it lies on, each line with
+  its own ``stats`` (and, on the card, a model line its own peer
+  memory).  :func:`grid_lines` builds the lines; ``launch/mesh.py``'s
+  ``make_host_mesh`` is the entry point.
 * :func:`init_group` — joins the gloo group through ``file://`` in a
   temporary directory, so no network is needed.
 * :class:`RankPool` — spawns N rank processes (the ``spawn`` start
@@ -53,7 +61,7 @@ GROUP_TIMEOUT_S = 900
 
 
 def _new_stats() -> Dict[str, float]:
-    return {"hops": 0, "staged_bytes": 0, "peer_bytes": 0,
+    return {"hops": 0, "staged_bytes": 0, "sent_bytes": 0, "peer_bytes": 0,
             "ring_kernels": 0, "wire_s": 0.0}
 
 
@@ -89,12 +97,15 @@ class Pending:
 
 @dataclasses.dataclass
 class Group:
-    """One rank's view of the TP group (the ``model`` axis).
+    """One rank's view of a process group: the world, or one line of a
+    :class:`Grid` (a ``model``, ``expert`` or ``data`` axis).
 
     ``pg`` is None only for a group that never communicates (size-1 or
     argument-checking uses); every collective needs it.  ``peer`` is the
     :class:`PeerMemory` of a card group whose ranks map each other's
-    channels, else None."""
+    channels, else None.  ``ranks`` are the members' world ranks in group
+    order (None: the group is the world), which point-to-point calls
+    address."""
 
     rank: int
     size: int
@@ -102,7 +113,21 @@ class Group:
     pg: Any = None
     stats: Dict[str, float] = dataclasses.field(default_factory=_new_stats)
     peer: Optional[PeerMemory] = None
+    ranks: Optional[Tuple[int, ...]] = None
     _permutes: int = dataclasses.field(default=0, repr=False)
+
+    def _world(self, r: int) -> int:
+        """The world rank of this group's rank ``r``."""
+        return r if self.ranks is None else self.ranks[r]
+
+    def _send(self, h: torch.Tensor, r: int, tag: int):
+        self.stats["sent_bytes"] += h.numel() * h.element_size()
+        return dist.isend(self._wire_view(h), dst=self._world(r),
+                          group=self.pg, tag=tag)
+
+    def _recv(self, buf: torch.Tensor, r: int, tag: int):
+        return dist.irecv(self._wire_view(buf), src=self._world(r),
+                          group=self.pg, tag=tag)
 
     # -- host staging ---------------------------------------------------------
 
@@ -147,12 +172,9 @@ class Group:
             devices.append(t.device)
             h = self._to_host(t)
             buf = torch.empty(h.shape, dtype=h.dtype)
-            reqs.append(dist.isend(self._wire_view(h),
-                                   dst=(self.rank + shift) % self.size,
-                                   group=self.pg, tag=tag))
-            reqs.append(dist.irecv(self._wire_view(buf),
-                                   src=(self.rank - shift) % self.size,
-                                   group=self.pg, tag=tag))
+            reqs.append(self._send(h, (self.rank + shift) % self.size, tag))
+            reqs.append(self._recv(buf, (self.rank - shift) % self.size,
+                                   tag))
             bufs.append(buf)
             self.stats["hops"] += 1
         for r in reqs:
@@ -206,8 +228,7 @@ class Group:
                 if h.data_ptr() == t.data_ptr():
                     h = h.clone()      # the caller may write t before wait
                 sent.append(h)
-                reqs.append(dist.isend(self._wire_view(h), dst=dst,
-                                       group=self.pg, tag=tag0 + i))
+                reqs.append(self._send(h, dst, tag0 + i))
                 self.stats["hops"] += 1
             if src is None:
                 bufs.append(None)
@@ -215,8 +236,7 @@ class Group:
                 bufs.append(t.detach().clone())
             else:
                 buf = torch.empty(tuple(t.shape), dtype=t.dtype)
-                reqs.append(dist.irecv(self._wire_view(buf), src=src,
-                                       group=self.pg, tag=tag0 + i))
+                reqs.append(self._recv(buf, src, tag0 + i))
                 bufs.append(buf)
 
         def finish() -> List[torch.Tensor]:
@@ -287,11 +307,9 @@ class Group:
                 continue
             h = self._to_host(blocks[q].contiguous())
             sent.append(h)
-            reqs.append(dist.isend(self._wire_view(h), dst=q, group=self.pg,
-                                   tag=tag))
+            reqs.append(self._send(h, q, tag))
             bufs[q] = torch.empty(tuple(blocks[me].shape), dtype=t.dtype)
-            reqs.append(dist.irecv(self._wire_view(bufs[q]), src=q,
-                                   group=self.pg, tag=tag))
+            reqs.append(self._recv(bufs[q], q, tag))
         for r in reqs:
             r.wait()
         out = torch.zeros(tuple(blocks[me].shape), dtype=t.dtype,
@@ -306,7 +324,8 @@ class Group:
         """Rank ``root``'s ``t`` on every rank, as a new tensor."""
         t0 = _ready([t])
         h = self._to_host(t).clone()
-        dist.broadcast(self._wire_view(h), src=root, group=self.pg)
+        dist.broadcast(self._wire_view(h), src=self._world(root),
+                       group=self.pg)
         out = self._from_host(h, t.device)
         self.stats["wire_s"] += time.perf_counter() - t0
         return out
@@ -328,10 +347,146 @@ class Group:
         self.stats["wire_s"] += time.perf_counter() - t0
         return out
 
+    def gather(self, t: torch.Tensor, dim: int,
+               root: int = 0) -> Optional[torch.Tensor]:
+        """Every rank's ``t`` concatenated along ``dim`` in rank order, in
+        host memory on rank ``root`` (None on the others): what a
+        checkpoint writer needs, without a copy on every rank."""
+        t0 = _ready([t])
+        h = self._to_host(t).contiguous()
+        parts = ([torch.empty_like(h) for _ in range(self.size)]
+                 if self.rank == root else None)
+        dist.gather(self._wire_view(h),
+                    None if parts is None else
+                    [self._wire_view(p) for p in parts],
+                    dst=self._world(root), group=self.pg)
+        self.stats["wire_s"] += time.perf_counter() - t0
+        return None if parts is None else torch.cat(parts, dim=dim)
+
     def barrier(self) -> None:
         """Every rank of the group reaches this point before any leaves."""
         dist.barrier(group=self.pg)
 
+
+#: the axes a grid may stand for, and the inner one of each kind
+GRID_INNER = ("model", "expert")
+
+
+@dataclasses.dataclass
+class Grid:
+    """One rank's place in a grid of ranks ``("data", inner)``, inner the
+    ``model`` axis (TP) or the ``expert`` axis (a MoE model's experts).
+
+    The world rank is the row-major index of ``coords`` in ``shape``, the
+    order ``jax.make_mesh`` gives the reference's host devices (device r
+    at row-major position r of the mesh): data rank d's model line holds
+    world ranks ``[d·M, (d+1)·M)``, model rank m's data line ranks ``m,
+    M + m, …``.  ``lines`` holds one :class:`Group` an axis: the ranks
+    that share every other coordinate, with stats of their own."""
+
+    axes: Tuple[str, str]
+    shape: Tuple[int, int]
+    coords: Tuple[int, int]
+    world: Group
+    lines: Dict[str, Group]
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+    @property
+    def inner_axis(self) -> str:
+        return self.axes[1]
+
+    @property
+    def inner(self) -> Group:
+        """The model or expert line."""
+        return self.lines[self.axes[1]]
+
+    @property
+    def data(self) -> Group:
+        return self.lines["data"]
+
+    def line_stats(self) -> Dict[str, Dict[str, float]]:
+        """A copy of each line's ``stats``, by axis."""
+        return {a: dict(self.lines[a].stats) for a in self.axes}
+
+
+def as_grid(group: Any, inner: str = "model") -> Grid:
+    """A :class:`Grid` as it is, or a plain :class:`Group` as the ``1 ×
+    n`` grid whose ``inner`` line is the group itself (how every caller
+    that predates grids keeps working)."""
+    if isinstance(group, Grid):
+        return group
+    if inner not in GRID_INNER:
+        raise ValueError(f"inner axis {inner!r} not in {GRID_INNER}")
+    solo = Group(rank=0, size=1, device=group.device)
+    return Grid(axes=("data", inner), shape=(1, group.size),
+                coords=(0, group.rank), world=group,
+                lines={"data": solo, inner: group})
+
+
+#: process groups of grid lines, by (world size, shape, axis index, line
+#: index), and each card line's peer memory, by its process group: built
+#: once a process, as every rank asks for the same grids in the same order
+_LINE_PGS: Dict[Tuple[int, ...], Any] = {}
+_LINE_PEERS: Dict[int, PeerMemory] = {}
+
+
+def _line_ranks(shape: Tuple[int, int], axis: int) -> List[List[int]]:
+    """The world ranks of every line along ``axis`` of a row-major
+    ``shape``, lines in order of the other coordinate."""
+    d, m = shape
+    if axis == 0:
+        return [[i * m + j for i in range(d)] for j in range(m)]
+    return [[i * m + j for j in range(m)] for i in range(d)]
+
+
+def grid_lines(world: Group, axes: Tuple[str, str],
+               shape: Tuple[int, int]) -> Grid:
+    """This rank's :class:`Grid` of ``shape`` over the world group.  A
+    line of more than one rank and fewer than all gets a process group of
+    its own (``torch.distributed.new_group``: every rank creates every
+    line, in the same order, as torch requires); on the card, with the
+    world's peer memory on, an inner line of two or more ranks gets a
+    :class:`PeerMemory` of its own, so the fused ring runs inside each
+    line while the other lines run theirs beside it."""
+    if shape[0] * shape[1] != world.size:
+        raise ValueError(f"grid {dict(zip(axes, shape))} needs "
+                         f"{shape[0] * shape[1]} ranks; the world has "
+                         f"{world.size}")
+    coords = divmod(world.rank, shape[1])
+    lines: Dict[str, Group] = {}
+    for i, axis in enumerate(axes):
+        n = shape[i]
+        if n == 1:
+            lines[axis] = Group(rank=0, size=1, device=world.device)
+            continue
+        if n == world.size:
+            lines[axis] = dataclasses.replace(
+                world, stats=_new_stats(), _permutes=0,
+                peer=world.peer if i == 1 else None)
+            continue
+        mine = None
+        for j, ranks in enumerate(_line_ranks(shape, i)):
+            key = (world.size,) + tuple(shape) + (i, j)
+            if key not in _LINE_PGS:
+                _LINE_PGS[key] = dist.new_group(ranks)
+            if world.rank in ranks:
+                mine = (ranks, _LINE_PGS[key])
+        ranks, pg = mine
+        peer = None
+        if i == 1 and world.peer is not None:
+            peer = _LINE_PEERS.get(id(pg))
+            if peer is None:
+                peer = PeerMemory(ranks.index(world.rank), n, pg,
+                                  world.device)
+                _LINE_PEERS[id(pg)] = peer
+        lines[axis] = Group(rank=ranks.index(world.rank), size=n,
+                            device=world.device, pg=pg, peer=peer,
+                            ranks=tuple(ranks))
+    return Grid(axes=tuple(axes), shape=tuple(shape), coords=coords,
+                world=world, lines=lines)
 
 
 def init_group(rank: int, size: int, init_file: str,
@@ -388,8 +543,10 @@ def _rank_main(rank: int, size: int, init_file: str, device: str,
             # holds it
             del task, fn, args, kwargs
     finally:
-        if group.peer is not None:     # every task has synchronized
-            group.peer.close()
+        # every task has synchronized
+        for peer in [group.peer, *_LINE_PEERS.values()]:
+            if peer is not None:
+                peer.close()
         dist.destroy_process_group()
 
 
@@ -482,5 +639,5 @@ class RankPool:
             pass
 
 
-__all__ = ["GROUP_TIMEOUT_S", "Group", "Pending", "RankPool",
-           "init_group"]
+__all__ = ["GRID_INNER", "GROUP_TIMEOUT_S", "Grid", "Group", "Pending",
+           "RankPool", "as_grid", "grid_lines", "init_group"]

@@ -1,22 +1,28 @@
-"""Sequence-chunked cross-entropy over the TP group's sequence shards
+"""Sequence-chunked cross-entropy over a grid's parts of the global batch
 (``repro.dist.loss.chunked_ce_loss``).
 
-Each rank streams the LM head over its own rows in chunks of
-``seq_chunk`` and reduces each chunk's (B, C, V) logits to three partial
-sums: masked NLL, masked squared-logsumexp (z-loss) and the token count.
-The global token count comes from an all-reduce that carries no
-gradient; each rank divides its own sums by it.  That rank-local loss is
-what backward runs on: the ranks' losses sum to the reference's loss, and
-the TP collectives' backward combines the ranks' cotangents, so no
-all-reduce sits inside autograd (one there would multiply the gradients
-by the group size).  The loss reported in the metrics is the all-reduced
-value.
+Each rank streams the LM head over its own part (its rows, and on a
+model line its sequence shard of them) in chunks of ``seq_chunk`` and
+reduces each chunk's (B, C, V) logits to three partial sums: masked NLL,
+masked squared-logsumexp (z-loss) and the token count.  The sums' group
+(``group``: the whole world of a grid, data and model or expert lines
+alike) all-reduces them with no gradient, so the token count is the
+global batch's however the masked labels fall between the ranks; each
+rank divides its own sums by it.  That rank-local loss is what backward
+runs on: the ranks' losses sum to the reference's loss, and the TP
+collectives' backward combines the ranks' cotangents on the model line
+the sequence is split over (the block runner's group, not this one), so
+no all-reduce sits inside autograd (one there would multiply the
+gradients by the group size).  The loss reported in the metrics is the
+all-reduced value.
 
 A MoE model's load-balancing term follows the same rule: with a group,
 each MoE layer returns this rank's share of the loss over the group's
-rows (``layers.moe_aux_loss``, its choice counts summed over the group),
-so the shares, like the cross-entropy partials, sum to the reference's
-term over the logical global batch.
+rows (``layers.moe_aux_loss``, its choice counts and row count summed
+over the group), so the shares, like the cross-entropy partials, sum to
+the reference's term over the logical global batch: the reference's
+GSPMD loss takes f and p as means over every row of the mesh, and a
+product of per-rank means is not the global one.
 """
 
 from __future__ import annotations
@@ -51,8 +57,9 @@ def chunked_ce_loss(
     the metrics' ``loss``, ``ce``, ``z_loss``, ``moe_aux`` and ``tokens``
     are the group's totals (the reference's ``total`` and metrics: the
     loss adds ``moe_aux_weight`` × a MoE model's load-balancing loss,
-    summed over its layers).  ``group`` None means one rank holding the
-    whole sequence.  ``positions``, ``runner`` (the TP block runner),
+    summed over its layers).  ``group`` is the group the sums span (every
+    rank holding a part of the global batch); None means one rank holding
+    all of it.  ``positions``, ``runner`` (the TP block runner),
     ``core`` (the attention core) and ``moe_ffn`` (the expert-parallel
     MoE runner) are ``forward_hidden``'s; the load-balancing loss is over
     the group's rows (``aux_group``)."""

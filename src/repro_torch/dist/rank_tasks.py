@@ -14,10 +14,15 @@ reference.
 * :func:`ring_kernels` — the two whole-ring ops against their plain
   versions on the card, each timed with the group, their hop products
   counted and (optionally) profiled.
-* :func:`train` — the train step of ``dist/steps.py`` over the group (TP
-  for a dense model, expert parallelism for a MoE model) for a few
-  steps, with per-step metrics, hop-kernel launches, wire and staging
-  counts, step times and peak device memory.
+* :func:`train` — the train step of ``dist/steps.py`` over the group or
+  a grid of it (TP for a dense model, expert parallelism for a MoE
+  model, a data axis) for a few steps, with per-step metrics, hop-kernel
+  launches, wire and staging counts, step times and peak device memory.
+* :func:`train_grid` — the ``Trainer`` on the rank's grid, with its
+  checkpoints and the restart protocol (``launch/train.py``'s task).
+* :func:`grid_sync` — the data line's gradient sync, exact and int8,
+  on the step's own gradients; :func:`cross_pod_op` the same functions
+  on given per-rank gradients.
 
 Expert parallelism (``models/moe_ep.py``):
 
@@ -167,32 +172,14 @@ def ring_kernels(group, cases: Sequence[Dict[str, Any]], iters: int = 5,
     rank's device time a call by ``torch.profiler``: its hop products
     (``hop_ms``, over ``hop_events`` of them) and its forwards
     (``copy_ms``)."""
-    from repro_torch.kernels.cc_matmul import ref as cc_ref
-
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev, n = group.device, group.size
     out = []
     for i, c in enumerate(cases):
-        gen = torch.Generator(device=dev).manual_seed(
-            1000 * i + group.rank)
-        dx, dw = getattr(torch, c["dx"]), getattr(torch, c["dw"])
-        rows = c["b"] * (n if c["op"] == "rs" else 1)
-        x = torch.randn((c["B"], 2 * rows, c["K"]), generator=gen,
-                        device=dev).to(dx)[:, rows:]
-        w = torch.randn((c["K"], c["N"] + 8), generator=gen,
-                        device=dev).to(dw)[:, :c["N"]]
-        kernel, plain = {
-            "ag": (cc_ops.ag_matmul_ring, cc_ref.allgather_matmul_ref),
-            "rs": (cc_ops.rs_matmul_ring, cc_ref.matmul_reducescatter_ref),
-        }[c["op"]]
-
-        def run():
-            return kernel(x, w, group, direction=c["direction"])
-
+        x, w, run, plain = ring_case(group, i, c)
         cc_ops.reset_counts()
         before = group.stats["ring_kernels"]
         got = run()
-        _sync(dev)
+        _sync(group.device)
         launched = cc_ops.launches()
         want = plain(x, w, group)
         out.append(dict(
@@ -210,18 +197,58 @@ def ring_kernels(group, cases: Sequence[Dict[str, Any]], iters: int = 5,
     return out
 
 
-def _ring_profile(group, run, calls: int) -> Dict[str, float]:
+def ring_case(group, i: int, c: Dict[str, Any]):
+    """Case ``i`` of ``ring_kernels``: this rank's x and w (strided views,
+    drawn from a per-rank seed), a call of the whole-ring op on them, and
+    the op's plain version."""
+    from repro_torch.kernels.cc_matmul import ref as cc_ref
+
+    dev, n = group.device, group.size
+    gen = torch.Generator(device=dev).manual_seed(1000 * i + group.rank)
+    dx, dw = getattr(torch, c["dx"]), getattr(torch, c["dw"])
+    rows = c["b"] * (n if c["op"] == "rs" else 1)
+    x = torch.randn((c["B"], 2 * rows, c["K"]), generator=gen,
+                    device=dev).to(dx)[:, rows:]
+    w = torch.randn((c["K"], c["N"] + 8), generator=gen,
+                    device=dev).to(dw)[:, :c["N"]]
+    kernel, plain = {
+        "ag": (cc_ops.ag_matmul_ring, cc_ref.allgather_matmul_ref),
+        "rs": (cc_ops.rs_matmul_ring, cc_ref.matmul_reducescatter_ref),
+    }[c["op"]]
+
+    def run():
+        return kernel(x, w, group, direction=c["direction"])
+
+    return x, w, run, plain
+
+
+#: seconds each rank idles inside its profile before the first ring call
+#: and after the last one's synchronise (``_ring_profile``)
+PROFILE_MARGIN_S = 0.05
+
+
+def _ring_profile(group, run, calls: int,
+                  margin_s: float = PROFILE_MARGIN_S) -> Dict[str, float]:
     """This rank's device time a ring call by ``torch.profiler``: the hop
     products (and how many), and the forwards (device-to-device
-    copies)."""
+    copies).
+
+    The calls sit ``margin_s`` inside the profile on both sides: the ranks
+    come from a group timing's all-reduce together, so every rank's
+    profiler is running before the first hop of any, and the last hop has
+    ended well before any profiler stops.  Without the margins a
+    profile can come back short of hop records, on every rank at once
+    (``probe_ring_profile`` counts how often)."""
     from torch.profiler import ProfilerActivity, profile
 
     _sync(group.device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin_s)
         for _ in range(calls):
             run()
         _sync(group.device)
+        time.sleep(margin_s)
     hop_ms = copy_ms = hop_events = 0.0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
@@ -297,6 +324,13 @@ def _kernel_spans(prof) -> List[Tuple[int, int]]:
         return []
 
 
+def _stats_delta(before: Dict[str, Dict[str, float]],
+                 after: Dict[str, Dict[str, float]]
+                 ) -> Dict[str, Dict[str, float]]:
+    return {a: {n: after[a][n] - before[a][n] for n in after[a]}
+            for a in after}
+
+
 def _digest(t: torch.Tensor) -> str:
     a = t.detach().cpu().contiguous()
     if a.dtype == torch.bfloat16:
@@ -316,16 +350,20 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
           batches: Optional[Sequence[Dict[str, np.ndarray]]] = None,
           data: Optional[Dict[str, int]] = None,
           return_params: bool = False,
-          profile_step: Optional[int] = None) -> Dict[str, Any]:
+          profile_step: Optional[int] = None,
+          grid: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
     """Train ``arch`` (``reduced()`` if asked, then ``cfg_overrides``)
     for ``steps`` steps of ``build_train_step`` on this rank.
 
-    A MoE arch trains by expert parallelism over the group (its experts
-    split, its rows of each microbatch its own), its exchange on
-    ``moe_transport`` (default ``xla``) in ``moe_stream_chunks`` chunks.
+    The world is the ``1 × n`` grid of the arch's axis, or with ``grid``
+    (``launch.mesh.make_host_mesh``'s ``data``, ``model``, ``expert``)
+    that grid.  A MoE arch trains by expert parallelism over its expert
+    line (its experts split, its rows of each microbatch its own), its
+    exchange on ``moe_transport`` (default ``xla``) in
+    ``moe_stream_chunks`` chunks.
 
     Parameters: the reference's pytree ``params_np`` (numpy, through
-    ``bridge.shard_params`` on the group's axis), or ``build_init``'s
+    ``bridge.shard_params`` on the inner line), or ``build_init``'s
     draw from ``seed`` —
     on ``init_device`` when given (a CPU draw gives the same numbers for a
     card run and a CPU run), moved to the run's device.  Batches: the
@@ -335,9 +373,12 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
     with ``step_overrides``.
 
     Returns per-step ``metrics``, ``launches`` (each cc_matmul kernel's, that
-    step), ``plain`` (the plain versions' runs), ``stats`` (ring hops,
-    staged and peer-forwarded bytes, wire seconds), ``seconds``, the device's peak memory, the
-    sha256 of every replicated leaf after the last step, and with
+    step), ``plain`` (the plain versions' runs), ``stats`` (the world's
+    ring hops, staged, sent and peer-forwarded bytes, wire seconds) and
+    ``line_stats`` (the same, a grid line each), ``seconds``, the device's
+    peak memory, the grid's ``coords`` and ``shape``, the sha256 of every
+    replicated
+    leaf and of every leaf (``digests``) after the last step, and with
     ``return_params`` this rank's parameter shard (fp32 numpy by path).
     ``profile_step`` runs that step under ``torch.profiler`` and adds its
     device-time summary (``profile``: kernels and copies by name, the hop
@@ -353,7 +394,9 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
         build_train_step,
         group_axis,
         init_opt,
+        step_grid,
     )
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import params_to
 
     dev = group.device if device is None else torch.device(device)
@@ -371,37 +414,38 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
     run_group = dataclasses.replace(
         group, device=dev, stats=group.stats,
         peer=group.peer if dev.type == "cuda" else None)
+    mesh = (make_host_mesh(run_group, **grid) if grid
+            else step_grid(cfg, run_group))
+    inner = mesh.inner
 
     t0 = time.perf_counter()
     if params_np is not None:
-        params = shard_params(params_np, group.rank, group.size, dev, axis)
+        params = shard_params(params_np, inner.rank, inner.size, dev, axis)
         opt = init_opt(params, scfg)
     elif init_device is None or torch.device(init_device) == dev:
-        params, opt = build_init(cfg, run_group, scfg)(seed)
+        params, opt = build_init(cfg, mesh, scfg)(seed)
     else:
-        init_group = dataclasses.replace(
-            run_group, device=torch.device(init_device), stats=group.stats)
-        params, opt = build_init(cfg, init_group, scfg)(seed)
+        cpu_world = dataclasses.replace(mesh.world,
+                                        device=torch.device(init_device))
+        params, opt = build_init(cfg, dataclasses.replace(
+            mesh, world=cpu_world), scfg)(seed)
         params, opt = params_to(params, dev), None
         opt = init_opt(params, scfg)
     _sync(dev)
     init_s = time.perf_counter() - t0
-    step_fn = build_train_step(cfg, run_group, scfg)
-    source = None if batches is not None else SyntheticLM(
-        DataConfig(vocab_size=cfg.vocab_size, **(data or {})))
+    step_fn = build_train_step(cfg, mesh, scfg)
+    source = (_Batches(batches) if batches is not None else SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, **(data or {}))))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
     out: Dict[str, List[Any]] = {k: [] for k in (
-        "metrics", "launches", "plain", "stats", "seconds")}
+        "metrics", "launches", "plain", "stats", "line_stats", "seconds")}
     for k in range(steps):
-        if batches is not None:
-            batch = {n: torch.from_numpy(np.asarray(a)).long()
-                     for n, a in batches[k].items()}
-        else:
-            batch = source.global_batch(k)
+        batch = source.global_batch(k)
         cc_ops.reset_counts()
         before = dict(group.stats)
+        lines_before = mesh.line_stats()
         _sync(dev)
         prof = None
         if k == profile_step and dev.type == "cuda":
@@ -421,6 +465,8 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
         out["plain"].append(dict(cc_ops.PLAIN_CALLS))
         out["stats"].append({n: group.stats[n] - before[n]
                              for n in group.stats})
+        out["line_stats"].append(_stats_delta(lines_before,
+                                              mesh.line_stats()))
 
     leaves = list(sharding.leaves(params))
     result: Dict[str, Any] = dict(out)
@@ -429,12 +475,329 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
         peak_bytes=(torch.cuda.max_memory_allocated(dev)
                     if dev.type == "cuda" else 0),
         n_params=sum(t.numel() for _, t in leaves),
+        coords=mesh.coords, shape=mesh.shape,
         replicated={"/".join(map(str, p)): _digest(t) for p, t in leaves
-                    if sharding.placement(p, axis) == "rep"})
+                    if sharding.placement(p, axis) == "rep"},
+        digests={"/".join(map(str, p)): _digest(t) for p, t in leaves})
     if return_params:
         result["params"] = {"/".join(map(str, p)): _numpy(t)
                             for p, t in leaves}
     return result
+
+
+def _train_setup(arch: str, *, reduced: bool, cfg_overrides,
+                 step_overrides, moe_transport=None, moe_stream_chunks=None,
+                 grad_bucket_kb: int = 0):
+    """(cfg, step config) of a grid task: the arch (``reduced()`` if
+    asked, then ``cfg_overrides``) and the step config (``fused`` TP
+    edges, the MoE exchange on ``moe_transport``, default ``xla``) with
+    ``step_overrides``."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.steps import StepConfig, TransportPolicy
+
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    over = dict(step_overrides or {})
+    if grad_bucket_kb:
+        over["grad_bucket_bytes"] = grad_bucket_kb << 10
+    scfg = StepConfig(transport=TransportPolicy(
+        tp="fused", moe=moe_transport or "xla",
+        moe_stream_chunks=moe_stream_chunks), **over)
+    return cfg, scfg
+
+
+def free_memory(group) -> Dict[str, int]:
+    """Free this rank's cached device memory (and its Python garbage);
+    returns what the allocator still holds, in bytes."""
+    import gc
+
+    gc.collect()
+    if group.device.type != "cuda":
+        return {"allocated": 0, "reserved": 0}
+    torch.cuda.synchronize(group.device)
+    torch.cuda.empty_cache()
+    return {"allocated": torch.cuda.memory_allocated(group.device),
+            "reserved": torch.cuda.memory_reserved(group.device)}
+
+
+def _grid_of(group, grid: Dict[str, int]):
+    """This rank's grid (``launch.mesh.make_host_mesh``) over the world
+    ``group``, and its device."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(group, **grid), group.device
+
+
+class _Batches:
+    """A data source of given numpy batches: step k takes the k-th."""
+
+    def __init__(self, batches: Sequence[Dict[str, np.ndarray]]):
+        self.batches = batches
+
+    def global_batch(self, step: int) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.asarray(a)).long()
+                for k, a in self.batches[step].items()}
+
+
+def train_grid(group, arch: str, *, steps: int, ckpt_dir: str,
+               data: int = 1, model: int = 1, expert: int = 1,
+               ckpt_interval: int = 50, reduced: bool = False,
+               cfg_overrides: Optional[Dict[str, Any]] = None,
+               step_overrides: Optional[Dict[str, Any]] = None,
+               moe_transport: Optional[str] = None,
+               moe_stream_chunks: Optional[int] = None,
+               grad_bucket_kb: int = 0,
+               dataset: Optional[Dict[str, int]] = None,
+               batches: Optional[Sequence[Dict[str, np.ndarray]]] = None,
+               resume_check: bool = False, profile: bool = False,
+               preempt_at: Optional[Tuple[int, int]] = None,
+               log: bool = True, cleanup: bool = False) -> Dict[str, Any]:
+    """Run the ``Trainer`` for ``steps`` steps on this rank's ``data ×
+    model`` (or ``data × expert``) grid, checkpointing every
+    ``ckpt_interval`` steps into ``ckpt_dir`` (``launch/train.py``'s
+    rank task).  Data: the given numpy ``batches`` (step k takes
+    ``batches[k]``), or ``SyntheticLM(DataConfig(vocab_size,
+    **dataset))``.  World rank 0 prints the Trainer's log with ``log``.
+
+    With ``resume_check`` it runs the restart protocol instead: a
+    Trainer to ``steps − 1`` (its last checkpoint there), the
+    uninterrupted next step by the same step function on its state, then
+    a fresh Trainer that restores that checkpoint, takes the step and
+    writes its final checkpoint; ``resumed`` says whether the two steps'
+    losses and every leaf agree bit for bit.  The uninterrupted
+    step's wall time is ``next_seconds`` (its cc_matmul launches
+    ``next_launches``, its lines' stats ``next_line_stats``), and with
+    ``profile`` (on the card) it runs under ``torch.profiler``
+    (``profile``: its device-time summary, as :func:`train`'s).
+    ``cleanup`` removes ``ckpt_dir`` at the end (world rank 0).  Each
+    Trainer runs with its SIGTERM handler installed (the rank's previous
+    one comes back after it); ``preempt_at=(rank, step)`` has world rank
+    ``rank`` send itself SIGTERM after that step, as a scheduler
+    preempting one host would.
+
+    Returns the ``history`` (with ``resume_check``: the first Trainer's
+    and the resumed step), the step's ``line_stats`` and cc_matmul
+    ``launches`` each step, ``ckpt_seconds``, ``restore_seconds``, the
+    device's peak memory, the grid's ``coords`` and
+    ``shape``, and the sha256 of every leaf after the last step
+    (``digests``)."""
+    import os
+    import shutil
+    import signal
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist import sharding
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg, scfg = _train_setup(
+        arch, reduced=reduced, cfg_overrides=cfg_overrides,
+        step_overrides=step_overrides, moe_transport=moe_transport,
+        moe_stream_chunks=moe_stream_chunks, grad_bucket_kb=grad_bucket_kb)
+    mesh, dev = _grid_of(group, dict(data=data, model=model, expert=expert))
+    source = (_Batches(batches) if batches is not None else SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, **(dataset or {}))))
+    say = print if (log and group.rank == 0) else (lambda _msg: None)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out: Dict[str, Any] = {"line_stats": [], "launches": [],
+                           "coords": mesh.coords, "shape": mesh.shape}
+    snap = {"lines": mesh.line_stats()}
+
+    def on_step(step, m):
+        lines = mesh.line_stats()
+        out["line_stats"].append(_stats_delta(snap["lines"], lines))
+        out["launches"].append(cc_ops.launches())
+        cc_ops.reset_counts()
+        snap["lines"] = mesh.line_stats()
+        if preempt_at == (group.rank, step):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def run(t: "Trainer"):
+        previous = t.install_signal_handler()
+        try:
+            return t.train(on_step=on_step)
+        finally:
+            signal.signal(signal.SIGTERM, previous)
+
+    def trainer(total: int) -> "Trainer":
+        return Trainer(cfg, scfg, TrainerConfig(
+            total_steps=total, ckpt_dir=ckpt_dir,
+            ckpt_interval=ckpt_interval), source, mesh, log_fn=say)
+
+    first = trainer(steps - 1 if resume_check else steps)
+    cc_ops.reset_counts()
+    params, opt, step = run(first)
+    history = list(first.history)
+    ckpt_s = list(first.ckpt_seconds)
+    out["restore_seconds"] = first.restore_seconds
+    if resume_check:
+        snap["lines"] = mesh.line_stats()
+        batch = source.global_batch(step)
+        cc_ops.reset_counts()
+        prof = None
+        if profile and dev.type == "cuda":
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        _sync(dev)
+        t = time.perf_counter()
+        _, _, m_next = first.step_fn(params, opt, batch, step)
+        _sync(dev)
+        out["next_seconds"] = time.perf_counter() - t
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            out["profile"] = _device_summary(prof)
+        out["next_launches"] = cc_ops.launches()
+        out["next_line_stats"] = _stats_delta(snap["lines"],
+                                              mesh.line_stats())
+        snap["lines"] = mesh.line_stats()
+        want = {"/".join(map(str, p)): _digest(t)
+                for p, t in sharding.leaves((params, opt["mu"], opt["nu"],
+                                             opt.get("master", [])))}
+        del params, opt, first
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        cc_ops.reset_counts()
+        second = trainer(steps)
+        params, opt, step = run(second)
+        history.append(second.history[-1])
+        ckpt_s += second.ckpt_seconds
+        out["restore_seconds"] = second.restore_seconds
+        got = {"/".join(map(str, p)): _digest(t)
+               for p, t in sharding.leaves((params, opt["mu"], opt["nu"],
+                                            opt.get("master", [])))}
+        out["uninterrupted"] = {k: float(v) for k, v in m_next.items()}
+        out["resumed"] = (got == want and float(m_next["loss"])
+                          == second.history[-1]["loss"])
+    out.update(
+        history=history, ckpt_seconds=ckpt_s,
+        peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                    if dev.type == "cuda" else 0),
+        digests={"/".join(map(str, p)): _digest(t)
+                 for p, t in sharding.leaves(params)})
+    del params, opt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if cleanup:
+        mesh.world.barrier()
+        if group.rank == 0:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+def grid_sync(group, arch: str, *, data: int, model: int = 1,
+              expert: int = 1, bucket_bytes: int,
+              cfg_overrides: Optional[Dict[str, Any]] = None,
+              step_overrides: Optional[Dict[str, Any]] = None,
+              dataset: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
+    """The data line's sync of this rank's step-0 gradients (the train
+    step's ``local_grads`` on ``build_init``'s parameters and batch 0):
+    exact by the step's own sync of its packed buckets
+    (``dist.grad_sync.mean_buckets``, the packing untimed), then
+    ``bucketed_cross_pod_all_reduce`` compressed, bulk and streamed, on
+    the step's ``cross_pod`` transport.
+    Returns each run's sent and staged bytes and wire seconds on the data
+    line, the compressed runs' sha256 (mean and residual), the largest
+    |compressed − exact mean| and |residual|, the line's max |g| / 127
+    (``scale``), and the buckets' ``bucket_wire_bytes`` both ways."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist import bucketing, grad_sync
+    from repro_torch.dist.steps import build_init, build_train_step
+
+    cfg, scfg = _train_setup(arch, reduced=False,
+                             cfg_overrides=cfg_overrides,
+                             step_overrides=step_overrides)
+    mesh, dev = _grid_of(group, dict(data=data, model=model, expert=expert))
+    params, opt = build_init(cfg, mesh, scfg)(0)
+    del opt
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   **(dataset or {}))).global_batch(0)
+    grads, _ = build_train_step(cfg, mesh, scfg).local_grads(params, batch)
+    del params
+    line = mesh.data
+    gmax = max(float(g.abs().max()) for g in grads)
+    scale = float(line.all_gather(
+        torch.tensor([gmax], dtype=torch.float64), 0).max()) / 127
+    transport = scfg.resolved_transport().cross_pod
+    plan = bucketing.bucket_plan(grads, target_bytes=bucket_bytes)
+    out: Dict[str, Any] = {"scale": scale, "runs": {}}
+    exact = None
+    for name, compressed, streamed in (("exact", False, True),
+                                       ("int8 bulk", True, False),
+                                       ("int8 streamed", True, True)):
+        bufs = None if compressed else bucketing.pack(grads, plan)
+        before = dict(line.stats)
+        _sync(dev)
+        t = time.perf_counter()
+        if compressed:
+            synced, res = grad_sync.bucketed_cross_pod_all_reduce(
+                grads, line, bucket_bytes=bucket_bytes, compressed=True,
+                transport=transport, streamed=streamed)
+        else:
+            # the step's own sync of its packed buckets
+            synced = grad_sync.mean_buckets(bufs, line, transport=transport)
+        _sync(dev)
+        run = {"seconds": time.perf_counter() - t}
+        run.update({k: line.stats[k] - before[k]
+                    for k in ("sent_bytes", "staged_bytes", "wire_s")})
+        if exact is None:
+            exact = bucketing.unpack(synced, plan, torch.float32)
+            synced = res = []
+        else:
+            run["digest"] = [_digest(x) for x in synced + res]
+            run["max_err"] = max(float((a - b).abs().max())
+                                 for a, b in zip(synced, exact))
+            run["max_residual"] = max(float(r.abs().max()) for r in res)
+        del synced, res, bufs
+        out["runs"][name] = run
+    for name, compressed in (("wire_fp32", False), ("wire_int8", True)):
+        out[name] = sum(grad_sync.bucket_wire_bytes(
+            plan.bucket_elements(), compressed=compressed))
+    out["elements"] = sum(plan.bucket_elements())
+    out["coords"] = mesh.coords
+    del grads, exact
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def cross_pod_op(group, pods: Dict[str, np.ndarray], *, data: int,
+                 model: int, compressed: bool = False,
+                 bucket_bytes: Optional[int] = None, streamed: bool = True,
+                 transport: str = "ring",
+                 ef: Optional[Dict[str, np.ndarray]] = None
+                 ) -> Dict[str, Any]:
+    """``dist/grad_sync.py`` on the outer (``data``) line of a ``data ×
+    model`` grid: the rank at outer coordinate p passes ``pods[k][p]`` for
+    each leaf k (and ``ef[k][p]``), leaf by leaf, or with
+    ``bucket_bytes`` bucketed (``streamed`` or bulk).  Returns the synced
+    leaves and residuals (numpy) and the bytes this rank sent on the
+    line."""
+    from repro_torch.dist import grad_sync
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(group, data=data, model=model)
+    p, line = mesh.coords[0], mesh.data
+    grads = {k: _tensor(v[p], group.device) for k, v in pods.items()}
+    residual = None if ef is None else {
+        k: _tensor(v[p], group.device) for k, v in ef.items()}
+    sent = line.stats["sent_bytes"]
+    if bucket_bytes is None:
+        synced, res = grad_sync.cross_pod_all_reduce(
+            grads, line, compressed=compressed, transport=transport,
+            ef=residual)
+    else:
+        synced, res = grad_sync.bucketed_cross_pod_all_reduce(
+            grads, line, bucket_bytes=bucket_bytes, compressed=compressed,
+            transport=transport, ef=residual, streamed=streamed)
+    return {"synced": {k: _numpy(v) for k, v in synced.items()},
+            "ef": {k: _numpy(v) for k, v in res.items()},
+            "sent_bytes": line.stats["sent_bytes"] - sent,
+            "coords": mesh.coords}
 
 
 # ---------------------------------------------------------------------------

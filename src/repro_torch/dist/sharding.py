@@ -25,11 +25,15 @@ norms, embed and head.  The rule reads the path, since ``w_up`` under
 the ``model`` axis is a column shard wherever it sits.  The expert
 shards' gradients are complete from the exchange's backward; the
 replicated leaves' are summed over the group.
+
+:func:`unshard_tree` is :func:`shard_tree`'s inverse: it gathers the
+ranks' parts of every leaf over the line back into the logical leaf, as
+the reference's checkpoints store them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, Tuple
+from typing import Any, Callable, Iterator, Optional, Tuple
 
 import torch
 
@@ -59,12 +63,19 @@ def placement(path: Path, axis: str = "model") -> str:
     return "rep"
 
 
+def split_dim(place: str) -> Optional[int]:
+    """The dim a placement splits (None: replicated)."""
+    if place == "rep":
+        return None
+    return 1 if place == "col" else 0
+
+
 def shard_leaf(t: torch.Tensor, place: str, rank: int,
                size: int) -> torch.Tensor:
     """This rank's part of a full leaf, as its own contiguous tensor."""
-    if place == "rep":
+    dim = split_dim(place)
+    if dim is None:
         return t
-    dim = 1 if place == "col" else 0
     n = t.shape[dim]
     if n % size:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
@@ -107,5 +118,29 @@ def shard_tree(tree: Any, rank: int, size: int,
         lambda p, t: shard_leaf(t, placement(p, axis), rank, size), tree)
 
 
+def unshard_tree(tree: Any, group, axis: str = "model", root: int = 0,
+                 place_of: Optional[Callable[[Path], str]] = None) -> Any:
+    """The inverse of :func:`shard_tree`: every leaf of this rank's part
+    of a tree gathered over ``group`` (the model or expert line, every
+    rank of it calling) into the logical leaf, in host memory on rank
+    ``root`` of the line; the other ranks get None.  ``place_of(path)``
+    names a leaf's placement (default :func:`placement` on ``axis``; an
+    optimizer state's leaves take their parameter's).  A number leaf
+    comes back as it is."""
+    place_of = place_of or (lambda p: placement(p, axis))
+
+    def gather(path, t):
+        if not isinstance(t, torch.Tensor):
+            return t if group.rank == root else None
+        dim = split_dim(place_of(path))
+        if dim is None or group.size == 1:
+            return t.detach().cpu() if group.rank == root else None
+        return group.gather(t, dim, root)
+
+    out = map_leaves(gather, tree)
+    return out if group.rank == root else None
+
+
 __all__ = ["AXES", "COL_PARALLEL", "EXPERT_PARALLEL", "ROW_PARALLEL",
-           "leaves", "map_leaves", "placement", "shard_leaf", "shard_tree"]
+           "leaves", "map_leaves", "placement", "shard_leaf", "shard_tree",
+           "split_dim", "unshard_tree"]

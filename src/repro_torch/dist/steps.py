@@ -1,5 +1,5 @@
-"""Step builders: the single-device serving steps, and the TP train step
-over the fused collective-matmul ring.
+"""Step builders: the single-device serving steps, and the train step
+over a grid of ranks.
 
 Serving: what ``repro.dist.steps``'s serve/slot-write/block-write builders
 mean on one GPU with no mesh and no jit.  The reference builds jitted,
@@ -9,30 +9,33 @@ step (``build_prefill_chunk_step``) is ``models.prefill.prefill_chunk``
 itself.
 
 Training: :class:`TransportPolicy`, :class:`StepConfig`,
-:func:`build_init` and :func:`build_train_step`, the group standing in
-for the ``model`` axis (a dense model) or the ``expert`` axis (a MoE
-model).  At tp 1 (``Group(rank=0, size=1, device=…)``,
-no process pool) it is the reference's one-device step for every family
-the port serves: the model's own blocks, every attention through
+:func:`build_init` and :func:`build_train_step` over a grid of ranks
+(``launch/mesh.py``: ``data × model`` for a dense model, ``data ×
+expert`` for a MoE model; a plain group is the ``1 × n`` grid).  On one
+rank (``Group(rank=0, size=1, device=…)``, no process pool) it is the
+reference's one-device step for every family the port serves: the
+model's own blocks, every attention through
 ``layers.blockwise_attention`` (``layers.blockwise_core``), as the
 reference attends off the TPU: the dense and VLM blocks, MLA's, the MoE
 blocks (their expert products ``torch.bmm`` over the stacked weights,
 the reference's ``TransportPolicy.moe="xla"``), the encoder-decoder's
 encoder, self- and cross-attention, and the hybrid's shared
 applications; the ssm (Mamba-2) block's SSD scan is the kernel with its
-backward (``kernels/ssd``).  At tp ≥ 2 it is the path the reference
-takes with ``TransportPolicy(tp="fused")`` on a ``(1, tp)`` mesh: every
-dense block's TP edges on the fused ring of ``kernels/cc_matmul``.  A
-MoE model on a group of n ≥ 2 trains by expert parallelism over it (the
-reference's ``models/moe_ep.py`` runner on an ``expert`` mesh axis): rank
-r holds experts ``[r·E/n, (r+1)·E/n)`` and rows ``[r·b, (r+1)·b)`` of
-each microbatch, its tokens ride the conduit all-to-all of
-``TransportPolicy.moe`` to their experts and back, and the replicated
-leaves' gradients are summed over the group.  Every path sums
-microbatch gradients in fp32, leaf by leaf, and lays the sums out in
-flat buckets with ``grad_bucket_bytes``.  A data axis, the other TP
-transports, ``moe="auto"``/``"bidir"`` and the other families at tp ≥ 2
-raise, each naming its ROADMAP item; ART-TP is dense-only.
+backward (``kernels/ssd``).  On a model line of tp ≥ 2 it is the path
+the reference takes with ``TransportPolicy(tp="fused")``: every dense
+block's TP edges on the fused ring of ``kernels/cc_matmul``.  A MoE
+model on an expert line of n ≥ 2 trains by expert parallelism over it
+(the reference's ``models/moe_ep.py`` runner on an ``expert`` mesh
+axis): rank r of the line holds experts ``[r·E/n, (r+1)·E/n)``, its
+tokens ride the conduit all-to-all of ``TransportPolicy.moe`` to their
+experts and back, and the replicated leaves' gradients are summed over
+the line.  A data line of D ≥ 2 splits each microbatch's rows and
+averages the gradients over the line (``dist/grad_sync.py``).  Every
+path sums microbatch gradients in fp32, leaf by leaf, and lays the sums
+out in flat buckets with ``grad_bucket_bytes``.  The other TP
+transports, ``moe="auto"``/``"bidir"``, ``compress_cross_pod`` and the
+other families at tp ≥ 2 raise, each naming its ROADMAP item; ART-TP is
+dense-only.
 
 Serving over an expert group: :func:`serve_step` with the decode runner
 of :func:`moe_decode_runner` (each rank decodes its own rows).
@@ -53,7 +56,8 @@ from repro_torch.core.conduit import (
     resolve as conduit_resolve,
     transports as conduit_transports,
 )
-from repro_torch.dist import bucketing, sharding
+from repro_torch.dist import bucketing, grad_sync, sharding
+from repro_torch.dist.group import Grid, as_grid
 from repro_torch.dist.loss import chunked_ce_loss
 from repro_torch.models import artblock
 from repro_torch.models import layers as L
@@ -127,19 +131,19 @@ def park_row(cache: Cache, i: int) -> Cache:
 
 
 # ---------------------------------------------------------------------------
-# training: tp 1, and TP over the fused ring
+# training: tp 1, TP over the fused ring, EP, and a data axis
 # ---------------------------------------------------------------------------
 
-ROADMAP_DATA = ("ROADMAP queue 1 item 7 (distributed steps: a data axis "
-                "with gradient sync)")
+ROADMAP_COMPRESS = ("ROADMAP queue 1 item 7.8 (int8 compression of the "
+                    "data axis inside the train step)")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransportPolicy:
-    """The TP and MoE traffic classes of
-    ``repro.dist.steps.TransportPolicy``, each validated against the
-    transports registered for the op it rides (``tp`` all_gather, ``moe``
-    all_to_all) as the reference validates it, the conduit's
+    """The traffic classes of ``repro.dist.steps.TransportPolicy``, each
+    validated against the transports registered for the op it rides
+    (``tp`` all_gather, ``moe`` all_to_all, ``cross_pod`` all_reduce) as
+    the reference validates it, ``compress_cross_pod``, the conduit's
     ``chunk_bytes``, and ``moe_stream_chunks`` (the EP exchange split into
     that many ART chunks, bit-identical to bulk; None/1 bulk).
 
@@ -147,18 +151,25 @@ class TransportPolicy:
     transport of the expert exchange: ``ring`` or ``xla`` (the group's
     gloo all-to-all); ``auto`` and ``bidir`` raise when a step is built.
     The port has no GSPMD, so where the reference's ``moe="xla"`` keeps
-    every expert on every device, a MoE model on a group of n ≥ 2 here
-    always splits its experts, and ``xla`` is its exchange's transport
-    (the reference holds ``auto`` ≡ ``xla`` ≡ ``ring`` in value).  The
-    cross-pod class comes with the data axis."""
+    every expert on every device, a MoE model on an expert line of n ≥ 2
+    here always splits its experts, and ``xla`` is its exchange's
+    transport (the reference holds ``auto`` ≡ ``xla`` ≡ ``ring`` in
+    value).  ``cross_pod`` is the data axis's gradient all-reduce
+    (``dist/grad_sync.py``; ``ring`` or ``xla``).  ``compress_cross_pod``
+    raises when a step is built: the reference's step does not wire it
+    either (``repro/dist/grad_sync.py``'s scope note); the standalone
+    ``grad_sync.cross_pod_all_reduce(compressed=True)`` takes it."""
 
     tp: str = "xla"
     moe: str = "xla"
+    cross_pod: str = "ring"
+    compress_cross_pod: bool = False
     chunk_bytes: Optional[int] = None
     moe_stream_chunks: Optional[int] = None
 
     def __post_init__(self):
-        for cls, op in (("tp", "all_gather"), ("moe", "all_to_all")):
+        for cls, op in (("tp", "all_gather"), ("moe", "all_to_all"),
+                        ("cross_pod", "all_reduce")):
             name = getattr(self, cls)
             valid = ("auto",) + conduit_transports(op)
             if name not in valid:
@@ -264,59 +275,17 @@ def moe_decode_runner(cfg: ModelConfig, group,
 
 
 def split_rows(batch: int, group) -> slice:
-    """This rank's rows ``[r·b, (r+1)·b)`` of a batch split over the
-    expert group; a batch the group does not divide raises (a rank holds
-    E/n experts, so no rank can run a leftover row by the dense layer, the
-    reference's fallback)."""
+    """This rank's rows ``[r·b, (r+1)·b)`` of a batch split over
+    ``group`` (the data line, or every rank of an expert grid); a batch
+    the group does not divide raises (a rank holds E/n experts, so no
+    rank can run a leftover row by the dense layer, the reference's
+    fallback)."""
     n = group.size
     if batch % n:
         raise ValueError(f"batch {batch} does not split over the {n} ranks "
-                         f"of the expert group")
+                         f"of the group")
     b = batch // n
     return slice(group.rank * b, (group.rank + 1) * b)
-
-
-def _check_path(cfg: ModelConfig, group, scfg: StepConfig, data_axis: int
-                ) -> Tuple[Optional[Callable], Optional[Callable]]:
-    """(The dense-block runner, the MoE runner) of this group's train step
-    — (None, None) at tp 1: the model's own blocks, attending through
-    ``layers.blockwise_core`` — or the raise that names the ROADMAP item
-    of a path not ported."""
-    if data_axis != 1:
-        raise NotImplementedError(
-            f"data axis {data_axis} is not ported: {ROADMAP_DATA}")
-    if scfg.microbatches < 1:
-        raise ValueError(f"microbatches={scfg.microbatches} < 1")
-    if group.size == 1:
-        return None, None
-    if cfg.family == "moe":
-        return None, _moe_runner(cfg, group, scfg.resolved_transport())
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA training at tp {group.size} is not ported "
-            f"(the reference's _art_runner skips MLA; its TP split is the "
-            f"sharding rules'): ROADMAP queue 1 item 7")
-    if cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family} training at tp {group.size} is not "
-            f"ported (the sharding rules and the frontend's TP split): "
-            f"ROADMAP queue 1 item 7")
-    if cfg.family != "dense":
-        raise ValueError(
-            f"{cfg.name}: ART-TP is dense-only (the reference's _art_runner "
-            f"runs the dense block); train the {cfg.family} family at tp 1")
-    policy = scfg.resolved_transport()
-    if policy.tp == "auto":
-        raise NotImplementedError(
-            f"TransportPolicy.tp='auto' is not ported: {ROADMAP_AUTO}")
-    if policy.tp != "fused" or not cfg.use_art:
-        raise NotImplementedError(
-            f"TransportPolicy.tp={policy.tp!r} with use_art={cfg.use_art} "
-            f"is not ported (only 'fused' ART-TP is): {ROADMAP_OVERLAP}")
-    if not artblock.supports_art_tp(cfg, group.size):
-        raise ValueError(f"{cfg.name} cannot run the ART-TP block at "
-                         f"tp={group.size}")
-    return _art_runner(cfg, policy, group), None
 
 
 def group_axis(cfg: ModelConfig) -> str:
@@ -325,20 +294,85 @@ def group_axis(cfg: ModelConfig) -> str:
     return "expert" if cfg.family == "moe" else "model"
 
 
-def build_init(cfg: ModelConfig, group, scfg: StepConfig
+def step_grid(cfg: ModelConfig, group) -> Grid:
+    """``group`` as a grid: a :class:`~repro_torch.dist.group.Grid` as it
+    is, a plain group as the ``1 × n`` grid of :func:`group_axis`."""
+    return as_grid(group, group_axis(cfg))
+
+
+def _check_path(cfg: ModelConfig, grid: Grid, scfg: StepConfig
+                ) -> Tuple[Optional[Callable], Optional[Callable]]:
+    """(The dense-block runner, the MoE runner) of this grid's train step
+    — (None, None) when the inner line is one rank: the model's own
+    blocks, attending through ``layers.blockwise_core`` — or the raise
+    that names the ROADMAP item of a path not ported."""
+    if scfg.microbatches < 1:
+        raise ValueError(f"microbatches={scfg.microbatches} < 1")
+    policy = scfg.resolved_transport()
+    if policy.compress_cross_pod:
+        raise NotImplementedError(
+            "TransportPolicy.compress_cross_pod=True: the reference's train "
+            "step does not wire int8 compression on the data axis either "
+            "(repro/dist/grad_sync.py's scope note), so the port's does not "
+            "take it; compress with dist.grad_sync.cross_pod_all_reduce("
+            f"compressed=True): {ROADMAP_COMPRESS}")
+    if grid.data.size > 1 and policy.cross_pod == "auto":
+        raise NotImplementedError(
+            f"TransportPolicy.cross_pod='auto' is not ported: {ROADMAP_AUTO}")
+    inner = grid.inner
+    if inner.size == 1:
+        return None, None
+    if grid.inner_axis != group_axis(cfg):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a {grid.inner_axis} axis of "
+            f"{inner.size} is not ported (the port splits a MoE model's "
+            f"experts, a dense model's blocks): ROADMAP queue 1 item 7.5 "
+            f"(sharding rules)")
+    if cfg.family == "moe":
+        return None, _moe_runner(cfg, inner, policy)
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: MLA training at tp {inner.size} is not ported "
+            f"(the reference's _art_runner skips MLA; its TP split is the "
+            f"sharding rules'): ROADMAP queue 1 item 7.5")
+    if cfg.family in ("vlm", "encdec"):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.family} training at tp {inner.size} is not "
+            f"ported (the sharding rules and the frontend's TP split): "
+            f"ROADMAP queue 1 item 7.5")
+    if cfg.family != "dense":
+        raise ValueError(
+            f"{cfg.name}: ART-TP is dense-only (the reference's _art_runner "
+            f"runs the dense block); train the {cfg.family} family at tp 1")
+    if policy.tp == "auto":
+        raise NotImplementedError(
+            f"TransportPolicy.tp='auto' is not ported: {ROADMAP_AUTO}")
+    if policy.tp != "fused" or not cfg.use_art:
+        raise NotImplementedError(
+            f"TransportPolicy.tp={policy.tp!r} with use_art={cfg.use_art} "
+            f"is not ported (only 'fused' ART-TP is): {ROADMAP_OVERLAP}")
+    if not artblock.supports_art_tp(cfg, inner.size):
+        raise ValueError(f"{cfg.name} cannot run the ART-TP block at "
+                         f"tp={inner.size}")
+    return _art_runner(cfg, policy, inner), None
+
+
+def build_init(cfg: ModelConfig, grid, scfg: StepConfig
                ) -> Callable[[int], Tuple[Dict[str, Any], Dict[str, Any]]]:
     """``init_fn(seed) -> (params, opt_state)`` on this rank's device:
     every leaf drawn as ``models.model.init_params(cfg, seed)`` draws it
-    (so every rank and every group size sees the same full model), then,
-    at tp ≥ 2, cut to this rank's shard (``dist/sharding.py``, on the
-    :func:`group_axis` placement) layer by layer."""
-    axis = group_axis(cfg)
+    (so every rank and every grid sees the same full model), then, on an
+    inner line of two or more ranks, cut to this rank's shard
+    (``dist/sharding.py``, on the :func:`group_axis` placement) layer by
+    layer.  Every data rank holds the same whole copy."""
+    grid = step_grid(cfg, grid)
+    axis, inner = group_axis(cfg), grid.inner
 
     def init_fn(seed: int = 0):
-        layer_fn = None if group.size == 1 else (
-            lambda layer: sharding.shard_tree(layer, group.rank, group.size,
+        layer_fn = None if inner.size == 1 else (
+            lambda layer: sharding.shard_tree(layer, inner.rank, inner.size,
                                               axis))
-        params = init_params(cfg, seed, group.device, layer_fn=layer_fn)
+        params = init_params(cfg, seed, grid.device, layer_fn=layer_fn)
         return params, init_opt(params, scfg)
 
     return init_fn
@@ -362,44 +396,72 @@ def _microbatches(batch: Dict[str, torch.Tensor],
              for k, v in batch.items()} for i in range(n_micro)]
 
 
-def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
-                     data_axis: int = 1) -> Callable:
+def build_train_step(cfg: ModelConfig, grid, scfg: StepConfig) -> Callable:
     """``step_fn(params, opt, batch, step) -> (params, opt, metrics)`` for
-    this rank of the group.
+    this rank of ``grid`` (a :class:`~repro_torch.dist.group.Grid` of
+    ``data × model`` or ``data × expert`` ranks, ``launch/mesh.py``; a
+    plain group is the ``1 × n`` grid of :func:`group_axis`).
 
-    ``batch`` is the global batch (tokens and labels (B, S); at tp ≥ 2 S
-    a multiple of the group size for a dense model, B a multiple of
-    microbatches × group size for a MoE model; a frontend arch's
-    ``frontend_embeds`` (B, N, frontend_dim) at tp 1), the same on every
-    rank.  The step cuts it into ``scfg.microbatches`` microbatches, m
-    taking rows ``[m·B/M, (m+1)·B/M)``; for each it (1) embeds the rank's
-    part: a dense model's sequence shard, positions ``r·S/tp +
-    arange(S/tp)``, a MoE model's rows ``[r·b, (r+1)·b)`` of the
-    microbatch, whole (all of it, a VLM's patch rows before them, at tp
-    1); (2) runs the blocks, the dense ones through the ART-TP runner at
-    tp ≥ 2, the MoE layers through the expert-parallel runner, every
+    ``batch`` is the global batch (tokens and labels (B, S); on a model
+    line of tp ≥ 2 S a multiple of tp; B a multiple of microbatches × the
+    ranks its rows split over; a frontend arch's ``frontend_embeds`` (B,
+    N, frontend_dim) at tp 1), the same on every rank.  The step cuts it
+    into ``scfg.microbatches`` microbatches, m taking rows ``[m·B/M,
+    (m+1)·B/M)``, and each microbatch's rows over the data line (data
+    rank d rows ``[d·b, (d+1)·b)``, as the reference's ``batch_pspecs``
+    shards rows over its data axis), or on an expert grid over every rank
+    in world order (the reference's EP region shards rows over every mesh
+    axis).  For each microbatch it (1) embeds the rank's part: on a model
+    line its rows' sequence shard, positions ``r·S/tp + arange(S/tp)``,
+    else its rows whole (a VLM's patch rows before them); (2) runs the
+    blocks, the dense ones through the ART-TP runner at tp ≥ 2, the MoE
+    layers through the expert-parallel runner on an expert line, every
     attention through blockwise attention but the ART-TP block's;
-    (3) applies the final norm and the chunked CE over its rows, plus
-    ``moe_aux_weight`` × a MoE model's load-balancing loss (its share of
-    the loss over the group's rows); (4) runs backward on its own loss
-    and sums the gradients in fp32, leaf by leaf in place.  Then it
-    divides the sums by the microbatch count (in the flat buckets of
-    ``dist/bucketing.py`` with ``grad_bucket_bytes``: the same bits),
-    (5) sums the replicated leaves' gradients over the group, (6) clips
-    by the global norm and (7) takes an AdamW step at
-    ``warmup_cosine(step)``.
-    Parameters and optimizer state are updated in place.  ``metrics``:
-    the microbatches' mean loss, ce, z_loss and moe_aux and their summed
-    token count (the group's), the pre-clip grad norm and the learning
-    rate."""
-    runner, moe_runner = _check_path(cfg, group, scfg, data_axis)
+    (3) applies the final norm and the chunked CE over its part, plus
+    ``moe_aux_weight`` × a MoE model's load-balancing loss: the token
+    count and the experts' choice counts are summed over the whole world,
+    so each rank's loss is its share of the reference's global-batch
+    loss, and the shares sum to it whatever the masked labels' spread;
+    (4) runs backward on its share times the data extent D, and sums the
+    gradients in fp32, leaf by leaf in place.  Then it divides the sums
+    by the microbatch count (in the flat buckets of ``dist/bucketing.py``
+    with ``grad_bucket_bytes``: the same bits), (5) on a data line of D ≥
+    2 replaces each sum by its mean over the line through
+    ``dist/grad_sync.py``'s exact path on ``policy.cross_pod`` (the
+    buckets with ``grad_bucket_bytes``, else leaf by leaf): the mean of D
+    × the shares is their sum, the gradient of the global loss.  With D
+    a power of two (every grid the tests and the smoke run) the scaling
+    by D and the division by it are exact, so they add no rounding; any
+    other D (``launch/mesh.py`` takes one) rounds the scaled cotangent in
+    every bf16 op of backward and the fp32 division, so the gradient is
+    the global loss's to that rounding, not bit for bit (ROADMAP §3); (6) sums the replicated
+    leaves' gradients over the inner line, (7) clips by the global norm
+    over the inner line and (8) takes an AdamW step at
+    ``warmup_cosine(step)``, the same on every data rank.  Parameters and
+    optimizer state are whole on every data rank (DDP; the reference
+    shards them over its data axis, ZeRO/FSDP: ROADMAP queue 1 item 7.5)
+    and updated in place.  ``metrics``: the microbatches' mean loss, ce,
+    z_loss and moe_aux and their summed token count (the world's), the
+    pre-clip grad norm and the learning rate.
+
+    ``step_fn.local_grads(params, batch)`` runs (1)–(4) alone and returns
+    (this rank's fp32 gradients of D × its share, in ``dist.sharding.
+    leaves`` order, divided by the microbatch count; the metrics): the
+    per-rank gradients a data-axis sync takes."""
+    grid = step_grid(cfg, grid)
+    runner, moe_runner = _check_path(cfg, grid, scfg)
     core = None if runner is not None else L.blockwise_core(cfg)
     acfg = _adamw_config(scfg)
-    tp, rank = group.size, group.rank
+    policy = scfg.resolved_transport()
+    inner, data, world = grid.inner, grid.data, grid.world
+    tp, rank = inner.size, inner.rank
+    n_data = data.size
     n_micro = int(scfg.microbatches)
-    loss_group = group if tp > 1 else None
+    sum_group = world if world.size > 1 else None
+    norm_group = inner if tp > 1 else None
+    row_group = world if moe_runner is not None else data
     axis = group_axis(cfg)
-    # the TP group shards the sequence; the expert group (and tp 1) rows
+    # the TP line shards the sequence; the data line and EP the rows
     seq_shards = tp if runner is not None else 1
 
     def micro_grads(params, leaves, micro, acc):
@@ -415,16 +477,15 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
         s_loc = s // seq_shards
         cols = (slice(rank * s_loc, (rank + 1) * s_loc)
                 if runner is not None else slice(None))
-        rows = (split_rows(tokens.shape[0], group)
-                if moe_runner is not None else slice(None))
-        local = {"tokens": tokens[rows, cols].to(group.device),
-                 "labels": labels[rows, cols].to(group.device)}
+        rows = split_rows(tokens.shape[0], row_group)
+        local = {"tokens": tokens[rows, cols].to(grid.device),
+                 "labels": labels[rows, cols].to(grid.device)}
         if micro.get("frontend_embeds") is not None:
             local["frontend_embeds"] = micro["frontend_embeds"][rows].to(
-                group.device)
+                grid.device)
         # whole rows rope at their own index (a VLM's text after its
         # patch rows); the TP runner ropes the gathered sequence
-        positions = (torch.arange(s, device=group.device)
+        positions = (torch.arange(s, device=grid.device)
                      if runner is not None else None)
         for t in leaves:
             t.requires_grad_(True)
@@ -432,9 +493,9 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
             loss, metrics = chunked_ce_loss(
                 cfg, params, local, seq_chunk=scfg.seq_chunk,
                 z_loss=scfg.z_loss, moe_aux_weight=scfg.moe_aux_weight,
-                group=loss_group, positions=positions, runner=runner,
+                group=sum_group, positions=positions, runner=runner,
                 core=core, moe_ffn=moe_runner)
-            loss.backward()
+            (loss * n_data if n_data > 1 else loss).backward()
             for i, t in enumerate(leaves):
                 g, t.grad = t.grad, None
                 if g is None:
@@ -449,7 +510,7 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
                 t.requires_grad_(False)
         return metrics
 
-    def step_fn(params, opt, batch, step: int):
+    def local_grads(params, batch, bucketed: bool = False):
         paths, leaves = zip(*sharding.leaves(params))
         acc = [None] * len(leaves)
         mets = [micro_grads(params, leaves, mb, acc)
@@ -460,27 +521,38 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
                  else a for a, t in zip(acc, leaves)]
         del acc
         plan = None
-        if scfg.grad_bucket_bytes and n_micro > 1:
-            # the sums in flat buckets, the layout a bucketed sync ships
-            # (the data axis: not ported); per element the same fp32 sums
-            # and division, so the same bits
+        if bucketed:
+            # the sums in flat buckets, the layout the data axis's sync
+            # ships; per element the same fp32 sums and division, so the
+            # same bits
             plan = bucketing.bucket_plan(
                 list(leaves), target_bytes=scfg.grad_bucket_bytes)
             grads = bucketing.pack(grads, plan)
         if n_micro > 1:
             for g in grads:
                 g.div_(n_micro)
-        if plan is not None:
-            grads = bucketing.unpack(grads, plan, torch.float32)
         metrics = {k: (sum(m[k] for m in mets) if k == "tokens"
                        else sum(m[k] for m in mets) / n_micro)
                    for k in mets[0]}
+        return paths, leaves, grads, plan, metrics
+
+    def step_fn(params, opt, batch, step: int):
+        bucketed = bool(scfg.grad_bucket_bytes) and (n_micro > 1
+                                                     or n_data > 1)
+        paths, leaves, grads, plan, metrics = local_grads(
+            params, batch, bucketed)
+        if n_data > 1:
+            sync = grad_sync.mean_buckets if plan else grad_sync.mean_leaves
+            grads = sync(grads, data, transport=policy.cross_pod,
+                         chunk_bytes=policy.chunk_bytes)
+        if plan is not None:
+            grads = bucketing.unpack(grads, plan, torch.float32)
 
         places = [sharding.placement(p, axis) for p in paths]
         sharded = None
         if tp > 1:
             rep = [i for i, pl in enumerate(places) if pl == "rep"]
-            flat = group.all_reduce(torch.cat([grads[i].reshape(-1)
+            flat = inner.all_reduce(torch.cat([grads[i].reshape(-1)
                                                for i in rep]))
             off = 0
             for i in rep:
@@ -489,7 +561,7 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
                 off += n
             sharded = [pl != "rep" for pl in places]
         grads, grad_norm = clip_by_global_norm(
-            grads, scfg.clip_norm, group=loss_group, sharded=sharded)
+            grads, scfg.clip_norm, group=norm_group, sharded=sharded)
         lr = warmup_cosine(step, peak_lr=scfg.peak_lr,
                            warmup_steps=scfg.warmup_steps,
                            total_steps=scfg.total_steps)
@@ -497,4 +569,9 @@ def build_train_step(cfg: ModelConfig, group, scfg: StepConfig, *,
         metrics = dict(metrics, grad_norm=grad_norm, lr=lr)
         return params, opt, metrics
 
+    def public_local_grads(params, batch):
+        _, _, grads, _, metrics = local_grads(params, batch)
+        return grads, metrics
+
+    step_fn.local_grads = public_local_grads
     return step_fn

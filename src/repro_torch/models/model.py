@@ -219,10 +219,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     compare the two pass the reference's parameters through
     ``repro_torch.bridge`` instead.  ``layer_fn`` transforms each layer's
     dict as soon as it is drawn (the TP init keeps only this rank's
-    shard, so a whole model never sits on the device at once)."""
+    shard, so a whole model never sits on the device at once).  On the
+    ``meta`` device it draws nothing and allocates nothing: the shapes
+    alone, for a memory reckoning."""
     _check_ported(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(int(seed)))
     dt = L.pdtype(cfg)
     p: Params = {
         "embed": _init((cfg.vocab_size, cfg.d_model), dt, gen, device),

@@ -1,4 +1,5 @@
-"""The training loop of the port (``repro.runtime.trainer``) on one group.
+"""The training loop of the port (``repro.runtime.trainer``) on a grid
+of ranks.
 
 Fault tolerance lives around the step, as in the reference:
 
@@ -15,15 +16,28 @@ Fault tolerance lives around the step, as in the reference:
                           init from ``seed`` when there is none
 
 The data pipeline is stateless (a batch is a function of the step), so a
-restored step needs nothing else.  The step is ``dist.steps``'s, so the
-Trainer trains every family the port serves at tp 1: dense, MLA, MoE
-(every expert on the one device), ssm and the hybrid from ``SyntheticLM``
-tokens, and the VLM and the encoder-decoder from a data source whose
-batches carry their ``frontend_embeds``.  The reference's elastic paths
-(re-meshing after a device loss, scaling out) are ROADMAP queue 1 item 8
-and raise here.  The group stands in for the reference's mesh: one rank
-on ``cuda`` by default; a TP group's checkpoints (one shard a rank) are
-item 7.
+restored step needs nothing else.  The step is ``dist.steps``'s on the
+grid (``launch/mesh.py``; a plain group is the ``1 × n`` grid, one rank
+on ``cuda`` by default), so the Trainer trains every family the port
+serves at tp 1: dense, MLA, MoE (every expert on the one device), ssm and
+the hybrid from ``SyntheticLM`` tokens, and the VLM and the
+encoder-decoder from a data source whose batches carry their
+``frontend_embeds``; and a dense model over a ``data × model`` grid, a
+MoE model over ``data × expert``.
+
+Over a grid every rank runs the loop in lockstep, and every decision is
+the world's: each step the ranks all-gather their step times and
+preemption flags, so the watchdog sees the slowest rank's time and a
+SIGTERM on any rank checkpoints and stops every rank at the same
+boundary.  A checkpoint holds the logical (whole) arrays, the reference's
+format: the ranks of data coordinate 0 gather their shards over their
+model or expert line (``dist.sharding.unshard_tree``), world rank 0 alone
+writes and commits, and a world barrier follows.  On restore every rank
+reads the logical leaves and cuts its own part into the state
+``build_init`` made, so a checkpoint restores onto another grid (the
+one-rank run included), and either package reads what the other wrote.
+The reference's elastic paths (re-meshing after a device loss, scaling
+out) are ROADMAP queue 1 item 8 and raise here.
 """
 
 from __future__ import annotations
@@ -34,7 +48,7 @@ import signal
 import statistics
 import tempfile
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -42,13 +56,18 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import sharding
 from repro_torch.dist.group import Group
-from repro_torch.dist.steps import StepConfig, build_init, build_train_step
+from repro_torch.dist.steps import (
+    StepConfig,
+    build_init,
+    build_train_step,
+    group_axis,
+    step_grid,
+)
 
 ROADMAP_ELASTIC = ("ROADMAP queue 1 item 8 (the elastic runtime: "
                    "re-meshing after a failure, scaling out)")
-ROADMAP_TP_CKPT = ("ROADMAP queue 1 item 7 (distributed steps: a TP "
-                   "group's sharded checkpoints)")
 
 
 @dataclasses.dataclass
@@ -64,9 +83,13 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Trains ``cfg`` on ``data`` with ``build_train_step`` over ``group``
-    (default: one rank on ``device``, ``cuda`` unless asked otherwise).
-    ``clock`` times the steps for the watchdog and the history."""
+    """Trains ``cfg`` on ``data`` with ``build_train_step`` over ``group``,
+    a :class:`~repro_torch.dist.group.Grid` or a plain group (default: one
+    rank on ``device``, ``cuda`` unless asked otherwise).  ``clock`` times
+    the steps for the watchdog and the history (the checkpoints' ``ckpt_seconds`` holds
+    ``(step, seconds)`` of each checkpoint written, ``restore_seconds``
+    the time the last restore took (None: nothing restored), both on the
+    host's clock)."""
 
     def __init__(self, cfg: ModelConfig, scfg: StepConfig,
                  tcfg: TrainerConfig, data: SyntheticLM,
@@ -76,14 +99,13 @@ class Trainer:
                  clock: Callable[[], float] = time.perf_counter):
         if group is None:
             group = Group(rank=0, size=1, device=resolve_device(device))
-        if group.size != 1:
-            raise NotImplementedError(
-                f"the Trainer over a group of {group.size} ranks is not "
-                f"ported: {ROADMAP_TP_CKPT}")
+        self.grid = step_grid(cfg, group)
         self.cfg, self.scfg, self.tcfg = cfg, scfg, tcfg
         self.data = data
-        self.group = group
+        self.group = self.grid.world
         self.log = log_fn
+        self.ckpt_seconds: List[Tuple[int, float]] = []
+        self.restore_seconds: Optional[float] = None
         self.clock = clock
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, tcfg.ckpt_interval,
                                       tcfg.keep_last)
@@ -103,19 +125,86 @@ class Trainer:
 
     # -- build / restore ------------------------------------------------------
 
+    def _places(self, params) -> Dict[Tuple, str]:
+        """Each leaf of the checkpoint tree ``(params, opt)`` by its
+        placement on the inner line: an optimizer leaf (``mu``, ``nu``,
+        ``master``: one a parameter, in ``sharding.leaves`` order) takes
+        its parameter's, AdamW's ``step`` is replicated."""
+        axis = group_axis(self.cfg)
+        paths = [p for p, _ in sharding.leaves(params)]
+        places = {(0,) + p: sharding.placement(p, axis) for p in paths}
+        for key in ("mu", "nu", "master"):
+            for k, p in enumerate(paths):
+                places[(1, key, k)] = places[(0,) + p]
+        return places
+
+    def _cut(self, places: Dict[Tuple, str]):
+        """The checkpoint reader's ``cut``: this rank's part of a stored
+        logical array (a copy; the whole array for a replicated leaf)."""
+        inner = self.grid.inner
+
+        def cut(path, arr):
+            dim = sharding.split_dim(places.get(tuple(path), "rep"))
+            if dim is None or inner.size == 1:
+                return arr
+            step = arr.shape[dim] // inner.size
+            idx = [slice(None)] * arr.ndim
+            idx[dim] = slice(inner.rank * step, (inner.rank + 1) * step)
+            return arr[tuple(idx)]
+
+        return cut
+
     def _restore_or_init(self):
-        self.step_fn = build_train_step(self.cfg, self.group, self.scfg)
-        params, opt = build_init(self.cfg, self.group, self.scfg)(
+        self.step_fn = build_train_step(self.cfg, self.grid, self.scfg)
+        params, opt = build_init(self.cfg, self.grid, self.scfg)(
             self.tcfg.seed)
-        got = self.ckpt.restore_or_none((params, opt),
-                                        device=self.group.device)
+        t0 = time.perf_counter()
+        got = self.ckpt.restore_or_none(
+            (params, opt), cut=self._cut(self._places(params)), into=True)
         if got is None:
             return params, opt, 0
         (params, opt), manifest = got
+        if self.grid.device.type == "cuda":
+            torch.cuda.synchronize(self.grid.device)
+        self.restore_seconds = time.perf_counter() - t0
         start = manifest["step"]
         self.log(f"[trainer] restored step {start} from "
                  f"{self.ckpt.directory}")
         return params, opt, start
+
+    def _save(self, step: int, params, opt, extra) -> str:
+        """Write the logical checkpoint of ``(params, opt)`` at ``step``:
+        the ranks of data coordinate 0 gather it over their inner line,
+        world rank 0 writes and commits it (and returns its path; the
+        other ranks None), a world barrier follows."""
+        world, inner = self.grid.world, self.grid.inner
+        path = None
+        t0 = time.perf_counter()
+        tree = None
+        if inner.size == 1:
+            tree = (params, opt)
+        elif self.grid.coords[0] == 0:
+            tree = sharding.unshard_tree(
+                (params, opt), inner,
+                place_of=self._places(params).__getitem__)
+        if world.rank == 0:
+            path = self.ckpt.save(step, tree, extra=extra)
+        del tree
+        if world.size > 1:
+            world.barrier()
+        self.ckpt_seconds.append((step, time.perf_counter() - t0))
+        return path
+
+    def _agree(self, dt: float) -> Tuple[float, bool]:
+        """(The slowest rank's step time, whether any rank was asked to
+        stop): every rank's decisions are the world's."""
+        world = self.grid.world
+        if world.size == 1:
+            return dt, self._preempted
+        mine = torch.tensor([[dt, float(self._preempted)]],
+                            dtype=torch.float64)
+        every = world.all_gather(mine, 0)
+        return float(every[:, 0].max()), bool(every[:, 1].max() > 0)
 
     # -- straggler watchdog ---------------------------------------------------
 
@@ -140,9 +229,11 @@ class Trainer:
                                                None]] = None):
         """Run to ``total_steps`` from the latest checkpoint (or step 0);
         returns (params, opt, step).  ``on_step(step, metrics)`` runs after
-        each step, before its checkpoint."""
+        each step, before the ranks agree on its time (``step_time_s`` is
+        this rank's until then) and on stopping, and before its
+        checkpoint."""
         params, opt, step = self._restore_or_init()
-        dev = self.group.device
+        dev = self.grid.device
         while step < self.tcfg.total_steps:
             batch = self.data.global_batch(step)
             t0 = self.clock()
@@ -158,6 +249,10 @@ class Trainer:
             self.history.append(m)
             if on_step:
                 on_step(step, m)
+            # after on_step: a SIGTERM that arrived by now stops every rank
+            # here, one that arrives later at the next boundary
+            dt, preempted = self._agree(dt)
+            m["step_time_s"] = dt
             if step % self.tcfg.log_interval == 0:
                 self.log(f"[trainer] step {step} loss {m['loss']:.4f} "
                          f"ce {m['ce']:.4f} gnorm {m['grad_norm']:.2f} "
@@ -168,18 +263,17 @@ class Trainer:
                          "trigger elastic re-mesh on a real deployment")
                 self._straggler_strikes = 0
 
-            if self.ckpt.should_save(step) or self._preempted:
-                path = self.ckpt.save(step, (params, opt),
-                                      extra={"loss": m["loss"]})
+            if self.ckpt.should_save(step) or preempted:
+                path = self._save(step, params, opt, {"loss": m["loss"]})
                 self.log(f"[trainer] checkpoint -> {path}")
-                if self._preempted:
+                if preempted:
                     self.log("[trainer] preemption checkpoint complete; "
                              "exiting")
                     return params, opt, step
 
-        self.ckpt.save(step, (params, opt),
-                       extra={"loss": self.history[-1]["loss"]
-                              if self.history else None})
+        self._save(step, params, opt,
+                   {"loss": self.history[-1]["loss"] if self.history
+                    else None})
         return params, opt, step
 
     def _recover_mesh(self, *args, **kwargs):

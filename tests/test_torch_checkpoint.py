@@ -185,6 +185,20 @@ def test_shape_mismatch_and_missing_leaf_raise(tmp_path):
         load_checkpoint(str(tmp_path), extra)
 
 
+def test_restore_into_refuses_another_dtype(tmp_path):
+    """A copy into the template's tensor keeps the stored bits: a stored
+    bf16 leaf into an fp32 template raises instead of converting."""
+    save_checkpoint(str(tmp_path), 1, _tree())
+    into = _tree(1)
+    back, _ = load_checkpoint(str(tmp_path), into, into=True)
+    assert back["params"]["w"] is into["params"]["w"]
+    _assert_same(back, _tree())
+    bad = _tree()
+    bad["params"]["w"] = bad["params"]["w"].float()
+    with pytest.raises(ValueError, match="params/w.*dtype"):
+        load_checkpoint(str(tmp_path), bad, into=True)
+
+
 # ---------------------------------------------------------------------------
 # the Trainer
 # ---------------------------------------------------------------------------

@@ -455,8 +455,10 @@ def test_expert_parallel_paths_raise_naming_the_roadmap(name, monkeypatch):
     """Expert parallelism trains and decodes (``tests/test_torch_moe_ep.py``);
     what of it still raises names its ROADMAP item: the ``auto`` MoE
     transport (``ROADMAP_AUTO``, a preset's own policy), ``bidir``
-    (``ROADMAP_SUBSTRATE``) and a data axis (``ROADMAP_DATA``), each when
-    the step is built; ``launch/serve.py --full`` at the published depth
+    (``ROADMAP_SUBSTRATE``) and int8 compression of the data axis inside
+    the step (``ROADMAP_COMPRESS``; the data axis itself trains, as
+    ``tests/test_torch_train_mesh.py`` holds), each when the step is
+    built; ``launch/serve.py --full`` at the published depth
     refuses before it draws a parameter, stating the bytes and naming the
     ``Server`` over an expert group (item 7.6), and passes the depth cut
     on."""
@@ -466,7 +468,7 @@ def test_expert_parallel_paths_raise_naming_the_roadmap(name, monkeypatch):
     from repro_torch.core.conduit import ROADMAP_AUTO, ROADMAP_SUBSTRATE
     from repro_torch.dist.group import Group
     from repro_torch.dist.steps import (
-        ROADMAP_DATA,
+        ROADMAP_COMPRESS,
         StepConfig,
         TransportPolicy,
         build_train_step,
@@ -483,8 +485,10 @@ def test_expert_parallel_paths_raise_naming_the_roadmap(name, monkeypatch):
                          ROADMAP_SUBSTRATE)):
         with pytest.raises(NotImplementedError, match=re.escape(match)):
             build_train_step(cfg, group, scfg)
-    with pytest.raises(NotImplementedError, match=re.escape(ROADMAP_DATA)):
-        build_train_step(cfg, group, StepConfig(), data_axis=2)
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(ROADMAP_COMPRESS)):
+        build_train_step(cfg, group, StepConfig(transport=TransportPolicy(
+            moe="ring", compress_cross_pod=True)))
 
     def no_init(*a, **k):
         raise AssertionError("a parameter was drawn")

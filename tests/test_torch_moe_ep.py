@@ -62,9 +62,8 @@ from repro_torch.configs import (
 )
 from repro_torch.core.conduit import ROADMAP_AUTO, ROADMAP_SUBSTRATE
 from repro_torch.dist import rank_tasks, sharding
-from repro_torch.dist.group import Group, RankPool
+from repro_torch.dist.group import Group, RankPool, as_grid
 from repro_torch.dist.steps import (
-    ROADMAP_DATA,
     StepConfig,
     TransportPolicy,
     build_init,
@@ -543,8 +542,10 @@ def test_unported_moe_transports_raise(moe, exc, match):
 def test_data_axis_and_indivisible_batches_raise():
     _, cfg = _cfg(GROK)
     scfg = StepConfig(microbatches=2, **STEP_KW)
-    with pytest.raises(NotImplementedError, match=re.escape(ROADMAP_DATA)):
-        build_train_step(cfg, _group(2), scfg, data_axis=2)
+    # the data axis trains (tests/test_torch_train_mesh.py); a MoE model
+    # on a model line (TP inside the expert region) does not
+    with pytest.raises(NotImplementedError, match="item 7.5"):
+        build_train_step(cfg, as_grid(_group(2), "model"), scfg)
     with pytest.raises(ValueError, match="do not split over 3"):
         build_train_step(cfg, _group(3), scfg)     # 4 experts over 3
     # 6 rows in 2 microbatches of 3: 3 rows do not split over 2 ranks,

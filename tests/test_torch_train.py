@@ -240,8 +240,9 @@ def _cpu_group(size):
     (2, StepConfig(transport=TransportPolicy(tp="ring")), {}, "ring"),
     (2, StepConfig(transport=TransportPolicy(tp="xla")), {}, "xla"),
     (2, StepConfig(transport=TransportPolicy(tp="auto")), {}, "auto"),
-    (2, StepConfig(transport=TransportPolicy(tp="fused")),
-     {"data_axis": 2}, "data axis"),
+    (2, StepConfig(transport=TransportPolicy(tp="fused",
+                                             compress_cross_pod=True)),
+     {}, "data axis"),
 ])
 def test_unported_paths_raise(size, scfg, kw, match):
     cfg = get_config(ARCH).reduced()
@@ -466,3 +467,22 @@ def test_union_spans_merges_overlaps():
     assert rank_tasks.union_spans([(5, 7), (1, 3), (2, 4), (7, 9),
                                    (10, 11)]) == [(1, 4), (5, 9), (10, 11)]
     assert rank_tasks.union_spans([]) == []
+
+
+def test_ring_profile_idles_its_margin_around_the_calls():
+    """Phase 7's profile of the ring: the calls sit ``PROFILE_MARGIN_S``
+    inside the profile on both sides, so no rank's profiler starts or
+    stops while another rank's hops run (a profile can lose records)."""
+    import time
+    from types import SimpleNamespace
+
+    calls = []
+    t0 = time.perf_counter()
+    got = rank_tasks._ring_profile(SimpleNamespace(device=torch.device("cpu")),
+                                   lambda: calls.append(time.perf_counter()),
+                                   3)
+    t1 = time.perf_counter()
+    margin = rank_tasks.PROFILE_MARGIN_S
+    assert margin > 0 and len(calls) == 3
+    assert calls[0] - t0 >= margin and t1 - calls[-1] >= margin
+    assert got == {"hop_ms": 0.0, "hop_events": 0.0, "copy_ms": 0.0}

@@ -352,8 +352,10 @@ def test_launcher_runs_and_resumes(tmp_path, capsys):
                                                           "2"])
     assert [h["step"] for h in t.history] == [4, 5]
     assert "restored step 3" in capsys.readouterr().out
+    # the launcher takes a grid (tests/test_torch_train_mesh.py); a model
+    # axis beside an expert axis still raises
     with pytest.raises(NotImplementedError, match="item 7"):
-        launch_train.main(args + ["--model-axis", "2"])
+        launch_train.main(args + ["--model-axis", "2", "--expert-axis", "2"])
 
 
 def test_example_train_lm_small_runs(tmp_path, capsys):
