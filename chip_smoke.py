@@ -157,7 +157,8 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    four rank processes sharing the card, each mapping its ring
    neighbours' channels, against their plain versions (the unfused
    gather-then-matmul and matmul-then-reduce-scatter over the gloo
-   group) at every TP-4 edge shape of full-width h2o-danube-1.8b, both
+   group) at every TP-4 edge shape of full-width h2o-danube-1.8b (the
+   vocab-parallel head's two edges among them: N = V/4 = 8000), both
    ring directions, plus a ragged case.  Same tolerances as the hop
    kernels.  A call is n hop products (the hop kernel, counted by the
    launcher into the group's ``ring_kernels`` and by torch.profiler:
@@ -172,32 +173,53 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    processes (NCCL takes one card a rank), so there is no library
    yardstick.
 8. TP training of full-width h2o-danube-1.8b (``get_tp_preset``'s
-   transport, model axis 4): four rank processes sharing the card, bf16
-   parameters from seed 0, fp32 AdamW moments, remat full, SyntheticLM
-   batches of 2 × 2048 tokens, seq_chunk 512, warmup 1.  The fused edges
-   take the in-kernel ring (the ranks map each other's channels, the
-   reference's remote-DMA path), 3 steps; the rest of the group's traffic
-   (weight-gradient gathers, the K/V ring, the gradient all-reduce) goes
-   over gloo staged through host memory.  Held: every step's ring calls
-   equal the schedule's count, each of them 4 hop products
-   (``ring_kernels``), and no hop kernel's wrapper or plain version runs;
-   the step-0 loss is within 0.5 of ln 32000; every
-   replicated leaf is bitwise equal on the four ranks after the last
-   step; a TP 2 run of the same parameters and batch agrees at step 0
-   (loss 2e-2, grad norm 5e-2 relative).  The last TP-4 step runs under
-   torch.profiler in every rank: the share of its wall with no kernel of
-   any rank from the ranks' kernel spans summed (a lower bound: a
-   preempted kernel's span stays open) and from their union on the
-   profiler's host clock.  Then step 0 again on the
+   transport) with the vocab-parallel embedding and LM head (``embed``'s
+   rows and ``lm_head``'s columns split over the model line, the head an
+   AG ring edge with N = V/tp, the ranks' log-sum-exps combined a token):
+   rank processes sharing the card, bf16 parameters from seed 0, fp32
+   AdamW moments, remat full, SyntheticLM batches of 2 × 2048 tokens,
+   seq_chunk 512, warmup 1.  The fused edges take the in-kernel ring (the
+   ranks map each other's channels, the reference's remote-DMA path): 2
+   steps at a model axis of 4, then step 0 at the preset's 8, all 24
+   layers both; the rest of the group's traffic (the
+   embedding's reduce-scatter, weight-gradient gathers, the K/V ring, the
+   CE's log-sum-exp gather, the replicated leaves' gradient all-reduce)
+   goes over gloo staged through host memory.  Held: every step's ring
+   calls equal the schedule's count with the head's edges (an AG edge
+   forward and an RS edge backward a CE chunk), each of them tp hop
+   products (``ring_kernels``), and no hop kernel's wrapper or plain
+   version runs; every rank reports the same loss; the step-0 loss is
+   within 0.5 of ln 32000; every replicated leaf is bitwise equal on the
+   ranks after the last step, and ``embed`` and ``lm_head`` are not
+   among them; their shards after step 0, gathered, hold the 32000 vocab
+   rows (columns) once each, the same in every run (exact checksums);
+   TP 8 agrees with TP 4 at step 0 (loss 2e-2, grad norm 5e-2 relative,
+   and the limits set from the readings, 1e-3 and 1e-2).  Before the
+   TP-8 step, its eight-rank pool holds each ring call of that step at
+   its shapes (``tp_ring_cases``: the blocks' edges and the head's, N =
+   4000) to the plain version at phase 7's tolerances, with one ring
+   launch and 8 hop products a call a rank.
+   Printed a run: parameters and peak memory a rank, the step time (the
+   slowest rank), and the model line's bytes staged through the host a
+   step, the replicated leaves' gradient all-reduce apart.  The last
+   TP-4 step runs under torch.profiler in every rank: the share of its
+   wall with no kernel of any rank from the ranks' kernel spans summed
+   (a lower bound: a preempted kernel's span stays open) and from their
+   union on the profiler's host clock.  Then step 0 at 4 again on the
    emulated schedule (a group without peer memory: every hop over the
    gloo wire, each arrival consumed by a hop kernel): its hop-kernel
    launches equal the schedule's count, no ring kernel or plain version
    runs, and its loss and grad norm agree with the in-kernel ring's
    step 0 at 1e-6 relative (the same tile arithmetic on both paths).
-9. Reduced h2o-danube-1.8b in fp32 at TP 2 and 4, 2 steps on the card and
-   on the CPU (gloo both): loss and grad norm within 1e-4 relative, and
-   every parameter leaf by the parameter rule at 1e-4 (mean |Δ| ≤ 1e-4 ×
-   the leaf's mean magnitude, max |Δ| ≤ 2·peak_lr + 1e-4 × its max).
+9. Reduced h2o-danube-1.8b in fp32 at TP 2 and 4, and at TP 4 with a
+   vocab of 250 (which the line does not divide, so ``embed`` and
+   ``lm_head`` stay replicated: the plain lookup of the rank's rows and
+   the replicated head's CE), 2 steps on the card and on the CPU (gloo
+   both):
+   loss and grad norm within 1e-4 relative, every parameter leaf by the
+   parameter rule at 1e-4 (mean |Δ| ≤ 1e-4 × the leaf's mean magnitude,
+   max |Δ| ≤ 2·peak_lr + 1e-4 × its max), and the two vocab leaves among
+   the sharded (vocab 250: the replicated) leaves on every rank.
 9b. Expert parallelism (``models/moe_ep.py``), on phase 9's pools of 2
    and 4 rank processes.  (a) Reduced llama4-scout and grok-1 in fp32,
    their experts split over 2 and 4 ranks, 2 steps of the EP train step
@@ -228,8 +250,9 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    spans) and the peak memory a rank.  (c) runs first on the 4-rank
    pool, (b) last.
 
-10. One-GPU training of full-width smollm-360m through the Trainer (32
-    layers, bf16 parameters from seed 0, fp32 AdamW masters and moments,
+10. One-GPU training of full-width smollm-360m through the Trainer (16
+    of its 32 layers, bf16 parameters from seed 0, fp32 AdamW masters and
+    moments,
     remat full): SyntheticLM batches of 8 × 2048 tokens in 2 microbatches,
     seq_chunk 512, 4 steps with a checkpoint at step 2; the final
     checkpoint is dropped and a fresh Trainer restores step 2 and runs
@@ -305,21 +328,21 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
     3 steps from seed 0 in bf16, 2 microbatches, seq_chunk 512, the AdamW
     state by the reference's ``step_config`` rule on the published config
     (``launch.train.optimizer_state``), every attention through blockwise
-    attention (flash has no backward).  14a zamba2-7b at 24 of its 81
-    layers (2 511 909 248 parameters), ``remat="dots"``, 4 × 2048 tokens
+    attention (flash has no backward).  14a zamba2-7b at 12 of its 81
+    layers (1 576 172 480 parameters), ``remat="dots"``, 4 × 2048 tokens
     through the Trainer; 14b llama4-scout-17b-a16e at 1 of its 48 layers
     (4 271 078 400: the 16 stacked experts, the router, the shared expert,
     the 202 048-row embedding and head), bf16 moments and no master, 4 ×
-    2048 tokens through the Trainer; 14c minicpm3-4b at 32 of 62 layers,
+    2048 tokens through the Trainer; 14c minicpm3-4b at 16 of 62 layers,
     the same; 14d internvl2-2b at all 24 layers through
     ``build_train_step``, 4 rows of 256 patch embeddings (width 1024,
     standard normal from a seed) and 1792 text tokens; 14e whisper-tiny
     at all 4 + 4 layers, 8 rows of 1500 frames (width 384) and 448 decoder
     tokens.  Held: the parameter count against ``count_params_analytic``;
     the optimizer state's dtype; every loss and grad norm finite; every
-    step's launches exact (zamba2: SSD forward 24 × 2 × 2 = 96, the
+    step's launches exact (zamba2: SSD forward 12 × 2 × 2 = 48, the
     forward and the recompute that ``"dots"`` leaves to the scan, and
-    backward 24 × 2 = 48; every other kernel 0, flash included), and in
+    backward 12 × 2 = 24; every other kernel 0, flash included), and in
     zamba2's profiled step 3 and ``ops.SSD_BWD_KERNELS`` SSD device events
     a launch; zamba2's products with no batch dimension that run in one
     step of 1 × 512 tokens (a dispatch mode below selective checkpointing's
@@ -2090,6 +2113,10 @@ RING_CASES = [
     ("down edge fwd", "rs", -1, 2, 512, 1280, 1728, "float32", "bfloat16"),
     ("up|gate edge bwd", "rs", 1, 2, 512, 1280, 3456, "float32",
      "bfloat16"),
+    # the vocab-parallel head at TP 4: a CE chunk's 128 local rows a rank
+    # (64 a half ring) over V/4 = 8000 columns, and its dh backward
+    ("head edge fwd", "ag", 1, 2, 64, 8000, 2560, "bfloat16", "bfloat16"),
+    ("head edge bwd", "rs", 1, 2, 128, 1280, 8000, "float32", "bfloat16"),
     ("ragged", "ag", -1, 2, 77, 45, 130, "bfloat16", "bfloat16"),
     ("ragged", "ag", 1, 2, 77, 45, 130, "float32", "bfloat16"),
     ("ragged", "rs", -1, 2, 77, 45, 130, "bfloat16", "bfloat16"),
@@ -2118,6 +2145,50 @@ def ring_bound_ms(op, tp, bsz, b, n, k, dx, dw):
     return hop_bound_ms(flops, nbytes, dx, dw)
 
 
+def check_ring_case(entry, label, rows, tp, err, tol):
+    """Fails unless every rank's output of a ``ring_kernels`` case is
+    finite and within ``tol`` of the plain version (``err``: max error
+    over max |plain|), and each rank launched the op's kernel once, no
+    other cc_matmul kernel, and ``tp`` hop products."""
+    if not all(r["finite"] for r in rows):
+        fail(f"{entry} {label}: non-finite output")
+    if not err <= tol:
+        fail(f"{entry} {label}: err {err} > {tol}")
+    if [r["launches"][entry] for r in rows] != [1] * tp or any(
+            v for name, v in rows[0]["launches"].items() if name != entry):
+        fail(f"{entry} {label}: launches {rows[0]['launches']}")
+    kernels = [r["ring_kernels"] for r in rows]
+    if kernels != [tp] * tp:
+        fail(f"{entry} {label}: {kernels} hop products launched a call, "
+             f"expected {tp} a rank")
+
+
+def tp_ring_cases(cfg, tp, batch, seq, seq_chunk):
+    """The ring calls of a TP step of a dense gated-MLP model at the
+    shapes its edges give them (``models/artblock.py``,
+    ``models/vocab_parallel.py``), as ``RING_CASES`` entries: an AG
+    bidirectional half gathers half of the rank's ``seq / tp`` rows, an
+    RS half keeps all of them over half of the columns; the head's edges
+    take a CE chunk's ``seq_chunk / tp`` rows over the rank's V/tp ids."""
+    bf, f32 = "bfloat16", "float32"
+    d, local, chunk = cfg.d_model, seq // tp, seq_chunk // tp
+    nq, ff = cfg.n_heads * cfg.head_dim // tp, cfg.d_ff // tp
+    v = cfg.vocab_size // tp
+    return [
+        ("q edge fwd", "ag", 1, batch, local // 2, nq, d, bf, bf),
+        ("up|gate edge fwd", "ag", -1, batch, local // 2, 2 * ff, d, bf,
+         bf),
+        ("o edge bwd", "ag", 1, batch, local // 2, nq, d, f32, bf),
+        ("down edge bwd", "ag", -1, batch, local // 2, ff, d, f32, bf),
+        ("o edge fwd", "rs", 1, batch, local, d // 2, nq, f32, bf),
+        ("down edge fwd", "rs", -1, batch, local, d // 2, ff, f32, bf),
+        ("up|gate edge bwd", "rs", 1, batch, local, d // 2, 2 * ff, f32,
+         bf),
+        ("head edge fwd", "ag", 1, batch, chunk // 2, v, d, bf, bf),
+        ("head edge bwd", "rs", 1, batch, chunk, d // 2, v, f32, bf),
+    ]
+
+
 def phase_ring_kernels():
     """The two whole-ring ops vs their plain versions in four ranks on the
     card; returns each op's main-path numbers."""
@@ -2142,7 +2213,6 @@ def phase_ring_kernels():
         ms, plain_ms = rows[0]["ms"], rows[0]["plain_ms"]
         ms_long = rows[0]["ms_long"]
         bound_ms, bound_by = ring_bound_ms(op, tp, bsz, b, n, k, dx, dw)
-        launched = [r["launches"][entry] for r in rows]
         kernels = [r["ring_kernels"] for r in rows]
         # the group's hop products of one call by torch.profiler (tp ranks
         # x tp hops): the time the card needs if it runs them one after
@@ -2160,16 +2230,10 @@ def phase_ring_kernels():
               f"a call over the group (the serialized floor, {tp}x{tp} x "
               f"{hop_ms / (tp * tp):.4f} ms), forwards {copy_ms:.4f} ms; "
               f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
-        if not all(r["finite"] for r in rows):
-            fail(f"{entry} {label}: non-finite output")
-        if not err <= tol:
-            fail(f"{entry} {label}: err {err} > {tol}")
-        if launched != [1] * tp or any(
-                v for name, v in rows[0]["launches"].items() if name != entry):
-            fail(f"{entry} {label}: launches {rows[0]['launches']}")
-        if kernels != [tp] * tp or events != [float(tp)] * tp:
-            fail(f"{entry} {label}: {kernels} hop products launched and "
-                 f"{events} profiled a call, expected {tp} a rank")
+        check_ring_case(entry, label, rows, tp, err, tol)
+        if events != [float(tp)] * tp:
+            fail(f"{entry} {label}: {events} hop products profiled a call, "
+                 f"expected {tp} a rank")
         if label == main_case[op] and entry not in out:
             out[entry] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by,
@@ -2183,16 +2247,25 @@ def phase_ring_kernels():
     return out
 
 
-def tp_launches(n_layers, tp, remat, peer):
+def head_chunks(seq, tp, seq_chunk, microbatches=1):
+    """The vocab-parallel CE's chunks a step (``dist/loss.py``): each
+    microbatch's ``seq / tp`` local rows in chunks of ``seq_chunk / tp``."""
+    local, k = seq // tp, max(seq_chunk // tp, 1)
+    return microbatches * -(-local // k)
+
+
+def tp_launches(n_layers, tp, remat, peer, chunks=0):
     """cc_matmul launches of one TP step from the schedule: per layer two
     AG edges (q, up‖gate) and two RS edges (o, down) forward, the other op
-    at each edge in backward, the forward again under remat full; batch
-    folded into each launch.  In-kernel ring (``peer``): one ring launch
-    a direction, two counter-rotating half rings at tp > 2.  Emulated: an
-    AG at tp > 2 consumes 2 + 2(tp−1) times, an RS launches 2 tiles and
-    2(tp−1) accumulating consumes; at tp 2 one ring: tp, 1 and tp−1."""
+    at each edge in backward, the forward again under remat full; the
+    vocab-parallel head's AG edge forward and its RS edge backward a CE
+    chunk (``chunks``, never recomputed); batch folded into each launch.
+    In-kernel ring (``peer``): one ring launch a direction, two
+    counter-rotating half rings at tp > 2.  Emulated: an AG at tp > 2
+    consumes 2 + 2(tp−1) times, an RS launches 2 tiles and 2(tp−1)
+    accumulating consumes; at tp 2 one ring: tp, 1 and tp−1."""
     bidir = tp > 2
-    calls = n_layers * (6 if remat == "full" else 4)   # per op kind
+    calls = n_layers * (6 if remat == "full" else 4) + chunks  # per op kind
     zero = dict.fromkeys(("matmul_tile", "consume_matmul",
                           "consume_matmul_acc", "ag_matmul_ring",
                           "rs_matmul_ring"), 0)
@@ -2206,12 +2279,55 @@ def tp_launches(n_layers, tp, remat, peer):
                                             else tp - 1))
 
 
+#: phase 8's runs: (tag, model axis, steps, in-kernel ring), each at all
+#: of h2o-danube-1.8b's 24 layers (the reckoning of the eight ranks'
+#: bytes against the card is in PERF.md §6)
+TP_RUNS = (("tp4", 4, 2, True), ("tp8", 8, 1, True),
+           ("tp4-emulated", 4, 1, False))
+TP_SEQ, TP_SEQ_CHUNK, TP_BATCH = 2049, 512, 2
+#: step 0 at TP 8 against TP 4, relative: besides the tolerances of the
+#: TP-2 check this run replaced (2e-2, 5e-2), limits set from the
+#: readings (loss 1.95e-6, grad norm 1.77e-4 on an H100, PERF.md §6)
+TP8_LOSS_TOL, TP8_NORM_TOL = 1e-3, 1e-2
+
+
+def tp8_ring_cases(pool, cfg, smi):
+    """The TP-8 step's ring calls at its shapes (the blocks' and the
+    head's edges), each against its plain version on the eight-rank pool
+    of phase 8 before it trains: phase 7 holds the rings at four ranks
+    only."""
+    from repro_torch.dist import rank_tasks
+
+    tp = pool.size
+    cases = tp_ring_cases(cfg, tp, TP_BATCH, TP_SEQ - 1, TP_SEQ_CHUNK)
+    res = pool.run(rank_tasks.ring_kernels,
+                   [dict(op=op, direction=d, B=bsz, b=b, N=n, K=k, dx=dx,
+                         dw=dw) for _, op, d, bsz, b, n, k, dx, dw in cases],
+                   iters=1)
+    for i, (label, op, d, bsz, b, n, k, dx, dw) in enumerate(cases):
+        rows = [r[i] for r in res]
+        entry = f"{op}_matmul_ring"
+        err = (max(r["max_abs_err"] for r in rows)
+               / max(r["max_plain"] for r in rows))
+        tol = HOP_TOL[(dx, dw)]
+        print(f"[tp8] {entry} {label} dir {d:+d} B{bsz} b{b} N{n} K{k} "
+              f"{dx} x {dw}, {tp} ranks: max_err/max {err:.3g} (tol {tol}),"
+              f" ring {rows[0]['ms']:.4f} ms, plain "
+              f"{rows[0]['plain_ms']:.4f} ms (gloo), one call ({smi})",
+              flush=True)
+        check_ring_case(entry, f"{label} at tp {tp}", rows, tp, err, tol)
+
+
 def phase_tp_train():
-    """Full-width h2o-danube-1.8b TP training at a model axis of 4 on the
-    in-kernel ring, step 0 at TP 2, and step 0 at TP 4 on the emulated
-    schedule; returns the cc_matmul launches of each path's TP-4 run (all
-    ranks, all steps)."""
+    """Full-width h2o-danube-1.8b TP training with the vocab-parallel
+    embedding and head: 2 steps at a model axis of 4 on the in-kernel
+    ring, step 0 at 8 (the preset's extent), and step 0 at 4 on the
+    emulated schedule; returns the cc_matmul launches (all ranks, all
+    steps): the rings' of the TP-4 and TP-8 runs, the hop kernels' of the
+    emulated run, and the TP-8 run's rings apart."""
     import math
+
+    import numpy as np
 
     from repro_torch.configs.presets import get_tp_preset
     from repro_torch.dist import rank_tasks
@@ -2219,31 +2335,40 @@ def phase_tp_train():
 
     preset = get_tp_preset("h2o-danube-1.8b-tp")
     cfg = preset.config
-    kw = dict(steps=3, tp_transport=preset.tp_transport, seed=0,
-              step_overrides=dict(seq_chunk=512, warmup_steps=1),
-              data=dict(seq_len=2049, global_batch=2))
-    profile_step = 2          # the TP-4 run's last step, under the profiler
+    smi = card_name_and_limit()
+    if preset.tp_axis != 8:
+        fail(f"the h2o TP preset's extent is {preset.tp_axis}, not 8")
+    kw = dict(tp_transport=preset.tp_transport, seed=0, vocab_rows=True,
+              step_overrides=dict(seq_chunk=TP_SEQ_CHUNK, warmup_steps=1),
+              data=dict(seq_len=TP_SEQ, global_batch=TP_BATCH))
+    profile_step = 1          # the TP-4 run's last step, under the profiler
     runs = {}
-    for tag, tp, steps, peer in (("tp4", 4, 3, True), ("tp2", 2, 1, True),
-                                 ("tp4-emulated", 4, 1, False)):
+    for tag, tp, steps, peer in TP_RUNS:
         t0 = time.perf_counter()
         with RankPool(tp, device="cuda", peer_memory=peer) as pool:
+            if tag == "tp8":
+                tp8_ring_cases(pool, cfg, smi)
             res = pool.run(rank_tasks.train, cfg.name,
                            **dict(kw, steps=steps, profile_step=(
                                profile_step if tag == "tp4" else None)))
         runs[tag] = res
-        print(f"[{tag}] {cfg.name} full width, {tp} ranks on one card "
+        print(f"[{tag}] {cfg.name} full width at all {cfg.n_layers} "
+              f"layers, {tp} ranks on one card "
               f"({preset.tp_transport} edges, "
-              f"{'in-kernel ring' if peer else 'emulated schedule'}), "
-              f"{res[0]['n_params']/1e6:.1f}M params a rank in "
+              f"{'in-kernel ring' if peer else 'emulated schedule'}; embed "
+              f"and lm_head split over the vocab, {cfg.vocab_size // tp} ids "
+              f"a rank), {res[0]['n_params']/1e6:.1f}M params a rank in "
               f"{cfg.param_dtype}, init "
               f"{max(r['init_seconds'] for r in res):.1f}s, pool "
-              f"{time.perf_counter() - t0:.1f}s", flush=True)
-        want = tp_launches(cfg.n_layers, tp, cfg.remat, peer)
+              f"{time.perf_counter() - t0:.1f}s ({smi})", flush=True)
+        chunks = head_chunks(TP_SEQ - 1, tp, TP_SEQ_CHUNK)
+        want = tp_launches(cfg.n_layers, tp, cfg.remat, peer, chunks)
         for k in range(steps):
             m = res[0]["metrics"][k]
             wall = max(r["seconds"][k] for r in res)
             staged = sum(r["stats"][k]["staged_bytes"] for r in res)
+            rep = sum(r["rep_wire"][k]["staged_bytes"] for r in res)
+            rep_payload = res[0]["rep_wire"][k]["bytes"]
             forwarded = sum(r["stats"][k]["peer_bytes"] for r in res)
             wire = max(r["stats"][k]["wire_s"] for r in res)
             hops = res[0]["stats"][k]["hops"]
@@ -2252,13 +2377,19 @@ def phase_tp_train():
             print(f"[{tag}] step {k}{' (profiled)' if tag == 'tp4' and k == profile_step else ''}: "
                   f"{wall:.2f}s, loss {m['loss']:.6f}, "
                   f"grad_norm {m['grad_norm']:.6f}, lr {m['lr']:.3g}; "
-                  f"cc_matmul launches a rank {launched}; {hops} ring hops "
+                  f"cc_matmul launches a rank {launched} ({chunks} head "
+                  f"chunks); {hops} ring hops "
                   f"and {res[0]['stats'][k]['ring_kernels']} ring hop "
                   f"products a rank, {forwarded / 2**30:.2f} GiB forwarded "
-                  f"through peer memory and {staged / 2**30:.2f} GiB staged "
-                  f"through the host (all ranks), {wire:.2f}s in the wire "
-                  f"(host clock, the slowest rank); peak memory a rank "
-                  f"{', '.join(f'{p:.1f}' for p in peak)} GiB", flush=True)
+                  f"through peer memory; the model line staged "
+                  f"{staged / 2**30:.3f} GiB through the host (all ranks): "
+                  f"the replicated leaves' gradient all-reduce "
+                  f"{rep / 2**30:.3f} GiB ({rep_payload / 1e6:.1f} MB of "
+                  f"fp32 gradients a rank), everything else "
+                  f"{(staged - rep) / 2**30:.3f} GiB; {wire:.2f}s in the "
+                  f"wire (host clock, the slowest rank); peak memory a rank "
+                  f"{', '.join(f'{p:.2f}' for p in peak)} GiB ({smi})",
+                  flush=True)
             rings = want["ag_matmul_ring"] + want["rs_matmul_ring"]
             for rank, r in enumerate(res):
                 if r["launches"][k] != want:
@@ -2321,24 +2452,50 @@ def phase_tp_train():
                       "busy share not measured", flush=True)
         if any(r["replicated"] != res[0]["replicated"] for r in res):
             fail(f"{tag}: replicated leaves differ across ranks")
+        if any(name in res[0]["replicated"] for name in ("embed", "lm_head")):
+            fail(f"{tag}: embed or lm_head replicated at tp {tp}")
         print(f"[{tag}] {len(res[0]['replicated'])} replicated leaves "
               f"bitwise equal on all {tp} ranks", flush=True)
+    # the vocab shards after step 0 (learning rate 0: the draw itself),
+    # gathered: V rows (columns) each, every rank's part once, the same
+    # in every run whatever its extent
+    gathered = {tag: {name: np.concatenate([r["vocab_rows"][0][name]
+                                            for r in res])
+                      for name in ("embed", "lm_head")}
+                for tag, res in runs.items()}
+    for tag, g in gathered.items():
+        for name, rows in g.items():
+            if len(rows) != cfg.vocab_size or not np.array_equal(
+                    rows, gathered["tp4"][name]):
+                fail(f"{tag}: the gathered {name} shards hold "
+                     f"{len(rows)} rows, not tp4's {cfg.vocab_size}")
+    print(f"[tp] embed and lm_head shards gathered after step 0: "
+          f"{cfg.vocab_size} vocab rows and columns each, every rank's "
+          f"part once, equal across the TP-4, TP-8 and emulated runs "
+          f"(exact checksums)", flush=True)
     loss0 = runs["tp4"][0]["metrics"][0]["loss"]
     if not (math.isfinite(loss0) and abs(loss0 - math.log(cfg.vocab_size))
             <= 0.5):
         fail(f"tp4 step-0 loss {loss0} not within 0.5 of "
              f"ln {cfg.vocab_size}")
+
     def rel(a, b, key):
         return abs(a[key] - b[key]) / abs(b[key])
 
-    m4, m2 = runs["tp4"][0]["metrics"][0], runs["tp2"][0]["metrics"][0]
-    d_loss, d_norm = rel(m4, m2, "loss"), rel(m4, m2, "grad_norm")
-    print(f"[tp] step 0, TP 4 vs TP 2 (bf16): loss {m4['loss']:.6f} vs "
-          f"{m2['loss']:.6f} (rel {d_loss:.3g}, tol 2e-2), grad_norm "
-          f"{m4['grad_norm']:.6f} vs {m2['grad_norm']:.6f} (rel "
-          f"{d_norm:.3g}, tol 5e-2)", flush=True)
+    m4, m8 = runs["tp4"][0]["metrics"][0], runs["tp8"][0]["metrics"][0]
+    d_loss, d_norm = rel(m8, m4, "loss"), rel(m8, m4, "grad_norm")
+    print(f"[tp] step 0, TP 8 vs TP 4 (bf16): loss {m8['loss']:.6f} vs "
+          f"{m4['loss']:.6f} (rel {d_loss:.3g}, tol 2e-2 and "
+          f"{TP8_LOSS_TOL}), grad_norm {m8['grad_norm']:.6f} vs "
+          f"{m4['grad_norm']:.6f} (rel {d_norm:.3g}, tol 5e-2 and "
+          f"{TP8_NORM_TOL})", flush=True)
     if not (d_loss <= 2e-2 and d_norm <= 5e-2):
-        fail("tp4 and tp2 disagree at step 0")
+        fail("tp8 and tp4 disagree at step 0")
+    # the limits set from the readings (PERF.md §6): a vocab shard lost or
+    # misplaced at TP 8 moves the step-0 loss by ~1.2%, inside 2e-2
+    if not (d_loss <= TP8_LOSS_TOL and d_norm <= TP8_NORM_TOL):
+        fail(f"tp8 and tp4 differ at step 0 beyond the readings' limits "
+             f"(loss {TP8_LOSS_TOL}, grad_norm {TP8_NORM_TOL})")
     me = runs["tp4-emulated"][0]["metrics"][0]
     d_loss, d_norm = rel(me, m4, "loss"), rel(me, m4, "grad_norm")
     print(f"[tp] step 0 at TP 4, emulated schedule vs in-kernel ring: loss "
@@ -2353,9 +2510,12 @@ def phase_tp_train():
                           for r in runs[tag])
                 for name in runs[tag][0]["launches"][0]}
 
-    ring, emulated = total("tp4"), total("tp4-emulated")
-    return {name: ring[name] if name.endswith("_ring") else emulated[name]
-            for name in ring}
+    ring, ring8, emulated = total("tp4"), total("tp8"), total("tp4-emulated")
+    out = {name: ring[name] + ring8[name] if name.endswith("_ring")
+           else emulated[name] for name in ring}
+    out.update({f"tp8_{name}": ring8[name] for name in ring
+                if name.endswith("_ring")})
+    return out
 
 
 def params_rule(tag, rank, card_params, cpu_params, worst, t=1e-4):
@@ -2380,9 +2540,57 @@ def params_rule(tag, rank, card_params, cpu_params, worst, t=1e-4):
                  f"{d.mean()}, max |d| {d.max()}")
 
 
+def reduced_tp_runs(tp):
+    """Phase 9's card-against-CPU runs on a pool of ``tp``: (tag, the
+    config's overrides, whether ``embed`` and ``lm_head`` stay
+    replicated); at TP 4 also a vocab of 250, which the line does not
+    divide (the placement rule's fallback)."""
+    runs = [(f"tp{tp}", {}, False)]
+    if tp == 4:
+        runs.append((f"tp{tp} vocab 250",
+                     dict(cfg_overrides=dict(vocab_size=250)), True))
+    return runs
+
+
+def reduced_tp_check(tag, card, cpu, vocab_rep, t):
+    """Phase 9's checks of one reduced run, card against CPU: ring kernels
+    launched, (loss, grad_norm) within ``t`` relative each step, every
+    leaf by the parameter rule, and ``embed`` and ``lm_head`` among the
+    replicated leaves on every rank if ``vocab_rep``, else among the
+    sharded."""
+    worst = {"metric": 0.0, "mean": 0.0, "beyond": 0}
+    vocab = {"embed", "lm_head"}
+    for rank, (a, b) in enumerate(zip(card, cpu)):
+        if not sum(s["ag_matmul_ring"] + s["rs_matmul_ring"]
+                   for s in a["launches"]):
+            fail(f"reduced {tag}: the card run launched no ring kernel")
+        for ma, mb in zip(a["metrics"], b["metrics"]):
+            for key in ("loss", "grad_norm"):
+                rel = abs(ma[key] - mb[key]) / abs(mb[key])
+                worst["metric"] = max(worst["metric"], rel)
+        params_rule(f"reduced {tag}", rank, a["params"], b["params"],
+                    worst, t)
+        placed = (vocab <= set(a["replicated"]), vocab <= set(a["sharded"]))
+        if placed != (vocab_rep, not vocab_rep):
+            fail(f"reduced {tag} rank {rank}: embed and lm_head replicated, "
+                 f"sharded: {placed}, expected {vocab_rep}, {not vocab_rep}")
+    print(f"[tp-reduced] h2o-danube-1.8b fp32 {tag}, 2 steps, card vs "
+          f"CPU: loss/grad_norm max rel {worst['metric']:.3g} (tol "
+          f"{t}); params mean |d|/mean |p| max {worst['mean']:.3g} "
+          f"(tol {t}), {worst['beyond']} elements beyond {t} x max|p|; "
+          f"embed and lm_head "
+          f"{'replicated' if vocab_rep else 'split over the vocab'}; "
+          f"losses {[round(m['loss'], 6) for m in card[0]['metrics']]}",
+          flush=True)
+    if worst["metric"] > t:
+        fail(f"reduced {tag}: card vs CPU metrics differ by "
+             f"{worst['metric']}")
+
+
 def phase_tp_reduced():
-    """Phase 9, reduced h2o-danube-1.8b in fp32 at TP 2 and 4: the card
-    against the CPU, same parameters (drawn on the CPU) and batches; and
+    """Phase 9, reduced h2o-danube-1.8b in fp32 at TP 2 and 4, and at TP
+    4 with a vocab of 250 (``reduced_tp_runs``): the card against the
+    CPU, same parameters (drawn on the CPU) and batches; and
     on the same two pools phase 9b, expert parallelism (``phase_ep_*``),
     each dense reference computed in this process while the ranks hold
     nothing large (the served model's before the pools start); then, on
@@ -2401,10 +2609,10 @@ def phase_tp_reduced():
     ep_s = time.perf_counter() - t0
     for tp in (2, 4):
         with RankPool(tp, device="cuda") as pool:
-            card = pool.run(rank_tasks.train, "h2o-danube-1.8b",
-                            device="cuda", **kw)
-            cpu = pool.run(rank_tasks.train, "h2o-danube-1.8b",
-                           device="cpu", **kw)
+            runs = [(tag, *(pool.run(rank_tasks.train, "h2o-danube-1.8b",
+                                     device=dev, **over, **kw)
+                            for dev in ("cuda", "cpu")), vocab_rep)
+                    for tag, over, vocab_rep in reduced_tp_runs(tp)]
             t0 = time.perf_counter()
             if tp == 4:
                 # first: a profile taken in these ranks after the EP
@@ -2420,26 +2628,8 @@ def phase_tp_reduced():
                 t0 = time.perf_counter()
                 grid_launches = phase_grid(pool, smi)
                 grid_s = time.perf_counter() - t0
-        worst = {"metric": 0.0, "mean": 0.0, "beyond": 0}
-        for rank, (a, b) in enumerate(zip(card, cpu)):
-            if not sum(s["ag_matmul_ring"] + s["rs_matmul_ring"]
-                       for s in a["launches"]):
-                fail(f"reduced tp{tp}: the card run launched no ring kernel")
-            for ma, mb in zip(a["metrics"], b["metrics"]):
-                for key in ("loss", "grad_norm"):
-                    rel = abs(ma[key] - mb[key]) / abs(mb[key])
-                    worst["metric"] = max(worst["metric"], rel)
-            params_rule(f"reduced tp{tp}", rank, a["params"], b["params"],
-                        worst, t)
-        print(f"[tp-reduced] h2o-danube-1.8b fp32 tp{tp}, 2 steps, card vs "
-              f"CPU: loss/grad_norm max rel {worst['metric']:.3g} (tol "
-              f"{t}); params mean |d|/mean |p| max {worst['mean']:.3g} "
-              f"(tol {t}), {worst['beyond']} elements beyond {t} x max|p|; "
-              f"losses {[round(m['loss'], 6) for m in card[0]['metrics']]}",
-              flush=True)
-        if worst["metric"] > t:
-            fail(f"reduced tp{tp}: card vs CPU metrics differ by "
-                 f"{worst['metric']}")
+        for tag, card, cpu, vocab_rep in runs:
+            reduced_tp_check(tag, card, cpu, vocab_rep, t)
     print(f"[smoke] phase 9b expert parallelism: {ep_s:.1f}s (the dense "
           f"references in this process and the EP runs on phase 9's "
           f"pools; {smi})", flush=True)
@@ -2449,11 +2639,13 @@ def phase_tp_reduced():
 
 
 #: phase 9c: the data axis.  h2o-danube-1.8b at full width, its depth cut
-#: to 8 of 24 layers (~455 M parameters a rank at model 2, ~9 GB of
-#: training state a rank, ~36 GB for the four ranks before activations;
-#: the full depth, ~19 GB a rank, does not fit four ranks on one card),
+#: to 4 of 24 layers (~227 M parameters a rank at model 2 with the vocab
+#: split, ~4.5 GB of training state a rank; the full depth, ~19 GB a
+#: rank, does not fit four ranks on one card, and 8 layers, ~373 M a
+#: rank, spent 58.5 s of the smoke's time limit writing its two
+#: checkpoints on an H100),
 #: on a data 2 × model 2 grid, one 2049-token sequence a data rank
-GRID_ARCH, GRID_LAYERS, GRID_SEQ = "h2o-danube-1.8b", 8, 2049
+GRID_ARCH, GRID_LAYERS, GRID_SEQ = "h2o-danube-1.8b", 4, 2049
 GRID_SHAPE = dict(data=2, model=2)
 GRID_BUCKET_KB = 64 << 10           # the data sync's buckets: 64 MiB
 GRID_REDUCED = (("h2o-danube-1.8b", dict(data=2, model=2), {}),
@@ -2465,7 +2657,7 @@ GRID_REDUCED = (("h2o-danube-1.8b", dict(data=2, model=2), {}),
 
 def phase_grid(pool, smi):
     """9c: the data axis on the four-rank pool.  (a) full-width
-    h2o-danube-1.8b (8 layers, bf16, the fused ring in each model line)
+    h2o-danube-1.8b (4 layers, bf16, the fused ring in each model line)
     at data 2 × model 2 through the Trainer: 2 steps with a checkpoint at
     step 2, the uninterrupted step 3 (profiled), then a fresh Trainer
     that restores step 2, takes step 3 bit for bit and checkpoints it;
@@ -2500,7 +2692,8 @@ def phase_grid(pool, smi):
            f"x model 2")
     print(f"{tag}: Trainer run {time.perf_counter() - t0:.1f}s ({smi})",
           flush=True)
-    want = tp_launches(GRID_LAYERS, 2, cfg.remat, True)
+    want = tp_launches(GRID_LAYERS, 2, cfg.remat, True,
+                       head_chunks(GRID_SEQ - 1, 2, 512))
     for r in res:
         if not r["resumed"]:
             fail(f"{tag} rank {r['coords']}: the restored step 3 differs "
@@ -2529,6 +2722,10 @@ def phase_grid(pool, smi):
             staged = sum(ls[axis]["staged_bytes"] for ls in lines)
             parts.append(f"{axis} line wire {wire:.3f}s, staged "
                          f"{staged / 2**30:.3f} GiB")
+        rep = sum(r["rep_wire"][k]["staged_bytes"] for r in res)
+        parts[-1] += (f" (the replicated leaves' gradient all-reduce "
+                      f"{rep / 2**30:.3f} GiB, everything else "
+                      f"{(staged - rep) / 2**30:.3f} GiB)")
         print(f"{tag} step {k + 1}{' (restored run)' if k == 2 else ''}: "
               f"{h['step_time_s']:.3f}s (the slowest rank), loss "
               f"{h['loss']:.6f}, grad_norm {h['grad_norm']:.6f}; "
@@ -2966,8 +3163,10 @@ def ep_serve_run(pool, ref, smi, transport, profile_step):
               f"not measured", flush=True)
 
 
-#: the one-GPU training phase: full-width smollm-360m
-TRAIN_ARCH = "smollm-360m"
+#: the one-GPU training phase: full-width smollm-360m at 16 of its 32
+#: layers (204.5 M parameters; the smoke's time limit cannot spare the
+#: three ~5 GB checkpoints of all 32)
+TRAIN_ARCH, TRAIN_LAYERS = "smollm-360m", 16
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_CHUNK = 8, 2048, 2, 512
 TRAIN_STEPS, TRAIN_CKPT_AT = 4, 2
 # a resumed step against the uninterrupted one when the two are not
@@ -3075,7 +3274,7 @@ def phase_train_1gpu(smi_line):
     from repro_torch.dist.steps import StepConfig
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     scfg = StepConfig(microbatches=TRAIN_MICRO, seq_chunk=TRAIN_CHUNK,
                       warmup_steps=1, total_steps=100)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
@@ -3125,7 +3324,8 @@ def phase_train_1gpu(smi_line):
             run = trainer(TRAIN_STEPS)
             params, opt, _ = run.train(on_step=on_step)
             counts = kernel_counts()
-            print(f"{tag} {cfg.name} full width ({cfg.n_layers} layers, "
+            print(f"{tag} {cfg.name} full width ({cfg.n_layers} of "
+                  f"{get_config(TRAIN_ARCH).n_layers} layers, "
                   f"{sum(t.numel() for _, t in sharding.leaves(params)) / 1e6:.1f}"
                   f"M parameters in {cfg.param_dtype}, fp32 AdamW masters "
                   f"and moments, remat {cfg.remat}), batches of "
@@ -3374,7 +3574,8 @@ def phase_train_mamba2(smi_line):
             run.ckpt = NoCheckpoints()
             params, opt, _ = run.train(on_step=on_step)
             n_params = sum(t.numel() for _, t in sharding.leaves(params))
-            print(f"{tag} {cfg.name} full width ({cfg.n_layers} layers, "
+            print(f"{tag} {cfg.name} full width ({cfg.n_layers} of "
+                  f"{get_config(TRAIN_ARCH).n_layers} layers, "
                   f"{n_params / 1e6:.1f}M parameters in {cfg.param_dtype}, "
                   f"fp32 AdamW masters and moments, remat {cfg.remat}), "
                   f"batches of {M2_BATCH} x {M2_SEQ} tokens in {M2_MICRO} "
@@ -3484,11 +3685,13 @@ def train_mamba2_process(out_path) -> int:
 
 #: phase 14: every family the port serves, trained at full width on the
 #: card: (depth trained or None for the published depth, rows, text
-#: tokens a row); 2 microbatches, seq_chunk 512, 3 steps from seed 0
+#: tokens a row); 2 microbatches, seq_chunk 512, 3 steps from seed 0.
+#: zamba2 and minicpm3 at half the depths that fit the card (24, 32), for
+#: the smoke's time limit
 FAMILY_RUNS = {
-    "zamba2-7b": (24, 4, 2048),
+    "zamba2-7b": (12, 4, 2048),
     "llama4-scout-17b-a16e": (1, 4, 2048),
-    "minicpm3-4b": (32, 4, 2048),
+    "minicpm3-4b": (16, 4, 2048),
     "internvl2-2b": (None, 4, 1792),       # after 256 patch rows a row
     "whisper-tiny": (None, 8, 448),         # over 1500 frames a row
 }
@@ -4258,7 +4461,8 @@ def main() -> int:
             source="src/repro_torch/kernels/cc_matmul/csrc/cc_matmul.cu",
             replaces=f"src/repro/kernels/cc_matmul/kernel.py:{line}",
             launches=cc_launches[entry], **cc_main[entry],
-            **({"grid_launches": grid_launches[entry]}
+            **({"grid_launches": grid_launches[entry],
+                "tp8_launches": cc_launches[f"tp8_{entry}"]}
                if entry.endswith("_ring") else {})))
     kernels.append(dict(
         name="matmul", route="cuda",

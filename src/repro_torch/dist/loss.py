@@ -16,6 +16,29 @@ no all-reduce sits inside autograd (one there would multiply the
 gradients by the group size).  The loss reported in the metrics is the
 all-reduced value.
 
+On a model line whose vocab splits (``vocab``, ``models/vocab_parallel.py``)
+the head is the AG ring edge over the rank's vocab columns: chunk c is
+``seq_chunk / n`` local rows of every rank, whose gathered ``seq_chunk``
+rows' logits a rank forms over its V/n columns in the compute dtype (the
+reference's rounding point: the edge's fp32 output rounded to it) and
+then in fp32.  Per token each rank has the log-sum-exp of its columns
+and, on the rank that holds the label's id, the gold logit; one
+all-gather over the line (no gradient) gives every rank every rank's, so
+every rank holds the same per-token log-sum-exp (the ranks' combined)
+and CE for the line's tokens.  Each token counts once in the sums
+``group`` all-reduces: on the rank whose sequence shard holds it, so the
+metrics and the token count stay the reference's.  Backward needs more
+than that share: each rank's columns need (softmax − one-hot) × the
+token's weight for every token of the line, and the AG edge's backward
+(the fused RS ring) then sums the ranks' dh.  So a rank runs backward on
+``Σ_t w_t (lse_t − gold_t)`` (and the z-term) over the line's tokens,
+its log-sum-exp taken with the other ranks' terms held constant and its
+gold term its own (zero where it does not hold the label): that
+function's gradient on this rank's logits is exactly the loss's; its
+value is replaced by the rank's share, which is what the step reports.
+Neither an all-reduce inside autograd nor a 1/n share on each rank
+gives these gradients.
+
 A MoE model's load-balancing term follows the same rule: with a group,
 each MoE layer returns this rank's share of the loss over the group's
 rows (``layers.moe_aux_loss``, its choice counts and row count summed
@@ -34,6 +57,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.model import forward_hidden
+from repro_torch.models.vocab_parallel import VocabParallel
 
 
 def chunked_ce_loss(
@@ -49,6 +73,7 @@ def chunked_ce_loss(
     runner: Optional[Callable] = None,
     core: Optional[Callable] = None,
     moe_ffn: Optional[Callable] = None,
+    vocab: Optional[VocabParallel] = None,
 ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """batch: tokens (B, S_loc), labels (B, S_loc) with -1 = masked — this
     rank's rows — and a frontend arch's ``frontend_embeds`` (a VLM's
@@ -62,19 +87,62 @@ def chunked_ce_loss(
     all of it.  ``positions``, ``runner`` (the TP block runner),
     ``core`` (the attention core) and ``moe_ffn`` (the expert-parallel
     MoE runner) are ``forward_hidden``'s; the load-balancing loss is over
-    the group's rows (``aux_group``)."""
-    hidden, aux = forward_hidden(cfg, params, batch["tokens"], positions,
-                                 runner=runner, core=core,
-                                 frontend_embeds=batch.get("frontend_embeds"),
-                                 return_aux=True, moe_ffn=moe_ffn,
-                                 aux_group=group)
+    the group's rows (``aux_group``).  ``vocab`` (the model line's vocab
+    split; ``params`` then hold this rank's ``embed``/``lm_head``
+    shards) embeds and takes the head vocab-parallel: tokens and labels
+    are then the line's whole sequence (B, S) of the rank's rows."""
+    hidden, aux = forward_hidden(
+        cfg, params, batch["tokens"], positions, runner=runner, core=core,
+        frontend_embeds=batch.get("frontend_embeds"), return_aux=True,
+        moe_ffn=moe_ffn, aux_group=group,
+        embed=None if vocab is None else vocab.embed)
     labels = batch["labels"]
-    if hidden.shape[1] != labels.shape[1]:      # a VLM's patch rows
-        hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]
+    if vocab is None and hidden.shape[1] != labels.shape[1]:
+        hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]  # VLM patches
+    return head_loss(cfg, params, hidden, labels, aux, seq_chunk=seq_chunk,
+                     z_loss=z_loss, moe_aux_weight=moe_aux_weight,
+                     group=group, vocab=vocab)
+
+
+def head_loss(cfg: ModelConfig, params, hidden: torch.Tensor,
+              labels: torch.Tensor, aux: torch.Tensor, *, seq_chunk: int,
+              z_loss: float = 1e-4, moe_aux_weight: float = 1e-2,
+              group=None, vocab: Optional[VocabParallel] = None
+              ) -> Tuple[torch.Tensor, Dict[str, float]]:
+    """:func:`chunked_ce_loss` from the final-norm hidden on: ``hidden``
+    (B, S_loc, D) this rank's rows, ``labels`` theirs (with ``vocab``:
+    the line's whole sequence (B, S) of them), ``aux`` the rank's
+    load-balancing share."""
+    if vocab is None:
+        nll_sum, z_sum, tokens = _chunk_sums(cfg, params, hidden, labels,
+                                             seq_chunk)
+        surrogate = None
+    else:
+        nll_sum, z_sum, tokens, surrogate = _vocab_parallel_sums(
+            cfg, params, hidden, labels, seq_chunk, vocab)
+    sums = torch.stack([nll_sum, z_sum, tokens, aux]).detach().double().cpu()
+    if group is not None:
+        sums = group.all_reduce(sums)
+    nll_all, z_all, tok_all, aux_all = sums.tolist()
+    denom = max(tok_all, 1.0)
+    loss = nll_sum / denom + z_loss * z_sum / denom + moe_aux_weight * aux
+    if surrogate is not None:
+        # the share's value (no gradient), the line's gradient
+        g = surrogate(denom, z_loss)
+        loss = loss + (g - g.detach())
+    ce, zl = nll_all / denom, z_loss * z_all / denom
+    metrics = {"loss": ce + zl + moe_aux_weight * aux_all, "ce": ce,
+               "z_loss": zl, "moe_aux": aux_all, "tokens": tok_all}
+    return loss, metrics
+
+
+def _chunk_sums(cfg: ModelConfig, params, hidden: torch.Tensor,
+                labels: torch.Tensor, seq_chunk: int):
+    """(Masked NLL, masked lse², tokens) over this rank's rows, the head
+    whole (the reference's chunk loop)."""
     cd = L.cdtype(cfg)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"]).to(cd)
-
     s = labels.shape[1]
     chunk = max(int(seq_chunk), 1)
     nll_sum = hidden.new_zeros((), dtype=torch.float32)
@@ -91,17 +159,61 @@ def chunked_ce_loss(
         nll_sum = nll_sum + ((lse - gold) * mask).sum()
         z_sum = z_sum + ((lse * mask) ** 2).sum()
         tokens = tokens + mask.sum()
-
-    sums = torch.stack([nll_sum, z_sum, tokens, aux]).detach().double().cpu()
-    if group is not None:
-        sums = group.all_reduce(sums)
-    nll_all, z_all, tok_all, aux_all = sums.tolist()
-    denom = max(tok_all, 1.0)
-    loss = nll_sum / denom + z_loss * z_sum / denom + moe_aux_weight * aux
-    ce, zl = nll_all / denom, z_loss * z_all / denom
-    metrics = {"loss": ce + zl + moe_aux_weight * aux_all, "ce": ce,
-               "z_loss": zl, "moe_aux": aux_all, "tokens": tok_all}
-    return loss, metrics
+    return nll_sum, z_sum, tokens
 
 
-__all__ = ["chunked_ce_loss"]
+def _vocab_parallel_sums(cfg: ModelConfig, params, hidden: torch.Tensor,
+                         labels: torch.Tensor, seq_chunk: int,
+                         vocab: VocabParallel):
+    """The vocab-parallel head over the line's gathered chunks: (masked
+    NLL, masked lse², tokens) of the tokens this rank's sequence shard
+    holds, and ``surrogate(denom, z_loss)``, the function whose gradient
+    backward takes (the module docstring)."""
+    cd = L.cdtype(cfg)
+    n, r = vocab.size, vocab.rank
+    head = (params["embed"].t() if cfg.tie_embeddings
+            else params["lm_head"]).to(cd).contiguous()
+    b, s_loc = hidden.shape[:2]
+    if labels.shape[1] != n * s_loc:
+        raise ValueError(f"labels {tuple(labels.shape)}: expected the "
+                         f"line's {n} × {s_loc} positions")
+    blocks = labels.reshape(b, n, s_loc)
+    k = max(int(seq_chunk) // n, 1)
+    lses, golds, labs, mine = [], [], [], []
+    for c0 in range(0, s_loc, k):
+        rows = min(k, s_loc - c0)
+        logits = vocab.logits(hidden[:, c0:c0 + rows].to(cd),
+                              head).to(cd).float()      # (B, n·rows, V/n)
+        lab = blocks[:, :, c0:c0 + rows].reshape(b, n * rows)
+        idx, own = vocab.local_ids(lab)
+        lses.append(torch.logsumexp(logits, dim=-1))
+        golds.append(torch.where(
+            own, logits.gather(-1, idx[..., None])[..., 0], 0.0))
+        labs.append(lab)
+        mine.append(torch.arange(n, device=lab.device).repeat_interleave(
+            rows) == r)
+    lse_r, gold_r = torch.cat(lses, 1), torch.cat(golds, 1)
+    lab = torch.cat(labs, 1)
+    mine = torch.cat(mine).expand_as(lab)
+    every = vocab.conduit.axis.all_gather(
+        torch.stack([lse_r, gold_r]).detach()[None], 0)   # (n, 2, B, T)
+    # this rank's term live, the others' constants: the same bits on
+    # every rank, the gradient through this rank's columns alone
+    lse = torch.logsumexp(torch.cat([every[:r, 0], lse_r[None],
+                                     every[r + 1:, 0]]), dim=0)
+    gold = every[:, 1].sum(0)
+    mask = (lab >= 0).float()
+    lse_d = lse.detach()
+    own_mask = mask * mine
+    nll_sum = ((lse_d - gold) * own_mask).sum()
+    z_sum = ((lse_d * mask) ** 2 * mine).sum()
+    tokens = own_mask.sum()
+
+    def surrogate(denom: float, z_loss: float) -> torch.Tensor:
+        return (((lse - gold_r) * mask).sum()
+                + z_loss * ((lse * mask) ** 2).sum()) / denom
+
+    return nll_sum, z_sum, tokens, surrogate
+
+
+__all__ = ["chunked_ce_loss", "head_loss"]

@@ -136,6 +136,68 @@ def ring_collectives(group, xs: np.ndarray, gs: np.ndarray,
     return out.detach().numpy(), x.grad.numpy(), rs.numpy()
 
 
+def vocab_embed(group, table: np.ndarray, tokens: np.ndarray,
+                cot: np.ndarray) -> Dict[str, np.ndarray]:
+    """The vocab-parallel embedding (``models/vocab_parallel.py``) of the
+    line's whole ``tokens`` (B, S) over this rank's rows of ``table`` (V,
+    D), and backward on ``sum(rows · cot[:, this rank's rows])``: returns
+    its (B, S/n, D) rows and its shard's gradient."""
+    from repro_torch.core.conduit import Conduit
+    from repro_torch.dist import sharding
+    from repro_torch.models.vocab_parallel import VocabParallel
+
+    n, r = group.size, group.rank
+    vp = VocabParallel(Conduit(axis=group, transport="fused"), len(table))
+    shard = sharding.shard_leaf(_tensor(table, group.device), "row", r, n)
+    shard.requires_grad_(True)
+    rows = vp.embed(shard, _tensor(tokens, group.device).long())
+    s_loc = rows.shape[1]
+    (rows * _tensor(cot, group.device)[:, r * s_loc:(r + 1) * s_loc]
+     ).sum().backward()
+    return {"rows": _numpy(rows), "grad": _numpy(shard.grad)}
+
+
+def vocab_ce(group, arch: str, hidden: np.ndarray, labels: np.ndarray,
+             head: np.ndarray, *, seq_chunk: int,
+             cfg_overrides: Optional[Dict[str, Any]] = None
+             ) -> Dict[str, Any]:
+    """The vocab-parallel head and CE (``dist.loss.head_loss``) of the
+    reduced ``arch`` on this rank: its rows of ``hidden`` (B, S, D), the
+    line's whole ``labels`` (B, S), its vocab part of ``head`` (the
+    untied (D, V) ``lm_head``, or, tied, the (V, D) ``embed``), sums over
+    the line.  Backward on the rank's loss; returns the loss, the
+    metrics, and the gradients of its rows and its head shard, with the
+    kernels' launches and the plain versions' runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.conduit import Conduit
+    from repro_torch.dist import sharding
+    from repro_torch.dist.loss import head_loss
+    from repro_torch.models.vocab_parallel import VocabParallel
+
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              **(cfg_overrides or {}))
+    n, r = group.size, group.rank
+    dev = group.device
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    full = _tensor(head, dev)
+    shard = sharding.shard_leaf(full, sharding.placement(
+        (name,), "model", tuple(full.shape), n), r, n).requires_grad_(True)
+    s_loc = hidden.shape[1] // n
+    h = _tensor(hidden, dev)[:, r * s_loc:(r + 1) * s_loc].contiguous()
+    h.requires_grad_(True)
+    vp = VocabParallel(Conduit(axis=group, transport="fused"),
+                       cfg.vocab_size)
+    cc_ops.reset_counts()
+    loss, metrics = head_loss(
+        cfg, {name: shard}, h, _tensor(labels, dev).long(),
+        h.new_zeros((), dtype=torch.float32), seq_chunk=seq_chunk,
+        group=group, vocab=vp)
+    loss.backward()
+    return {"loss": loss.item(), "metrics": metrics, "dh": _numpy(h.grad),
+            "dhead": _numpy(shard.grad), "launches": cc_ops.launches(),
+            "plain": dict(cc_ops.PLAIN_CALLS)}
+
+
 def _group_ms(group, fn, iters: int) -> float:
     """Milliseconds a call of the collective ``fn`` takes the group: every
     rank starts after a barrier and stops once its own stream is done;
@@ -351,7 +413,8 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
           data: Optional[Dict[str, int]] = None,
           return_params: bool = False,
           profile_step: Optional[int] = None,
-          grid: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
+          grid: Optional[Dict[str, int]] = None,
+          vocab_rows: bool = False) -> Dict[str, Any]:
     """Train ``arch`` (``reduced()`` if asked, then ``cfg_overrides``)
     for ``steps`` steps of ``build_train_step`` on this rank.
 
@@ -375,14 +438,21 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
     Returns per-step ``metrics``, ``launches`` (each cc_matmul kernel's, that
     step), ``plain`` (the plain versions' runs), ``stats`` (the world's
     ring hops, staged, sent and peer-forwarded bytes, wire seconds) and
-    ``line_stats`` (the same, a grid line each), ``seconds``, the device's
+    ``line_stats`` (the same, a grid line each), ``rep_wire`` (the step's
+    all-reduce of the replicated leaves' gradients over the inner line:
+    its payload and staged bytes; the rest of the line's staged bytes is
+    everything else), ``seconds``, the device's
     peak memory, the grid's ``coords`` and ``shape``, the sha256 of every
-    replicated
-    leaf and of every leaf (``digests``) after the last step, and with
+    replicated leaf, the paths of the sharded ones (``sharded``: the
+    vocab-parallel ``embed``/``lm_head`` among them where the line splits
+    the vocab), and of every leaf (``digests``) after the last step, and with
     ``return_params`` this rank's parameter shard (fp32 numpy by path).
     ``profile_step`` runs that step under ``torch.profiler`` and adds its
     device-time summary (``profile``: kernels and copies by name, the hop
-    kernels' share); the other steps' times are the unprofiled ones."""
+    kernels' share); the other steps' times are the unprofiled ones.
+    ``vocab_rows`` adds, each step, an exact checksum of every vocab row
+    (column) of this rank's ``embed`` and ``lm_head`` shards
+    (:func:`vocab_checksums`)."""
     from repro_torch.bridge import shard_params
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
@@ -394,6 +464,7 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
         build_train_step,
         group_axis,
         init_opt,
+        param_places,
         step_grid,
     )
     from repro_torch.launch.mesh import make_host_mesh
@@ -440,7 +511,8 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
         torch.cuda.reset_peak_memory_stats(dev)
 
     out: Dict[str, List[Any]] = {k: [] for k in (
-        "metrics", "launches", "plain", "stats", "line_stats", "seconds")}
+        "metrics", "launches", "plain", "stats", "line_stats", "rep_wire",
+        "seconds", "vocab_rows")}
     for k in range(steps):
         batch = source.global_batch(k)
         cc_ops.reset_counts()
@@ -467,8 +539,12 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
                              for n in group.stats})
         out["line_stats"].append(_stats_delta(lines_before,
                                               mesh.line_stats()))
+        out["rep_wire"].append(dict(step_fn.rep_wire))
+        if vocab_rows:
+            out["vocab_rows"].append(vocab_checksums(params))
 
     leaves = list(sharding.leaves(params))
+    places = param_places(cfg, inner.size, axis)
     result: Dict[str, Any] = dict(out)
     result.update(
         init_seconds=init_s,
@@ -477,12 +553,34 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
         n_params=sum(t.numel() for _, t in leaves),
         coords=mesh.coords, shape=mesh.shape,
         replicated={"/".join(map(str, p)): _digest(t) for p, t in leaves
-                    if sharding.placement(p, axis) == "rep"},
+                    if places[p] == "rep"},
+        sharded=sorted("/".join(map(str, p)) for p, _ in leaves
+                       if places[p] != "rep"),
         digests={"/".join(map(str, p)): _digest(t) for p, t in leaves})
     if return_params:
         result["params"] = {"/".join(map(str, p)): _numpy(t)
                             for p, t in leaves}
     return result
+
+
+def vocab_checksums(params) -> Dict[str, np.ndarray]:
+    """An exact checksum of every vocab row of ``embed`` (V_loc, D) and
+    every vocab column of ``lm_head`` (D, V_loc): the integer sum of each
+    element's bits times its position along D, in int64 (no rounding, so
+    two runs that hold the same rows agree exactly, whatever their
+    shards)."""
+    from repro_torch.dist.sharding import VOCAB_PARALLEL
+
+    out = {}
+    for name, dim in VOCAB_PARALLEL.items():
+        if name not in params:
+            continue
+        a = params[name].detach().cpu().contiguous()
+        bits = (a.view(torch.int16) if a.element_size() == 2
+                else a.view(torch.int32)).numpy().astype(np.int64)
+        bits = bits if dim == 0 else bits.T
+        out[name] = (bits * np.arange(1, bits.shape[1] + 1)).sum(axis=1)
+    return out
 
 
 def _train_setup(arch: str, *, reduced: bool, cfg_overrides,
@@ -579,8 +677,10 @@ def train_grid(group, arch: str, *, steps: int, ckpt_dir: str,
     preempting one host would.
 
     Returns the ``history`` (with ``resume_check``: the first Trainer's
-    and the resumed step), the step's ``line_stats`` and cc_matmul
-    ``launches`` each step, ``ckpt_seconds``, ``restore_seconds``, the
+    and the resumed step), the step's ``line_stats``, ``rep_wire`` (as
+    :func:`train`'s) and cc_matmul ``launches`` each step (the
+    uninterrupted step's ``next_rep_wire``), ``ckpt_seconds``,
+    ``restore_seconds``, the
     device's peak memory, the grid's ``coords`` and
     ``shape``, and the sha256 of every leaf after the last step
     (``digests``)."""
@@ -602,13 +702,15 @@ def train_grid(group, arch: str, *, steps: int, ckpt_dir: str,
     say = print if (log and group.rank == 0) else (lambda _msg: None)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    out: Dict[str, Any] = {"line_stats": [], "launches": [],
+    out: Dict[str, Any] = {"line_stats": [], "launches": [], "rep_wire": [],
                            "coords": mesh.coords, "shape": mesh.shape}
     snap = {"lines": mesh.line_stats()}
+    active: Dict[str, "Trainer"] = {}
 
     def on_step(step, m):
         lines = mesh.line_stats()
         out["line_stats"].append(_stats_delta(snap["lines"], lines))
+        out["rep_wire"].append(dict(active["t"].step_fn.rep_wire))
         out["launches"].append(cc_ops.launches())
         cc_ops.reset_counts()
         snap["lines"] = mesh.line_stats()
@@ -616,6 +718,7 @@ def train_grid(group, arch: str, *, steps: int, ckpt_dir: str,
             os.kill(os.getpid(), signal.SIGTERM)
 
     def run(t: "Trainer"):
+        active["t"] = t
         previous = t.install_signal_handler()
         try:
             return t.train(on_step=on_step)
@@ -654,6 +757,7 @@ def train_grid(group, arch: str, *, steps: int, ckpt_dir: str,
         out["next_launches"] = cc_ops.launches()
         out["next_line_stats"] = _stats_delta(snap["lines"],
                                               mesh.line_stats())
+        out["next_rep_wire"] = dict(first.step_fn.rep_wire)
         snap["lines"] = mesh.line_stats()
         want = {"/".join(map(str, p)): _digest(t)
                 for p, t in sharding.leaves((params, opt["mu"], opt["nu"],

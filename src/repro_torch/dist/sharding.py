@@ -1,19 +1,27 @@
-"""Placement of the parameters over a group: the dense block's TP split
-(the ``model``-axis part of ``repro.dist.sharding``'s rule table, for this
-port's TP path) and the expert split of a MoE model.
+"""Placement of the parameters over a group: the ``model``-axis part of
+``repro.dist.sharding``'s rule table (the dense block's TP split and the
+vocab-parallel embedding and head) and the expert split of a MoE model.
 
   column shards (output dim split over the group):  ``wq``, ``w_up``,
                                                      ``w_gate``
   row shards (input dim split):                      ``wo``, ``w_down``
+  vocab shards (the vocab dim split):                ``embed`` (V, D) its
+      rows (dim 0, ``"row"``), ``lm_head`` (D, V) its columns (dim 1,
+      ``"col"``): the reference's ``(model, data)`` and ``(data, model)``
   replicated:                                        everything else —
-      ``embed``, ``lm_head``, ``wk``/``wv``, all norms
+      ``wk``/``wv``, all norms
 
-The reference makes the embedding and LM head vocab-parallel and shards
-``wk``/``wv`` by column under GSPMD; here they are whole on every rank
-(K/V are projected on the local rows and ring-gathered, as the reference's
-ART block does).  A replicated leaf's gradient is summed over the group
-before clipping; a sharded leaf's is complete already, from the fused
-ops' weight gradient.
+The vocab split has the reference's divisibility fallback (``fit_axis``):
+a vocab the line does not divide leaves ``embed`` and ``lm_head``
+replicated.  So their placement needs the logical leaf's shape and the
+line's extent (``placement(path, axis, shape, size)``); the other rules
+read the path alone.  A tied model's head is its ``embed`` shard
+transposed.  The reference also shards ``wk``/``wv`` by column under
+GSPMD; here they are whole on every rank (K/V are projected on the local
+rows and ring-gathered, as the reference's ART block does).  A
+replicated leaf's gradient is summed over the group before clipping; a
+sharded leaf's is complete already, from the fused ops' weight gradient
+(the head's from its edge's, the embedding's from its scatter).
 
 The ``expert`` axis (a MoE model's group, ``models/moe_ep.py``) has a
 rule of its own, the reference's ``_EXPERT_PARALLEL`` on an expert mesh
@@ -26,9 +34,11 @@ the ``model`` axis is a column shard wherever it sits.  The expert
 shards' gradients are complete from the exchange's backward; the
 replicated leaves' are summed over the group.
 
-:func:`unshard_tree` is :func:`shard_tree`'s inverse: it gathers the
+:func:`shard_tree` cuts a logical tree, so it reads each leaf's shape
+from the leaf; :func:`unshard_tree` is its inverse: it gathers the
 ranks' parts of every leaf over the line back into the logical leaf, as
-the reference's checkpoints store them.
+the reference's checkpoints store them, by the placement its caller
+names (a shard does not say whether its vocab was split).
 """
 
 from __future__ import annotations
@@ -41,21 +51,38 @@ COL_PARALLEL = frozenset({"wq", "w_up", "w_gate"})
 ROW_PARALLEL = frozenset({"wo", "w_down"})
 #: the routed experts' stacked (E, ·, ·) weights, directly under ``moe``
 EXPERT_PARALLEL = frozenset({"w_up", "w_gate", "w_down"})
+#: the vocab-parallel leaves and the dim of each that holds the vocab
+VOCAB_PARALLEL = {"embed": 0, "lm_head": 1}
 AXES = ("model", "expert")
 
 Path = Tuple[Any, ...]
 
 
-def placement(path: Path, axis: str = "model") -> str:
+def placement(path: Path, axis: str = "model",
+              shape: Optional[Tuple[int, ...]] = None,
+              size: Optional[int] = None) -> str:
     """The leaf at ``path``'s placement over the group: on the ``model``
-    axis ``"col"``, ``"row"`` or ``"rep"``; on the ``expert`` axis
-    ``"expert"`` (dim 0 split) or ``"rep"``."""
+    axis ``"col"`` (dim 1 split), ``"row"`` (dim 0 split) or ``"rep"``;
+    on the ``expert`` axis ``"expert"`` (dim 0 split) or ``"rep"``.
+    ``embed`` and ``lm_head`` on the ``model`` axis split their vocab dim
+    where ``size`` (the line's extent) is above 1 and divides it in
+    ``shape`` (the logical leaf's), and are replicated where it does not;
+    they need both, and raise without them."""
     if axis not in AXES:
         raise ValueError(f"axis {axis!r} not in {AXES}")
     name = path[-1]
     if axis == "expert":
         return ("expert" if name in EXPERT_PARALLEL and len(path) >= 2
                 and path[-2] == "moe" else "rep")
+    if name in VOCAB_PARALLEL and len(path) == 1:
+        if shape is None or size is None:
+            raise ValueError(f"the placement of {name!r} needs the logical "
+                             f"leaf's shape and the line's extent (the "
+                             f"vocab split's divisibility fallback)")
+        dim = VOCAB_PARALLEL[name]
+        if size == 1 or shape[dim] % size:
+            return "rep"
+        return "row" if dim == 0 else "col"
     if name in COL_PARALLEL:
         return "col"
     if name in ROW_PARALLEL:
@@ -115,7 +142,8 @@ def shard_tree(tree: Any, rank: int, size: int,
     under ``axis``'s placement.  A subtree (one layer's dict) is placed
     by the path inside it, which ends as the full tree's does."""
     return map_leaves(
-        lambda p, t: shard_leaf(t, placement(p, axis), rank, size), tree)
+        lambda p, t: shard_leaf(t, placement(p, axis, tuple(t.shape), size),
+                                rank, size), tree)
 
 
 def unshard_tree(tree: Any, group, axis: str = "model", root: int = 0,
@@ -124,7 +152,9 @@ def unshard_tree(tree: Any, group, axis: str = "model", root: int = 0,
     of a tree gathered over ``group`` (the model or expert line, every
     rank of it calling) into the logical leaf, in host memory on rank
     ``root`` of the line; the other ranks get None.  ``place_of(path)``
-    names a leaf's placement (default :func:`placement` on ``axis``; an
+    names a leaf's placement (default :func:`placement` on ``axis``, which
+    raises for the vocab leaves: a tree that holds them needs the
+    placement of its logical leaves, ``dist.steps.param_places``; an
     optimizer state's leaves take their parameter's).  A number leaf
     comes back as it is."""
     place_of = place_of or (lambda p: placement(p, axis))
@@ -142,5 +172,5 @@ def unshard_tree(tree: Any, group, axis: str = "model", root: int = 0,
 
 
 __all__ = ["AXES", "COL_PARALLEL", "EXPERT_PARALLEL", "ROW_PARALLEL",
-           "leaves", "map_leaves", "placement", "shard_leaf", "shard_tree",
-           "split_dim", "unshard_tree"]
+           "VOCAB_PARALLEL", "leaves", "map_leaves", "placement",
+           "shard_leaf", "shard_tree", "split_dim", "unshard_tree"]

@@ -23,7 +23,9 @@ encoder, self- and cross-attention, and the hybrid's shared
 applications; the ssm (Mamba-2) block's SSD scan is the kernel with its
 backward (``kernels/ssd``).  On a model line of tp ≥ 2 it is the path
 the reference takes with ``TransportPolicy(tp="fused")``: every dense
-block's TP edges on the fused ring of ``kernels/cc_matmul``.  A MoE
+block's TP edges on the fused ring of ``kernels/cc_matmul``, and, where
+the line divides the vocab, the vocab-parallel embedding and LM head
+(``models/vocab_parallel.py``; the head another AG ring edge).  A MoE
 model on an expert line of n ≥ 2 trains by expert parallelism over it
 (the reference's ``models/moe_ep.py`` runner on an ``expert`` mesh
 axis): rank r of the line holds experts ``[r·E/n, (r+1)·E/n)``, its
@@ -64,6 +66,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe_ep
 from repro_torch.models.decode import decode_step
 from repro_torch.models.model import init_params
+from repro_torch.models.vocab_parallel import VocabParallel
 from repro_torch.optim import (
     AdamWConfig,
     adamw_init,
@@ -237,6 +240,17 @@ def _art_runner(cfg: ModelConfig, policy: TransportPolicy,
     return runner
 
 
+def param_places(cfg: ModelConfig, size: int,
+                 axis: str = "model") -> Dict[Tuple, str]:
+    """Every parameter leaf's placement on an inner line of ``size``
+    ranks on ``axis``, by path: ``dist/sharding.py``'s rule on the
+    logical leaves (their shapes from ``init_params`` on the ``meta``
+    device: nothing drawn or allocated), which a shard alone does not
+    give (whether ``embed``'s vocab was split)."""
+    return {path: sharding.placement(path, axis, tuple(t.shape), size)
+            for path, t in sharding.leaves(init_params(cfg, 0, "meta"))}
+
+
 def _moe_transport(policy: TransportPolicy) -> str:
     """``policy.moe`` if its all_to_all is ported; ``auto`` raises naming
     ``ROADMAP_AUTO``, ``bidir`` naming ``ROADMAP_SUBSTRATE``."""
@@ -364,7 +378,8 @@ def build_init(cfg: ModelConfig, grid, scfg: StepConfig
     (so every rank and every grid sees the same full model), then, on an
     inner line of two or more ranks, cut to this rank's shard
     (``dist/sharding.py``, on the :func:`group_axis` placement) layer by
-    layer.  Every data rank holds the same whole copy."""
+    layer, the embedding and head as soon as each is drawn.  Every data
+    rank holds the same copy of its model line's shard."""
     grid = step_grid(cfg, grid)
     axis, inner = group_axis(cfg), grid.inner
 
@@ -412,7 +427,11 @@ def build_train_step(cfg: ModelConfig, grid, scfg: StepConfig) -> Callable:
     shards rows over its data axis), or on an expert grid over every rank
     in world order (the reference's EP region shards rows over every mesh
     axis).  For each microbatch it (1) embeds the rank's part: on a model
-    line its rows' sequence shard, positions ``r·S/tp + arange(S/tp)``,
+    line its rows' sequence shard, positions ``r·S/tp + arange(S/tp)``
+    (where the line divides the vocab by the vocab-parallel embedding,
+    ``models/vocab_parallel.py``: the rank looks up the line's whole
+    sequence in its vocab rows and a reduce-scatter over the sequence
+    leaves it its shard; else by the replicated lookup of its shard),
     else its rows whole (a VLM's patch rows before them); (2) runs the
     blocks, the dense ones through the ART-TP runner at tp ≥ 2, the MoE
     layers through the expert-parallel runner on an expert line, every
@@ -421,7 +440,12 @@ def build_train_step(cfg: ModelConfig, grid, scfg: StepConfig) -> Callable:
     ``moe_aux_weight`` × a MoE model's load-balancing loss: the token
     count and the experts' choice counts are summed over the whole world,
     so each rank's loss is its share of the reference's global-batch
-    loss, and the shares sum to it whatever the masked labels' spread;
+    loss, and the shares sum to it whatever the masked labels' spread (a
+    vocab-parallel line takes the head as the AG ring edge over its vocab
+    columns, each chunk's rows gathered over the line, and combines the
+    ranks' log-sum-exps a token, ``dist/loss.py``: each token counts once
+    in the sums, and each rank's backward covers the line's tokens on its
+    columns);
     (4) runs backward on its share times the data extent D, and sums the
     gradients in fp32, leaf by leaf in place.  Then it divides the sums
     by the microbatch count (in the flat buckets of ``dist/bucketing.py``
@@ -435,10 +459,15 @@ def build_train_step(cfg: ModelConfig, grid, scfg: StepConfig) -> Callable:
     other D (``launch/mesh.py`` takes one) rounds the scaled cotangent in
     every bf16 op of backward and the fp32 division, so the gradient is
     the global loss's to that rounding, not bit for bit (ROADMAP §3); (6) sums the replicated
-    leaves' gradients over the inner line, (7) clips by the global norm
+    leaves' gradients over the inner line (``wk``/``wv`` and the norms;
+    ``embed`` and ``lm_head`` too where the vocab does not split, else
+    their shards' gradients are complete: the embedding's from its
+    scatter, the head's from its edge's weight gradient; the all-reduce's
+    bytes are ``step_fn.rep_wire``), (7) clips by the global norm
     over the inner line and (8) takes an AdamW step at
     ``warmup_cosine(step)``, the same on every data rank.  Parameters and
-    optimizer state are whole on every data rank (DDP; the reference
+    optimizer state are the model line's shards, the same on every data
+    rank (DDP over the data axis; the reference
     shards them over its data axis, ZeRO/FSDP: ROADMAP queue 1 item 7.5)
     and updated in place.  ``metrics``: the microbatches' mean loss, ce,
     z_loss and moe_aux and their summed token count (the world's), the
@@ -463,6 +492,15 @@ def build_train_step(cfg: ModelConfig, grid, scfg: StepConfig) -> Callable:
     axis = group_axis(cfg)
     # the TP line shards the sequence; the data line and EP the rows
     seq_shards = tp if runner is not None else 1
+    places = param_places(cfg, tp, axis) if tp > 1 else {}
+    # the TP line's vocab split, where the placement rule makes one (else
+    # the lookup and the head stay replicated)
+    vocab = (VocabParallel(policy.tp_conduit(inner), cfg.vocab_size)
+             if runner is not None and places.get(("embed",), "rep") != "rep"
+             else None)
+    #: the last step's `rep` all-reduce over the inner line: the payload
+    #: bytes it carried and the bytes it staged through the host
+    rep_wire = {"bytes": 0, "staged_bytes": 0}
 
     def micro_grads(params, leaves, micro, acc):
         """Backward of one microbatch, its gradients summed in fp32 into
@@ -475,8 +513,10 @@ def build_train_step(cfg: ModelConfig, grid, scfg: StepConfig) -> Callable:
         if s % seq_shards:
             raise ValueError(f"sequence {s} does not split over {tp} ranks")
         s_loc = s // seq_shards
+        # the vocab-parallel embedding and head take the line's whole
+        # sequence of the rank's rows
         cols = (slice(rank * s_loc, (rank + 1) * s_loc)
-                if runner is not None else slice(None))
+                if runner is not None and vocab is None else slice(None))
         rows = split_rows(tokens.shape[0], row_group)
         local = {"tokens": tokens[rows, cols].to(grid.device),
                  "labels": labels[rows, cols].to(grid.device)}
@@ -494,7 +534,7 @@ def build_train_step(cfg: ModelConfig, grid, scfg: StepConfig) -> Callable:
                 cfg, params, local, seq_chunk=scfg.seq_chunk,
                 z_loss=scfg.z_loss, moe_aux_weight=scfg.moe_aux_weight,
                 group=sum_group, positions=positions, runner=runner,
-                core=core, moe_ffn=moe_runner)
+                core=core, moe_ffn=moe_runner, vocab=vocab)
             (loss * n_data if n_data > 1 else loss).backward()
             for i, t in enumerate(leaves):
                 g, t.grad = t.grad, None
@@ -548,18 +588,21 @@ def build_train_step(cfg: ModelConfig, grid, scfg: StepConfig) -> Callable:
         if plan is not None:
             grads = bucketing.unpack(grads, plan, torch.float32)
 
-        places = [sharding.placement(p, axis) for p in paths]
         sharded = None
         if tp > 1:
-            rep = [i for i, pl in enumerate(places) if pl == "rep"]
-            flat = inner.all_reduce(torch.cat([grads[i].reshape(-1)
-                                               for i in rep]))
+            rep = [i for i, p in enumerate(paths) if places[p] == "rep"]
+            flat = torch.cat([grads[i].reshape(-1) for i in rep])
+            staged0 = inner.stats["staged_bytes"]
+            flat = inner.all_reduce(flat)
+            rep_wire.update(bytes=flat.numel() * flat.element_size(),
+                            staged_bytes=inner.stats["staged_bytes"]
+                            - staged0)
             off = 0
             for i in rep:
                 n = grads[i].numel()
                 grads[i] = flat[off:off + n].view(grads[i].shape)
                 off += n
-            sharded = [pl != "rep" for pl in places]
+            sharded = [places[p] != "rep" for p in paths]
         grads, grad_norm = clip_by_global_norm(
             grads, scfg.clip_norm, group=norm_group, sharded=sharded)
         lr = warmup_cosine(step, peak_lr=scfg.peak_lr,
@@ -574,4 +617,5 @@ def build_train_step(cfg: ModelConfig, grid, scfg: StepConfig) -> Callable:
         return grads, metrics
 
     step_fn.local_grads = public_local_grads
+    step_fn.rep_wire = rep_wire
     return step_fn

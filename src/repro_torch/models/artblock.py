@@ -64,8 +64,11 @@ def _edge_bytes(op: str, x: torch.Tensor, w: torch.Tensor,
     return x.shape[0] * x.shape[-2] * w.shape[1] * x.element_size()
 
 
-def _vmap_ag(x: torch.Tensor, w: torch.Tensor,
-             conduit: Conduit) -> torch.Tensor:
+def ag_edge(x: torch.Tensor, w: torch.Tensor,
+            conduit: Conduit) -> torch.Tensor:
+    """One AG edge, ``all_gather(x) @ w`` over the conduit's group: x (B,
+    b, K) local rows, w (K, N_loc) → (B, n·b, N_loc) fp32 (the blocks'
+    q and up‖gate edges, and the vocab-parallel LM head's)."""
     size = _edge_bytes("all_gather", x, w, conduit)
     if conduit.matmul_schedule("all_gather") == "fused":
         return allgather_matmul_fused(
@@ -76,8 +79,9 @@ def _vmap_ag(x: torch.Tensor, w: torch.Tensor,
         f"ported yet: {ROADMAP_OVERLAP}")
 
 
-def _vmap_rs(x: torch.Tensor, w: torch.Tensor,
-             conduit: Conduit) -> torch.Tensor:
+def rs_edge(x: torch.Tensor, w: torch.Tensor,
+            conduit: Conduit) -> torch.Tensor:
+    """One RS edge, ``reduce_scatter(x @ w)`` over the conduit's group."""
     size = _edge_bytes("reduce_scatter", x, w, conduit)
     if conduit.matmul_schedule("reduce_scatter") == "fused":
         return matmul_reducescatter_fused(
@@ -106,7 +110,7 @@ def art_attention_part(cfg: ModelConfig, x: torch.Tensor,
     hq_loc = cfg.n_heads // tp
     b = x.shape[0]
 
-    q = _vmap_ag(a_in.to(cd), wq.to(cd), conduit)        # (B, S, nq) fp32
+    q = ag_edge(a_in.to(cd), wq.to(cd), conduit)        # (B, S, nq) fp32
     s_full = q.shape[1]
     q = q.reshape(b, s_full, hq_loc, hd).transpose(1, 2)
 
@@ -131,7 +135,7 @@ def art_attention_part(cfg: ModelConfig, x: torch.Tensor,
         q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
         causal_skip=cfg.causal_block_skip)
     out = out.transpose(1, 2).reshape(b, s_full, hq_loc * hd)
-    return x + _vmap_rs(out, wo.to(cd), conduit).to(x.dtype)
+    return x + rs_edge(out, wo.to(cd), conduit).to(x.dtype)
 
 
 def art_mlp_part(cfg: ModelConfig, h: torch.Tensor, m_in: torch.Tensor,
@@ -143,14 +147,15 @@ def art_mlp_part(cfg: ModelConfig, h: torch.Tensor, m_in: torch.Tensor,
     m_in = m_in.to(cd)
     w_up = w_up.to(cd)
     if w_gate is not None:
-        up_cat = _vmap_ag(m_in, torch.cat([w_up, w_gate.to(cd)], dim=1),
+        up_cat = ag_edge(m_in, torch.cat([w_up, w_gate.to(cd)], dim=1),
                           conduit)
         f_loc = w_up.shape[1]
         act = L._act(cfg.activation, up_cat[..., f_loc:]) \
             * up_cat[..., :f_loc]
     else:
-        act = L._act(cfg.activation, _vmap_ag(m_in, w_up, conduit))
-    return h + _vmap_rs(act, w_down.to(cd), conduit).to(h.dtype)
+        act = L._act(cfg.activation, ag_edge(m_in, w_up, conduit))
+    return h + rs_edge(act, w_down.to(cd), conduit).to(h.dtype)
 
 
-__all__ = ["art_attention_part", "art_mlp_part", "supports_art_tp"]
+__all__ = ["ag_edge", "art_attention_part", "art_mlp_part", "rs_edge",
+           "supports_art_tp"]

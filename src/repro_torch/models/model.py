@@ -218,8 +218,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     numbers differ from the reference's ``jax.random`` draws; tests that
     compare the two pass the reference's parameters through
     ``repro_torch.bridge`` instead.  ``layer_fn`` transforms each layer's
-    dict as soon as it is drawn (the TP init keeps only this rank's
-    shard, so a whole model never sits on the device at once).  On the
+    dict as soon as it is drawn, and the dicts of the top-level ``embed``
+    and ``lm_head`` (the TP init keeps only this rank's shard, so a whole
+    model never sits on the device at once).  On the
     ``meta`` device it draws nothing and allocates nothing: the shapes
     alone, for a memory reckoning."""
     _check_ported(cfg)
@@ -227,13 +228,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     gen = (None if device.type == "meta"
            else torch.Generator(device=device).manual_seed(int(seed)))
     dt = L.pdtype(cfg)
-    p: Params = {
-        "embed": _init((cfg.vocab_size, cfg.d_model), dt, gen, device),
-        "final_norm": _init_norm(cfg, device),
-    }
-    if not cfg.tie_embeddings:
-        p["lm_head"] = _init((cfg.d_model, cfg.vocab_size), dt, gen, device)
     layer_fn = layer_fn or (lambda layer: layer)
+    p: Params = layer_fn(
+        {"embed": _init((cfg.vocab_size, cfg.d_model), dt, gen, device)})
+    p["final_norm"] = _init_norm(cfg, device)
+    if not cfg.tie_embeddings:
+        p.update(layer_fn({"lm_head": _init((cfg.d_model, cfg.vocab_size),
+                                            dt, gen, device)}))
     if cfg.family == "encdec":
         p["enc_layers"] = [_init_dense_layer(cfg, gen, device)
                            for _ in range(cfg.n_encoder_layers)]
@@ -467,7 +468,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    core: Optional[Callable] = None,
                    frontend_embeds: Optional[torch.Tensor] = None,
                    return_aux: bool = False,
-                   moe_ffn: Optional[Callable] = None, aux_group=None):
+                   moe_ffn: Optional[Callable] = None, aux_group=None,
+                   embed: Optional[Callable] = None):
     """tokens (B, S) → final-norm hidden (B, S, D); a VLM's hidden holds
     its ``frontend_tokens`` patch rows first (B, N + S, D), and the
     encoder-decoder's is the decoder's, the encoder run over
@@ -481,7 +483,11 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     positions)``, the TP train step) runs each dense block in place of
     :func:`dense_block`: ``tokens`` is then this rank's sequence shard and
     ``positions`` the whole sequence's: rank r holds rows ``r·S_loc +
-    arange(S_loc)``, and the runner ropes after gathering.
+    arange(S_loc)``, and the runner ropes after gathering.  ``embed``
+    (``embed(embed_leaf, tokens)``) embeds in place of the lookup: the
+    TP step's vocab-parallel embedding
+    (``models/vocab_parallel.py``), to which ``tokens`` is the line's
+    whole sequence and which returns this rank's rows.
     Each block goes through :func:`_maybe_remat` (the per-layer
     ``remat`` policy of the reference's scan bodies).  A hybrid runs its
     Mamba-2 layers and shared applications in :func:`hybrid_order`, each
@@ -506,7 +512,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             else x
     if cfg.family == "vlm" and frontend_embeds is None:
         raise ValueError(f"{cfg.name} needs patch embeddings")
-    x = _embed(cfg, params, tokens, frontend_embeds)
+    x = (embed(params["embed"], tokens) if embed is not None
+         else _embed(cfg, params, tokens, frontend_embeds))
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     aux = x.new_zeros((), dtype=torch.float32)

@@ -63,6 +63,7 @@ from repro_torch.dist.steps import (
     build_init,
     build_train_step,
     group_axis,
+    param_places,
     step_grid,
 )
 
@@ -130,9 +131,10 @@ class Trainer:
         placement on the inner line: an optimizer leaf (``mu``, ``nu``,
         ``master``: one a parameter, in ``sharding.leaves`` order) takes
         its parameter's, AdamW's ``step`` is replicated."""
-        axis = group_axis(self.cfg)
+        logical = param_places(self.cfg, self.grid.inner.size,
+                               group_axis(self.cfg))
         paths = [p for p, _ in sharding.leaves(params)]
-        places = {(0,) + p: sharding.placement(p, axis) for p in paths}
+        places = {(0,) + p: logical[p] for p in paths}
         for key in ("mu", "nu", "master"):
             for k, p in enumerate(paths):
                 places[(1, key, k)] = places[(0,) + p]

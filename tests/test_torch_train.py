@@ -178,30 +178,56 @@ def test_tp2_microbatches_match_reference(pools):
 
 @pytest.mark.parametrize("tp", [2, 4])
 def test_replicated_leaves_bitwise_equal_across_ranks(pools, tp):
+    """The replicated leaves bitwise equal on every rank; ``embed`` and
+    ``lm_head`` are vocab shards, not among them: gathered over the ranks
+    they hold the V rows (columns) once each, and equal the reference's
+    leaves by the parameter rule."""
     res = _port(pools, tp)
     names = set(res[0]["replicated"])
-    assert {"embed", "lm_head", "final_norm/scale",
-            "layers/0/attn/wk", "layers/1/ln2/scale"} <= names
+    assert {"final_norm/scale", "layers/0/attn/wk",
+            "layers/1/ln2/scale"} <= names
+    assert not {"embed", "lm_head"} & names
     for rank_res in res[1:]:
         assert rank_res["replicated"] == res[0]["replicated"]
+        assert {"embed", "lm_head"} <= set(rank_res["sharded"])
     for name in names:      # the digests come from the same bits
         a = res[0]["params"][name]
         for rank_res in res[1:]:
             np.testing.assert_array_equal(rank_res["params"][name], a)
+    ref = _reference(tp)
+    vocab = get_config(ARCH).reduced().vocab_size
+    peak_lr, t = StepConfig().peak_lr, 1e-5
+    for name, dim in sharding.VOCAB_PARALLEL.items():
+        parts = [r["params"][name] for r in res]
+        assert all(p.shape[dim] == vocab // tp for p in parts)
+        got, want = np.concatenate(parts, axis=dim), ref["params"][name]
+        assert got.shape == want.shape
+        d = np.abs(got - want)
+        assert d.mean() <= t * np.abs(want).mean(), name
+        assert d.max() <= 2 * peak_lr + t * np.abs(want).max(), name
+
+
+def _head_chunks(tp, seq=16, seq_chunk=STEP_KW["seq_chunk"]):
+    """The vocab-parallel CE's chunks a microbatch: ``seq_chunk / tp``
+    local rows of each rank's ``seq / tp`` a chunk."""
+    return -(-(seq // tp) // max(seq_chunk // tp, 1))
 
 
 def _hop_calls(tp, layers_, remat):
     """Plain-version calls of one step on the emulated schedule: per layer
     two AG edges (q, up‖gate) and two RS edges (o, down) forward, the
     other op for each in backward, and the forward again under remat;
-    bidirectional half-rings above 2.  The whole-ring kernels' plain
-    versions never run (the CPU takes the emulated schedule)."""
+    the vocab-parallel head's AG edge forward and its RS edge backward a
+    CE chunk (not recomputed); bidirectional half-rings above 2.  The
+    whole-ring kernels' plain versions never run (the CPU takes the
+    emulated schedule)."""
     bidir = tp > 2
     per_ag = {"consume_matmul": 2 * tp if bidir else tp}
     per_rs = {"matmul_tile": 2 if bidir else 1,
               "consume_matmul_acc": 2 * (tp - 1) if bidir else tp - 1}
     passes = 3 if remat == "full" else 2
-    ag_calls = rs_calls = layers_ * (2 * (passes - 1) + 2)
+    ag_calls = rs_calls = (layers_ * (2 * (passes - 1) + 2)
+                           + _head_chunks(tp))
     return {"consume_matmul": ag_calls * per_ag["consume_matmul"],
             "matmul_tile": rs_calls * per_rs["matmul_tile"],
             "consume_matmul_acc": rs_calls * per_rs["consume_matmul_acc"],
@@ -229,6 +255,159 @@ def test_remat_full_recomputes_blocks_and_matches(pools):
         for name, v in a["params"].items():
             np.testing.assert_allclose(v, b["params"][name], rtol=1e-6,
                                        atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the vocab-parallel embedding and head
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_vocab_parallel_embedding_is_the_replicated_lookup(pools, tp):
+    """Each rank's rows from its vocab shard and the reduce-scatter equal
+    the replicated lookup's rows bit for bit, and the shards' gradients,
+    gathered, equal the replicated lookup's gradient bit for bit."""
+    rng = np.random.default_rng(tp)
+    table = rng.standard_normal((256, 64)).astype(np.float32)
+    tokens = rng.integers(0, 256, size=(2, 16))
+    tokens[0, :4] = [0, 256 // tp - 1, 256 // tp, 255]    # shard ends
+    cot = rng.standard_normal((2, 16, 64)).astype(np.float32)
+    res = pools[tp].run(rank_tasks.vocab_embed, table, tokens, cot)
+    want = torch.from_numpy(table).requires_grad_(True)
+    rows = want[torch.from_numpy(tokens)]
+    (rows * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_array_equal(
+        np.concatenate([r["rows"] for r in res], axis=1),
+        rows.detach().numpy())
+    np.testing.assert_array_equal(
+        np.concatenate([r["grad"] for r in res], axis=0), want.grad.numpy())
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_vocab_parallel_ce_matches_reference(pools, tp, tied, monkeypatch):
+    """The vocab-parallel head and CE (the AG edge over each rank's vocab
+    columns, the ranks' log-sum-exps combined a token) against the
+    reference's ``chunked_ce_loss`` and ``jax.grad`` on the same hidden
+    rows: metrics at 1e-5 (tokens exact), the ranks' losses summing to
+    the reference's, and the gradients of the hidden rows and of the head
+    shards, gathered, at 1e-5.  Masked labels, labels at both ends of
+    every shard, and a tied head (the ``embed`` shard transposed)."""
+    import repro.dist.loss as ref_loss
+
+    cfg = dataclasses.replace(ref_get_config(ARCH).reduced(),
+                              tie_embeddings=tied)
+    v, d = cfg.vocab_size, cfg.d_model
+    rng = np.random.default_rng(10 * tp + tied)
+    hidden = rng.standard_normal((2, 16, d)).astype(np.float32)
+    head = (0.3 * rng.standard_normal((v, d) if tied else (d, v))
+            ).astype(np.float32)
+    labels = rng.integers(0, v, size=(2, 16))
+    ends = [e for r in range(tp) for e in (r * v // tp, (r + 1) * v // tp - 1)]
+    labels[1, :len(ends)] = ends
+    labels[0, [1, 6, 11]] = -1                        # masked positions
+    monkeypatch.setattr(ref_loss, "forward_hidden",
+                        lambda cfg_, p, tokens, fe: (p["hidden"], 0.0))
+    name = "embed" if tied else "lm_head"
+    params = {"hidden": jnp.asarray(hidden), name: jnp.asarray(head)}
+    (loss, metrics), grads = jax.value_and_grad(
+        lambda p: ref_chunked_ce_loss(
+            cfg, p, {"tokens": jnp.asarray(labels),
+                     "labels": jnp.asarray(labels)}, seq_chunk=6),
+        has_aux=True)(params)
+    res = pools[tp].run(rank_tasks.vocab_ce, ARCH, hidden, labels, head,
+                        seq_chunk=6, cfg_overrides=dict(tie_embeddings=tied))
+    for r in res:
+        np.testing.assert_allclose(r["metrics"]["loss"], float(loss), **TOL)
+        for k in ("ce", "z_loss"):
+            np.testing.assert_allclose(r["metrics"][k], float(metrics[k]),
+                                       **TOL)
+        assert r["metrics"]["tokens"] == float(metrics["tokens"]) == 29.0
+        assert r["launches"] == dict.fromkeys(r["launches"], 0)
+    np.testing.assert_allclose(sum(r["loss"] for r in res), float(loss),
+                               **TOL)
+    np.testing.assert_allclose(
+        np.concatenate([r["dh"] for r in res], axis=1),
+        np.asarray(grads["hidden"]), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(
+        np.concatenate([r["dhead"] for r in res], axis=0 if tied else 1),
+        np.asarray(grads[name]), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("vocab,tp", [(256, 2), (256, 4), (250, 2),
+                                      (250, 4)])
+def test_vocab_placement_matches_reference_param_pspecs(vocab, tp):
+    """``embed`` and ``lm_head`` split their vocab dim exactly where the
+    reference's ``param_pspecs`` puts ``model`` on it on a ``(1, tp)``
+    host mesh, and stay replicated where its divisibility fallback drops
+    the axis (250 over 4); ``bridge.shard_params`` cuts them so."""
+    from repro.dist.sharding import param_pspecs
+
+    cfg = dataclasses.replace(ref_get_config(ARCH).reduced(),
+                              vocab_size=vocab)
+    full = jax.eval_shape(lambda: ref_init_params(cfg,
+                                                  jax.random.PRNGKey(0)))
+    specs = param_pspecs(cfg, make_host_mesh(data=1, model=tp), full)
+    for name, dim in sharding.VOCAB_PARALLEL.items():
+        shape = tuple(full[name].shape)
+        place = sharding.placement((name,), "model", shape, tp)
+        split = specs[name][dim] == "model"
+        assert place == (("row" if dim == 0 else "col") if split
+                         else "rep"), (name, specs[name])
+        assert split == (vocab % tp == 0)
+        part = shard_params({name: np.zeros(shape, np.float32)}, 1, tp)
+        assert part[name].shape[dim] == (vocab // tp if split else vocab)
+
+
+def test_indivisible_vocab_trains_replicated(pools):
+    """A vocab the line does not divide (250 over 4) keeps ``embed`` and
+    ``lm_head`` whole on every rank (the reference's fallback), and the
+    TP step takes the replicated lookup and head: one step against the
+    reference's fused step at 1e-5, its parameters by the rule, and the
+    two leaves among the replicated, bitwise equal on every rank."""
+    cfg = dataclasses.replace(ref_get_config(ARCH).reduced(), vocab_size=250)
+    mesh = make_host_mesh(data=1, model=4)
+    scfg = RefStepConfig(transport=RefTransportPolicy(tp="fused"), **STEP_KW)
+    batch = RefSyntheticLM(RefDataConfig(vocab_size=250, seq_len=17,
+                                         global_batch=2)).global_batch(0)
+    bundle = ref_build_train_step(cfg, mesh, scfg, batch_specs(16, 2, 250))
+    params, opt = ref_build_init(cfg, mesh, scfg)[0](jax.random.PRNGKey(0))
+    params0 = _tree_np(params)
+    params, _, m = bundle.fn(params, opt, batch, jnp.int32(0))
+    ref = dict(params=_tree_np(params))
+    res = pools[4].run(
+        rank_tasks.train, ARCH, steps=1, reduced=True,
+        cfg_overrides=dict(vocab_size=250), step_overrides=STEP_KW,
+        params_np=params0, return_params=True,
+        batches=[{k: np.asarray(a) for k, a in batch.items()}])
+    for r in res:
+        got = (r["metrics"][0]["loss"], r["metrics"][0]["grad_norm"])
+        np.testing.assert_allclose(got, (float(m["loss"]),
+                                         float(m["grad_norm"])),
+                                   rtol=1e-5, atol=0)
+        assert {"embed", "lm_head"} <= set(r["replicated"])
+        assert r["replicated"] == res[0]["replicated"]
+        assert r["params"]["embed"].shape == (250, cfg.d_model)
+    _check_parameter_rule(ref, res, 4)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_rep_all_reduce_leaves_out_the_vocab_shards(pools, tp):
+    """At TP n with V divisible by n a rank holds V/n rows of ``embed``
+    and V/n columns of ``lm_head``, and the all-reduce of the replicated
+    leaves' gradients over the line sends the fp32 gradients of the
+    replicated leaves alone: their bytes, every step, without the
+    embedding's and the head's."""
+    cfg = get_config(ARCH).reduced()
+    res = _port(pools, tp)
+    for r in res:
+        rep = sum(r["params"][name].size for name in r["replicated"])
+        assert [w["bytes"] for w in r["rep_wire"]] == [4 * rep] * 2
+        assert r["params"]["embed"].shape == (cfg.vocab_size // tp,
+                                              cfg.d_model)
+        assert r["params"]["lm_head"].shape == (cfg.d_model,
+                                                cfg.vocab_size // tp)
+        assert not {"embed", "lm_head"} & set(r["replicated"])
 
 
 def _cpu_group(size):
@@ -435,10 +614,26 @@ def test_shard_params_follow_the_placement_rules():
                 full["layers"]["attn"]["wo"][i][rank * hq:(rank + 1) * hq])
             np.testing.assert_array_equal(lp["attn"]["wk"].numpy(),
                                           full["layers"]["attn"]["wk"][i])
-        np.testing.assert_array_equal(shard["embed"].numpy(), full["embed"])
+        v = cfg.vocab_size // tp
+        np.testing.assert_array_equal(shard["embed"].numpy(),
+                                      full["embed"][rank * v:(rank + 1) * v])
+        np.testing.assert_array_equal(
+            shard["lm_head"].numpy(),
+            full["lm_head"][:, rank * v:(rank + 1) * v])
     assert [sharding.placement((n,)) for n in
-            ("wq", "w_up", "w_gate", "wo", "w_down", "wk", "wv", "embed",
-             "lm_head", "scale")] == ["col"] * 3 + ["row"] * 2 + ["rep"] * 5
+            ("wq", "w_up", "w_gate", "wo", "w_down", "wk", "wv",
+             "scale")] == ["col"] * 3 + ["row"] * 2 + ["rep"] * 3
+    v, d = cfg.vocab_size, cfg.d_model
+    assert [sharding.placement(("embed",), "model", (v, d), tp),
+            sharding.placement(("lm_head",), "model", (d, v), tp),
+            sharding.placement(("embed",), "model", (250, d), tp),
+            sharding.placement(("lm_head",), "model", (d, 250), tp),
+            sharding.placement(("embed",), "model", (v, d), 1),
+            sharding.placement(("lm_head",), "model", (d, v), 1),
+            sharding.placement(("embed",), "expert", (v, d), tp)] == \
+        ["row", "col", "rep", "rep", "rep", "rep", "rep"]
+    with pytest.raises(ValueError, match="logical leaf's shape"):
+        sharding.placement(("embed",))
 
 
 def test_synthetic_lm_is_step_indexed_ngram_stream():
