@@ -205,17 +205,35 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    TP-4 step runs under torch.profiler in every rank: the share of its
    wall with no kernel of any rank from the ranks' kernel spans summed
    (a lower bound: a preempted kernel's span stays open) and from their
-   union on the profiler's host clock.  Then step 0 at 4 again on the
-   emulated schedule (a group without peer memory: every hop over the
-   gloo wire, each arrival consumed by a hop kernel): its hop-kernel
-   launches equal the schedule's count, no ring kernel or plain version
-   runs, and its loss and grad norm agree with the in-kernel ring's
-   step 0 at 1e-6 relative (the same tile arithmetic on both paths).
-9. Reduced h2o-danube-1.8b in fp32 at TP 2 and 4, and at TP 4 with a
+   union on the profiler's host clock.  On the same TP-4 pool (which
+   first runs phase 12's peer-mapped quickstart), the model cut to 4 of
+   its 24 layers, step 0 under each TP family of ``TransportPolicy.tp``:
+   ``fused``, ``ring`` and ``bidir`` (the overlap schedules of
+   ``core/overlap.py``, each hop a gloo permute, each block product
+   cuBLAS) and ``auto`` (the conduit's cost model).  Held
+   (``family_plan``): the edges a rank ran (``artblock.EDGE_CALLS``: op,
+   bytes, modeled time, family, direction, calls) are the schedule's
+   with the CPU's ``matmul_schedule`` decisions, so ``auto`` decides on
+   the card as on the CPU; the ring launches its fused edges make; the
+   ring permutes a rank sends (``Group.stats["hops"]``: n − 1 an edge
+   call and direction, forward and backward, and the bare K/V and
+   embedding collectives' on the policy's conduit); each overlap
+   family's loss and grad norm within 1e-3 and 1e-2 relative of the
+   fused step's (the TP-8 check's limits).  Printed: each run's step
+   time, staged bytes, wire time and peak memory a rank, and ``auto``'s
+   decision at each edge shape.  Then, on a pool without peer memory
+   (which first runs phase 12's wire quickstart), step 0 at 4 layers on
+   the emulated schedule (every hop over the gloo wire, each arrival
+   consumed by a hop kernel): its hop-kernel launches equal the
+   schedule's count, no ring kernel or plain version runs, and its loss
+   and grad norm agree with the fused family's step 0 at 1e-6 relative
+   (the same tile arithmetic on both paths).
+9. Reduced h2o-danube-1.8b in fp32 at TP 2 and 4, at TP 4 with a
    vocab of 250 (which the line does not divide, so ``embed`` and
    ``lm_head`` stay replicated: the plain lookup of the rank's rows and
-   the replicated head's CE), 2 steps on the card and on the CPU (gloo
-   both):
+   the replicated head's CE), and at TP 4 under ``tp="bidir"`` (every
+   edge on the overlap schedules, no ring kernel), 2 steps on the card
+   and on the CPU (gloo both):
    loss and grad norm within 1e-4 relative, every parameter leaf by the
    parameter rule at 1e-4 (mean |Δ| ≤ 1e-4 × the leaf's mean magnitude,
    max |Δ| ≤ 2·peak_lr + 1e-4 × its max), and the two vocab leaves among
@@ -224,7 +242,9 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    and 4 rank processes.  (a) Reduced llama4-scout and grok-1 in fp32,
    their experts split over 2 and 4 ranks, 2 steps of the EP train step
    (2 microbatches of 4 rows) with the exchange on ``ring`` and on
-   ``xla``, on the card and on the CPU from the same CPU-drawn
+   ``xla``, and at 4 ranks grok-1 under its EP preset's own policy
+   (``moe="auto"``, streamed in 4 chunks; 4 rows a rank), on the card
+   and on the CPU from the same CPU-drawn
    parameters: loss, grad norm and ``moe_aux`` within 1e-4 relative,
    every leaf by the parameter rule at 1e-4, the replicated leaves
    bitwise equal on every rank.  (b) One full-width llama4-scout MoE layer
@@ -308,8 +328,10 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
     (no bias, no silu).
 12. The PGAS substrate on the card: the quickstart (ring PUT, ``SCALE``
     Active Message, ART matmul) in four rank processes with peer-mapped
-    heaps, in four on the card's gloo wire (``peer_memory=False``) and in
-    four CPU ranks: bit-identical heaps, the peer run's PUT through peer
+    heaps and in four on the card's gloo wire (``peer_memory=False``),
+    each run on phase 8's fresh four-rank pool, and in four CPU ranks
+    here: bit-identical heaps, four heaps one after another on the peer
+    pool holding one partition at each mapping, the peer run's PUT through peer
     stores, the ART result within 2e-4 of ``M @ N``.  Then a PUT/GET sweep
     between ranks 0 and 1 of a 2-rank group, 4 B to 2 MB in powers of two
     and 64 MB, on a 2^24-word fp32 heap, over peer memory and over the
@@ -366,6 +388,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -2279,11 +2302,112 @@ def tp_launches(n_layers, tp, remat, peer, chunks=0):
                                             else tp - 1))
 
 
-#: phase 8's runs: (tag, model axis, steps, in-kernel ring), each at all
-#: of h2o-danube-1.8b's 24 layers (the reckoning of the eight ranks'
-#: bytes against the card is in PERF.md §6)
-TP_RUNS = (("tp4", 4, 2, True), ("tp8", 8, 1, True),
-           ("tp4-emulated", 4, 1, False))
+#: phase 8's runs: (tag, model axis, steps, in-kernel ring, layers):
+#: TP 4 and TP 8 at all of h2o-danube-1.8b's 24 layers (the reckoning of
+#: the eight ranks' bytes against the card is in PERF.md §6), the emulated
+#: schedule at the families' cut depth (its check is against the fused
+#: family's step there)
+TP_FAMILY_LAYERS = 4
+TP_RUNS = (("tp4", 4, 2, True, 24), ("tp8", 8, 1, True, 24),
+           ("tp4-emulated", 4, 1, False, TP_FAMILY_LAYERS))
+#: the TP edge families each run at full width, depth cut to 4 of 24
+#: layers, step 0, on the TP-4 peer pool; each overlap family held to the
+#: fused step relative, at the TP-8 check's limits (the hop products round
+#: differently: cuBLAS on the overlap path, the hop kernel on the fused)
+TP_FAMILIES = ("fused", "ring", "bidir", "auto")
+FAMILY_LOSS_TOL, FAMILY_NORM_TOL = 1e-3, 1e-2
+
+
+def bare_hops(conduit, op, shape, item, dim):
+    """The ring permutes (a tensor a hop) one bare all_gather or
+    reduce_scatter along ``dim`` of a (B, rows, cols) tensor sends a rank
+    on ``conduit``, as ``core/conduit.py`` schedules it: none on ``xla``,
+    n − 1 a piece on the ring (``fused`` rides it), 2(n − 1) on bidir
+    unless it falls back to the ring; its backward sends as many."""
+    from repro_torch.core import pipeline as pl
+
+    n = conduit.axis.size
+    numel = math.prod(shape)
+    rows = shape[dim]
+    size = numel * item * (n if op == "all_gather" else 1)
+    name, chunk = conduit._resolve(op, size)
+    if name == "xla" or n == 1:
+        return 0
+    b = rows if op == "all_gather" else rows // n
+    cols = numel // rows
+    if name == "bidir" and n > 2 and b >= 2:
+        hop = (numel // 2 if op == "all_gather" else numel // n // 2) * item
+        return 2 * (n - 1) * pl.n_chunks(hop, chunk, cols)
+    hop = (numel if op == "all_gather" else numel // n) * item
+    return (n - 1) * pl.n_chunks(hop, chunk, cols)
+
+
+def family_plan(cfg, tp, transport, batch, seq, seq_chunk):
+    """What one TP step of the policy ``transport`` runs, from the
+    schedule: every edge shape with the family and direction the port's
+    conduit picks for it on the CPU (``artblock._edge_cost``,
+    ``matmul_schedule``), as ``artblock.EDGE_CALLS`` records a step
+    (forward calls, the remat recompute among them), the cc_matmul ring
+    launches of its fused edges, and the ring permutes a rank sends
+    (n − 1 an edge call and direction, forward and backward, on the peer
+    ring or the gloo wire alike, and the bare K/V and embedding
+    collectives')."""
+    import torch
+
+    from repro_torch.core import overlap
+    from repro_torch.core.conduit import Conduit
+    from repro_torch.dist.group import Group
+    from repro_torch.models import artblock
+    from repro_torch.models import layers as L
+
+    c = Conduit(axis=Group(rank=0, size=tp, device=torch.device("cpu")),
+                transport=transport)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, f = cfg.n_heads // tp * hd, cfg.d_ff // tp
+    s_loc, rows = seq // tp, max(seq_chunk // tp, 1)
+    again = 2 if cfg.remat == "full" else 1
+    cd = L.cdtype(cfg)
+    meta = dict(device="meta", dtype=cd)
+    # an RS edge's input is the fp32 product of an AG edge (attention's
+    # output, the MLP's activation)
+    fp32 = dict(device="meta", dtype=torch.float32)
+    up = 2 * f if cfg.gated_mlp else f
+    edges = [("all_gather", (batch, s_loc, d), (d, nq), cfg.n_layers),
+             ("all_gather", (batch, s_loc, d), (d, up), cfg.n_layers),
+             ("reduce_scatter", (batch, seq, nq), (nq, d), cfg.n_layers),
+             ("reduce_scatter", (batch, seq, f), (f, d), cfg.n_layers)]
+    record, launches, hops = {}, {"ag_matmul_ring": 0, "rs_matmul_ring": 0}, 0
+    heads = [min(rows, s_loc - c0) for c0 in range(0, s_loc, rows)]
+    for op, xs, ws, layers in edges + [("all_gather", (batch, r, d),
+                                        (d, cfg.vocab_size // tp), 0)
+                                       for r in heads]:
+        x = torch.empty(xs, **(meta if op == "all_gather" else fp32))
+        w = torch.empty(ws, **meta)
+        size, tc = artblock._edge_cost(op, x, w, c)
+        family = c.matmul_schedule(op, size, tc)
+        bidir = c.matmul_bidirectional(
+            size if family == "fused" else overlap.payload_bytes(op, x, w,
+                                                                 tp))
+        fwd, bwd = (layers * again, layers) if layers else (1, 1)
+        key = (op, size, tc, family, bidir)
+        record[key] = record.get(key, 0) + fwd
+        dirs = 2 if bidir and tp > 2 else 1
+        hops += (fwd + bwd) * dirs * (tp - 1)
+        if family == "fused":
+            mine, other = (("ag_matmul_ring", "rs_matmul_ring")
+                           if op == "all_gather"
+                           else ("rs_matmul_ring", "ag_matmul_ring"))
+            launches[mine] += fwd * dirs
+            launches[other] += bwd * dirs
+    kv = cfg.n_kv_heads * hd
+    item = torch.empty((), dtype=cd).element_size()
+    hops += (2 * cfg.n_layers * (again + 1)
+             * bare_hops(c, "all_gather", (batch, s_loc, kv), item, 1))
+    embed_item = torch.empty((), dtype=getattr(
+        torch, cfg.param_dtype)).element_size()
+    hops += 2 * bare_hops(c, "reduce_scatter", (batch, seq, d), embed_item,
+                          1)
+    return record, launches, hops
 TP_SEQ, TP_SEQ_CHUNK, TP_BATCH = 2049, 512, 2
 #: step 0 at TP 8 against TP 4, relative: besides the tolerances of the
 #: TP-2 check this run replaced (2e-2, 5e-2), limits set from the
@@ -2318,13 +2442,99 @@ def tp8_ring_cases(pool, cfg, smi):
         check_ring_case(entry, f"{label} at tp {tp}", rows, tp, err, tol)
 
 
+def tp_family_runs(pool, cfg, kw, smi):
+    """On the TP-4 peer pool: step 0 of full-width h2o cut to
+    ``TP_FAMILY_LAYERS`` layers under each of ``TP_FAMILIES``; each run's
+    edges, ring launches and ring permutes held to ``family_plan`` (so
+    ``auto``'s decision at each edge shape is the CPU's), and each
+    overlap family's loss and grad norm to the fused step's.  Returns
+    the runs by family."""
+    from repro_torch.dist import rank_tasks
+
+    tp = pool.size
+    runs = {}
+    for fam in TP_FAMILIES:
+        t0 = time.perf_counter()
+        res = pool.run(rank_tasks.train, cfg.name, **dict(
+            kw, steps=1, tp_transport=fam,
+            cfg_overrides=dict(n_layers=TP_FAMILY_LAYERS)))
+        runs[fam] = res
+        lcfg = dataclasses.replace(cfg, n_layers=TP_FAMILY_LAYERS)
+        record, want, hops = family_plan(lcfg, tp, fam, TP_BATCH,
+                                         TP_SEQ - 1, TP_SEQ_CHUNK)
+        chosen = sorted({(op, family, bidir)
+                         for op, _, _, family, bidir in record})
+        r0 = res[0]
+        m = r0["metrics"][0]
+        print(f"[tp4 {fam}] {cfg.name} full width at {TP_FAMILY_LAYERS} of "
+              f"{cfg.n_layers} layers, {tp} ranks, step 0: "
+              f"{max(r['seconds'][0] for r in res):.2f}s, loss "
+              f"{m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}; edges "
+              f"(op, family, bidirectional) {chosen}; ring launches a rank "
+              f"{ {k: v for k, v in r0['launches'][0].items() if v} }; "
+              f"{r0['stats'][0]['hops']} ring permutes a rank (the "
+              f"schedule's {hops}); staged "
+              f"{sum(r['stats'][0]['staged_bytes'] for r in res) / 2**30:.3f}"
+              f" GiB through the host (all ranks), wire "
+              f"{max(r['stats'][0]['wire_s'] for r in res):.2f}s; peak "
+              f"{', '.join('%.2f' % (r['peak_bytes'] / 2**30) for r in res)}"
+              f" GiB a rank; pool "
+              f"{time.perf_counter() - t0:.1f}s ({smi})", flush=True)
+        if fam == "auto":
+            for (op, size, tc, family, bidir), calls in sorted(record.items()):
+                print(f"[tp4 auto] {op} edge of {size} bytes, modeled "
+                      f"matmul {tc:.4g}s: {family}"
+                      f"{' bidirectional' if bidir else ''} x{calls} a step "
+                      f"(the CPU's matmul_schedule: the same)", flush=True)
+        for rank, r in enumerate(res):
+            got = dict(r["edges"][0])
+            if got != record:
+                fail(f"tp4 {fam} rank {rank}: edges {sorted(got.items())}, "
+                     f"the schedule's (the CPU's decisions) "
+                     f"{sorted(record.items())}")
+            launched = {k: r["launches"][0][k] for k in want}
+            if launched != want or any(
+                    v for k, v in r["launches"][0].items() if k not in want):
+                fail(f"tp4 {fam} rank {rank}: cc_matmul launches "
+                     f"{r['launches'][0]}, expected {want}")
+            rings = sum(want.values())
+            if r["stats"][0]["ring_kernels"] != tp * rings:
+                fail(f"tp4 {fam} rank {rank}: "
+                     f"{r['stats'][0]['ring_kernels']} hop products in "
+                     f"{rings} ring calls")
+            if r["stats"][0]["hops"] != hops:
+                fail(f"tp4 {fam} rank {rank}: {r['stats'][0]['hops']} ring "
+                     f"permutes, the schedule's {hops}")
+            if any(r["plain"][0].values()):
+                fail(f"tp4 {fam} rank {rank}: plain versions ran "
+                     f"{r['plain'][0]}")
+            if r["metrics"][0]["loss"] != m["loss"]:
+                fail(f"tp4 {fam}: ranks report different losses")
+        if any(r["replicated"] != r0["replicated"] for r in res):
+            fail(f"tp4 {fam}: replicated leaves differ across ranks")
+    mf = runs["fused"][0]["metrics"][0]
+    for fam in TP_FAMILIES[1:]:
+        mo = runs[fam][0]["metrics"][0]
+        d_loss = abs(mo["loss"] - mf["loss"]) / abs(mf["loss"])
+        d_norm = abs(mo["grad_norm"] - mf["grad_norm"]) / abs(mf["grad_norm"])
+        print(f"[tp4 {fam}] step 0 vs the fused step: loss rel {d_loss:.3g} "
+              f"(tol {FAMILY_LOSS_TOL}), grad_norm rel {d_norm:.3g} (tol "
+              f"{FAMILY_NORM_TOL})", flush=True)
+        if not (d_loss <= FAMILY_LOSS_TOL and d_norm <= FAMILY_NORM_TOL):
+            fail(f"tp4 {fam} and the fused family disagree at step 0")
+    return runs
+
+
 def phase_tp_train():
     """Full-width h2o-danube-1.8b TP training with the vocab-parallel
     embedding and head: 2 steps at a model axis of 4 on the in-kernel
-    ring, step 0 at 8 (the preset's extent), and step 0 at 4 on the
-    emulated schedule; returns the cc_matmul launches (all ranks, all
-    steps): the rings' of the TP-4 and TP-8 runs, the hop kernels' of the
-    emulated run, and the TP-8 run's rings apart."""
+    ring, then on the same pool step 0 of every TP family at 4 layers
+    (:func:`tp_family_runs`), step 0 at 8 (the preset's extent), and step
+    0 at 4 on the emulated schedule at 4 layers; each TP-4 pool first
+    runs phase 12's quickstart (peer-mapped, then over the wire).
+    Returns (the cc_matmul launches, all ranks, all steps: the rings' of
+    the TP-4 and TP-8 runs, the hop kernels' of the emulated run, and the
+    TP-8 run's rings apart; the quickstarts)."""
     import math
 
     import numpy as np
@@ -2342,17 +2552,27 @@ def phase_tp_train():
               step_overrides=dict(seq_chunk=TP_SEQ_CHUNK, warmup_steps=1),
               data=dict(seq_len=TP_SEQ, global_batch=TP_BATCH))
     profile_step = 1          # the TP-4 run's last step, under the profiler
-    runs = {}
-    for tag, tp, steps, peer in TP_RUNS:
+    runs, quick = {}, {}
+    for tag, tp, steps, peer, layers in TP_RUNS:
         t0 = time.perf_counter()
         with RankPool(tp, device="cuda", peer_memory=peer) as pool:
+            if tp == 4:
+                quick["peer" if peer else "wire"] = (
+                    pool.run(rank_tasks.quickstart),
+                    pool.run(rank_tasks.heap_churn, 4, 1 << 20)
+                    if peer else None)
             if tag == "tp8":
                 tp8_ring_cases(pool, cfg, smi)
+            over = ({} if layers == cfg.n_layers
+                    else dict(cfg_overrides=dict(n_layers=layers)))
             res = pool.run(rank_tasks.train, cfg.name,
                            **dict(kw, steps=steps, profile_step=(
-                               profile_step if tag == "tp4" else None)))
+                               profile_step if tag == "tp4" else None),
+                               **over))
+            if tag == "tp4":
+                families = tp_family_runs(pool, cfg, kw, smi)
         runs[tag] = res
-        print(f"[{tag}] {cfg.name} full width at all {cfg.n_layers} "
+        print(f"[{tag}] {cfg.name} full width at {layers} of {cfg.n_layers} "
               f"layers, {tp} ranks on one card "
               f"({preset.tp_transport} edges, "
               f"{'in-kernel ring' if peer else 'emulated schedule'}; embed "
@@ -2362,7 +2582,7 @@ def phase_tp_train():
               f"{max(r['init_seconds'] for r in res):.1f}s, pool "
               f"{time.perf_counter() - t0:.1f}s ({smi})", flush=True)
         chunks = head_chunks(TP_SEQ - 1, tp, TP_SEQ_CHUNK)
-        want = tp_launches(cfg.n_layers, tp, cfg.remat, peer, chunks)
+        want = tp_launches(layers, tp, cfg.remat, peer, chunks)
         for k in range(steps):
             m = res[0]["metrics"][k]
             wall = max(r["seconds"][k] for r in res)
@@ -2497,10 +2717,12 @@ def phase_tp_train():
         fail(f"tp8 and tp4 differ at step 0 beyond the readings' limits "
              f"(loss {TP8_LOSS_TOL}, grad_norm {TP8_NORM_TOL})")
     me = runs["tp4-emulated"][0]["metrics"][0]
-    d_loss, d_norm = rel(me, m4, "loss"), rel(me, m4, "grad_norm")
-    print(f"[tp] step 0 at TP 4, emulated schedule vs in-kernel ring: loss "
-          f"{me['loss']:.6f} vs {m4['loss']:.6f} (rel {d_loss:.3g}), "
-          f"grad_norm {me['grad_norm']:.6f} vs {m4['grad_norm']:.6f} (rel "
+    mf = families["fused"][0]["metrics"][0]
+    d_loss, d_norm = rel(me, mf, "loss"), rel(me, mf, "grad_norm")
+    print(f"[tp] step 0 at TP 4 and {TP_FAMILY_LAYERS} layers, emulated "
+          f"schedule vs in-kernel ring: loss "
+          f"{me['loss']:.6f} vs {mf['loss']:.6f} (rel {d_loss:.3g}), "
+          f"grad_norm {me['grad_norm']:.6f} vs {mf['grad_norm']:.6f} (rel "
           f"{d_norm:.3g}); tol 1e-6", flush=True)
     if not (d_loss <= 1e-6 and d_norm <= 1e-6):
         fail("the emulated schedule and the in-kernel ring disagree")
@@ -2515,7 +2737,7 @@ def phase_tp_train():
            else emulated[name] for name in ring}
     out.update({f"tp8_{name}": ring8[name] for name in ring
                 if name.endswith("_ring")})
-    return out
+    return out, quick
 
 
 def params_rule(tag, rank, card_params, cpu_params, worst, t=1e-4):
@@ -2541,28 +2763,37 @@ def params_rule(tag, rank, card_params, cpu_params, worst, t=1e-4):
 
 
 def reduced_tp_runs(tp):
-    """Phase 9's card-against-CPU runs on a pool of ``tp``: (tag, the
-    config's overrides, whether ``embed`` and ``lm_head`` stay
-    replicated); at TP 4 also a vocab of 250, which the line does not
-    divide (the placement rule's fallback)."""
+    """Phase 9's card-against-CPU runs on a pool of ``tp``: (tag, the run's
+    overrides, whether ``embed`` and ``lm_head`` stay replicated); at TP
+    4 also a vocab of 250, which the line does not divide (the placement
+    rule's fallback), and the ``bidir`` overlap schedules in place of
+    the fused rings."""
     runs = [(f"tp{tp}", {}, False)]
     if tp == 4:
         runs.append((f"tp{tp} vocab 250",
                      dict(cfg_overrides=dict(vocab_size=250)), True))
+        runs.append((f"tp{tp} bidir", dict(tp_transport="bidir"), False))
     return runs
 
 
 def reduced_tp_check(tag, card, cpu, vocab_rep, t):
     """Phase 9's checks of one reduced run, card against CPU: ring kernels
-    launched, (loss, grad_norm) within ``t`` relative each step, every
-    leaf by the parameter rule, and ``embed`` and ``lm_head`` among the
-    replicated leaves on every rank if ``vocab_rep``, else among the
+    launched (none, and every edge on the overlap schedules, for a
+    ``bidir`` run), (loss, grad_norm) within ``t`` relative each step,
+    every leaf by the parameter rule, and ``embed`` and ``lm_head`` among
+    the replicated leaves on every rank if ``vocab_rep``, else among the
     sharded."""
     worst = {"metric": 0.0, "mean": 0.0, "beyond": 0}
     vocab = {"embed", "lm_head"}
     for rank, (a, b) in enumerate(zip(card, cpu)):
-        if not sum(s["ag_matmul_ring"] + s["rs_matmul_ring"]
-                   for s in a["launches"]):
+        rings = sum(s["ag_matmul_ring"] + s["rs_matmul_ring"]
+                    for s in a["launches"])
+        if tag.endswith("bidir"):
+            families = {key[3] for step in a["edges"] for key, _ in step}
+            if rings or families != {"bidir"}:
+                fail(f"reduced {tag}: {rings} ring kernels, edge families "
+                     f"{families}: expected none and {{'bidir'}}")
+        elif not rings:
             fail(f"reduced {tag}: the card run launched no ring kernel")
         for ma, mb in zip(a["metrics"], b["metrics"]):
             for key in ("loss", "grad_norm"):
@@ -2639,13 +2870,13 @@ def phase_tp_reduced():
 
 
 #: phase 9c: the data axis.  h2o-danube-1.8b at full width, its depth cut
-#: to 4 of 24 layers (~227 M parameters a rank at model 2 with the vocab
-#: split, ~4.5 GB of training state a rank; the full depth, ~19 GB a
-#: rank, does not fit four ranks on one card, and 8 layers, ~373 M a
-#: rank, spent 58.5 s of the smoke's time limit writing its two
-#: checkpoints on an H100),
-#: on a data 2 × model 2 grid, one 2049-token sequence a data rank
-GRID_ARCH, GRID_LAYERS, GRID_SEQ = "h2o-danube-1.8b", 4, 2049
+#: to 2 of 24 layers (~158 M parameters a rank at model 2 with the vocab
+#: split; the full depth, ~19 GB of training state a rank, does not fit
+#: four ranks on one card; 8 layers, ~373 M a rank, spent 58.5 s of the
+#: smoke's time limit writing its two checkpoints on an H100, 4 layers,
+#: ~227 M, 34.1 s), on a data 2 × model 2 grid, one 2049-token sequence a
+#: data rank
+GRID_ARCH, GRID_LAYERS, GRID_SEQ = "h2o-danube-1.8b", 2, 2049
 GRID_SHAPE = dict(data=2, model=2)
 GRID_BUCKET_KB = 64 << 10           # the data sync's buckets: 64 MiB
 GRID_REDUCED = (("h2o-danube-1.8b", dict(data=2, model=2), {}),
@@ -2876,51 +3107,73 @@ EP_ZERO_TOL = 1e-3
 EP_SERVE_TOL = 3e-2
 
 
+def ep_train_runs(n):
+    """9b (a)'s runs on a pool of ``n``: (arch, the run's transport
+    arguments and data, tag) — ``ring`` and ``xla`` for each arch, and at
+    the grok-1 preset's own extent its own policy (``moe="auto"``,
+    streamed), four rows a rank so the exchange splits into its 4
+    chunks."""
+    from repro_torch.configs import get_ep_preset
+
+    runs = [(arch, dict(moe_transport=transport,
+                        data=dict(seq_len=17, global_batch=8)), transport)
+            for arch in EP_TRAIN_ARCHS for transport in ("ring", "xla")]
+    preset = get_ep_preset("grok-1-314b-ep")
+    if n == preset.expert_axis:
+        policy = preset.step.resolved_transport()
+        runs.append((preset.arch, dict(
+            moe_transport=policy.moe,
+            moe_stream_chunks=policy.moe_stream_chunks,
+            step_overrides=dict(seq_chunk=8, warmup_steps=1),
+            data=dict(seq_len=17, global_batch=4 * n)),
+            f"preset {policy.moe} x{policy.moe_stream_chunks}"))
+    return runs
+
+
 def phase_ep_train(pool, smi):
     """9b (a): reduced llama4-scout and grok-1 in fp32 trained by EP over
-    the pool, ``ring`` and ``xla``, on the card and on the CPU."""
+    the pool, ``ring`` and ``xla``, and grok-1 under its preset's own
+    policy at its extent, on the card and on the CPU."""
     from repro_torch.dist import rank_tasks
 
     n, t = pool.size, 1e-4
     kw = dict(steps=2, reduced=True, seed=0, init_device="cpu",
               step_overrides=dict(seq_chunk=8, warmup_steps=1,
-                                  microbatches=2),
-              data=dict(seq_len=17, global_batch=8), return_params=True)
-    for arch in EP_TRAIN_ARCHS:
-        for transport in ("ring", "xla"):
-            t0 = time.perf_counter()
-            card = pool.run(rank_tasks.train, arch, device="cuda",
-                            moe_transport=transport, **kw)
-            cpu = pool.run(rank_tasks.train, arch, device="cpu",
-                           moe_transport=transport, **kw)
-            tag = f"ep-reduced {arch} ep{n} {transport}"
-            worst = {"metric": 0.0, "mean": 0.0, "beyond": 0}
-            for rank, (a, b) in enumerate(zip(card, cpu)):
-                for ma, mb in zip(a["metrics"], b["metrics"]):
-                    for key in ("loss", "grad_norm", "moe_aux"):
-                        rel = abs(ma[key] - mb[key]) / abs(mb[key])
-                        worst["metric"] = max(worst["metric"], rel)
-                params_rule(tag, rank, a["params"], b["params"], worst, t)
-            if worst["metric"] > t:
-                fail(f"{tag}: card vs CPU metrics differ by "
-                     f"{worst['metric']}")
-            if any(r["replicated"] != card[0]["replicated"] for r in card):
-                fail(f"{tag}: replicated leaves differ across ranks")
-            m = card[0]["metrics"]
-            steps_s = ", ".join(
-                "%.3f" % max(r["seconds"][k] for r in card)
-                for k in range(len(m)))
-            wire_s = max(sum(st["wire_s"] for st in r["stats"])
-                         for r in card)
-            print(f"[{tag}] fp32, 2 steps, card vs CPU: loss/grad_norm/"
-                  f"moe_aux max rel {worst['metric']:.3g} (tol {t}); "
-                  f"params mean |d|/mean |p| max {worst['mean']:.3g} (tol "
-                  f"{t}); {len(card[0]['replicated'])} replicated leaves "
-                  f"bitwise equal on {n} ranks; losses "
-                  f"{[round(x['loss'], 6) for x in m]}, moe_aux "
-                  f"{[round(x['moe_aux'], 6) for x in m]}; card steps "
-                  f"{steps_s}s, wire {wire_s:.3f}s; "
-                  f"{time.perf_counter() - t0:.1f}s ({smi})", flush=True)
+                                  microbatches=2), return_params=True)
+    for arch, over, label in ep_train_runs(n):
+        t0 = time.perf_counter()
+        card = pool.run(rank_tasks.train, arch, device="cuda",
+                        **dict(kw, **over))
+        cpu = pool.run(rank_tasks.train, arch, device="cpu",
+                       **dict(kw, **over))
+        tag = f"ep-reduced {arch} ep{n} {label}"
+        worst = {"metric": 0.0, "mean": 0.0, "beyond": 0}
+        for rank, (a, b) in enumerate(zip(card, cpu)):
+            for ma, mb in zip(a["metrics"], b["metrics"]):
+                for key in ("loss", "grad_norm", "moe_aux"):
+                    rel = abs(ma[key] - mb[key]) / abs(mb[key])
+                    worst["metric"] = max(worst["metric"], rel)
+            params_rule(tag, rank, a["params"], b["params"], worst, t)
+        if worst["metric"] > t:
+            fail(f"{tag}: card vs CPU metrics differ by "
+                 f"{worst['metric']}")
+        if any(r["replicated"] != card[0]["replicated"] for r in card):
+            fail(f"{tag}: replicated leaves differ across ranks")
+        m = card[0]["metrics"]
+        steps_s = ", ".join(
+            "%.3f" % max(r["seconds"][k] for r in card)
+            for k in range(len(m)))
+        wire_s = max(sum(st["wire_s"] for st in r["stats"])
+                     for r in card)
+        print(f"[{tag}] fp32, 2 steps, card vs CPU: loss/grad_norm/"
+              f"moe_aux max rel {worst['metric']:.3g} (tol {t}); "
+              f"params mean |d|/mean |p| max {worst['mean']:.3g} (tol "
+              f"{t}); {len(card[0]['replicated'])} replicated leaves "
+              f"bitwise equal on {n} ranks; losses "
+              f"{[round(x['loss'], 6) for x in m]}, moe_aux "
+              f"{[round(x['moe_aux'], 6) for x in m]}; card steps "
+              f"{steps_s}s, wire {wire_s:.3f}s; "
+              f"{time.perf_counter() - t0:.1f}s ({smi})", flush=True)
 
 
 def release_shared(pool):
@@ -4222,27 +4475,30 @@ SWEEP_WORDS = [1 << i for i in range(20)] + [1 << 24]   # 4 B .. 2 MB, 64 MB
 SWEEP_HEAP_WORDS = 1 << 24                              # 64 MiB of fp32
 
 
-def phase_pgas():
-    """The quickstart on peer-mapped, wire and CPU groups, then the
-    PUT/GET sweep over peer memory and over the wire; returns the 2-rank
-    peer pool for the case study."""
+def phase_pgas(quick):
+    """The quickstart on peer-mapped and wire groups (run on phase 8's
+    fresh four-rank pools: ``quick``, each tag's results and the peer
+    pool's heap churn) and on a CPU group, then the PUT/GET sweep over
+    peer memory and over the wire; returns the 2-rank peer pool for the
+    case study."""
     import numpy as np
 
     from repro_torch.dist import rank_tasks
     from repro_torch.dist.group import RankPool
 
-    runs = {}
-    for tag, dev, peer in (("peer", "cuda", True), ("wire", "cuda", False),
-                           ("cpu", "cpu", False)):
-        t0 = time.perf_counter()
-        with RankPool(4, device=dev, peer_memory=peer) as pool:
-            runs[tag] = pool.run(rank_tasks.quickstart)
-            if peer:
-                churn = pool.run(rank_tasks.heap_churn, 4, 1 << 20)
+    runs = {tag: quick[tag][0] for tag in ("peer", "wire")}
+    churn = quick["peer"][1]
+    t0 = time.perf_counter()
+    with RankPool(4, device="cpu") as pool:
+        runs["cpu"] = pool.run(rank_tasks.quickstart)
+    cpu_s = time.perf_counter() - t0
+    for tag in ("peer", "wire", "cpu"):
         print(f"[pgas] quickstart, 4 ranks, {tag}: ART max |err| "
               f"{max(r['art_err'] for r in runs[tag]):.3g} (tol 2e-4), "
               f"{sum(r['peer_bytes'] for r in runs[tag])} bytes through peer "
-              f"memory, pool {time.perf_counter() - t0:.1f}s", flush=True)
+              f"memory, "
+              + (f"pool {cpu_s:.1f}s" if tag == "cpu" else
+                 "on phase 8's fresh four-rank pool"), flush=True)
         if not all(r["art_err"] < 2e-4 for r in runs[tag]):
             fail(f"pgas quickstart {tag}: ART error")
     if not (all(r["peer"] for r in runs["peer"])
@@ -4381,7 +4637,7 @@ def main() -> int:
     timed("5 reduced card vs cpu", phase_reduced_vs_cpu)
     cc_main = timed("6 hop kernels", phase_cc_kernels)
     cc_main.update(timed("7 ring kernels", phase_ring_kernels))
-    cc_launches = timed("8 tp training", phase_tp_train)
+    cc_launches, quick = timed("8 tp training", phase_tp_train)
     grid_launches = timed("9 reduced tp, 9b expert parallelism, 9c data "
                           "axis", phase_tp_reduced)
     timed("10 smollm training", phase_train_1gpu, card_name_and_limit())
@@ -4391,7 +4647,7 @@ def main() -> int:
     families = timed("14 family training", phase_train_families)
     dla_launches, dla_main = timed("11 dla matmul", phase_dla)
     timed("12-13 pgas and case study",
-          lambda: phase_case_study(phase_pgas()))
+          lambda: phase_case_study(phase_pgas(quick)))
     print(f"[smoke] all phases {time.perf_counter() - t_start:.1f}s",
           flush=True)
 

@@ -86,7 +86,7 @@ class ModelConfig:
     causal_block_skip: bool = True
     remat: str = "full"
 
-    # -- the paper's technique (TP collectives; not ported yet) --------------------
+    # -- the paper's technique (TP collectives) --------------------------------------
     use_art: bool = True
     art_chunks: int = 4
 

@@ -6,13 +6,14 @@ field).
 An EP preset pairs a MoE arch with a ``StepConfig`` whose
 ``TransportPolicy.moe`` routes the expert dispatch through the conduit
 ``all_to_all`` (``models/moe_ep.py``) in ``stream_chunks`` ART chunks,
-and the expert-axis extent its group should have.  The reference's
-presets name ``moe_transport="auto"``, whose pricing is not ported: a
-step built from a preset's own policy raises naming ``ROADMAP_AUTO``, and
-a run names ``ring`` or ``xla`` in its place (the reference holds
-``auto`` ≡ ``xla`` ≡ ``ring`` in value)::
+and the expert-axis extent its group should have.  The presets name
+``moe_transport="auto"``: each exchange (each streamed chunk) takes the
+transport and ART chunk the conduit's cost model prices cheapest for its
+bytes (``core/conduit.py`` ``auto_select``); a run may pin another (the
+reference holds ``auto`` ≡ ``xla`` ≡ ``ring`` in value)::
 
     preset = get_ep_preset("grok-1-314b-ep")
+    step = preset.step                       # moe="auto", streamed
     step = dataclasses.replace(preset.step, transport=TransportPolicy(
         moe="ring", moe_stream_chunks=preset.stream_chunks))
 

@@ -2,8 +2,8 @@
 (``repro.core.conduit``).
 
 A :class:`Conduit` binds a :class:`~repro_torch.dist.group.Group` — the
-port's stand-in for the reference's mesh axis — to a transport name, an
-ART chunk size and a link model.  Ported transports:
+port's stand-in for the reference's mesh axis — to a transport policy,
+an ART chunk size and a link model.  Transports:
 
 ``xla``
     The reference's XLA built-ins, here the group's builtin gloo
@@ -15,33 +15,48 @@ ART chunk size and a link model.  Ported transports:
     The paper-faithful unidirectional PUT rings for all six ops: n−1
     neighbour hops (``Group.exchange``/``Group.permute`` in place of
     ``lax.ppermute``), every hop split into ``chunk_bytes`` pieces that
-    ride the same ring order.  all_gather and reduce_scatter are
-    differentiable: the gradient of the ring gather is the ring
-    reduce-scatter of the cotangent, and the other way round.
+    ride the same ring order.
+``bidir``
+    Two counter-rotating half-sized rings: the low half of each block
+    rides the +1 ring, the high half the −1 ring, both directions of a
+    hop in flight at once (``pipeline.ring_pipeline`` /
+    ``Group.permute_start``).  barrier and broadcast walk both directions
+    (n//2 hops reach the antipode); all_to_all enumerates its shifts as
+    ±s, the same permutations as the ring in another order.  At n == 2,
+    or a block of fewer than 2 rows, gather and reduce-scatter (and so
+    all_reduce) fall back to the ring, as in the reference.
 ``fused``
     With a resident weight ``w`` the fused collective matmuls of
     ``kernels/cc_matmul`` (the hop consumed by a CUDA kernel); without one
     the bare collective delegates to the ``ring`` wire, as in the
     reference.
 
-The ``all_to_all`` of ``ring`` and of ``xla`` is differentiable too (the
-expert exchange of ``models/moe_ep.py`` trains through it): a tiled
-all-to-all is its own transpose, so its backward is the same transport's
-all-to-all of the cotangent.
+all_gather, reduce_scatter and all_to_all are differentiable on every
+transport (``auto`` may pick any of them on a training path): the
+gradient of a gather is the same wire's reduce-scatter of the cotangent
+and the other way round, and a tiled all-to-all is its own transpose
+(the expert exchange of ``models/moe_ep.py`` trains through it).
+
+``auto`` is a policy, not a transport: :meth:`Conduit._resolve` prices
+every registered transport and ART chunk on the call's payload bytes
+(:func:`auto_select` over :func:`estimate_time`, the netmodel of
+``core/netmodel.py``) and runs the cheapest; at a TP edge
+:meth:`Conduit.matmul_schedule` prices the collective-matmul families
+(:func:`matmul_edge_estimate`).  The link models it prices are the
+reference's modelled links (the paper's QSFP+, the reference's ICI), not
+a measurement of the port's wire, so a choice says which schedule the
+model prefers, not which is faster on one card's gloo.
 
 Every op can also run streamed (:meth:`Conduit.streamed`, the consumer
-pipeline of ``core/pipeline.py``).  The reference's ``bidir`` transports
-are known to :func:`transports`, so a policy that names them validates as
-in the reference, but calling one raises ``NotImplementedError`` naming
-the ROADMAP item that ports it.  So does ``transport="auto"``: its pricing
-(``auto_select``, ``matmul_edge_estimate``) is not ported, and no other
-schedule stands in for it.
+pipeline of ``core/pipeline.py``); :func:`pipeline_estimate` and
+:func:`auto_select_pipeline` price such a pipeline.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -61,24 +76,6 @@ LINKS: Dict[str, nm.LinkParams] = {
     "qsfp": nm.FSHMEM_QSFP,
     "ici": nm.TPU_ICI,
 }
-
-#: every transport the reference registers, per op (``repro.core.conduit``)
-_KNOWN: Dict[str, Tuple[str, ...]] = {
-    "all_gather": ("bidir", "fused", "ring", "xla"),
-    "reduce_scatter": ("bidir", "fused", "ring", "xla"),
-    "all_reduce": ("bidir", "ring", "xla"),
-    "all_to_all": ("bidir", "ring", "xla"),
-    "broadcast": ("bidir", "ring", "xla"),
-    "barrier": ("bidir", "ring", "xla"),
-}
-
-#: where the port of each unported piece is queued
-ROADMAP_SUBSTRATE = ("ROADMAP queue 1 item 6 (PGAS substrate over "
-                     "torch.distributed: the bidir transports)")
-ROADMAP_AUTO = ("ROADMAP queue 1 item 7 (distributed steps: the `auto` "
-                "transport policy and matmul_edge_estimate pricing)")
-ROADMAP_OVERLAP = ("ROADMAP queue 1 item 7 (distributed steps: the "
-                   "ring/bidir overlap schedules of core/overlap.py)")
 
 _REGISTRY: Dict[Tuple[str, str], Callable] = {}
 
@@ -101,25 +98,18 @@ def unregister(op: str, name: str) -> None:
 
 
 def transports(op: str) -> Tuple[str, ...]:
-    """Names of every transport the reference registers for ``op``, and
-    of any the caller has registered since (sorted)."""
-    return tuple(sorted(set(_KNOWN[op])
-                        | {name for o, name in _REGISTRY if o == op}))
+    """Names of every transport registered for ``op`` (sorted)."""
+    return tuple(sorted(name for o, name in _REGISTRY if o == op))
 
 
 def resolve(op: str, name: str) -> Callable:
-    """The transport callable for ``(op, name)``: ``KeyError`` for a name
-    neither the reference nor a caller registers, ``NotImplementedError``
-    for one the port has not ported yet."""
-    fn = _REGISTRY.get((op, name))
-    if fn is not None:
-        return fn
-    if name not in transports(op):
+    """The transport callable for ``(op, name)``; ``KeyError`` (listing
+    what is registered) for an unknown pair."""
+    try:
+        return _REGISTRY[(op, name)]
+    except KeyError:
         raise KeyError(f"no transport {name!r} for {op!r}; registered: "
-                       f"{transports(op)}")
-    raise NotImplementedError(
-        f"transport {name!r} for {op!r} is not ported yet: "
-        f"{ROADMAP_SUBSTRATE}")
+                       f"{transports(op)}") from None
 
 
 # ---------------------------------------------------------------------------
@@ -188,28 +178,126 @@ def ring_reduce_scatter(x: torch.Tensor, group, dim: int,
     return out.reshape((b,) + xm.shape[1:]).movedim(0, dim)
 
 
-class _RingAllGather(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, dim, chunk_bytes):
-        ctx.group, ctx.dim, ctx.chunk_bytes = group, dim, chunk_bytes
+def bidir_all_gather(x: torch.Tensor, group, dim: int,
+                     chunk_bytes: Optional[int] = None) -> torch.Tensor:
+    """The ``bidir`` wire's all_gather along ``dim`` (no autograd): the low
+    half (``b // 2`` rows) of every block rides the +1 ring and lands at
+    ``src·b``, the high half the −1 ring and lands at ``src·b + b//2``;
+    each hop's two directions are in flight at once.  The ring at n == 2
+    or a block of fewer than 2 rows."""
+    n, my = group.size, group.rank
+    if n == 1:
+        return x
+    xm = x.movedim(dim, 0).contiguous()
+    b = xm.shape[0]
+    if n == 2 or b < 2:
         return ring_all_gather(x, group, dim, chunk_bytes)
+    h = b // 2
+    flat = xm.reshape(b, -1)
+    out = flat.new_empty((n * b, flat.shape[1]))
+    c = pl.n_chunks((x.numel() // 2) * x.element_size(), chunk_bytes,
+                    flat.shape[1])
+    pieces = pl.chunk_slices(flat.shape[1], c)
+    out[my * b:(my + 1) * b] = flat
 
-    @staticmethod
-    def backward(ctx, g):
-        return (ring_reduce_scatter(g, ctx.group, ctx.dim, ctx.chunk_bytes),
-                None, None, None)
+    def body(hop, arrived):
+        cur_f, cur_b = arrived
+        src_f, src_b = (my - hop) % n, (my + hop) % n
+        for (lo, hi), tf, tb in zip(pieces, cur_f, cur_b):
+            out[src_f * b:src_f * b + h, lo:hi] = tf
+            out[src_b * b + h:(src_b + 1) * b, lo:hi] = tb
+        return (cur_f, cur_b), None
+
+    pl.ring_pipeline(([flat[:h, lo:hi].contiguous() for lo, hi in pieces],
+                      [flat[h:, lo:hi].contiguous() for lo, hi in pieces]),
+                     (_ring_perm(n, 1), _ring_perm(n, -1)), group, n - 1,
+                     body)
+    return out.reshape((n * b,) + xm.shape[1:]).movedim(0, dim)
 
 
-class _RingReduceScatter(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, dim, chunk_bytes):
-        ctx.group, ctx.dim, ctx.chunk_bytes = group, dim, chunk_bytes
+def bidir_reduce_scatter(x: torch.Tensor, group, dim: int,
+                         chunk_bytes: Optional[int] = None) -> torch.Tensor:
+    """The ``bidir`` wire's reduce_scatter along ``dim`` (no autograd): the
+    low halves of the blocks reduce around the +1 ring (block q's
+    accumulator starts on q + 1), the high halves around the −1 ring
+    (starting on q − 1), each hop adding ``arrived + block``; the ring at
+    n == 2 or a block of fewer than 2 rows."""
+    n, my = group.size, group.rank
+    if n == 1:
+        return x
+    xm = x.movedim(dim, 0)
+    if xm.shape[0] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    b = xm.shape[0] // n
+    if n == 2 or b < 2:
         return ring_reduce_scatter(x, group, dim, chunk_bytes)
+    h = b // 2
+    flat = xm.reshape(n * b, -1)
+    c = pl.n_chunks((x.numel() // n // 2) * x.element_size(), chunk_bytes,
+                    flat.shape[1])
+    pieces = pl.chunk_slices(flat.shape[1], c)
+
+    def block(owner_offset: int, low: bool, lo: int, hi: int):
+        start = ((my + owner_offset) % n) * b + (0 if low else h)
+        return flat[start:start + (h if low else b - h), lo:hi]
+
+    def body(hop, arrived):
+        arr_f, arr_b = arrived
+        cur_f = [a + block(-(hop + 1), True, lo, hi)
+                 for a, (lo, hi) in zip(arr_f, pieces)]
+        cur_b = [a + block(hop + 1, False, lo, hi)
+                 for a, (lo, hi) in zip(arr_b, pieces)]
+        return (cur_f, cur_b), (cur_f, cur_b)
+
+    cur_f, cur_b = pl.ring_pipeline(
+        ([block(-1, True, lo, hi).contiguous() for lo, hi in pieces],
+         [block(1, False, lo, hi).contiguous() for lo, hi in pieces]),
+        (_ring_perm(n, 1), _ring_perm(n, -1)), group, n - 1, body)
+    out = torch.cat([torch.cat(cur_f, dim=1), torch.cat(cur_b, dim=1)])
+    return out.reshape((b,) + xm.shape[1:]).movedim(0, dim)
+
+
+def _gloo_all_gather(x, group, dim, chunk_bytes=None):
+    return group.all_gather(x, dim)
+
+
+def _gloo_reduce_scatter(x, group, dim, chunk_bytes=None):
+    return group.reduce_scatter(x, dim)
+
+
+#: each wire's (all_gather, reduce_scatter), the one the other's gradient
+_GATHER_SCATTER = {"ring": (ring_all_gather, ring_reduce_scatter),
+                   "bidir": (bidir_all_gather, bidir_reduce_scatter),
+                   "xla": (_gloo_all_gather, _gloo_reduce_scatter)}
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, chunk_bytes, wire):
+        ctx.group, ctx.dim, ctx.chunk_bytes = group, dim, chunk_bytes
+        ctx.wire = wire
+        return _GATHER_SCATTER[wire][0](x, group, dim, chunk_bytes)
 
     @staticmethod
     def backward(ctx, g):
-        return (ring_all_gather(g, ctx.group, ctx.dim, ctx.chunk_bytes),
-                None, None, None)
+        return (_GATHER_SCATTER[ctx.wire][1](g, ctx.group, ctx.dim,
+                                            ctx.chunk_bytes),
+                None, None, None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, chunk_bytes, wire):
+        ctx.group, ctx.dim, ctx.chunk_bytes = group, dim, chunk_bytes
+        ctx.wire = wire
+        return _GATHER_SCATTER[wire][1](x, group, dim, chunk_bytes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_GATHER_SCATTER[ctx.wire][0](g, ctx.group, ctx.dim,
+                                            ctx.chunk_bytes),
+                None, None, None, None)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -230,12 +318,12 @@ class _AllToAll(torch.autograd.Function):
 
 @register("all_gather", "ring")
 def _all_gather_ring(x, *, axis, chunk_bytes=None, dim: int = 0):
-    return _RingAllGather.apply(x, axis, dim, chunk_bytes)
+    return _AllGather.apply(x, axis, dim, chunk_bytes, "ring")
 
 
 @register("reduce_scatter", "ring")
 def _reduce_scatter_ring(x, *, axis, chunk_bytes=None, dim: int = 0):
-    return _RingReduceScatter.apply(x, axis, dim, chunk_bytes)
+    return _ReduceScatter.apply(x, axis, dim, chunk_bytes, "ring")
 
 
 @register("barrier", "ring")
@@ -293,11 +381,11 @@ def _broadcast_ring(x, *, root: int, axis, chunk_bytes=None):
     return out.reshape(x.shape)
 
 
-@register("all_reduce", "ring")
-def _all_reduce_ring(x, *, axis, chunk_bytes=None):
-    """Ring reduce-scatter + ring all-gather over the flattened payload,
-    zero-padded to a multiple of n (2·(n−1)/n·|x| wire bytes a rank)."""
-    group = axis
+def _flat_all_reduce(x: torch.Tensor, group, rs, ag,
+                     chunk_bytes: Optional[int]) -> torch.Tensor:
+    """all-reduce as reduce-scatter + all-gather over the flattened
+    payload, zero-padded to a multiple of n (2·(n−1)/n·|x| wire bytes a
+    rank)."""
     n = group.size
     if n == 1:
         return x
@@ -305,17 +393,25 @@ def _all_reduce_ring(x, *, axis, chunk_bytes=None):
     pad = (-flat.numel()) % n
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
-    reduced = ring_reduce_scatter(flat, group, 0, chunk_bytes)
-    gathered = ring_all_gather(reduced, group, 0, chunk_bytes)
+    reduced = rs(flat, group, 0, chunk_bytes)
+    gathered = ag(reduced, group, 0, chunk_bytes)
     return gathered[:x.numel()].reshape(x.shape)
 
 
+@register("all_reduce", "ring")
+def _all_reduce_ring(x, *, axis, chunk_bytes=None):
+    """Ring reduce-scatter + ring all-gather."""
+    return _flat_all_reduce(x, axis, ring_reduce_scatter, ring_all_gather,
+                            chunk_bytes)
+
+
 def ring_all_to_all(x: torch.Tensor, group,
-                    chunk_bytes: Optional[int] = None) -> torch.Tensor:
+                    chunk_bytes: Optional[int] = None,
+                    shifts: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The ``ring`` wire's all-to-all (no autograd) as n−1 single-block
     ring permutes: ``x`` (n·g, ...) with rows [q·g, (q+1)·g) destined for
     rank q; returns the same shape with slot q holding what rank q sent
-    here."""
+    here.  ``shifts`` orders the permutes (default 1 … n−1)."""
     n, my = group.size, group.rank
     if n == 1:
         return x
@@ -326,7 +422,7 @@ def ring_all_to_all(x: torch.Tensor, group,
     def piece(x2d):  # (n, Fi) -> (n, Fi)
         out = torch.zeros_like(x2d)
         out[my] = x2d[my]
-        for shift in range(1, n):
+        for shift in (range(1, n) if shifts is None else shifts):
             block = x2d[(my + shift) % n].contiguous()
             (arrived,) = group.exchange([(block, shift)])
             out[(my - shift) % n] = arrived
@@ -350,6 +446,112 @@ def _all_to_all_ring(x, *, axis, chunk_bytes=None):
 
 
 # ---------------------------------------------------------------------------
+# bidir transports — two counter-rotating half-sized rings
+# ---------------------------------------------------------------------------
+
+
+@register("barrier", "bidir")
+def _barrier_bidir(*, axis, chunk_bytes=None) -> torch.Tensor:
+    """Tokens walk both directions; rank my hears my−h (+1 ring) and my+h
+    (−1 ring): n//2 forward and (n−1)//2 backward hops count every rank
+    once."""
+    group = axis
+    n = group.size
+    one = torch.ones((), dtype=torch.int32, device=group.device)
+    if n == 1:
+        return one
+    fwd, bwd = _ring_perm(n, 1), _ring_perm(n, -1)
+    acc = tf = tb = one
+    for h in range(1, n // 2 + 1):
+        pend_f = group.permute_start([tf], fwd)
+        pend_b = (group.permute_start([tb], bwd) if h <= (n - 1) // 2
+                  else None)
+        (tf,) = pend_f.wait()
+        acc = acc + tf
+        if pend_b is not None:
+            (tb,) = pend_b.wait()
+            acc = acc + tb
+    return acc
+
+
+@register("broadcast", "bidir")
+def _broadcast_bidir(x, *, root: int, axis, chunk_bytes=None):
+    """The value floods outward from root in both directions: n//2 hops
+    reach the antipode instead of the ring's n−1."""
+    group = axis
+    n, my = group.size, group.rank
+    if n == 1:
+        return x
+    fwd, bwd = _ring_perm(n, 1), _ring_perm(n, -1)
+
+    def piece(flat):
+        cur = flat.clone() if my == root else torch.zeros_like(flat)
+        have = torch.tensor(my == root, device=flat.device)
+        for _ in range(n // 2):
+            pend_f = group.permute_start([cur, have], fwd)
+            pend_b = group.permute_start([cur, have], bwd)
+            cur_f, have_f = pend_f.wait()
+            cur_b, have_b = pend_b.wait()
+            cur = torch.where(~have & have_f, cur_f,
+                              torch.where(~have & have_b, cur_b, cur))
+            have = have | have_f | have_b
+        return cur
+
+    flat = x.reshape(1, -1)
+    c = pl.n_chunks(x.numel() * x.element_size(), chunk_bytes,
+                    max(1, flat.shape[-1]))
+    if c == 1:
+        out = piece(flat.contiguous())
+    else:
+        out = torch.cat([piece(p.contiguous())
+                         for p in pl.split(flat, c, axis=-1)], -1)
+    return out.reshape(x.shape)
+
+
+@register("all_gather", "bidir")
+def _all_gather_bidir(x, *, axis, chunk_bytes=None, dim: int = 0):
+    return _AllGather.apply(x, axis, dim, chunk_bytes, "bidir")
+
+
+@register("reduce_scatter", "bidir")
+def _reduce_scatter_bidir(x, *, axis, chunk_bytes=None, dim: int = 0):
+    return _ReduceScatter.apply(x, axis, dim, chunk_bytes, "bidir")
+
+
+@register("all_reduce", "bidir")
+def _all_reduce_bidir(x, *, axis, chunk_bytes=None):
+    """Bidir reduce-scatter + bidir all-gather."""
+    return _flat_all_reduce(x, axis, bidir_reduce_scatter, bidir_all_gather,
+                            chunk_bytes)
+
+
+def bidir_shifts(n: int) -> Tuple[int, ...]:
+    """The ``bidir`` all_to_all's shift order: +1, −1, +2, −2, … (−s as
+    n − s), up to ±n//2: the ring's permutations, each once."""
+    shifts = []
+    for s in range(1, n // 2 + 1):
+        shifts.append(s)
+        if s <= (n - 1) // 2:
+            shifts.append(n - s)
+    return tuple(shifts)
+
+
+def bidir_all_to_all(x: torch.Tensor, group,
+                     chunk_bytes: Optional[int] = None) -> torch.Tensor:
+    """The ``bidir`` wire's all-to-all (no autograd): the ring's permutes
+    in the order of :func:`bidir_shifts` (the same data moved; the cost
+    model prices the shorter hop distance)."""
+    return ring_all_to_all(x, group, chunk_bytes,
+                           shifts=bidir_shifts(group.size))
+
+
+@register("all_to_all", "bidir")
+def _all_to_all_bidir(x, *, axis, chunk_bytes=None):
+    """:func:`bidir_all_to_all`, differentiable as the ring's."""
+    return _AllToAll.apply(x, bidir_all_to_all, axis, chunk_bytes)
+
+
+# ---------------------------------------------------------------------------
 # xla transports — the group's builtin gloo collectives
 # ---------------------------------------------------------------------------
 
@@ -367,12 +569,12 @@ def _broadcast_xla(x, *, root: int, axis, chunk_bytes=None):
 
 @register("all_gather", "xla")
 def _all_gather_xla(x, *, axis, chunk_bytes=None, dim: int = 0):
-    return axis.all_gather(x, dim)
+    return _AllGather.apply(x, axis, dim, chunk_bytes, "xla")
 
 
 @register("reduce_scatter", "xla")
 def _reduce_scatter_xla(x, *, axis, chunk_bytes=None, dim: int = 0):
-    return axis.reduce_scatter(x, dim)
+    return _ReduceScatter.apply(x, axis, dim, chunk_bytes, "xla")
 
 
 @register("all_reduce", "xla")
@@ -421,8 +623,11 @@ def _reduce_scatter_fused(x, *, axis, chunk_bytes=None, w=None,
 
 
 # ---------------------------------------------------------------------------
-# cost model (the ring/bidir all_gather terms of estimate_time)
+# cost model and the auto policy (Fig. 5 as a runtime decision)
 # ---------------------------------------------------------------------------
+
+#: candidate ART chunk sizes the auto policy sweeps (bytes)
+CHUNK_CANDIDATES = (256, 1024, 4096, 16384, 65536, 262144)
 
 
 def _default_packet(link: nm.LinkParams) -> int:
@@ -433,28 +638,211 @@ def estimate_time(op: str, transport: str, *, size_bytes: int,
                   axis_size: int, link: nm.LinkParams = nm.FSHMEM_QSFP,
                   chunk_bytes: Optional[int] = None) -> float:
     """Modeled wall-clock of one collective (``repro.core.conduit``'s
-    formula), for ``all_gather`` and ``reduce_scatter`` over ``ring`` and
-    ``bidir``; ``fused`` prices as the ring wire it delegates to.  Other
-    (op, transport) pairs are not ported.  ``size_bytes`` is the global
-    payload, so each ring hop moves ``S/n`` bytes."""
+    formula, term for term).
+
+    ``size_bytes`` is the op's global payload: for ``all_gather`` the
+    gathered size (local shard × n), for ``reduce_scatter`` and
+    ``all_to_all`` the whole per-rank input, for ``all_reduce`` and
+    ``broadcast`` the tensor; every ring hop then moves ``S/n`` bytes of
+    the bandwidth-optimal ops.  The axis is a ring of full-duplex links;
+    ``ring``/``bidir`` messages travel one hop, ``bidir`` with half the
+    bytes a direction; ``xla`` is a distance-oblivious doubling schedule
+    (round k's messages cross 2^k links); each message is priced by
+    ``netmodel.put_time`` at packet size ``chunk_bytes`` (default the
+    link's largest).  ``fused`` prices as the ring wire a bare gather or
+    scatter rides.  An unmodeled pair raises ``ValueError``."""
     n, s = int(axis_size), int(size_bytes)
     if n <= 1:
         return 0.0
     if transport == "fused" and op in ("all_gather", "reduce_scatter"):
         transport = "ring"
-    if op not in ("all_gather", "reduce_scatter") \
-            or transport not in ("ring", "bidir"):
-        raise NotImplementedError(
-            f"estimate_time({op!r}, {transport!r}) is not ported: "
-            f"{ROADMAP_SUBSTRATE}")
     p = int(chunk_bytes or _default_packet(link))
+    rounds = max(1, math.ceil(math.log2(n)))
 
     def t_put(b: float) -> float:
         return nm.put_time(link, max(1, int(b)), p)
 
-    if transport == "ring":
-        return (n - 1) * t_put(s / n)
-    return (n - 1) * t_put(s / (2 * n))
+    if op == "barrier":
+        s = 4
+    if op in ("all_gather", "reduce_scatter", "all_reduce", "barrier"):
+        phases = 2 if op == "all_reduce" else 1
+        if op == "barrier":
+            if transport == "xla":
+                return rounds * t_put(s)
+            if transport == "ring":
+                return (n - 1) * t_put(s)
+            if transport == "bidir":
+                return -(-n // 2) * t_put(s)
+            raise ValueError(
+                f"unknown (op, transport) = ({op!r}, {transport!r})")
+        if transport == "xla":
+            one = sum(t_put((s / n) * (4 ** k)) for k in range(rounds))
+            return phases * one
+        if transport == "ring":
+            return phases * (n - 1) * t_put(s / n)
+        if transport == "bidir":
+            return phases * (n - 1) * t_put(s / (2 * n))
+    if op == "broadcast":
+        if transport == "xla":
+            return sum(t_put(s * (2 ** k)) for k in range(rounds))
+        c = max(1, -(-s // p))
+        if transport == "ring":
+            return (n - 2 + c) * t_put(s / c)
+        if transport == "bidir":
+            return (n // 2 - 1 + c) * t_put(s / c)
+    if op == "all_to_all":
+        if transport == "xla":
+            return sum(t_put((s / 2) * (2 ** k)) for k in range(rounds))
+        if transport == "ring":
+            return sum(t_put((s / n) * d) for d in range(1, n))
+        if transport == "bidir":
+            fwd = sum(t_put((s / n) * d) for d in range(1, n // 2 + 1))
+            bwd = sum(t_put((s / n) * d) for d in range(1, (n - 1) // 2 + 1))
+            return max(fwd, bwd)
+    raise ValueError(f"unknown (op, transport) = ({op!r}, {transport!r})")
+
+
+def matmul_edge_estimate(op: str, transport: str, *, size_bytes: int,
+                         axis_size: int, compute_time: float,
+                         link: nm.LinkParams = nm.FSHMEM_QSFP,
+                         chunk_bytes: Optional[int] = None) -> float:
+    """Modeled wall-clock of a collective-matmul edge: ``compute_time`` of
+    matmul riding an all_gather or reduce_scatter of ``size_bytes``
+    (global payload).  ``xla`` serializes the two; ``ring``/``bidir``
+    (``core/overlap.py``) interleave n sub-matmuls with n − 1 hops, each
+    paying ``netmodel.hop_launch_overhead``; ``fused`` (the kernels'
+    ring) pays it once, with the best direction split and no host
+    command a hop."""
+    n, s = int(axis_size), int(size_bytes)
+    if op not in ("all_gather", "reduce_scatter"):
+        raise ValueError(f"not a collective-matmul edge op: {op!r}")
+    if n <= 1:
+        return float(compute_time)
+    if transport == "xla":
+        return compute_time + estimate_time(
+            op, "xla", size_bytes=s, axis_size=n, link=link,
+            chunk_bytes=chunk_bytes)
+    p = int(chunk_bytes or _default_packet(link))
+    hop_bytes = s / n
+    per_dir = hop_bytes if transport == "ring" else hop_bytes / 2
+    tx = nm.put_time(link, max(1, int(per_dir)), p)
+    oh = nm.hop_launch_overhead(link, int(hop_bytes))
+    computes = [compute_time / n] * n
+    wires = [tx] * (n - 1) + [0.0]       # the last block is resident
+    if transport in ("ring", "bidir"):
+        return nm.pipeline_time([tc + oh for tc in computes], wires)
+    if transport == "fused":
+        half = nm.put_time(link, max(1, int(hop_bytes / 2)), p)
+        tx_f = min(tx, half) - link.latency.t_host_cmd
+        tx_f = max(tx_f, per_dir / link.peak_bandwidth)
+        wires_f = [tx_f] * (n - 1) + [0.0]
+        return nm.fused_pipeline_time(computes, wires_f,
+                                      launch_overhead=oh)
+    raise ValueError(f"unknown matmul-edge transport {transport!r}")
+
+
+def auto_select(op: str, *, size_bytes: int, axis_size: int,
+                link: nm.LinkParams = nm.FSHMEM_QSFP,
+                chunk_bytes: Optional[int] = None,
+                compute_time: Optional[float] = None
+                ) -> Tuple[str, Optional[int]]:
+    """The (transport, chunk_bytes) with the least :func:`estimate_time`
+    over every registered transport and :data:`CHUNK_CANDIDATES` (or the
+    pinned ``chunk_bytes``); a transport the model cannot price is
+    skipped.  With ``compute_time`` the payload is a collective-matmul
+    edge, priced by :func:`matmul_edge_estimate`."""
+    if axis_size <= 1:
+        return "xla", None
+    candidates = (chunk_bytes,) if chunk_bytes else CHUNK_CANDIDATES
+    best: Tuple[float, str, Optional[int]] = (float("inf"), "xla", None)
+    for name in transports(op):
+        for chunk in candidates:
+            try:
+                if compute_time is None:
+                    t = estimate_time(op, name, size_bytes=size_bytes,
+                                      axis_size=axis_size, link=link,
+                                      chunk_bytes=chunk)
+                else:
+                    t = matmul_edge_estimate(
+                        op, name, size_bytes=size_bytes,
+                        axis_size=axis_size, compute_time=compute_time,
+                        link=link, chunk_bytes=chunk)
+            except ValueError:
+                break                      # unmodeled transport: skip it
+            if t < best[0]:
+                best = (t, name, chunk)
+    return best[1], best[2]
+
+
+#: candidate chunk counts the pipeline auto policy sweeps
+PIPELINE_CHUNKS = (1, 2, 4, 8, 16, 32, 64)
+
+
+def pipeline_estimate(op: str, transport: str, *, size_bytes: int,
+                      axis_size: int, n_chunks: int,
+                      compute_time: float = 0.0,
+                      link: nm.LinkParams = nm.FSHMEM_QSFP,
+                      chunk_bytes: Optional[int] = None) -> float:
+    """Modeled wall-clock of a streamed schedule of ``op``: ``n_chunks``
+    collectives of ``size_bytes / n_chunks`` interleaved with
+    ``compute_time`` of work (``netmodel.pipeline_time``); one chunk is
+    the bulk baseline, compute then wire."""
+    c = max(1, int(n_chunks))
+    per_wire = estimate_time(
+        op, transport, size_bytes=max(1, round(size_bytes / c)),
+        axis_size=axis_size, link=link, chunk_bytes=chunk_bytes)
+    if c == 1:
+        return compute_time + per_wire
+    return nm.pipeline_time([compute_time / c] * c, [per_wire] * c)
+
+
+def crossover_bytes(op: str, *, axis_size: int,
+                    link: nm.LinkParams = nm.FSHMEM_QSFP, lo: int = 16,
+                    hi: int = 1 << 30) -> Optional[int]:
+    """The smallest payload (on a power-of-two grid from ``lo``) at which
+    :func:`auto_select` leaves ``xla``; None if it never does up to
+    ``hi``."""
+    if axis_size <= 1:
+        return None
+    s = lo
+    while s <= hi:
+        name, _ = auto_select(op, size_bytes=s, axis_size=axis_size,
+                              link=link)
+        if name != "xla":
+            return s
+        s *= 2
+    return None
+
+
+def auto_select_pipeline(op: str, *, size_bytes: int, axis_size: int,
+                         compute_time: float = 0.0,
+                         link: nm.LinkParams = nm.FSHMEM_QSFP,
+                         chunk_bytes: Optional[int] = None,
+                         chunk_counts: Sequence[int] = PIPELINE_CHUNKS
+                         ) -> Tuple[str, Optional[int], int]:
+    """The ``(transport, chunk_bytes, n_chunks)`` with the least
+    :func:`pipeline_estimate`; bulk (one chunk) is always a candidate."""
+    if axis_size <= 1:
+        return "xla", None, 1
+    candidates = (chunk_bytes,) if chunk_bytes else CHUNK_CANDIDATES
+    best: Tuple[float, str, Optional[int], int] = (float("inf"), "xla",
+                                                   None, 1)
+    for name in transports(op):
+        for chunk in candidates:
+            for c in chunk_counts:
+                try:
+                    t = pipeline_estimate(
+                        op, name, size_bytes=size_bytes, axis_size=axis_size,
+                        n_chunks=c, compute_time=compute_time, link=link,
+                        chunk_bytes=chunk)
+                except ValueError:
+                    break                  # unmodeled transport: skip it
+                if t < best[0]:
+                    best = (t, name, chunk, c)
+            else:
+                continue
+            break
+    return best[1], best[2], best[3]
 
 
 # ---------------------------------------------------------------------------
@@ -464,26 +852,36 @@ def estimate_time(op: str, transport: str, *, size_bytes: int,
 
 @dataclasses.dataclass(frozen=True)
 class Conduit:
-    """A bound (group, transport, chunk size, link model).
+    """A bound (group, transport policy, chunk size, link model).
 
     ``axis`` is the :class:`~repro_torch.dist.group.Group` the collectives
     run over — the port's counterpart of the reference's mesh-axis name.
+    ``transport="auto"`` resolves a call from its payload's byte size
+    (:func:`auto_select`).
     """
 
     axis: object
-    transport: str = "auto"    # "ring" | "xla" | "fused"; bidir/auto raise
+    transport: str = "auto"    # "xla" | "ring" | "bidir" | "fused" | "auto"
     chunk_bytes: Optional[int] = None
     link: str = "qsfp"         # key into LINKS
 
-    def _resolve(self) -> str:
-        if self.transport == "auto":
-            raise NotImplementedError(
-                f"transport 'auto' is not ported yet: {ROADMAP_AUTO}")
-        return self.transport
+    def _resolve(self, op: str, size_bytes: int
+                 ) -> Tuple[str, Optional[int]]:
+        """(transport, chunk) of a call of ``op`` on ``size_bytes`` of
+        global payload: the policy's own, or ``auto``'s choice."""
+        if self.transport != "auto":
+            return self.transport, self.chunk_bytes
+        return auto_select(op, size_bytes=size_bytes,
+                           axis_size=self.axis.size, link=LINKS[self.link],
+                           chunk_bytes=self.chunk_bytes)
 
     def _call(self, op: str, x, **kw):
-        return resolve(op, self._resolve())(
-            x, axis=self.axis, chunk_bytes=self.chunk_bytes, **kw)
+        size = x.numel() * x.element_size()
+        if op == "all_gather":
+            # the global payload: every rank's shard
+            size *= self.axis.size
+        name, chunk = self._resolve(op, size)
+        return resolve(op, name)(x, axis=self.axis, chunk_bytes=chunk, **kw)
 
     def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Local blocks along ``dim`` → ``n`` blocks in rank order."""
@@ -495,8 +893,8 @@ class Conduit:
 
     def barrier(self) -> torch.Tensor:
         """Full-group rendezvous; returns the group size on every rank."""
-        return resolve("barrier", self._resolve())(
-            axis=self.axis, chunk_bytes=self.chunk_bytes)
+        name, chunk = self._resolve("barrier", 4)
+        return resolve("barrier", name)(axis=self.axis, chunk_bytes=chunk)
 
     def broadcast(self, x: torch.Tensor, root: int) -> torch.Tensor:
         """Rank ``root``'s ``x`` delivered to every rank."""
@@ -514,17 +912,18 @@ class Conduit:
     def streamed(self, op: str, payloads, *, work=None, **kw):
         """Per-chunk schedule of ``op`` instead of one bulk call: chunk k's
         collective is issued while ``work(k−1, arrived)`` digests the
-        previous arrival (``pipeline.streamed``).  Returns the per-chunk
-        results, in order; each is bit-identical to the matching slice of
-        the bulk call when the split is orthogonal to the op's
-        rank-blocking layout (see the reference's docstring)."""
+        previous arrival (``pipeline.streamed``), each chunk resolved on
+        its own bytes.  Returns the per-chunk results, in order; each is
+        bit-identical to the matching slice of the bulk call when the
+        split is orthogonal to the op's rank-blocking layout (see the
+        reference's docstring)."""
         return pl.streamed(len(payloads),
                            lambda k: self._call(op, payloads[k], **kw), work)
 
     def matmul_bidirectional(self, size_bytes: int) -> bool:
-        """Whether the fused ring-matmul schedules counter-rotate:
-        ``bidir`` yes, ``ring`` no, anything else by the cost model
-        restricted to {ring, bidir} (the branch ``fused`` takes)."""
+        """Whether the ring-matmul schedules counter-rotate: ``bidir``
+        yes, ``ring`` no, anything else by the cost model restricted to
+        {ring, bidir}."""
         if self.transport == "bidir":
             return True
         if self.transport == "ring":
@@ -539,19 +938,36 @@ class Conduit:
                                 link=link, chunk_bytes=self.chunk_bytes)
         return t_bidir <= t_ring
 
-    def matmul_schedule(self, op: str) -> str:
-        """Which collective-matmul family runs at a TP edge ``op``.
-        Explicit ring transports pass through; ``xla``/``auto`` would
-        price the families on the edge's bytes and matmul time
-        (``matmul_edge_estimate``), which is not ported."""
+    def matmul_schedule(self, op: str, size_bytes: int,
+                        compute_time: Optional[float] = None) -> str:
+        """Which collective-matmul family runs at a TP edge ``op``:
+        ``ring``/``bidir`` (``core/overlap.py``) or ``fused``
+        (``kernels/cc_matmul``).  Those three pass through; ``xla`` and
+        ``auto`` price the families on the edge's global ``size_bytes``
+        and ``compute_time`` (:func:`matmul_edge_estimate`), or without a
+        compute time choose between the two rings by
+        :meth:`matmul_bidirectional`."""
         if self.transport in ("ring", "bidir", "fused"):
             return self.transport
-        raise NotImplementedError(
-            f"matmul_schedule for transport {self.transport!r} prices the "
-            f"schedule families, which is not ported yet: {ROADMAP_AUTO}")
+        if compute_time is None:
+            return "bidir" if self.matmul_bidirectional(size_bytes) else "ring"
+        n = self.axis.size
+        link = LINKS[self.link]
+        best, best_t = "ring", float("inf")
+        for name in ("ring", "bidir", "fused"):
+            t = matmul_edge_estimate(
+                op, name, size_bytes=size_bytes, axis_size=n,
+                compute_time=compute_time, link=link,
+                chunk_bytes=self.chunk_bytes)
+            if t < best_t:
+                best, best_t = name, t
+        return best
 
 
-__all__ = ["Conduit", "LINKS", "OPS", "ROADMAP_AUTO", "ROADMAP_OVERLAP",
-           "ROADMAP_SUBSTRATE", "estimate_time", "register", "resolve",
-           "ring_all_gather", "ring_all_to_all", "ring_reduce_scatter",
-           "transports", "unregister"]
+__all__ = ["CHUNK_CANDIDATES", "Conduit", "LINKS", "OPS", "PIPELINE_CHUNKS",
+           "auto_select", "auto_select_pipeline", "bidir_all_gather",
+           "bidir_all_to_all", "bidir_reduce_scatter", "bidir_shifts",
+           "crossover_bytes", "estimate_time", "matmul_edge_estimate",
+           "pipeline_estimate", "register", "resolve", "ring_all_gather",
+           "ring_all_to_all", "ring_reduce_scatter", "transports",
+           "unregister"]

@@ -1,11 +1,15 @@
 """Analytic link model: the subset of ``repro.core.netmodel`` that the
-conduit's ring-vs-bidir pricing (``conduit.estimate_time`` for
-``all_gather`` over ``ring``/``bidir``) needs.  Pure Python, copied.
+conduit's cost model (``conduit.estimate_time``, ``matmul_edge_estimate``,
+``pipeline_estimate`` and the ``auto`` policy) needs: the packet model
+and the pipeline algebra.  Pure Python, formula for formula.
 
-The constants are the reference's: the FSHMEM QSFP+ link of the paper
-(Fig. 5, Table III) and the TPU v5e ICI.  They price a schedule decision
-(which direction split a fused TP edge takes); they are not measurements
-of the port's wire, which on one card is gloo staged through host memory.
+The link constants are the reference's modelled links: the FSHMEM QSFP+
+link of the paper (Fig. 5, Table III) and the reference's ICI link.  They
+price schedule decisions (which transport, chunk and direction split a
+collective or a TP edge takes); they are not measurements of the port's
+wire, which on one card is gloo staged through host memory.  The one
+rate that is the card's own is :data:`DENSE_BF16_FLOPS`, which sizes a
+TP edge's compute term.
 """
 
 from __future__ import annotations
@@ -117,5 +121,64 @@ def put_time(link: LinkParams, size_bytes: int, packet_size: int) -> float:
     return link.latency.put_long + wire
 
 
-__all__ = ["FSHMEM_QSFP", "LatencyParams", "LinkParams", "TPU_ICI",
-           "n_packets", "put_time"]
+# ---------------------------------------------------------------------------
+# the pipeline algebra (the ART overlap model, paper Sec. III-B)
+# ---------------------------------------------------------------------------
+
+
+def bulk_time(t_compute: float, t_comm: float, t_msg: float) -> float:
+    """Baseline: compute fully, then one bulk PUT of the whole result."""
+    return t_compute + t_msg + t_comm
+
+
+def pipeline_time(compute_times, wire_times) -> float:
+    """Wall-clock of a chunked overlap pipeline: chunk k's transfer starts
+    once its compute has finished and the link is free; transfers
+    serialize on the link while later chunks compute underneath.  The
+    cost model of ``core/pipeline.py``'s loops (and, by time reversal, of
+    the consumer pipeline ``streamed``)."""
+    assert len(compute_times) == len(wire_times), (
+        len(compute_times), len(wire_times))
+    link_free = 0.0
+    computed = 0.0
+    for tc, tx in zip(compute_times, wire_times):
+        computed += tc
+        start = max(computed, link_free)
+        link_free = start + tx
+    return link_free
+
+
+#: the stream rate the reference's model prices an XLA-level hop's repack
+#: at (the arriving chunk's round trip through device memory between the
+#: permute and the next sub-matmul): a modelling constant of the cost
+#: model, kept so ``auto`` decides as the reference does on equal inputs;
+#: not a measurement of the card
+HBM_BYTES_PER_S = 100e9
+
+#: the dense bf16 tensor-core rate of the NVIDIA H100 80GB HBM3 (989
+#: TFLOP/s, the rate of the kernel bounds in PERF.md), which sizes the
+#: compute term of a TP edge (``models/artblock.py``)
+DENSE_BF16_FLOPS = 989e12
+
+
+def hop_launch_overhead(link: LinkParams, hop_bytes: int = 0,
+                        hbm_bytes_per_s: float = HBM_BYTES_PER_S) -> float:
+    """Per-hop boundary cost an unfused ring matmul (``core/overlap.py``)
+    pays and the fused kernel does not: a fresh launch (``t_host_cmd``),
+    its DMA set-up (``t_dma``) and the arrived chunk's repack
+    (``hop_bytes`` at ``hbm_bytes_per_s``)."""
+    boundary = link.latency.t_host_cmd + link.latency.t_dma
+    return boundary + max(0, int(hop_bytes)) / hbm_bytes_per_s
+
+
+def fused_pipeline_time(compute_times, wire_times, *,
+                        launch_overhead: float = 0.0) -> float:
+    """Wall-clock of a fused ring pipeline: :func:`pipeline_time` with the
+    per-hop boundary paid once for the whole ring."""
+    return launch_overhead + pipeline_time(compute_times, wire_times)
+
+
+__all__ = ["DENSE_BF16_FLOPS", "FSHMEM_QSFP", "HBM_BYTES_PER_S",
+           "LatencyParams", "LinkParams", "TPU_ICI", "bulk_time",
+           "fused_pipeline_time", "hop_launch_overhead", "n_packets",
+           "pipeline_time", "put_time"]

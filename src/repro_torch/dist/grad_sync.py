@@ -11,8 +11,8 @@ residuals)`` out, on every rank of the line.
 
 * uncompressed — the train step's exact path, :func:`mean_leaves` or
   :func:`mean_buckets`: ``conduit.all_reduce`` (``ring`` by default: ring
-  reduce-scatter then ring all-gather, ``core/conduit.py``; or ``xla``,
-  gloo's own), then a division by n.  An outstanding residual is flushed
+  reduce-scatter then ring all-gather, ``core/conduit.py``; ``bidir``;
+  ``xla``, gloo's own; or ``auto``, priced a call), then a division by n.  An outstanding residual is flushed
   into this lossless reduction, and the residuals come back zero;
 * compressed — :class:`Int8Conduit`: each rank quantizes its
   (error-feedback-corrected) gradient to int8 with per-block fp32 scales

@@ -79,6 +79,23 @@ def _ready(tensors: Sequence[torch.Tensor]) -> float:
 _PERMUTE_TAG0, _PERMUTE_TAGS = 1 << 20, 1 << 20
 
 
+def _packed_layout(tensors: Sequence[torch.Tensor]
+                   ) -> Tuple[List[int], int]:
+    """Byte offsets of ``tensors`` packed one after another in a byte
+    buffer, each aligned to 16 bytes (so a slice views as its dtype), and
+    the buffer's size."""
+    offs, off = [], 0
+    for t in tensors:
+        offs.append(off)
+        off += -(-t.numel() * t.element_size() // 16) * 16
+    return offs, off
+
+
+def _spans(offs: Sequence[int], total: int) -> List[int]:
+    """Each packed tensor's span in the buffer, its padding included."""
+    return [b - a for a, b in zip(offs, list(offs[1:]) + [total])]
+
+
 class Pending:
     """Messages in flight: :meth:`wait` blocks until they have arrived
     and returns what ``finish`` makes of them (once; later calls return
@@ -213,7 +230,9 @@ class Group:
         group calls it, in the same order (SPMD), whether it takes part
         or not.  The payloads are copied when the call is made, so the
         caller may change them at once.  Returns a :class:`Pending` whose
-        ``wait()`` gives the arrivals on the tensors' devices, in order."""
+        ``wait()`` gives the arrivals on the tensors' devices, in order.
+        ``stats["hops"]`` counts a tensor sent; several card tensors ride
+        one message (``sent_bytes`` then counts its alignment padding)."""
         perm = [(int(s), int(d)) for s, d in perm]
         self._check_perm(perm)
         dst = next((d for s, d in perm if s == self.rank), None)
@@ -221,9 +240,29 @@ class Group:
         t0 = _ready(tensors)
         tag0 = _PERMUTE_TAG0 + (self._permutes % _PERMUTE_TAGS)
         self._permutes += len(tensors)
+        # several card tensors (the ART pieces of a hop, all in flight
+        # together) travel as one message: one copy through the host each
+        # way, each tensor at a 16-byte aligned offset; every rank packs
+        # the same tensors the same way
+        packed = len(tensors) > 1 and all(t.device.type == "cuda"
+                                          for t in tensors)
+        offs, total = _packed_layout(tensors) if packed else ([], 0)
+        incoming = None
         reqs, sent, bufs = [], [], []
+        if packed and dst not in (None, self.rank):
+            outgoing = self._to_host(torch.cat([
+                torch.cat([t.detach().reshape(-1).view(torch.uint8),
+                           t.new_empty(b - t.numel() * t.element_size(),
+                                       dtype=torch.uint8)])
+                for t, b in zip(tensors, _spans(offs, total))]))
+            sent.append(outgoing)
+            reqs.append(self._send(outgoing, dst, tag0))
+            self.stats["hops"] += len(tensors)
+        if packed and src not in (None, self.rank):
+            incoming = torch.empty(total, dtype=torch.uint8)
+            reqs.append(self._recv(incoming, src, tag0))
         for i, t in enumerate(tensors):
-            if dst is not None and dst != self.rank:
+            if not packed and dst is not None and dst != self.rank:
                 h = self._to_host(t)
                 if h.data_ptr() == t.data_ptr():
                     h = h.clone()      # the caller may write t before wait
@@ -234,7 +273,7 @@ class Group:
                 bufs.append(None)
             elif src == self.rank:
                 bufs.append(t.detach().clone())
-            else:
+            elif not packed:
                 buf = torch.empty(tuple(t.shape), dtype=t.dtype)
                 reqs.append(self._recv(buf, src, tag0 + i))
                 bufs.append(buf)
@@ -242,14 +281,20 @@ class Group:
         def finish() -> List[torch.Tensor]:
             for r in reqs:
                 r.wait()
-            out = []
-            for t, b in zip(tensors, bufs):
-                if b is None:
-                    out.append(torch.zeros_like(t))
-                elif b.device == t.device:
-                    out.append(b)
-                else:
-                    out.append(self._from_host(b, t.device))
+            if incoming is not None:
+                arrived = self._from_host(incoming, tensors[0].device)
+                out = [arrived[o:o + t.numel() * t.element_size()]
+                       .view(t.dtype).view(t.shape)
+                       for t, o in zip(tensors, offs)]
+            else:
+                out = []
+                for t, b in zip(tensors, bufs):
+                    if b is None:
+                        out.append(torch.zeros_like(t))
+                    elif b.device == t.device:
+                        out.append(b)
+                    else:
+                        out.append(self._from_host(b, t.device))
             del sent[:]
             self.stats["wire_s"] += time.perf_counter() - t0
             return out

@@ -10,7 +10,10 @@ reference.
   on per-rank inputs.
 * :func:`ring_op` — one whole-ring wrapper on per-rank inputs.
 * :func:`ring_collectives` — the conduit's bare ring gather and
-  reduce-scatter, and the gather's gradient.
+  reduce-scatter, and the gather's gradient; :func:`collective_grad`
+  any transport's differentiable gather, reduce-scatter or all-to-all.
+* :func:`overlap_op` — one overlap schedule of ``core/overlap.py``,
+  forward and backward, beside the fused op on the same inputs.
 * :func:`ring_kernels` — the two whole-ring ops against their plain
   versions on the card, each timed with the group, their hop products
   counted and (optionally) profiled.
@@ -134,6 +137,48 @@ def ring_collectives(group, xs: np.ndarray, gs: np.ndarray,
     (out * g).sum().backward()
     rs = conduit.reduce_scatter(g, dim=1)
     return out.detach().numpy(), x.grad.numpy(), rs.numpy()
+
+
+def overlap_op(group, op: str, xs: np.ndarray, ws: np.ndarray,
+               gs: np.ndarray, bidirectional: bool) -> Dict[str, Any]:
+    """Rank r runs ``op`` of ``core/overlap.py`` (``"ag"``:
+    ``allgather_matmul``, ``"rs"``: ``matmul_reducescatter``) with
+    ``axis=group`` on ``xs[r]``, ``ws[r]`` and backward on ``sum(out ·
+    gs[r])``; then the fused op on the same inputs (:func:`fused_op`).
+    Returns each one's out, dx and dw (fp32 numpy) and the group's
+    permutes in the overlap call, forward and backward."""
+    from repro_torch.core import overlap
+
+    x = _tensor(xs[group.rank], group.device).requires_grad_(True)
+    w = _tensor(ws[group.rank], group.device).requires_grad_(True)
+    g = _tensor(gs[group.rank], group.device)
+    fn = {"ag": overlap.allgather_matmul,
+          "rs": overlap.matmul_reducescatter}[op]
+    hops = group.stats["hops"]
+    out = fn(x, w, axis=group, bidirectional=bidirectional)
+    (out * g).sum().backward()
+    hops = group.stats["hops"] - hops
+    _sync(group.device)
+    return {"out": _numpy(out), "dx": _numpy(x.grad), "dw": _numpy(w.grad),
+            "hops": hops,
+            "fused": fused_op(group, op, xs, ws, gs, bidirectional)}
+
+
+def collective_grad(group, transport: str, op: str, xs: np.ndarray,
+                    gs: np.ndarray, chunk_bytes: Optional[int] = None,
+                    dim: int = 0) -> Dict[str, np.ndarray]:
+    """Rank r: ``y = Conduit(group, transport, chunk_bytes).<op>(xs[r])``
+    (``all_gather`` / ``reduce_scatter`` along ``dim``, or
+    ``all_to_all``) under autograd, backward with the cotangent
+    ``gs[r]``; returns y and the gradient of ``xs[r]``."""
+    from repro_torch.core.conduit import Conduit
+
+    c = Conduit(axis=group, transport=transport, chunk_bytes=chunk_bytes)
+    x = _tensor(xs[group.rank], group.device).requires_grad_(True)
+    kw = {} if op == "all_to_all" else {"dim": dim}
+    y = getattr(c, op)(x, **kw)
+    y.backward(_tensor(gs[group.rank], group.device))
+    return {"y": _numpy(y), "dx": _numpy(x.grad)}
 
 
 def vocab_embed(group, table: np.ndarray, tokens: np.ndarray,
@@ -406,6 +451,7 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
           tp_transport: Optional[str] = None,
           moe_transport: Optional[str] = None,
           moe_stream_chunks: Optional[int] = None,
+          cross_pod: Optional[str] = None,
           seed: int = 0, params_np: Optional[Dict[str, Any]] = None,
           init_device: Optional[str] = None,
           device: Optional[str] = None,
@@ -423,7 +469,8 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
     that grid.  A MoE arch trains by expert parallelism over its expert
     line (its experts split, its rows of each microbatch its own), its
     exchange on ``moe_transport`` (default ``xla``) in
-    ``moe_stream_chunks`` chunks.
+    ``moe_stream_chunks`` chunks; a data line's gradient sync rides
+    ``cross_pod`` (default ``ring``).
 
     Parameters: the reference's pytree ``params_np`` (numpy, through
     ``bridge.shard_params`` on the inner line), or ``build_init``'s
@@ -436,7 +483,9 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
     with ``step_overrides``.
 
     Returns per-step ``metrics``, ``launches`` (each cc_matmul kernel's, that
-    step), ``plain`` (the plain versions' runs), ``stats`` (the world's
+    step), ``plain`` (the plain versions' runs), ``edges`` (the TP edges
+    run, ``artblock.EDGE_CALLS``'s items: (op, global bytes, modeled
+    seconds, family, bidirectional) and the calls), ``stats`` (the world's
     ring hops, staged, sent and peer-forwarded bytes, wire seconds) and
     ``line_stats`` (the same, a grid line each), ``rep_wire`` (the step's
     all-reduce of the replicated leaves' gradients over the inner line:
@@ -468,6 +517,7 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
         step_grid,
     )
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import artblock
     from repro_torch.models.model import params_to
 
     dev = group.device if device is None else torch.device(device)
@@ -479,6 +529,7 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
     axis = group_axis(cfg)
     scfg = StepConfig(transport=TransportPolicy(
         tp=tp_transport or "fused", moe=moe_transport or "xla",
+        cross_pod=cross_pod or "ring",
         moe_stream_chunks=moe_stream_chunks), **(step_overrides or {}))
     # the group's wire is the group's; this run's tensors live on `dev`
     # (the peer memory serves tensors on the card only)
@@ -512,10 +563,11 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
 
     out: Dict[str, List[Any]] = {k: [] for k in (
         "metrics", "launches", "plain", "stats", "line_stats", "rep_wire",
-        "seconds", "vocab_rows")}
+        "seconds", "vocab_rows", "edges")}
     for k in range(steps):
         batch = source.global_batch(k)
         cc_ops.reset_counts()
+        artblock.EDGE_CALLS.clear()
         before = dict(group.stats)
         lines_before = mesh.line_stats()
         _sync(dev)
@@ -540,6 +592,7 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
         out["line_stats"].append(_stats_delta(lines_before,
                                               mesh.line_stats()))
         out["rep_wire"].append(dict(step_fn.rep_wire))
+        out["edges"].append(sorted(artblock.EDGE_CALLS.items()))
         if vocab_rows:
             out["vocab_rows"].append(vocab_checksums(params))
 
@@ -1613,8 +1666,9 @@ def collective_op(group, transport: str, op: str, xs: Optional[np.ndarray],
 
 
 __all__ = ["accum_handler", "all_to_all_grad", "am_registry", "art_op",
-           "art_send_op", "case_study", "collective_op", "ep_serve",
-           "fused_op", "moe_ep_layer", "moe_ep_layer_check", "permute_op",
+           "art_send_op", "case_study", "collective_grad", "collective_op",
+           "ep_serve", "fused_op", "moe_ep_layer", "moe_ep_layer_check",
+           "overlap_op", "permute_op",
            "pgas_program",
            "put_get_sweep", "quickstart", "quickstart_inputs",
            "ring_collectives", "ring_kernels", "ring_op", "scale_handler",

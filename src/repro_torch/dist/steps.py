@@ -22,10 +22,13 @@ the reference's ``TransportPolicy.moe="xla"``), the encoder-decoder's
 encoder, self- and cross-attention, and the hybrid's shared
 applications; the ssm (Mamba-2) block's SSD scan is the kernel with its
 backward (``kernels/ssd``).  On a model line of tp ≥ 2 it is the path
-the reference takes with ``TransportPolicy(tp="fused")``: every dense
-block's TP edges on the fused ring of ``kernels/cc_matmul``, and, where
-the line divides the vocab, the vocab-parallel embedding and LM head
-(``models/vocab_parallel.py``; the head another AG ring edge).  A MoE
+the reference takes with ``TransportPolicy(tp=...)`` one of ``fused``,
+``ring``, ``bidir`` or ``auto``: every dense block's TP edges on the
+family the policy's conduit picks (``models/artblock.py``: the fused
+rings of ``kernels/cc_matmul`` or the overlap schedules of
+``core/overlap.py``), its K/V gathered over that conduit, and, where the
+line divides the vocab, the vocab-parallel embedding and LM head
+(``models/vocab_parallel.py``; the head another AG edge).  A MoE
 model on an expert line of n ≥ 2 trains by expert parallelism over it
 (the reference's ``models/moe_ep.py`` runner on an ``expert`` mesh
 axis): rank r of the line holds experts ``[r·E/n, (r+1)·E/n)``, its
@@ -34,10 +37,10 @@ experts and back, and the replicated leaves' gradients are summed over
 the line.  A data line of D ≥ 2 splits each microbatch's rows and
 averages the gradients over the line (``dist/grad_sync.py``).  Every
 path sums microbatch gradients in fp32, leaf by leaf, and lays the sums
-out in flat buckets with ``grad_bucket_bytes``.  The other TP
-transports, ``moe="auto"``/``"bidir"``, ``compress_cross_pod`` and the
-other families at tp ≥ 2 raise, each naming its ROADMAP item; ART-TP is
-dense-only.
+out in flat buckets with ``grad_bucket_bytes``.  ``tp="xla"`` (and
+``use_art=False``), the reference's GSPMD fallback, ``compress_cross_pod``
+and the other families at tp ≥ 2 raise, each naming its ROADMAP item;
+ART-TP is dense-only.
 
 Serving over an expert group: :func:`serve_step` with the decode runner
 of :func:`moe_decode_runner` (each rank decodes its own rows).
@@ -52,10 +55,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.conduit import (
-    ROADMAP_AUTO,
-    ROADMAP_OVERLAP,
     Conduit,
-    resolve as conduit_resolve,
     transports as conduit_transports,
 )
 from repro_torch.dist import bucketing, grad_sync, sharding
@@ -150,15 +150,16 @@ class TransportPolicy:
     ``chunk_bytes``, and ``moe_stream_chunks`` (the EP exchange split into
     that many ART chunks, bit-identical to bulk; None/1 bulk).
 
-    Of the TP values only ``fused`` is ported.  ``moe`` names the
-    transport of the expert exchange: ``ring`` or ``xla`` (the group's
-    gloo all-to-all); ``auto`` and ``bidir`` raise when a step is built.
+    ``tp`` is the TP edges' family (``fused``, ``ring``, ``bidir`` or
+    ``auto``; ``xla``, the reference's GSPMD fallback, raises).  ``moe``
+    names the transport of the expert exchange: ``ring``, ``bidir``,
+    ``xla`` (the group's gloo all-to-all) or ``auto`` (priced a call).
     The port has no GSPMD, so where the reference's ``moe="xla"`` keeps
     every expert on every device, a MoE model on an expert line of n ≥ 2
     here always splits its experts, and ``xla`` is its exchange's
     transport (the reference holds ``auto`` ≡ ``xla`` ≡ ``ring`` in
     value).  ``cross_pod`` is the data axis's gradient all-reduce
-    (``dist/grad_sync.py``; ``ring`` or ``xla``).  ``compress_cross_pod``
+    (``dist/grad_sync.py``; any transport or ``auto``).  ``compress_cross_pod``
     raises when a step is built: the reference's step does not wire it
     either (``repro/dist/grad_sync.py``'s scope note); the standalone
     ``grad_sync.cross_pod_all_reduce(compressed=True)`` takes it."""
@@ -251,25 +252,14 @@ def param_places(cfg: ModelConfig, size: int,
             for path, t in sharding.leaves(init_params(cfg, 0, "meta"))}
 
 
-def _moe_transport(policy: TransportPolicy) -> str:
-    """``policy.moe`` if its all_to_all is ported; ``auto`` raises naming
-    ``ROADMAP_AUTO``, ``bidir`` naming ``ROADMAP_SUBSTRATE``."""
-    if policy.moe == "auto":
-        raise NotImplementedError(
-            f"TransportPolicy.moe='auto' is not ported: {ROADMAP_AUTO}")
-    conduit_resolve("all_to_all", policy.moe)
-    return policy.moe
-
-
 def _moe_runner(cfg: ModelConfig, group, policy: TransportPolicy,
                 decode: bool = False) -> Callable:
     """The expert-parallel MoE runner of ``models/moe_ep.py`` over
     ``group`` on ``policy.moe`` (the reference's ``_moe_runner``, and with
     ``decode`` its ``_moe_decode_runner``); raises where the experts do
     not split over the group."""
-    transport = _moe_transport(policy)
     runner = moe_ep.build_moe_ep_runner(
-        cfg, group, transport=transport, chunk_bytes=policy.chunk_bytes,
+        cfg, group, transport=policy.moe, chunk_bytes=policy.chunk_bytes,
         stream_chunks=None if decode else policy.moe_stream_chunks,
         decode=decode)
     if runner is None:
@@ -330,9 +320,6 @@ def _check_path(cfg: ModelConfig, grid: Grid, scfg: StepConfig
             "(repro/dist/grad_sync.py's scope note), so the port's does not "
             "take it; compress with dist.grad_sync.cross_pod_all_reduce("
             f"compressed=True): {ROADMAP_COMPRESS}")
-    if grid.data.size > 1 and policy.cross_pod == "auto":
-        raise NotImplementedError(
-            f"TransportPolicy.cross_pod='auto' is not ported: {ROADMAP_AUTO}")
     inner = grid.inner
     if inner.size == 1:
         return None, None
@@ -358,13 +345,11 @@ def _check_path(cfg: ModelConfig, grid: Grid, scfg: StepConfig
         raise ValueError(
             f"{cfg.name}: ART-TP is dense-only (the reference's _art_runner "
             f"runs the dense block); train the {cfg.family} family at tp 1")
-    if policy.tp == "auto":
+    if policy.tp == "xla" or not cfg.use_art:
         raise NotImplementedError(
-            f"TransportPolicy.tp='auto' is not ported: {ROADMAP_AUTO}")
-    if policy.tp != "fused" or not cfg.use_art:
-        raise NotImplementedError(
-            f"TransportPolicy.tp={policy.tp!r} with use_art={cfg.use_art} "
-            f"is not ported (only 'fused' ART-TP is): {ROADMAP_OVERLAP}")
+            f"TransportPolicy.tp={policy.tp!r} with use_art={cfg.use_art}: "
+            f"the reference leaves TP to GSPMD there, whose sharding rules "
+            f"are not ported: ROADMAP queue 1 item 7.5")
     if not artblock.supports_art_tp(cfg, inner.size):
         raise ValueError(f"{cfg.name} cannot run the ART-TP block at "
                          f"tp={inner.size}")

@@ -22,8 +22,8 @@ product is above 1 the launcher spawns that many rank processes (a
 each runs the Trainer on its place in the grid
 (``dist/rank_tasks.py::train_grid``): a dense model's TP edges on the
 fused ring inside each model line, a MoE model's experts split over its
-expert line with ``--moe-transport`` (``ring``/``xla``) in
-``--moe-stream-chunks`` chunks, and the gradients averaged over each
+expert line with ``--moe-transport`` (``ring``, ``bidir``, ``xla`` or
+``auto``) in ``--moe-stream-chunks`` chunks, and the gradients averaged over each
 data line (``--grad-bucket-kb`` sets the buckets that sync ships).  The
 axes default to 1, where the reference's launcher takes a 2 × 2 host
 mesh: its four host devices are free, while four rank processes here
@@ -138,8 +138,8 @@ def main(argv=None):
                         "buckets of this many KiB, the layout the data "
                         "axis's sync ships (0: leaf by leaf; the same bits)")
     p.add_argument("--moe-transport", default="xla",
-                   help="TransportPolicy.moe over the expert axis: xla|ring "
-                        "(auto and bidir raise)")
+                   help="TransportPolicy.moe over the expert axis: "
+                        "xla|ring|bidir|auto")
     p.add_argument("--moe-stream-chunks", type=int, default=0,
                    help="stream the EP exchange in this many ART chunks "
                         "(0: bulk)")

@@ -5,12 +5,11 @@ op for op).
 Each rank holds its sequence shard of the residual.  The two manual
 regions of the reference become two functions that run on every rank:
 
-  column-parallel Q and up‖gate:  a fused all_gather-matmul over the
-                                  conduit (``kernels/cc_matmul``)
-  row-parallel O and down:        a fused matmul-reduce_scatter
+  column-parallel Q and up‖gate:  an all_gather-matmul edge (:func:`ag_edge`)
+  row-parallel O and down:        a matmul-reduce_scatter edge (:func:`rs_edge`)
   K/V:                            projected on the local rows with the
-                                  replicated ``wk``/``wv``, then
-                                  ring-gathered whole (GQA: n_kv < tp)
+                                  replicated ``wk``/``wv``, then gathered
+                                  whole over the conduit (GQA: n_kv < tp)
 
 RoPE is applied after the K/V gather, on the full sequence; each rank
 attends with its ``n_heads / tp`` query heads against the K/V heads they
@@ -19,9 +18,12 @@ is ``layers.blockwise_attention`` (plain PyTorch; the reference's flash
 kernel has no backward).  The RS outputs are cast back to the residual's
 dtype.
 
-Only the ``fused`` schedule family is ported: a conduit whose
-``matmul_schedule`` names ``ring`` or ``bidir`` (the XLA-level overlap
-schedules of ``core/overlap.py``) raises ``NotImplementedError``.
+At each edge the conduit's ``matmul_schedule`` picks the family from
+the edge's global bytes and its modeled matmul time (:func:`_edge_cost`):
+``fused`` runs the kernels' rings (``kernels/cc_matmul``), ``ring`` or
+``bidir`` the overlap schedules of ``core/overlap.py``; ``auto`` prices
+the three.  Every family gives the same values to rounding.
+:data:`EDGE_CALLS` counts the edges a family took.
 
 Constraints: n_heads % tp == 0, d_ff % tp == 0, d_model % tp == 0,
 S % tp == 0 (sequence-sharded residual).
@@ -29,12 +31,15 @@ S % tp == 0 (sequence-sharded residual).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from collections import Counter
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.conduit import ROADMAP_OVERLAP, Conduit
+from repro_torch.core import netmodel as nm
+from repro_torch.core import overlap
+from repro_torch.core.conduit import Conduit
 from repro_torch.kernels.cc_matmul import (
     allgather_matmul_fused,
     matmul_reducescatter_fused,
@@ -42,6 +47,11 @@ from repro_torch.kernels.cc_matmul import (
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
+
+#: the edges this process ran since it was last cleared, by (op, global
+#: bytes, modeled seconds, family, bidirectional): what ``auto`` decided
+#: at each edge shape, and the schedule's permute count
+EDGE_CALLS: Counter = Counter()
 
 
 def supports_art_tp(cfg: ModelConfig, tp: int) -> bool:
@@ -54,14 +64,42 @@ def supports_art_tp(cfg: ModelConfig, tp: int) -> bool:
     return True
 
 
-def _edge_bytes(op: str, x: torch.Tensor, w: torch.Tensor,
-                conduit: Conduit) -> int:
-    """The global payload bytes of one TP edge (``_edge_cost``'s first
-    half: its modeled matmul time prices only the ``auto`` schedule,
-    which is not ported), what ``matmul_bidirectional`` decides on."""
+def _edge_cost(op: str, x: torch.Tensor, w: torch.Tensor,
+               conduit: Conduit) -> Tuple[int, float]:
+    """(global payload bytes, modeled matmul seconds) of one TP edge, the
+    reference's ``_edge_cost`` with the card's dense bf16 rate
+    (``netmodel.DENSE_BF16_FLOPS``): what ``matmul_schedule`` prices."""
+    n = conduit.axis.size
+    item = x.element_size()
+    b, s = x.shape[0], x.shape[-2]
+    k, m = w.shape
     if op == "all_gather":
-        return x.numel() * x.element_size() * conduit.axis.size
-    return x.shape[0] * x.shape[-2] * w.shape[1] * x.element_size()
+        size = x.numel() * item * n
+        flops = 2.0 * b * (s * n) * k * m
+    else:
+        size = b * s * m * item
+        flops = 2.0 * b * s * k * m
+    return size, flops / nm.DENSE_BF16_FLOPS
+
+
+def _edge(op: str, x: torch.Tensor, w: torch.Tensor,
+          conduit: Conduit) -> torch.Tensor:
+    """One TP edge on the family ``matmul_schedule`` picks, the direction
+    ``matmul_bidirectional`` picks on that family's payload."""
+    size, tc = _edge_cost(op, x, w, conduit)
+    family = conduit.matmul_schedule(op, size, tc)
+    fused = family == "fused"
+    bidir = conduit.matmul_bidirectional(
+        size if fused else overlap.payload_bytes(op, x, w, conduit.axis.size))
+    # counted before the call: a remat recompute may stop in the middle of
+    # it (at the op's saved tensors), after its wire has run
+    EDGE_CALLS[(op, size, tc, family, bidir)] += 1
+    gather = op == "all_gather"
+    if fused:
+        fn = allgather_matmul_fused if gather else matmul_reducescatter_fused
+        return fn(x, w, conduit.axis, bidirectional=bidir)
+    fn = overlap.allgather_matmul if gather else overlap.matmul_reducescatter
+    return fn(x, w, axis=conduit.axis, bidirectional=bidir)
 
 
 def ag_edge(x: torch.Tensor, w: torch.Tensor,
@@ -69,27 +107,13 @@ def ag_edge(x: torch.Tensor, w: torch.Tensor,
     """One AG edge, ``all_gather(x) @ w`` over the conduit's group: x (B,
     b, K) local rows, w (K, N_loc) → (B, n·b, N_loc) fp32 (the blocks'
     q and up‖gate edges, and the vocab-parallel LM head's)."""
-    size = _edge_bytes("all_gather", x, w, conduit)
-    if conduit.matmul_schedule("all_gather") == "fused":
-        return allgather_matmul_fused(
-            x, w, conduit.axis,
-            bidirectional=conduit.matmul_bidirectional(size))
-    raise NotImplementedError(
-        f"the {conduit.transport!r} all_gather-matmul schedule is not "
-        f"ported yet: {ROADMAP_OVERLAP}")
+    return _edge("all_gather", x, w, conduit)
 
 
 def rs_edge(x: torch.Tensor, w: torch.Tensor,
             conduit: Conduit) -> torch.Tensor:
     """One RS edge, ``reduce_scatter(x @ w)`` over the conduit's group."""
-    size = _edge_bytes("reduce_scatter", x, w, conduit)
-    if conduit.matmul_schedule("reduce_scatter") == "fused":
-        return matmul_reducescatter_fused(
-            x, w, conduit.axis,
-            bidirectional=conduit.matmul_bidirectional(size))
-    raise NotImplementedError(
-        f"the {conduit.transport!r} matmul-reduce_scatter schedule is not "
-        f"ported yet: {ROADMAP_OVERLAP}")
+    return _edge("reduce_scatter", x, w, conduit)
 
 
 def art_attention_part(cfg: ModelConfig, x: torch.Tensor,
@@ -97,8 +121,7 @@ def art_attention_part(cfg: ModelConfig, x: torch.Tensor,
                        v_shard: torch.Tensor, wq: torch.Tensor,
                        wo: torch.Tensor, positions: torch.Tensor, *,
                        conduit: Conduit) -> torch.Tensor:
-    """Q via the fused AG ring, local-head attention, O via the fused RS
-    ring.
+    """Q via the AG edge, local-head attention, O via the RS edge.
 
     x, a_in: (B, S/tp, D) local rows; k_shard/v_shard: (B, S/tp, n_kv·hd);
     wq: (D, hq_loc·hd) column shard; wo: (hq_loc·hd, D) row shard;
@@ -114,7 +137,8 @@ def art_attention_part(cfg: ModelConfig, x: torch.Tensor,
     s_full = q.shape[1]
     q = q.reshape(b, s_full, hq_loc, hd).transpose(1, 2)
 
-    # gasnet-style K/V broadcast: ring-gather the sequence-sharded K/V
+    # gasnet-style K/V broadcast: gather the sequence-sharded K/V over the
+    # policy's conduit
     k = conduit.all_gather(k_shard.to(cd), dim=1)
     v = conduit.all_gather(v_shard.to(cd), dim=1)
     n_kv = k.shape[-1] // hd
@@ -157,5 +181,5 @@ def art_mlp_part(cfg: ModelConfig, h: torch.Tensor, m_in: torch.Tensor,
     return h + rs_edge(act, w_down.to(cd), conduit).to(h.dtype)
 
 
-__all__ = ["ag_edge", "art_attention_part", "art_mlp_part", "rs_edge",
-           "supports_art_tp"]
+__all__ = ["EDGE_CALLS", "ag_edge", "art_attention_part", "art_mlp_part",
+           "rs_edge", "supports_art_tp"]

@@ -14,7 +14,8 @@ layer it:
    layer's);
 2. buckets the (b, E, cap, D) dispatch buffer by the rank that holds each
    expert, ``(n, E/n, b, cap, D)``, and exchanges it with
-   ``Conduit.all_to_all`` (``xla`` | ``ring``, honouring ``chunk_bytes``);
+   ``Conduit.all_to_all`` (``xla`` | ``ring`` | ``bidir`` | ``auto``,
+   honouring ``chunk_bytes``);
 3. applies its E/n experts (``layers._expert_ffn``) to every arriving
    bucket;
 4. sends the results home by the same exchange and mixes them by router

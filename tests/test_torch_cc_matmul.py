@@ -11,6 +11,7 @@
   their plain versions, the CPU path) against the reference's
   unidirectional ops, both ring directions;
 * ``Conduit.matmul_bidirectional`` against the reference's decision;
+  every transport of the reference resolved, ``auto`` among them;
 * the conduit's ring all_gather / reduce_scatter wire and its gradient.
 
 Every rank gets its own inputs (stacked on a leading rank axis, the
@@ -248,17 +249,32 @@ def test_matmul_bidirectional_matches_reference(transport, link):
             assert got.matmul_bidirectional(s) == decided[s], (n, s)
 
 
-def test_unported_transports_raise():
+def test_bidir_and_auto_transports_resolve():
+    """Every transport the reference registers runs in the port: each
+    name of ``transports(op)`` resolves to a callable, ``auto`` resolves
+    a call to the reference's ``auto_select`` choice, ``matmul_schedule``
+    prices the families under ``auto`` and passes ``fused`` through; a
+    group of one returns its input on ``bidir``."""
+    from repro.core.conduit import auto_select as ref_auto_select
+    from repro_torch.core.conduit import resolve
+
     group = Group(rank=0, size=2, device=torch.device("cpu"))
-    x = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Conduit(axis=group, transport="bidir").all_gather(x)
-    with pytest.raises(NotImplementedError, match="auto"):
-        Conduit(axis=group, transport="auto").all_gather(x)
-    with pytest.raises(NotImplementedError, match="auto"):
-        Conduit(axis=group, transport="auto").matmul_schedule("all_gather")
+    for op in ("all_gather", "reduce_scatter", "all_reduce", "all_to_all",
+               "broadcast", "barrier"):
+        for name in transports(op):
+            assert callable(resolve(op, name))
+    auto = Conduit(axis=group, transport="auto")
+    for size in (48, 1 << 20):
+        assert auto._resolve("all_gather", size) == ref_auto_select(
+            "all_gather", size_bytes=size, axis_size=2)
+    assert auto.matmul_schedule("all_gather", 1 << 20, 1e-4) in (
+        "ring", "bidir", "fused")
     assert Conduit(axis=group, transport="fused").matmul_schedule(
-        "all_gather") == "fused"
+        "all_gather", 1 << 20) == "fused"
+    x = torch.arange(12.0).reshape(4, 3)
+    solo = Group(rank=0, size=1, device=torch.device("cpu"))
+    assert torch.equal(Conduit(axis=solo, transport="bidir").all_gather(x),
+                       x)
 
 
 @pytest.mark.parametrize("chunk_bytes", [None, 40])

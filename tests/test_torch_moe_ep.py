@@ -24,8 +24,9 @@ reference's, on gloo groups of CPU ranks, in fp32 at ``reduced()``.
   replicated leaves bitwise equal on every rank;
 * EP decode through ``serve_step`` against the reference's EP decode
   runner and the port's dense-combine decode at 1e-5;
-* the EP presets field for field; the refusals (a batch the group does
-  not divide, ``moe="auto"``, ``moe="bidir"``, a data axis).
+* the EP presets field for field, ``moe="auto"`` and ``"bidir"``
+  building a step; the refusals (a batch the group does not divide, a
+  model axis).
 
 One gloo world of 2, 3 and 4 ranks a module.
 """
@@ -60,7 +61,6 @@ from repro_torch.configs import (
     get_config,
     get_ep_preset,
 )
-from repro_torch.core.conduit import ROADMAP_AUTO, ROADMAP_SUBSTRATE
 from repro_torch.dist import rank_tasks, sharding
 from repro_torch.dist.group import Group, RankPool, as_grid
 from repro_torch.dist.steps import (
@@ -523,20 +523,16 @@ def _group(size, rank=0):
     return Group(rank=rank, size=size, device=torch.device("cpu"))
 
 
-@pytest.mark.parametrize("moe,exc,match", [
-    ("auto", NotImplementedError, ROADMAP_AUTO),
-    ("bidir", NotImplementedError, ROADMAP_SUBSTRATE),
-])
-def test_unported_moe_transports_raise(moe, exc, match):
-    """A preset's own ``auto`` and the ``bidir`` transport raise when the
-    step is built, naming their ROADMAP items."""
+@pytest.mark.parametrize("moe", ["auto", "bidir"])
+def test_auto_and_bidir_moe_transports_build(moe):
+    """A preset's own ``auto`` and the ``bidir`` transport build the EP
+    step (the preset's policy is held to the reference in
+    ``tests/test_torch_overlap_train.py``)."""
     _, cfg = _cfg(GROK)
     scfg = StepConfig(transport=TransportPolicy(moe=moe))
-    with pytest.raises(exc, match=re.escape(match)):
-        build_train_step(cfg, _group(2), scfg)
+    assert callable(build_train_step(cfg, _group(2), scfg))
     preset = get_ep_preset("grok-1-314b-ep")
-    with pytest.raises(NotImplementedError, match=re.escape(ROADMAP_AUTO)):
-        build_train_step(cfg, _group(4), preset.step)
+    assert callable(build_train_step(cfg, _group(4), preset.step))
 
 
 def test_data_axis_and_indivisible_batches_raise():

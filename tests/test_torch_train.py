@@ -17,7 +17,7 @@
   call counts from the schedule (remat "none" and "full");
 * microbatch accumulation at TP 2 (2 microbatches) against the
   reference's fused step with ``microbatches=2``, at the same tolerances;
-* the paths not ported raise.
+* every ART-TP policy builds a step; the paths not ported raise.
 
 One gloo world per TP size is spawned for the module.
 """
@@ -415,18 +415,29 @@ def _cpu_group(size):
 
 
 @pytest.mark.parametrize("size,scfg,kw,match", [
-    (2, StepConfig(transport=TransportPolicy(tp="bidir")), {}, "bidir"),
-    (2, StepConfig(transport=TransportPolicy(tp="ring")), {}, "ring"),
-    (2, StepConfig(transport=TransportPolicy(tp="xla")), {}, "xla"),
-    (2, StepConfig(transport=TransportPolicy(tp="auto")), {}, "auto"),
+    (2, StepConfig(transport=TransportPolicy(tp="xla")), {}, "item 7.5"),
+    (2, StepConfig(transport=TransportPolicy(tp="fused")),
+     {"use_art": False}, "item 7.5"),
     (2, StepConfig(transport=TransportPolicy(tp="fused",
                                              compress_cross_pod=True)),
      {}, "data axis"),
 ])
 def test_unported_paths_raise(size, scfg, kw, match):
-    cfg = get_config(ARCH).reduced()
+    """The reference's GSPMD fallback (``tp="xla"``, ``use_art=False``)
+    waits for the sharding rules (item 7.5); compression inside the step
+    is not wired, as in the reference."""
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), **kw)
     with pytest.raises(NotImplementedError, match=match):
-        build_train_step(cfg, _cpu_group(size), scfg, **kw)
+        build_train_step(cfg, _cpu_group(size), scfg)
+
+
+@pytest.mark.parametrize("tp", ["fused", "ring", "bidir", "auto"])
+def test_every_art_tp_policy_builds(tp):
+    """Every ART-TP family the reference takes builds a step (their values
+    are held to the reference in ``tests/test_torch_overlap_train.py``)."""
+    cfg = get_config(ARCH).reduced()
+    assert callable(build_train_step(cfg, _cpu_group(2), StepConfig(
+        transport=TransportPolicy(tp=tp))))
 
 
 def test_transport_policy_validates_like_reference():
