@@ -85,11 +85,12 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    launched 12 times a bulk pass and on chunk 0 (4 encoder layers
    without a mask, 4 causal self- and 4 unmasked cross-attentions), 8
    times a later chunk, never in decode; phase 4's fp32 check.
-3d. Serve full-width minicpm3-4b in bf16 (random weights from a seed; 62
-   MLA layers, 40 heads, a 256-wide latent and a 32-wide shared rope key
-   cached a token, attention at q/k head dim 96 and v head dim 64):
-   phase 3's recipe, chunked (128) then bulk (MLA has no paged layout).
-   Held: every request answered; flash launched 62 times a prefill chunk
+3d. Serve full-width minicpm3-4b in bf16 (random weights from a seed; 31
+   of its 62 MLA layers, to fit the time limit; 40 heads, a 256-wide
+   latent and a 32-wide shared rope key cached a token, attention at q/k
+   head dim 96 and v head dim 64): phase 3's recipe, chunked (128) then
+   bulk (MLA has no paged layout).
+   Held: every request answered; flash launched 31 times a prefill chunk
    and bulk pass, never in decode (the absorbed form over the latent),
    and no other kernel of the port; phase 4's fp32 check.  Printed as
    phase 3b.
@@ -180,8 +181,8 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    AdamW moments, remat full, SyntheticLM batches of 2 × 2048 tokens,
    seq_chunk 512, warmup 1.  The fused edges take the in-kernel ring (the
    ranks map each other's channels, the reference's remote-DMA path): 2
-   steps at a model axis of 4, then step 0 at the preset's 8, all 24
-   layers both; the rest of the group's traffic (the
+   steps at a model axis of 4, then step 0 at the preset's 8, 8 of the 24
+   layers both (to fit the time limit); the rest of the group's traffic (the
    embedding's reduce-scatter, weight-gradient gathers, the K/V ring, the
    CE's log-sum-exp gather, the replicated leaves' gradient all-reduce)
    goes over gloo staged through host memory.  Held: every step's ring
@@ -210,30 +211,38 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    its 24 layers, step 0 under each TP family of ``TransportPolicy.tp``:
    ``fused``, ``ring`` and ``bidir`` (the overlap schedules of
    ``core/overlap.py``, each hop a gloo permute, each block product
-   cuBLAS) and ``auto`` (the conduit's cost model).  Held
+   cuBLAS), ``auto`` (the conduit's cost model) and ``xla`` (the
+   reference's GSPMD layout, ``models/tp_block.py``: gloo's gathers and
+   scatters, cuBLAS products, no TP edge and no ring).  Held
    (``family_plan``): the edges a rank ran (``artblock.EDGE_CALLS``: op,
    bytes, modeled time, family, direction, calls) are the schedule's
    with the CPU's ``matmul_schedule`` decisions, so ``auto`` decides on
    the card as on the CPU; the ring launches its fused edges make; the
    ring permutes a rank sends (``Group.stats["hops"]``: n − 1 an edge
    call and direction, forward and backward, and the bare K/V and
-   embedding collectives' on the policy's conduit); each overlap
-   family's loss and grad norm within 1e-3 and 1e-2 relative of the
-   fused step's (the TP-8 check's limits).  Printed: each run's step
-   time, staged bytes, wire time and peak memory a rank, and ``auto``'s
-   decision at each edge shape.  Then, on a pool without peer memory
-   (which first runs phase 12's wire quickstart), step 0 at 4 layers on
-   the emulated schedule (every hop over the gloo wire, each arrival
-   consumed by a hop kernel): its hop-kernel launches equal the
-   schedule's count, no ring kernel or plain version runs, and its loss
-   and grad norm agree with the fused family's step 0 at 1e-6 relative
-   (the same tile arithmetic on both paths).
+   embedding collectives' on the policy's conduit; ``xla``: no edge, no
+   ring launch); each other family's loss and grad norm within 1e-3 and
+   1e-2 relative of the fused step's (the TP-8 check's limits).
+   Printed: each run's step time, staged bytes, wire time and peak
+   memory a rank, and ``auto``'s decision at each edge shape.  Then, on
+   a pool without peer memory (which first runs phase 12's wire
+   quickstart), step 0 at 4 layers on the emulated schedule (every hop
+   over the gloo wire, each arrival consumed by a hop kernel): its
+   hop-kernel launches equal the schedule's count, no ring kernel or
+   plain version runs, and its loss and grad norm agree with the fused
+   family's step 0 at 1e-6 relative (the same tile arithmetic on both
+   paths).
 9. Reduced h2o-danube-1.8b in fp32 at TP 2 and 4, at TP 4 with a
    vocab of 250 (which the line does not divide, so ``embed`` and
    ``lm_head`` stay replicated: the plain lookup of the rank's rows and
-   the replicated head's CE), and at TP 4 under ``tp="bidir"`` (every
-   edge on the overlap schedules, no ring kernel), 2 steps on the card
-   and on the CPU (gloo both):
+   the replicated head's CE), at TP 4 under ``tp="bidir"`` (every
+   edge on the overlap schedules, no ring kernel) and at TP 4 under
+   ``tp="xla"`` (the reference's GSPMD layout) with 6 query heads and 3
+   KV heads, which 4 divides in neither (each rank attends the whole
+   heads its rows of ``wo`` cut, ``wq``/``wk``/``wv`` gathered); and
+   reduced minicpm3-4b (MLA) and internvl2-2b (seeded patch rows first
+   in the split sequence) at TP 2 under ``xla``; 2 steps on the card and
+   on the CPU (gloo both):
    loss and grad norm within 1e-4 relative, every parameter leaf by the
    parameter rule at 1e-4 (mean |Δ| ≤ 1e-4 × the leaf's mean magnitude,
    max |Δ| ≤ 2·peak_lr + 1e-4 × its max), and the two vocab leaves among
@@ -269,6 +278,20 @@ fails.  It imports nothing of JAX or of the JAX package ``repro``.
    share of a profiled step (``ring``; the union of the ranks' kernel
    spans) and the peak memory a rank.  (c) runs first on the 4-rank
    pool, (b) last.
+9c. The data axis on phase 9's four-rank pool (``phase_grid``).
+9d. The reference launcher's default job, ``smollm-360m`` on data 2 ×
+   model 2 under ``tp="xla"``, at full width and all 32 layers, through
+   the launcher's Trainer grid task with its step settings, 2 steps of 4
+   × 1024 tokens, on phase 9's four-rank pool: every rank on the ``xla``
+   path (15 heads over 2 ranks: ``wq``/``wk``/``wv`` gathered), finite
+   losses, the step-0 loss within 0.5 of ln 49152, parameters bitwise
+   equal across data ranks; printed a step: the slowest rank's time, each
+   line's wire seconds and staged bytes; the peak memory a rank.
+9e. ``minicpm3-4b`` (MLA) and ``internvl2-2b`` (VLM) at full width cut
+   to 8 layers, tp 2 under ``xla``, step 0 on phase 9's two-rank pool:
+   the ``xla`` path, no cc_matmul launch, the same finite loss on both
+   ranks within 0.5 of ln V; printed: the step time, wire, staged bytes
+   and the peak memory a rank.
 
 10. One-GPU training of full-width smollm-360m through the Trainer (16
     of its 32 layers, bf16 parameters from seed 0, fp32 AdamW masters and
@@ -1445,6 +1468,10 @@ SERVE_RUNS = {
         ("chunked", dict(prefill_chunk=128)),
         ("bulk", dict(prefill_chunk=None)))),
 }
+#: depth cuts of phase 3's full-width serving, every width kept:
+#: minicpm3 at 31 of its 62 layers (all 62 took ~25 s more of the time
+#: limit)
+SERVE_LAYERS = {"minicpm3-4b": 31}
 
 
 def flash_per_pass(cfg, lo):
@@ -1486,14 +1513,19 @@ def phase_serve_runs(arch):
     from repro_torch.runtime.server import Server, ServerConfig
 
     cfg = get_config(arch)
+    depth = f"all {cfg.n_layers} layers"
+    if arch in SERVE_LAYERS:
+        depth = f"{SERVE_LAYERS[arch]} of {cfg.n_layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
     tag = arch.split("-")[0]
     n_req, (lo_len, hi_len), max_new, max_seq, runs = SERVE_RUNS[arch]
     t_phase = t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = count_params(params)
-    print(f"[{tag}] {cfg.name} full width, {n_params/1e6:.1f}M params in "
-          f"{cfg.param_dtype}, init {time.perf_counter()-t0:.1f}s", flush=True)
+    print(f"[{tag}] {cfg.name} full width at {depth}, {n_params/1e6:.1f}M "
+          f"params in {cfg.param_dtype}, init "
+          f"{time.perf_counter()-t0:.1f}s", flush=True)
     if n_params != count_params_analytic(cfg):
         fail(f"{tag}: {n_params} params, expected "
              f"{count_params_analytic(cfg)}")
@@ -2308,13 +2340,17 @@ def tp_launches(n_layers, tp, remat, peer, chunks=0):
 #: schedule at the families' cut depth (its check is against the fused
 #: family's step there)
 TP_FAMILY_LAYERS = 4
-TP_RUNS = (("tp4", 4, 2, True, 24), ("tp8", 8, 1, True, 24),
+#: the TP-4 and TP-8 runs at 8 of h2o's 24 layers (all 24 took ~40 s more
+#: of the time limit)
+TP_RUNS = (("tp4", 4, 2, True, 8), ("tp8", 8, 1, True, 8),
            ("tp4-emulated", 4, 1, False, TP_FAMILY_LAYERS))
-#: the TP edge families each run at full width, depth cut to 4 of 24
-#: layers, step 0, on the TP-4 peer pool; each overlap family held to the
-#: fused step relative, at the TP-8 check's limits (the hop products round
-#: differently: cuBLAS on the overlap path, the hop kernel on the fused)
-TP_FAMILIES = ("fused", "ring", "bidir", "auto")
+#: the TP families each run at full width, depth cut to 4 of 24 layers,
+#: step 0, on the TP-4 peer pool: the ART edge families, and ``xla`` (the
+#: reference's GSPMD layout, ``models/tp_block.py``); each held to the
+#: fused step relative, at the TP-8 check's limits (the products round
+#: differently: cuBLAS on the overlap and xla paths, the hop kernel on
+#: the fused)
+TP_FAMILIES = ("fused", "ring", "bidir", "auto", "xla")
 FAMILY_LOSS_TOL, FAMILY_NORM_TOL = 1e-3, 1e-2
 
 
@@ -2446,9 +2482,9 @@ def tp_family_runs(pool, cfg, kw, smi):
     """On the TP-4 peer pool: step 0 of full-width h2o cut to
     ``TP_FAMILY_LAYERS`` layers under each of ``TP_FAMILIES``; each run's
     edges, ring launches and ring permutes held to ``family_plan`` (so
-    ``auto``'s decision at each edge shape is the CPU's), and each
-    overlap family's loss and grad norm to the fused step's.  Returns
-    the runs by family."""
+    ``auto``'s decision at each edge shape is the CPU's; ``xla`` runs no
+    edge and no ring), and each other family's loss and grad norm to the
+    fused step's.  Returns the runs by family."""
     from repro_torch.dist import rank_tasks
 
     tp = pool.size
@@ -2460,8 +2496,14 @@ def tp_family_runs(pool, cfg, kw, smi):
             cfg_overrides=dict(n_layers=TP_FAMILY_LAYERS)))
         runs[fam] = res
         lcfg = dataclasses.replace(cfg, n_layers=TP_FAMILY_LAYERS)
-        record, want, hops = family_plan(lcfg, tp, fam, TP_BATCH,
-                                         TP_SEQ - 1, TP_SEQ_CHUNK)
+        if fam == "xla":
+            # no TP edge and no ring: gloo's gathers and scatters and
+            # cuBLAS products (its permutes are not a ring schedule's)
+            record, want, hops = {}, {"ag_matmul_ring": 0,
+                                      "rs_matmul_ring": 0}, None
+        else:
+            record, want, hops = family_plan(lcfg, tp, fam, TP_BATCH,
+                                             TP_SEQ - 1, TP_SEQ_CHUNK)
         chosen = sorted({(op, family, bidir)
                          for op, _, _, family, bidir in record})
         r0 = res[0]
@@ -2472,8 +2514,8 @@ def tp_family_runs(pool, cfg, kw, smi):
               f"{m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}; edges "
               f"(op, family, bidirectional) {chosen}; ring launches a rank "
               f"{ {k: v for k, v in r0['launches'][0].items() if v} }; "
-              f"{r0['stats'][0]['hops']} ring permutes a rank (the "
-              f"schedule's {hops}); staged "
+              f"{r0['stats'][0]['hops']} permutes a rank (the ring "
+              f"schedule's {'-' if hops is None else hops}); staged "
               f"{sum(r['stats'][0]['staged_bytes'] for r in res) / 2**30:.3f}"
               f" GiB through the host (all ranks), wire "
               f"{max(r['stats'][0]['wire_s'] for r in res):.2f}s; peak "
@@ -2487,6 +2529,8 @@ def tp_family_runs(pool, cfg, kw, smi):
                       f"{' bidirectional' if bidir else ''} x{calls} a step "
                       f"(the CPU's matmul_schedule: the same)", flush=True)
         for rank, r in enumerate(res):
+            if r["scheme"] != ("xla" if fam == "xla" else "art"):
+                fail(f"tp4 {fam} rank {rank}: the {r['scheme']} TP path")
             got = dict(r["edges"][0])
             if got != record:
                 fail(f"tp4 {fam} rank {rank}: edges {sorted(got.items())}, "
@@ -2502,7 +2546,7 @@ def tp_family_runs(pool, cfg, kw, smi):
                 fail(f"tp4 {fam} rank {rank}: "
                      f"{r['stats'][0]['ring_kernels']} hop products in "
                      f"{rings} ring calls")
-            if r["stats"][0]["hops"] != hops:
+            if hops is not None and r["stats"][0]["hops"] != hops:
                 fail(f"tp4 {fam} rank {rank}: {r['stats'][0]['hops']} ring "
                      f"permutes, the schedule's {hops}")
             if any(r["plain"][0].values()):
@@ -2763,20 +2807,47 @@ def params_rule(tag, rank, card_params, cpu_params, worst, t=1e-4):
 
 
 def reduced_tp_runs(tp):
-    """Phase 9's card-against-CPU runs on a pool of ``tp``: (tag, the run's
-    overrides, whether ``embed`` and ``lm_head`` stay replicated); at TP
-    4 also a vocab of 250, which the line does not divide (the placement
-    rule's fallback), and the ``bidir`` overlap schedules in place of
-    the fused rings."""
-    runs = [(f"tp{tp}", {}, False)]
+    """Phase 9's card-against-CPU runs on a pool of ``tp``: (tag, arch,
+    the run's overrides, whether ``embed`` and ``lm_head`` stay
+    replicated), reduced h2o-danube-1.8b on the fused rings; at TP 2 also
+    reduced minicpm3-4b (MLA) and internvl2-2b (its patch rows, seeded,
+    first in the split sequence) under ``xla``, the reference's GSPMD
+    layout; at TP 4 also a vocab of 250, which the line does not divide
+    (the placement rule's fallback), the ``bidir`` overlap schedules in
+    place of the fused rings, and ``xla`` with 6 query heads and 3 KV
+    heads of 16, which 4 divides in neither (each rank attends the whole
+    heads its rows of ``wo`` cut, ``wq``/``wk``/``wv`` gathered)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    h2o = "h2o-danube-1.8b"
+    runs = [(f"tp{tp}", h2o, {}, False)]
+    if tp == 2:
+        for arch in ("minicpm3-4b", "internvl2-2b"):
+            over = dict(tp_transport="xla")
+            cfg = get_config(arch).reduced()
+            if cfg.frontend:
+                rng = np.random.default_rng(tp)
+                toks = rng.integers(0, cfg.vocab_size, size=(2, 2, 17))
+                over["batches"] = [dict(
+                    tokens=t[:, :-1], labels=t[:, 1:],
+                    frontend_embeds=rng.standard_normal(
+                        (2, cfg.frontend_tokens, cfg.frontend_dim)
+                    ).astype(np.float32)) for t in toks]
+            runs.append((f"tp{tp} xla", arch, over, False))
     if tp == 4:
-        runs.append((f"tp{tp} vocab 250",
+        runs.append((f"tp{tp} vocab 250", h2o,
                      dict(cfg_overrides=dict(vocab_size=250)), True))
-        runs.append((f"tp{tp} bidir", dict(tp_transport="bidir"), False))
+        runs.append((f"tp{tp} bidir", h2o, dict(tp_transport="bidir"),
+                     False))
+        runs.append((f"tp{tp} 6 heads xla", h2o, dict(
+            tp_transport="xla",
+            cfg_overrides=dict(n_heads=6, n_kv_heads=3)), False))
     return runs
 
 
-def reduced_tp_check(tag, card, cpu, vocab_rep, t):
+def reduced_tp_check(tag, arch, card, cpu, vocab_rep, t):
     """Phase 9's checks of one reduced run, card against CPU: ring kernels
     launched (none, and every edge on the overlap schedules, for a
     ``bidir`` run), (loss, grad_norm) within ``t`` relative each step,
@@ -2788,11 +2859,16 @@ def reduced_tp_check(tag, card, cpu, vocab_rep, t):
     for rank, (a, b) in enumerate(zip(card, cpu)):
         rings = sum(s["ag_matmul_ring"] + s["rs_matmul_ring"]
                     for s in a["launches"])
+        families = {key[3] for step in a["edges"] for key, _ in step}
         if tag.endswith("bidir"):
-            families = {key[3] for step in a["edges"] for key, _ in step}
             if rings or families != {"bidir"}:
                 fail(f"reduced {tag}: {rings} ring kernels, edge families "
                      f"{families}: expected none and {{'bidir'}}")
+        elif tag.endswith("xla"):
+            if rings or families or a["scheme"] != "xla":
+                fail(f"reduced {tag}: {rings} ring kernels, edge families "
+                     f"{families}, the {a['scheme']} path: expected none, "
+                     f"none and xla")
         elif not rings:
             fail(f"reduced {tag}: the card run launched no ring kernel")
         for ma, mb in zip(a["metrics"], b["metrics"]):
@@ -2805,7 +2881,7 @@ def reduced_tp_check(tag, card, cpu, vocab_rep, t):
         if placed != (vocab_rep, not vocab_rep):
             fail(f"reduced {tag} rank {rank}: embed and lm_head replicated, "
                  f"sharded: {placed}, expected {vocab_rep}, {not vocab_rep}")
-    print(f"[tp-reduced] h2o-danube-1.8b fp32 {tag}, 2 steps, card vs "
+    print(f"[tp-reduced] {arch} fp32 {tag}, 2 steps, card vs "
           f"CPU: loss/grad_norm max rel {worst['metric']:.3g} (tol "
           f"{t}); params mean |d|/mean |p| max {worst['mean']:.3g} "
           f"(tol {t}), {worst['beyond']} elements beyond {t} x max|p|; "
@@ -2819,8 +2895,8 @@ def reduced_tp_check(tag, card, cpu, vocab_rep, t):
 
 
 def phase_tp_reduced():
-    """Phase 9, reduced h2o-danube-1.8b in fp32 at TP 2 and 4, and at TP
-    4 with a vocab of 250 (``reduced_tp_runs``): the card against the
+    """Phase 9, reduced configs in fp32 at TP 2 and 4
+    (``reduced_tp_runs``): the card against the
     CPU, same parameters (drawn on the CPU) and batches; and
     on the same two pools phase 9b, expert parallelism (``phase_ep_*``),
     each dense reference computed in this process while the ranks hold
@@ -2840,10 +2916,10 @@ def phase_tp_reduced():
     ep_s = time.perf_counter() - t0
     for tp in (2, 4):
         with RankPool(tp, device="cuda") as pool:
-            runs = [(tag, *(pool.run(rank_tasks.train, "h2o-danube-1.8b",
-                                     device=dev, **over, **kw)
-                            for dev in ("cuda", "cpu")), vocab_rep)
-                    for tag, over, vocab_rep in reduced_tp_runs(tp)]
+            runs = [(tag, arch, *(pool.run(rank_tasks.train, arch,
+                                           device=dev, **over, **kw)
+                                  for dev in ("cuda", "cpu")), vocab_rep)
+                    for tag, arch, over, vocab_rep in reduced_tp_runs(tp)]
             t0 = time.perf_counter()
             if tp == 4:
                 # first: a profile taken in these ranks after the EP
@@ -2855,17 +2931,27 @@ def phase_tp_reduced():
                 phase_ep_layer(pool, ep_layer_dense(smi), smi)
                 release_shared(pool)
             ep_s += time.perf_counter() - t0
-            if tp == 4:
-                t0 = time.perf_counter()
+            t0 = time.perf_counter()
+            if tp == 2:
+                phase_xla_families(pool, smi)
+                xla_s = time.perf_counter() - t0
+            else:
                 grid_launches = phase_grid(pool, smi)
                 grid_s = time.perf_counter() - t0
-        for tag, card, cpu, vocab_rep in runs:
-            reduced_tp_check(tag, card, cpu, vocab_rep, t)
+                t0 = time.perf_counter()
+                phase_launch_job(pool, smi)
+                job_s = time.perf_counter() - t0
+        for tag, arch, card, cpu, vocab_rep in runs:
+            reduced_tp_check(tag, arch, card, cpu, vocab_rep, t)
     print(f"[smoke] phase 9b expert parallelism: {ep_s:.1f}s (the dense "
           f"references in this process and the EP runs on phase 9's "
           f"pools; {smi})", flush=True)
     print(f"[smoke] phase 9c the data axis: {grid_s:.1f}s on phase 9's "
           f"four-rank pool ({smi})", flush=True)
+    print(f"[smoke] phase 9d the reference launcher's default job: "
+          f"{job_s:.1f}s on phase 9's four-rank pool ({smi})", flush=True)
+    print(f"[smoke] phase 9e xla TP on the MLA and VLM blocks: {xla_s:.1f}s "
+          f"on phase 9's two-rank pool ({smi})", flush=True)
     return grid_launches
 
 
@@ -2908,7 +2994,9 @@ def phase_grid(pool, smi):
           f"reserved ({smi})", flush=True)
     ckpt_dir = ROOT / "build" / "smoke_grid_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    kw = dict(cfg_overrides=dict(n_layers=GRID_LAYERS),
+    # the fused rings, as before the grid's default became the
+    # reference's ``xla`` (phase 9d runs that)
+    kw = dict(cfg_overrides=dict(n_layers=GRID_LAYERS), tp_transport="fused",
               step_overrides=dict(seq_chunk=512, warmup_steps=1),
               dataset=dict(seq_len=GRID_SEQ, global_batch=2))
     t0 = time.perf_counter()
@@ -3083,6 +3171,169 @@ def phase_grid(pool, smi):
               f"{[round(m['loss'], 6) for m in card[0]['metrics']]}; "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
     return launches
+
+
+#: phase 9d: the reference launcher's default job (``python -m
+#: repro.launch.train``: smollm-360m, data 2 × model 2, ``tp="xla"``) at
+#: full width and depth through the launcher's Trainer grid task with the
+#: launcher's step settings for 2 steps: ~181 M parameters a rank, ~3.6 GB
+#: of training state a rank; sequences of 1024 tokens, 4 a step
+JOB_ARCH, JOB_SEQ, JOB_BATCH, JOB_STEPS = "smollm-360m", 1025, 4, 2
+
+
+def phase_launch_job(pool, smi):
+    """9d: the reference launcher's default job on the four-rank pool
+    (``launch/train.py --full --data-axis 2 --model-axis 2``'s rank task,
+    its checkpoint under ``build/`` and removed).  Held: every rank on the
+    ``xla`` path, no cc_matmul kernel launched, finite losses, the step-0
+    loss within 0.5 of ln V, the parameters bitwise equal across the data
+    ranks of each model rank.  Printed a step: the step time (the slowest
+    rank's), each line's wire seconds (the slowest rank) and staged bytes
+    (all ranks), the replicated leaves' all-reduce apart; the peak memory
+    a rank; the final checkpoint's write time."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import rank_tasks
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_config(JOB_ARCH)
+    state = launch_train.optimizer_state(cfg)
+    per_rank = launch_train.rank_params(cfg, "model", 2)
+    state_gb = launch_train.train_state_bytes(cfg, **state,
+                                              params=per_rank) / 1e9
+    held = pool.run(rank_tasks.free_memory)
+    ckpt_dir = ROOT / "build" / "smoke_job_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    step_kw = dict(microbatches=1, peak_lr=3e-4,
+                   warmup_steps=max(JOB_STEPS // 20, 5),
+                   total_steps=JOB_STEPS,
+                   seq_chunk=min(2048, JOB_SEQ - 1), **state)
+    t0 = time.perf_counter()
+    res = pool.run(rank_tasks.train_grid, JOB_ARCH, steps=JOB_STEPS,
+                   ckpt_dir=str(ckpt_dir), ckpt_interval=50, data=2,
+                   model=2, step_overrides=step_kw, log=False, cleanup=True,
+                   dataset=dict(seq_len=JOB_SEQ, global_batch=JOB_BATCH))
+    tag = (f"[job] {JOB_ARCH} full width at {cfg.n_layers} of "
+           f"{cfg.n_layers} layers, data 2 x model 2, tp=xla")
+    print(f"{tag}: {per_rank / 1e6:.1f}M params a rank in "
+          f"{cfg.param_dtype}, {state_gb:.2f} GB of training state a rank "
+          f"before activations (the launcher's reckoning), "
+          f"{JOB_BATCH} x {JOB_SEQ - 1} tokens a step; the ranks held "
+          f"{', '.join('%.2f' % (h['reserved'] / 2**30) for h in held)} "
+          f"GiB reserved before; Trainer run "
+          f"{time.perf_counter() - t0:.1f}s ({smi})", flush=True)
+    for r in res:
+        if r["scheme"] != "xla":
+            fail(f"{tag} rank {r['coords']}: the {r['scheme']} TP path")
+        if any(v for step in r["launches"] for v in step.values()):
+            fail(f"{tag} rank {r['coords']}: cc_matmul launches "
+                 f"{r['launches']}")
+    for m in (0, 1):
+        line = [r["digests"] for r in res if r["coords"][1] == m]
+        if any(d != line[0] for d in line[1:]):
+            fail(f"{tag}: parameters differ across the data ranks of "
+                 f"model rank {m}")
+    hist = res[0]["history"]
+    if len(hist) != JOB_STEPS or not all(
+            math.isfinite(h["loss"]) for h in hist) or abs(
+            hist[0]["loss"] - math.log(cfg.vocab_size)) > 0.5:
+        fail(f"{tag}: losses {[h['loss'] for h in hist]}")
+    for k, h in enumerate(hist):
+        lines = [r["line_stats"][k] for r in res]
+        parts = []
+        for axis in ("data", "model"):
+            wire = max(ls[axis]["wire_s"] for ls in lines)
+            staged = sum(ls[axis]["staged_bytes"] for ls in lines)
+            parts.append(f"{axis} line wire {wire:.3f}s, staged "
+                         f"{staged / 2**30:.3f} GiB")
+        rep = sum(r["rep_wire"][k]["staged_bytes"] for r in res)
+        parts[-1] += (f" (the replicated leaves' gradient all-reduce "
+                      f"{rep / 2**30:.3f} GiB, everything else "
+                      f"{(staged - rep) / 2**30:.3f} GiB)")
+        print(f"{tag} step {k + 1}: {h['step_time_s']:.3f}s (the slowest "
+              f"rank), loss {h['loss']:.6f}, grad_norm "
+              f"{h['grad_norm']:.6f}, lr {h['lr']:.3g}; {'; '.join(parts)} "
+              f"(the slowest rank's wire, all ranks' bytes) ({smi})",
+              flush=True)
+    print(f"{tag}: peak memory a rank "
+          f"{', '.join('%.2f' % (r['peak_bytes'] / 2**30) for r in res)} "
+          f"GiB; final checkpoint (gather + write + barrier, rank 0) "
+          f"{[(s, round(t, 3)) for s, t in res[0]['ckpt_seconds']]} s; "
+          f"parameters bitwise equal across data ranks ({smi})", flush=True)
+    pool.run(rank_tasks.free_memory)
+
+
+#: phase 9e: the reference's GSPMD TP on the MLA and VLM blocks at full
+#: width, depth cut to 8 layers (~8–9 GB of training state a rank; the
+#: published 62 and 24 do not fit two ranks beside the smoke's other
+#: pools), tp 2, step 0 of one sequence of 1024 tokens a row, 2 rows
+XLA_FAMILY_ARCHS = ("minicpm3-4b", "internvl2-2b")
+XLA_FAMILY_LAYERS, XLA_FAMILY_SEQ, XLA_FAMILY_BATCH = 8, 1024, 2
+
+
+def phase_xla_families(pool, smi):
+    """9e: minicpm3-4b (MLA: ``w_dq`` and ``w_dkv`` gathered whole for
+    the latents' norms) and internvl2-2b (its 256 patch rows first in
+    the sequence that is split; its vocab of 92553, odd, whole on every
+    rank) at tp 2 under ``xla``, bf16 from seed 0, random token ids and
+    patch embeddings from a seeded generator.  Held: the ``xla`` path,
+    no cc_matmul kernel launched, the same finite loss on both ranks
+    within 0.5 of ln V, replicated leaves bitwise equal.  Printed: the
+    step time, the line's wire seconds and staged bytes, peak memory a
+    rank."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import rank_tasks
+
+    rng = np.random.default_rng(0)
+    for arch in XLA_FAMILY_ARCHS:
+        cfg = get_config(arch)
+        toks = rng.integers(0, cfg.vocab_size,
+                            size=(XLA_FAMILY_BATCH, XLA_FAMILY_SEQ + 1))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.frontend:
+            batch["frontend_embeds"] = rng.standard_normal(
+                (XLA_FAMILY_BATCH, cfg.frontend_tokens, cfg.frontend_dim)
+            ).astype(np.float32)
+        t0 = time.perf_counter()
+        res = pool.run(rank_tasks.train, arch, steps=1, tp_transport="xla",
+                       seed=0, batches=[batch],
+                       cfg_overrides=dict(n_layers=XLA_FAMILY_LAYERS),
+                       step_overrides=dict(seq_chunk=512, warmup_steps=1))
+        r0 = res[0]
+        m = r0["metrics"][0]
+        tag = (f"[xla-tp2] {arch} full width at {XLA_FAMILY_LAYERS} of "
+               f"{cfg.n_layers} layers")
+        vocab = ("split over the vocab" if "embed" in r0["sharded"]
+                 else "whole (the vocab does not split)")
+        print(f"{tag}, 2 ranks, step 0: "
+              f"{max(r['seconds'][0] for r in res):.2f}s (the slowest "
+              f"rank), loss {m['loss']:.6f}, grad_norm "
+              f"{m['grad_norm']:.6f}; {r0['n_params'] / 1e6:.1f}M params a "
+              f"rank in {cfg.param_dtype}, embed and lm_head {vocab}; "
+              f"staged "
+              f"{sum(r['stats'][0]['staged_bytes'] for r in res) / 2**30:.3f}"
+              f" GiB through the host (all ranks), wire "
+              f"{max(r['stats'][0]['wire_s'] for r in res):.2f}s (the "
+              f"slowest rank); peak "
+              f"{', '.join('%.2f' % (r['peak_bytes'] / 2**30) for r in res)}"
+              f" GiB a rank; {len(r0['replicated'])} replicated leaves "
+              f"bitwise equal; {time.perf_counter() - t0:.1f}s ({smi})",
+              flush=True)
+        for r in res:
+            if r["scheme"] != "xla" or any(r["launches"][0].values()):
+                fail(f"{tag}: the {r['scheme']} path, cc_matmul launches "
+                     f"{r['launches'][0]}")
+            if r["metrics"][0]["loss"] != m["loss"] or \
+                    r["replicated"] != r0["replicated"]:
+                fail(f"{tag}: the ranks disagree")
+        if not (math.isfinite(m["loss"]) and abs(
+                m["loss"] - math.log(cfg.vocab_size)) <= 0.5):
+            fail(f"{tag}: step-0 loss {m['loss']} not within 0.5 of "
+                 f"ln {cfg.vocab_size}")
+        pool.run(rank_tasks.free_memory)
 
 
 #: phase 9b: expert parallelism, llama4-scout at full width

@@ -13,7 +13,7 @@ rejects; they go across bit for bit through a 16-bit integer view.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -69,12 +69,14 @@ def params_from_reference(tree: Dict[str, Any],
 
 
 def shard_params(tree: Dict[str, Any], rank: int, size: int,
-                 device: DeviceLike = "cpu",
-                 axis: str = "model") -> Dict[str, Any]:
+                 device: DeviceLike = "cpu", axis: str = "model", *,
+                 scheme: Optional[str] = None) -> Dict[str, Any]:
     """The reference's full parameter pytree (numpy leaves) → rank
     ``rank``'s shard of it in the port's layout, under the placement of
-    ``repro_torch.dist.sharding`` on ``axis``: ``model`` (TP) or
+    ``repro_torch.dist.sharding`` on ``axis``: ``model`` (TP, under the
+    TP path ``scheme``, ``"xla"`` or ``"art"``, which it needs) or
     ``expert`` (a MoE model's routed experts split over the group)."""
     from repro_torch.dist.sharding import shard_tree
 
-    return shard_tree(params_from_reference(tree, device), rank, size, axis)
+    return shard_tree(params_from_reference(tree, device), rank, size, axis,
+                      scheme=scheme)

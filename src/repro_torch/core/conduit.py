@@ -36,6 +36,9 @@ transport (``auto`` may pick any of them on a training path): the
 gradient of a gather is the same wire's reduce-scatter of the cotangent
 and the other way round, and a tiled all-to-all is its own transpose
 (the expert exchange of ``models/moe_ep.py`` trains through it).
+``xla``'s all_reduce is differentiable too, its backward the all-reduce
+of the cotangents (``models/tp_block.py`` sums its row products through
+it where the residual is whole on every rank).
 
 ``auto`` is a policy, not a transport: :meth:`Conduit._resolve` prices
 every registered transport and ART chunk on the call's payload bytes
@@ -298,6 +301,21 @@ class _ReduceScatter(torch.autograd.Function):
         return (_GATHER_SCATTER[ctx.wire][0](g, ctx.group, ctx.dim,
                                             ctx.chunk_bytes),
                 None, None, None, None)
+
+
+class _AllReduce(torch.autograd.Function):
+    """The all-reduce of partial sums whose result every rank holds
+    whole: each rank's cotangent is its part of the result's, so the
+    backward is the all-reduce of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.contiguous()), None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -579,7 +597,7 @@ def _reduce_scatter_xla(x, *, axis, chunk_bytes=None, dim: int = 0):
 
 @register("all_reduce", "xla")
 def _all_reduce_xla(x, *, axis, chunk_bytes=None):
-    return axis.all_reduce(x)
+    return _AllReduce.apply(x, axis)
 
 
 def _gloo_all_to_all(x, group, chunk_bytes=None):

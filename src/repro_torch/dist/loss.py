@@ -37,7 +37,17 @@ gold term its own (zero where it does not hold the label): that
 function's gradient on this rank's logits is exactly the loss's; its
 value is replaced by the rank's share, which is what the step reports.
 Neither an all-reduce inside autograd nor a 1/n share on each rank
-gives these gradients.
+gives these gradients.  On the ``xla`` path the chunk's rows are
+gathered by gloo's ``all_gather`` and multiplied, in the compute dtype.
+
+A model line's layout is its ``SeqLine`` (``models/tp_block.py``).  Where
+its residual is whole on every rank (no sequence parallelism, or a length
+the line does not divide), nothing is gathered: with the vocab split each
+rank forms every row's logits over its columns and counts the tokens of
+its cut of the sequence (``SeqLine.share``); with the head whole each
+rank takes its cut's rows alone.  Each token still counts once, and the
+hidden's cotangent on each rank is its part of the whole one, which the
+line's all-reduce in the blocks' backward sums.
 
 A MoE model's load-balancing term follows the same rule: with a group,
 each MoE layer returns this rank's share of the loss over the group's
@@ -50,6 +60,7 @@ product of per-rank means is not the global one.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -57,7 +68,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.model import forward_hidden
-from repro_torch.models.vocab_parallel import VocabParallel
+from repro_torch.models.tp_block import SeqLine
 
 
 def chunked_ce_loss(
@@ -73,7 +84,7 @@ def chunked_ce_loss(
     runner: Optional[Callable] = None,
     core: Optional[Callable] = None,
     moe_ffn: Optional[Callable] = None,
-    vocab: Optional[VocabParallel] = None,
+    line: Optional[SeqLine] = None,
 ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """batch: tokens (B, S_loc), labels (B, S_loc) with -1 = masked — this
     rank's rows — and a frontend arch's ``frontend_embeds`` (a VLM's
@@ -87,39 +98,52 @@ def chunked_ce_loss(
     all of it.  ``positions``, ``runner`` (the TP block runner),
     ``core`` (the attention core) and ``moe_ffn`` (the expert-parallel
     MoE runner) are ``forward_hidden``'s; the load-balancing loss is over
-    the group's rows (``aux_group``).  ``vocab`` (the model line's vocab
-    split; ``params`` then hold this rank's ``embed``/``lm_head``
-    shards) embeds and takes the head vocab-parallel: tokens and labels
-    are then the line's whole sequence (B, S) of the rank's rows."""
+    the group's rows (``aux_group``).  ``line`` (a model line's layout,
+    ``models/tp_block.py`` ``SeqLine``: whether its residual is
+    sequence-sharded, its vocab split) embeds through the line and
+    takes the head over it: tokens and labels are then the line's whole
+    sequence (B, S) of the rank's rows, the hidden this rank's rows of
+    it, and a VLM's patch rows get masked labels in place of the crop."""
+    fe = batch.get("frontend_embeds")
     hidden, aux = forward_hidden(
         cfg, params, batch["tokens"], positions, runner=runner, core=core,
-        frontend_embeds=batch.get("frontend_embeds"), return_aux=True,
-        moe_ffn=moe_ffn, aux_group=group,
-        embed=None if vocab is None else vocab.embed)
+        frontend_embeds=fe, return_aux=True, moe_ffn=moe_ffn,
+        aux_group=group,
+        embed=None if line is None else functools.partial(line.embed, cfg))
     labels = batch["labels"]
-    if vocab is None and hidden.shape[1] != labels.shape[1]:
+    if line is not None:
+        if cfg.family == "vlm":
+            labels = torch.cat([labels.new_full(fe.shape[:2], -1), labels],
+                               dim=1)
+    elif hidden.shape[1] != labels.shape[1]:
         hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]  # VLM patches
     return head_loss(cfg, params, hidden, labels, aux, seq_chunk=seq_chunk,
                      z_loss=z_loss, moe_aux_weight=moe_aux_weight,
-                     group=group, vocab=vocab)
+                     group=group, line=line)
 
 
 def head_loss(cfg: ModelConfig, params, hidden: torch.Tensor,
               labels: torch.Tensor, aux: torch.Tensor, *, seq_chunk: int,
               z_loss: float = 1e-4, moe_aux_weight: float = 1e-2,
-              group=None, vocab: Optional[VocabParallel] = None
+              group=None, line: Optional[SeqLine] = None
               ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """:func:`chunked_ce_loss` from the final-norm hidden on: ``hidden``
-    (B, S_loc, D) this rank's rows, ``labels`` theirs (with ``vocab``:
+    (B, S_loc, D) this rank's rows, ``labels`` theirs (with ``line``:
     the line's whole sequence (B, S) of them), ``aux`` the rank's
-    load-balancing share."""
-    if vocab is None:
+    load-balancing share.  On a line without the vocab split a rank
+    counts the tokens of :meth:`SeqLine.share` with the whole head."""
+    if line is None or line.vocab is None:
+        if line is not None:
+            own = line.share(labels.shape[1])
+            labels = labels[:, own]
+            if not line.sp:
+                hidden = hidden[:, own]
         nll_sum, z_sum, tokens = _chunk_sums(cfg, params, hidden, labels,
                                              seq_chunk)
         surrogate = None
     else:
         nll_sum, z_sum, tokens, surrogate = _vocab_parallel_sums(
-            cfg, params, hidden, labels, seq_chunk, vocab)
+            cfg, params, hidden, labels, seq_chunk, line)
     sums = torch.stack([nll_sum, z_sum, tokens, aux]).detach().double().cpu()
     if group is not None:
         sums = group.all_reduce(sums)
@@ -164,34 +188,53 @@ def _chunk_sums(cfg: ModelConfig, params, hidden: torch.Tensor,
 
 def _vocab_parallel_sums(cfg: ModelConfig, params, hidden: torch.Tensor,
                          labels: torch.Tensor, seq_chunk: int,
-                         vocab: VocabParallel):
-    """The vocab-parallel head over the line's gathered chunks: (masked
-    NLL, masked lse², tokens) of the tokens this rank's sequence shard
-    holds, and ``surrogate(denom, z_loss)``, the function whose gradient
-    backward takes (the module docstring)."""
+                         line: SeqLine):
+    """The vocab-parallel head over the line's chunks: (masked NLL,
+    masked lse², tokens) of the tokens this rank counts, and
+    ``surrogate(denom, z_loss)``, the function whose gradient backward
+    takes (the module docstring).  On a sequence-sharded line a chunk is
+    ``seq_chunk / n`` local rows of every rank, gathered; with the
+    residual whole on every rank a chunk is ``seq_chunk`` rows of it, no
+    gather, and the rank counts the tokens of its :meth:`SeqLine.share`."""
     cd = L.cdtype(cfg)
+    vocab = line.vocab
     n, r = vocab.size, vocab.rank
     head = (params["embed"].t() if cfg.tie_embeddings
             else params["lm_head"]).to(cd).contiguous()
     b, s_loc = hidden.shape[:2]
-    if labels.shape[1] != n * s_loc:
+    if labels.shape[1] != (n * s_loc if line.sp else s_loc):
         raise ValueError(f"labels {tuple(labels.shape)}: expected the "
-                         f"line's {n} × {s_loc} positions")
-    blocks = labels.reshape(b, n, s_loc)
-    k = max(int(seq_chunk) // n, 1)
+                         f"line's {n} × {s_loc} positions" if line.sp else
+                         f"labels {tuple(labels.shape)}: expected {s_loc} "
+                         f"positions")
     lses, golds, labs, mine = [], [], [], []
-    for c0 in range(0, s_loc, k):
-        rows = min(k, s_loc - c0)
-        logits = vocab.logits(hidden[:, c0:c0 + rows].to(cd),
-                              head).to(cd).float()      # (B, n·rows, V/n)
-        lab = blocks[:, :, c0:c0 + rows].reshape(b, n * rows)
+
+    def add(logits, lab, own_rows):
         idx, own = vocab.local_ids(lab)
         lses.append(torch.logsumexp(logits, dim=-1))
         golds.append(torch.where(
             own, logits.gather(-1, idx[..., None])[..., 0], 0.0))
         labs.append(lab)
-        mine.append(torch.arange(n, device=lab.device).repeat_interleave(
-            rows) == r)
+        mine.append(own_rows)
+
+    if line.sp:
+        blocks = labels.reshape(b, n, s_loc)
+        k = max(int(seq_chunk) // n, 1)
+        for c0 in range(0, s_loc, k):
+            rows = min(k, s_loc - c0)
+            logits = vocab.logits(hidden[:, c0:c0 + rows].to(cd),
+                                  head).to(cd).float()   # (B, n·rows, V/n)
+            add(logits, blocks[:, :, c0:c0 + rows].reshape(b, n * rows),
+                torch.arange(n, device=labels.device).repeat_interleave(
+                    rows) == r)
+    else:
+        share = line.share(s_loc)
+        k = max(int(seq_chunk), 1)
+        for c0 in range(0, s_loc, k):
+            pos = torch.arange(c0, min(c0 + k, s_loc), device=labels.device)
+            logits = (hidden[:, c0:c0 + k].to(cd) @ head).to(cd).float()
+            add(logits, labels[:, c0:c0 + k],
+                (pos >= share.start) & (pos < share.stop))
     lse_r, gold_r = torch.cat(lses, 1), torch.cat(golds, 1)
     lab = torch.cat(labs, 1)
     mine = torch.cat(mine).expand_as(lab)

@@ -183,19 +183,27 @@ def collective_grad(group, transport: str, op: str, xs: np.ndarray,
 
 def vocab_embed(group, table: np.ndarray, tokens: np.ndarray,
                 cot: np.ndarray) -> Dict[str, np.ndarray]:
-    """The vocab-parallel embedding (``models/vocab_parallel.py``) of the
-    line's whole ``tokens`` (B, S) over this rank's rows of ``table`` (V,
-    D), and backward on ``sum(rows · cot[:, this rank's rows])``: returns
-    its (B, S/n, D) rows and its shard's gradient."""
+    """The vocab-parallel embedding (``models/vocab_parallel.py``, through
+    a sequence-sharded ``tp_block.SeqLine`` as the TP step embeds; a
+    dense config, whose widths the lookup does not read) of the line's
+    whole ``tokens`` (B, S) over this rank's rows of ``table`` (V, D),
+    and backward on ``sum(rows · cot[:, this rank's rows])``: returns its
+    (B, S/n, D) rows and its shard's gradient."""
+    from repro_torch.configs import get_config
     from repro_torch.core.conduit import Conduit
     from repro_torch.dist import sharding
+    from repro_torch.models.tp_block import SeqLine
     from repro_torch.models.vocab_parallel import VocabParallel
 
     n, r = group.size, group.rank
-    vp = VocabParallel(Conduit(axis=group, transport="fused"), len(table))
+    conduit = Conduit(axis=group, transport="fused")
+    line = SeqLine(conduit, sp=True,
+                   vocab=VocabParallel(conduit, len(table)))
     shard = sharding.shard_leaf(_tensor(table, group.device), "row", r, n)
     shard.requires_grad_(True)
-    rows = vp.embed(shard, _tensor(tokens, group.device).long())
+    rows = line.embed(get_config("h2o-danube-1.8b").reduced(),
+                      {"embed": shard},
+                      _tensor(tokens, group.device).long())
     s_loc = rows.shape[1]
     (rows * _tensor(cot, group.device)[:, r * s_loc:(r + 1) * s_loc]
      ).sum().backward()
@@ -210,13 +218,15 @@ def vocab_ce(group, arch: str, hidden: np.ndarray, labels: np.ndarray,
     reduced ``arch`` on this rank: its rows of ``hidden`` (B, S, D), the
     line's whole ``labels`` (B, S), its vocab part of ``head`` (the
     untied (D, V) ``lm_head``, or, tied, the (V, D) ``embed``), sums over
-    the line.  Backward on the rank's loss; returns the loss, the
-    metrics, and the gradients of its rows and its head shard, with the
-    kernels' launches and the plain versions' runs."""
+    the line (a sequence-sharded line, the head the fused AG edge).
+    Backward on the rank's loss; returns the loss, the metrics, and the
+    gradients of its rows and its head shard, with the kernels' launches
+    and the plain versions' runs."""
     from repro_torch.configs import get_config
     from repro_torch.core.conduit import Conduit
     from repro_torch.dist import sharding
     from repro_torch.dist.loss import head_loss
+    from repro_torch.models.tp_block import SeqLine
     from repro_torch.models.vocab_parallel import VocabParallel
 
     cfg = dataclasses.replace(get_config(arch).reduced(),
@@ -226,17 +236,18 @@ def vocab_ce(group, arch: str, hidden: np.ndarray, labels: np.ndarray,
     name = "embed" if cfg.tie_embeddings else "lm_head"
     full = _tensor(head, dev)
     shard = sharding.shard_leaf(full, sharding.placement(
-        (name,), "model", tuple(full.shape), n), r, n).requires_grad_(True)
+        (name,), "model", tuple(full.shape), n, scheme="art"), r,
+        n).requires_grad_(True)
     s_loc = hidden.shape[1] // n
     h = _tensor(hidden, dev)[:, r * s_loc:(r + 1) * s_loc].contiguous()
     h.requires_grad_(True)
-    vp = VocabParallel(Conduit(axis=group, transport="fused"),
-                       cfg.vocab_size)
+    conduit = Conduit(axis=group, transport="fused")
+    vp = VocabParallel(conduit, cfg.vocab_size)
     cc_ops.reset_counts()
     loss, metrics = head_loss(
         cfg, {name: shard}, h, _tensor(labels, dev).long(),
         h.new_zeros((), dtype=torch.float32), seq_chunk=seq_chunk,
-        group=group, vocab=vp)
+        group=group, line=SeqLine(conduit, sp=True, vocab=vp))
     loss.backward()
     return {"loss": loss.item(), "metrics": metrics, "dh": _numpy(h.grad),
             "dhead": _numpy(shard.grad), "launches": cc_ops.launches(),
@@ -479,8 +490,10 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
     card run and a CPU run), moved to the run's device.  Batches: the
     given numpy ``batches`` (step k takes ``batches[k]``), or
     ``SyntheticLM(DataConfig(vocab_size, **data))``.  The step config is
-    the TP preset's (``tp_transport``, default from the arch's preset)
-    with ``step_overrides``.
+    ``TransportPolicy(tp=tp_transport)`` (default ``fused``: this task
+    measures the rings; ``xla`` is the reference's GSPMD layout,
+    ``models/tp_block.py``) with ``step_overrides``; the TP path it takes
+    (``dist.steps.tp_scheme``) is the result's ``scheme``.
 
     Returns per-step ``metrics``, ``launches`` (each cc_matmul kernel's, that
     step), ``plain`` (the plain versions' runs), ``edges`` (the TP edges
@@ -515,6 +528,7 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
         init_opt,
         param_places,
         step_grid,
+        tp_scheme,
     )
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import artblock
@@ -539,10 +553,12 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
     mesh = (make_host_mesh(run_group, **grid) if grid
             else step_grid(cfg, run_group))
     inner = mesh.inner
+    scheme = tp_scheme(cfg, scfg, inner.size)
 
     t0 = time.perf_counter()
     if params_np is not None:
-        params = shard_params(params_np, inner.rank, inner.size, dev, axis)
+        params = shard_params(params_np, inner.rank, inner.size, dev, axis,
+                              scheme=scheme)
         opt = init_opt(params, scfg)
     elif init_device is None or torch.device(init_device) == dev:
         params, opt = build_init(cfg, mesh, scfg)(seed)
@@ -597,14 +613,14 @@ def train(group, arch: str, *, steps: int, reduced: bool = False,
             out["vocab_rows"].append(vocab_checksums(params))
 
     leaves = list(sharding.leaves(params))
-    places = param_places(cfg, inner.size, axis)
+    places = param_places(cfg, inner.size, axis, scheme)
     result: Dict[str, Any] = dict(out)
     result.update(
         init_seconds=init_s,
         peak_bytes=(torch.cuda.max_memory_allocated(dev)
                     if dev.type == "cuda" else 0),
         n_params=sum(t.numel() for _, t in leaves),
-        coords=mesh.coords, shape=mesh.shape,
+        coords=mesh.coords, shape=mesh.shape, scheme=scheme,
         replicated={"/".join(map(str, p)): _digest(t) for p, t in leaves
                     if places[p] == "rep"},
         sharded=sorted("/".join(map(str, p)) for p, _ in leaves
@@ -637,12 +653,12 @@ def vocab_checksums(params) -> Dict[str, np.ndarray]:
 
 
 def _train_setup(arch: str, *, reduced: bool, cfg_overrides,
-                 step_overrides, moe_transport=None, moe_stream_chunks=None,
-                 grad_bucket_kb: int = 0):
+                 step_overrides, tp_transport=None, moe_transport=None,
+                 moe_stream_chunks=None, grad_bucket_kb: int = 0):
     """(cfg, step config) of a grid task: the arch (``reduced()`` if
-    asked, then ``cfg_overrides``) and the step config (``fused`` TP
-    edges, the MoE exchange on ``moe_transport``, default ``xla``) with
-    ``step_overrides``."""
+    asked, then ``cfg_overrides``) and the step config (the TP path of
+    ``tp_transport``, default the reference's ``xla``; the MoE exchange
+    on ``moe_transport``, default ``xla``) with ``step_overrides``."""
     from repro_torch.configs import get_config
     from repro_torch.dist.steps import StepConfig, TransportPolicy
 
@@ -655,7 +671,7 @@ def _train_setup(arch: str, *, reduced: bool, cfg_overrides,
     if grad_bucket_kb:
         over["grad_bucket_bytes"] = grad_bucket_kb << 10
     scfg = StepConfig(transport=TransportPolicy(
-        tp="fused", moe=moe_transport or "xla",
+        tp=tp_transport or "xla", moe=moe_transport or "xla",
         moe_stream_chunks=moe_stream_chunks), **over)
     return cfg, scfg
 
@@ -689,8 +705,13 @@ class _Batches:
         self.batches = batches
 
     def global_batch(self, step: int) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.asarray(a)).long()
-                for k, a in self.batches[step].items()}
+        """Step ``step``'s batch: token ids as int64, a frontend's
+        embeddings as they are."""
+        out = {}
+        for k, a in self.batches[step].items():
+            t = torch.from_numpy(np.asarray(a))
+            out[k] = t if t.is_floating_point() else t.long()
+        return out
 
 
 def train_grid(group, arch: str, *, steps: int, ckpt_dir: str,
@@ -698,6 +719,7 @@ def train_grid(group, arch: str, *, steps: int, ckpt_dir: str,
                ckpt_interval: int = 50, reduced: bool = False,
                cfg_overrides: Optional[Dict[str, Any]] = None,
                step_overrides: Optional[Dict[str, Any]] = None,
+               tp_transport: Optional[str] = None,
                moe_transport: Optional[str] = None,
                moe_stream_chunks: Optional[int] = None,
                grad_bucket_kb: int = 0,
@@ -709,7 +731,8 @@ def train_grid(group, arch: str, *, steps: int, ckpt_dir: str,
     """Run the ``Trainer`` for ``steps`` steps on this rank's ``data ×
     model`` (or ``data × expert``) grid, checkpointing every
     ``ckpt_interval`` steps into ``ckpt_dir`` (``launch/train.py``'s
-    rank task).  Data: the given numpy ``batches`` (step k takes
+    rank task), the model line's TP on ``tp_transport`` (default the
+    reference's ``xla``).  Data: the given numpy ``batches`` (step k takes
     ``batches[k]``), or ``SyntheticLM(DataConfig(vocab_size,
     **dataset))``.  World rank 0 prints the Trainer's log with ``log``.
 
@@ -735,19 +758,21 @@ def train_grid(group, arch: str, *, steps: int, ckpt_dir: str,
     uninterrupted step's ``next_rep_wire``), ``ckpt_seconds``,
     ``restore_seconds``, the
     device's peak memory, the grid's ``coords`` and
-    ``shape``, and the sha256 of every leaf after the last step
-    (``digests``)."""
+    ``shape``, the TP path (``scheme``, ``dist.steps.tp_scheme``), and
+    the sha256 of every leaf after the last step (``digests``)."""
     import os
     import shutil
     import signal
 
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.dist import sharding
+    from repro_torch.dist.steps import tp_scheme
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     cfg, scfg = _train_setup(
         arch, reduced=reduced, cfg_overrides=cfg_overrides,
-        step_overrides=step_overrides, moe_transport=moe_transport,
+        step_overrides=step_overrides, tp_transport=tp_transport,
+        moe_transport=moe_transport,
         moe_stream_chunks=moe_stream_chunks, grad_bucket_kb=grad_bucket_kb)
     mesh, dev = _grid_of(group, dict(data=data, model=model, expert=expert))
     source = (_Batches(batches) if batches is not None else SyntheticLM(
@@ -756,7 +781,8 @@ def train_grid(group, arch: str, *, steps: int, ckpt_dir: str,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     out: Dict[str, Any] = {"line_stats": [], "launches": [], "rep_wire": [],
-                           "coords": mesh.coords, "shape": mesh.shape}
+                           "coords": mesh.coords, "shape": mesh.shape,
+                           "scheme": tp_scheme(cfg, scfg, mesh.inner.size)}
     snap = {"lines": mesh.line_stats()}
     active: Dict[str, "Trainer"] = {}
 
@@ -850,6 +876,7 @@ def grid_sync(group, arch: str, *, data: int, model: int = 1,
               expert: int = 1, bucket_bytes: int,
               cfg_overrides: Optional[Dict[str, Any]] = None,
               step_overrides: Optional[Dict[str, Any]] = None,
+              tp_transport: Optional[str] = None,
               dataset: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
     """The data line's sync of this rank's step-0 gradients (the train
     step's ``local_grads`` on ``build_init``'s parameters and batch 0):
@@ -867,7 +894,8 @@ def grid_sync(group, arch: str, *, data: int, model: int = 1,
 
     cfg, scfg = _train_setup(arch, reduced=False,
                              cfg_overrides=cfg_overrides,
-                             step_overrides=step_overrides)
+                             step_overrides=step_overrides,
+                             tp_transport=tp_transport)
     mesh, dev = _grid_of(group, dict(data=data, model=model, expert=expert))
     params, opt = build_init(cfg, mesh, scfg)(0)
     del opt

@@ -1,36 +1,52 @@
-"""Placement of the parameters over a group: the ``model``-axis part of
-``repro.dist.sharding``'s rule table (the dense block's TP split and the
-vocab-parallel embedding and head) and the expert split of a MoE model.
+"""Placement of the parameters over a group: the reference's rule table
+(``repro/dist/sharding.py`` ``_param_rule``) on the ``model`` axis, and
+the expert split of a MoE model.
 
-  column shards (output dim split over the group):  ``wq``, ``w_up``,
-                                                     ``w_gate``
-  row shards (input dim split):                      ``wo``, ``w_down``
-  vocab shards (the vocab dim split):                ``embed`` (V, D) its
-      rows (dim 0, ``"row"``), ``lm_head`` (D, V) its columns (dim 1,
-      ``"col"``): the reference's ``(model, data)`` and ``(data, model)``
-  replicated:                                        everything else —
-      ``wk``/``wv``, all norms
+The table, by leaf name (a leaf's shape right-aligned against its rule,
+as the reference aligns it against the ``lax.scan``-stacked leaf; the
+port's layers are one dict each, so no leading layer axis):
 
-The vocab split has the reference's divisibility fallback (``fit_axis``):
-a vocab the line does not divide leaves ``embed`` and ``lm_head``
-replicated.  So their placement needs the logical leaf's shape and the
-line's extent (``placement(path, axis, shape, size)``); the other rules
-read the path alone.  A tied model's head is its ``embed`` shard
-transposed.  The reference also shards ``wk``/``wv`` by column under
-GSPMD; here they are whole on every rank (K/V are projected on the local
-rows and ring-gathered, as the reference's ART block does).  A
-replicated leaf's gradient is summed over the group before clipping; a
-sharded leaf's is complete already, from the fused ops' weight gradient
-(the head's from its edge's, the embedding's from its scatter).
+  column (``(data, model)``: the last dim on ``model``):
+      ``wq``, ``wk``, ``wv``, ``w_up``, ``w_gate``, ``in_proj`` and MLA's
+      ``w_dq``, ``w_dkv``, ``w_uq``, ``w_uk``, ``w_uv``
+  row (``(model, data)``: the second-to-last dim on ``model``):
+      ``wo``, ``w_down``, ``out_proj``
+  ``embed`` (V, D) ``(model, data)``: its vocab rows; ``lm_head`` (D, V)
+      ``(data, model)``: its vocab columns
+  ``conv_w`` (K, C) ``(None, model)``: its channels
+  ``router`` ``(data, None)``, ``dec_pos`` and ``frontend_proj``
+      ``(None, data)``: nothing on ``model``
+  replicated: ``scale``, ``bias``, ``dt_bias``, ``a_log``, ``d_skip``,
+      ``conv_b``, ``step``, scalars, and every other name
+  routed experts (``w_up``/``w_gate``/``w_down`` under ``moe``, (E, ·,
+      ·)): ``expert`` ahead of the pair, so the pair's ``model`` entry
+      lands on dim 2 (``w_up``, ``w_gate``) or dim 1 (``w_down``)
+
+Every entry goes through :func:`fit_axis`, the reference's
+drop-don't-fail rule: an axis whose extent does not divide the dim is
+dropped, and the leaf stays whole on it.  Only the ``model`` entries are
+ported: the data axis keeps whole copies (DDP), where the reference
+shards over it (ZeRO; ROADMAP queue 1 item 7.5c), so :func:`param_spec`
+names ``model`` alone (a routed expert's leading ``expert`` entry is
+left out with the ``data`` ones).
+
+Which TP path runs changes a placement, so it is an explicit argument,
+``scheme``, of every model-axis placement (:data:`SCHEMES`): ``"xla"``
+is the table as it stands (the reference's GSPMD path,
+``models/tp_block.py``); ``"art"`` is the table with ``wk``/``wv``
+whole on every rank (the ART block, ``models/artblock.py``, projects
+K/V on its local rows and ring-gathers them, as the reference's ART
+runner does).  A placement is ``"col"`` (the last dim split), ``"row"``
+(the second-to-last), ``"expert"`` (dim 0, the expert axis) or ``"rep"``
+(whole): :func:`split_dim` gives the dim.  On a line of one rank every
+leaf is whole.
 
 The ``expert`` axis (a MoE model's group, ``models/moe_ep.py``) has a
-rule of its own, the reference's ``_EXPERT_PARALLEL`` on an expert mesh
-(``repro/dist/sharding.py:101-131``): the routed experts' ``w_up``,
-``w_gate`` and ``w_down`` (a leaf whose parent is ``moe``) shard their
-leading E dim, and everything else is replicated — the router, the shared
-expert (``moe.shared.*``, the same names under ``shared``), attention,
-norms, embed and head.  The rule reads the path, since ``w_up`` under
-the ``model`` axis is a column shard wherever it sits.  The expert
+rule of its own, the reference's ``_EXPERT_PARALLEL`` on an expert mesh:
+the routed experts' ``w_up``, ``w_gate`` and ``w_down`` (a leaf whose
+parent is ``moe``) shard their leading E dim, and everything else is
+replicated — the router, the shared expert (``moe.shared.*``, the same
+names under ``shared``), attention, norms, embed and head.  The expert
 shards' gradients are complete from the exchange's backward; the
 replicated leaves' are summed over the group.
 
@@ -38,63 +54,141 @@ replicated leaves' are summed over the group.
 from the leaf; :func:`unshard_tree` is its inverse: it gathers the
 ranks' parts of every leaf over the line back into the logical leaf, as
 the reference's checkpoints store them, by the placement its caller
-names (a shard does not say whether its vocab was split).
+names (a shard does not say how its leaf was split).  A checkpoint holds
+the logical tree, so one written under either scheme restores under the
+other.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, Optional, Tuple
+import dataclasses
+from typing import (Any, Callable, Iterator, Mapping, Optional, Tuple,
+                    Union)
 
 import torch
 
-COL_PARALLEL = frozenset({"wq", "w_up", "w_gate"})
-ROW_PARALLEL = frozenset({"wo", "w_down"})
+AxisEntry = Union[str, Tuple[str, ...], None]
+
+COL_PARALLEL = frozenset({
+    "wq", "wk", "wv", "w_up", "w_gate", "in_proj",
+    "w_dq", "w_dkv", "w_uq", "w_uk", "w_uv",
+})
+ROW_PARALLEL = frozenset({"wo", "w_down", "out_proj"})
+REPLICATED = frozenset({
+    "scale", "bias", "dt_bias", "a_log", "d_skip", "conv_b", "step",
+})
 #: the routed experts' stacked (E, ·, ·) weights, directly under ``moe``
 EXPERT_PARALLEL = frozenset({"w_up", "w_gate", "w_down"})
 #: the vocab-parallel leaves and the dim of each that holds the vocab
 VOCAB_PARALLEL = {"embed": 0, "lm_head": 1}
+#: the leaves the ART block keeps whole on the model axis
+ART_WHOLE = frozenset({"wk", "wv"})
 AXES = ("model", "expert")
+#: the TP paths a model-axis placement follows
+SCHEMES = ("xla", "art")
 
 Path = Tuple[Any, ...]
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    """Logical roles of the axes (``repro.dist.sharding.MeshAxes``):
+    ``data`` the data-parallel axes, ``model`` tensor parallelism,
+    ``expert`` expert parallelism."""
+
+    data: AxisEntry = "data"
+    model: AxisEntry = "model"
+    expert: AxisEntry = "expert"
+
+    @staticmethod
+    def names(entry: AxisEntry) -> Tuple[str, ...]:
+        """An entry as a flat tuple of axis names (None → empty)."""
+        if entry is None:
+            return ()
+        return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def fit_axis(extents: Mapping[str, int], entry: AxisEntry,
+             dim: int) -> AxisEntry:
+    """``entry`` if every axis it names is in ``extents`` (name → the
+    axis's extent) and their product divides ``dim``; otherwise None, the
+    leaf whole on it (the reference's ``fit_axis``)."""
+    size = 1
+    for name in MeshAxes.names(entry):
+        if name not in extents:
+            return None
+        size *= extents[name]
+    return entry if (entry is not None and size > 0
+                     and dim % size == 0) else None
+
+
+#: the axes' roles as the reference names them; the port places on
+#: ``ROLES.model`` alone
+ROLES = MeshAxes()
+
+
+def param_spec(name: str, shape: Tuple[int, ...],
+               size: int) -> Tuple[AxisEntry, ...]:
+    """The ``model`` entries of the reference's ``_param_rule``: an entry
+    a dim of a leaf named ``name`` of ``shape`` on a line of ``size``
+    ranks, ``ROLES.model`` where the table splits that dim and
+    :func:`fit_axis` keeps the split, else None.  The rule's ``data`` and
+    ``expert`` entries are not ported (module docstring)."""
+    m = ROLES.model
+    if name in REPLICATED or len(shape) == 0:
+        return (None,) * len(shape)
+    if name == "embed" or name in ROW_PARALLEL:
+        base: Tuple[AxisEntry, ...] = (m, None)
+    elif name in ("lm_head", "conv_w") or name in COL_PARALLEL:
+        base = (None, m)
+    else:       # router, dec_pos, frontend_proj: nothing on model
+        return (None,) * len(shape)
+    k = min(len(base), len(shape))
+    base, tail = base[len(base) - k:], shape[len(shape) - k:]
+    return ((None,) * (len(shape) - k)
+            + tuple(fit_axis({m: size}, e, n) for e, n in zip(base, tail)))
+
+
 def placement(path: Path, axis: str = "model",
               shape: Optional[Tuple[int, ...]] = None,
-              size: Optional[int] = None) -> str:
+              size: Optional[int] = None, *,
+              scheme: Optional[str] = None) -> str:
     """The leaf at ``path``'s placement over the group: on the ``model``
-    axis ``"col"`` (dim 1 split), ``"row"`` (dim 0 split) or ``"rep"``;
-    on the ``expert`` axis ``"expert"`` (dim 0 split) or ``"rep"``.
-    ``embed`` and ``lm_head`` on the ``model`` axis split their vocab dim
-    where ``size`` (the line's extent) is above 1 and divides it in
-    ``shape`` (the logical leaf's), and are replicated where it does not;
-    they need both, and raise without them."""
+    axis the table's (module docstring) for the logical leaf's ``shape``
+    on a line of ``size`` ranks under the TP path ``scheme``, all three
+    required; on the ``expert`` axis ``"expert"`` (dim 0 split) or
+    ``"rep"``, from the path alone."""
     if axis not in AXES:
         raise ValueError(f"axis {axis!r} not in {AXES}")
     name = path[-1]
+    parent = path[-2] if len(path) >= 2 else ""
     if axis == "expert":
-        return ("expert" if name in EXPERT_PARALLEL and len(path) >= 2
-                and path[-2] == "moe" else "rep")
-    if name in VOCAB_PARALLEL and len(path) == 1:
-        if shape is None or size is None:
-            raise ValueError(f"the placement of {name!r} needs the logical "
-                             f"leaf's shape and the line's extent (the "
-                             f"vocab split's divisibility fallback)")
-        dim = VOCAB_PARALLEL[name]
-        if size == 1 or shape[dim] % size:
-            return "rep"
-        return "row" if dim == 0 else "col"
-    if name in COL_PARALLEL:
+        return ("expert" if name in EXPERT_PARALLEL and parent == "moe"
+                else "rep")
+    if shape is None or size is None:
+        raise ValueError(f"the placement of {name!r} needs the logical "
+                         f"leaf's shape and the line's extent (the "
+                         f"divisibility fallback)")
+    if scheme not in SCHEMES:
+        raise ValueError(f"the placement of {name!r} needs the TP path's "
+                         f"scheme, one of {SCHEMES} (got {scheme!r})")
+    if size == 1 or (scheme == "art" and name in ART_WHOLE):
+        return "rep"
+    spec = param_spec(str(name), tuple(shape), size)
+    dims = [i for i, e in enumerate(spec) if e is not None]
+    if not dims:
+        return "rep"
+    if dims[0] == len(shape) - 1:
         return "col"
-    if name in ROW_PARALLEL:
+    if dims[0] == len(shape) - 2:
         return "row"
-    return "rep"
+    raise ValueError(f"{name!r} {tuple(shape)}: model on dim {dims[0]}")
 
 
 def split_dim(place: str) -> Optional[int]:
-    """The dim a placement splits (None: replicated)."""
-    if place == "rep":
-        return None
-    return 1 if place == "col" else 0
+    """The dim a placement splits (None: replicated): ``col`` the last,
+    ``row`` the second-to-last, ``expert`` the first."""
+    return {"rep": None, "col": -1, "row": -2, "expert": 0}[place]
 
 
 def shard_leaf(t: torch.Tensor, place: str, rank: int,
@@ -136,14 +230,16 @@ def map_leaves(fn: Callable[[Path, torch.Tensor], torch.Tensor], tree: Any,
     return fn(path, tree)
 
 
-def shard_tree(tree: Any, rank: int, size: int,
-               axis: str = "model") -> Any:
+def shard_tree(tree: Any, rank: int, size: int, axis: str = "model", *,
+               scheme: Optional[str] = None) -> Any:
     """Every leaf of a full parameter tree replaced by this rank's part
-    under ``axis``'s placement.  A subtree (one layer's dict) is placed
-    by the path inside it, which ends as the full tree's does."""
+    under ``axis``'s placement (on the ``model`` axis under ``scheme``'s
+    TP path).  A subtree (one layer's dict) is placed by the path inside
+    it, which ends as the full tree's does."""
     return map_leaves(
-        lambda p, t: shard_leaf(t, placement(p, axis, tuple(t.shape), size),
-                                rank, size), tree)
+        lambda p, t: shard_leaf(t, placement(p, axis, tuple(t.shape), size,
+                                             scheme=scheme), rank, size),
+        tree)
 
 
 def unshard_tree(tree: Any, group, axis: str = "model", root: int = 0,
@@ -171,6 +267,8 @@ def unshard_tree(tree: Any, group, axis: str = "model", root: int = 0,
     return out if group.rank == root else None
 
 
-__all__ = ["AXES", "COL_PARALLEL", "EXPERT_PARALLEL", "ROW_PARALLEL",
-           "VOCAB_PARALLEL", "leaves", "map_leaves", "placement",
-           "shard_leaf", "shard_tree", "split_dim", "unshard_tree"]
+__all__ = ["ART_WHOLE", "AXES", "COL_PARALLEL", "EXPERT_PARALLEL",
+           "MeshAxes", "REPLICATED", "ROLES", "ROW_PARALLEL", "SCHEMES",
+           "VOCAB_PARALLEL", "fit_axis", "leaves", "map_leaves",
+           "param_spec", "placement", "shard_leaf", "shard_tree",
+           "split_dim", "unshard_tree"]

@@ -21,14 +21,25 @@ blocks (their expert products ``torch.bmm`` over the stacked weights,
 the reference's ``TransportPolicy.moe="xla"``), the encoder-decoder's
 encoder, self- and cross-attention, and the hybrid's shared
 applications; the ssm (Mamba-2) block's SSD scan is the kernel with its
-backward (``kernels/ssd``).  On a model line of tp ≥ 2 it is the path
-the reference takes with ``TransportPolicy(tp=...)`` one of ``fused``,
-``ring``, ``bidir`` or ``auto``: every dense block's TP edges on the
-family the policy's conduit picks (``models/artblock.py``: the fused
-rings of ``kernels/cc_matmul`` or the overlap schedules of
-``core/overlap.py``), its K/V gathered over that conduit, and, where the
-line divides the vocab, the vocab-parallel embedding and LM head
-(``models/vocab_parallel.py``; the head another AG edge).  A MoE
+backward (``kernels/ssd``).  On a model line of tp ≥ 2 a dense, VLM or
+MLA model takes the path the reference takes (:func:`tp_scheme`): where
+``TransportPolicy.tp`` names a ring family (``fused``, ``ring``,
+``bidir`` or ``auto``), the config sets ``use_art`` and the ART block
+takes it (``artblock.supports_art_tp``), the ART path: every dense
+block's TP edges on the family the policy's conduit picks
+(``models/artblock.py``: the fused rings of ``kernels/cc_matmul`` or the
+overlap schedules of ``core/overlap.py``), its K/V gathered over that
+conduit; otherwise — ``tp="xla"``, the reference's default, or a config
+the ART block does not take (``smollm-360m``'s 15 heads at tp 2, MLA) —
+the reference's GSPMD layout written out (``models/tp_block.py``: the
+normed rows gathered over S, column and row products on the rank's
+shards, a reduce-scatter back, every collective gloo's), its residual
+sequence-sharded where ``sequence_parallel`` is set and tp divides S,
+else whole on every rank.  On either, where the line divides the vocab,
+the vocab-parallel embedding and LM head (``models/vocab_parallel.py``;
+the head another AG edge, or under ``xla`` the gathered rows times the
+rank's columns), and a VLM's patch rows join the sequence before it is
+split (``tp_block.SeqLine``).  A MoE
 model on an expert line of n ≥ 2 trains by expert parallelism over it
 (the reference's ``models/moe_ep.py`` runner on an ``expert`` mesh
 axis): rank r of the line holds experts ``[r·E/n, (r+1)·E/n)``, its
@@ -37,10 +48,10 @@ experts and back, and the replicated leaves' gradients are summed over
 the line.  A data line of D ≥ 2 splits each microbatch's rows and
 averages the gradients over the line (``dist/grad_sync.py``).  Every
 path sums microbatch gradients in fp32, leaf by leaf, and lays the sums
-out in flat buckets with ``grad_bucket_bytes``.  ``tp="xla"`` (and
-``use_art=False``), the reference's GSPMD fallback, ``compress_cross_pod``
-and the other families at tp ≥ 2 raise, each naming its ROADMAP item;
-ART-TP is dense-only.
+out in flat buckets with ``grad_bucket_bytes``.  ``compress_cross_pod``,
+the ssm, hybrid and encoder-decoder families at tp ≥ 2, and a MoE model
+on a model axis raise ``NotImplementedError``, each naming its ROADMAP
+item.
 
 Serving over an expert group: :func:`serve_step` with the decode runner
 of :func:`moe_decode_runner` (each rank decodes its own rows).
@@ -66,6 +77,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe_ep
 from repro_torch.models.decode import decode_step
 from repro_torch.models.model import init_params
+from repro_torch.models.tp_block import SeqLine, TPBlock
 from repro_torch.models.vocab_parallel import VocabParallel
 from repro_torch.optim import (
     AdamWConfig,
@@ -139,6 +151,9 @@ def park_row(cache: Cache, i: int) -> Cache:
 
 ROADMAP_COMPRESS = ("ROADMAP queue 1 item 7.8 (int8 compression of the "
                     "data axis inside the train step)")
+ROADMAP_TP_FAMILIES = ("ROADMAP queue 1 item 7.5b (the ssm, hybrid and "
+                       "encoder-decoder families and a MoE model on a model "
+                       "axis, which the reference trains through GSPMD)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,7 +166,8 @@ class TransportPolicy:
     that many ART chunks, bit-identical to bulk; None/1 bulk).
 
     ``tp`` is the TP edges' family (``fused``, ``ring``, ``bidir`` or
-    ``auto``; ``xla``, the reference's GSPMD fallback, raises).  ``moe``
+    ``auto``), or ``xla`` (the default, as the reference's): the
+    reference's GSPMD layout, ``models/tp_block.py``.  ``moe``
     names the transport of the expert exchange: ``ring``, ``bidir``,
     ``xla`` (the group's gloo all-to-all) or ``auto`` (priced a call).
     The port has no GSPMD, so where the reference's ``moe="xla"`` keeps
@@ -199,6 +215,7 @@ class StepConfig:
     clip_norm: float = 1.0
     moment_dtype: str = "float32"
     master_fp32: bool = True
+    sequence_parallel: bool = True   # shard S of the residual over TP
     transport: Optional[TransportPolicy] = None
     grad_bucket_bytes: Optional[int] = None
     z_loss: float = 1e-4
@@ -241,14 +258,30 @@ def _art_runner(cfg: ModelConfig, policy: TransportPolicy,
     return runner
 
 
-def param_places(cfg: ModelConfig, size: int,
-                 axis: str = "model") -> Dict[Tuple, str]:
+def tp_scheme(cfg: ModelConfig, scfg: StepConfig, size: int) -> str:
+    """The TP path a model line of ``size`` ranks takes, the reference's
+    choice (``repro/dist/steps.py`` ``_art_runner``, ``_dense_block``):
+    ``"art"`` where ``TransportPolicy.tp`` is not ``xla``, ``cfg.use_art``
+    is set and the ART block takes the config
+    (``artblock.supports_art_tp``), else ``"xla"`` — also the placement
+    scheme of ``dist/sharding.py``."""
+    policy = scfg.resolved_transport()
+    if (policy.tp != "xla" and cfg.use_art
+            and artblock.supports_art_tp(cfg, size)):
+        return "art"
+    return "xla"
+
+
+def param_places(cfg: ModelConfig, size: int, axis: str,
+                 scheme: Optional[str]) -> Dict[Tuple, str]:
     """Every parameter leaf's placement on an inner line of ``size``
-    ranks on ``axis``, by path: ``dist/sharding.py``'s rule on the
+    ranks on ``axis`` (on ``model`` under the TP path ``scheme``,
+    :func:`tp_scheme`), by path: ``dist/sharding.py``'s rule on the
     logical leaves (their shapes from ``init_params`` on the ``meta``
     device: nothing drawn or allocated), which a shard alone does not
-    give (whether ``embed``'s vocab was split)."""
-    return {path: sharding.placement(path, axis, tuple(t.shape), size)
+    give (whether a leaf's dim was split)."""
+    return {path: sharding.placement(path, axis, tuple(t.shape), size,
+                                     scheme=scheme)
             for path, t in sharding.leaves(init_params(cfg, 0, "meta"))}
 
 
@@ -305,11 +338,11 @@ def step_grid(cfg: ModelConfig, group) -> Grid:
 
 
 def _check_path(cfg: ModelConfig, grid: Grid, scfg: StepConfig
-                ) -> Tuple[Optional[Callable], Optional[Callable]]:
-    """(The dense-block runner, the MoE runner) of this grid's train step
-    — (None, None) when the inner line is one rank: the model's own
-    blocks, attending through ``layers.blockwise_core`` — or the raise
-    that names the ROADMAP item of a path not ported."""
+                ) -> Tuple[Optional[str], Optional[Callable]]:
+    """(The TP scheme, the MoE runner) of this grid's train step — (None,
+    None) when the inner line is one rank: the model's own blocks,
+    attending through ``layers.blockwise_core`` — or the raise that
+    names the ROADMAP item of a path not ported."""
     if scfg.microbatches < 1:
         raise ValueError(f"microbatches={scfg.microbatches} < 1")
     policy = scfg.resolved_transport()
@@ -324,36 +357,19 @@ def _check_path(cfg: ModelConfig, grid: Grid, scfg: StepConfig
     if inner.size == 1:
         return None, None
     if grid.inner_axis != group_axis(cfg):
+        item = (ROADMAP_TP_FAMILIES if cfg.family == "moe" else
+                "ROADMAP queue 1 item 7.5d (the other grids)")
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on a {grid.inner_axis} axis of "
             f"{inner.size} is not ported (the port splits a MoE model's "
-            f"experts, a dense model's blocks): ROADMAP queue 1 item 7.5 "
-            f"(sharding rules)")
+            f"experts, a dense model's blocks): {item}")
     if cfg.family == "moe":
         return None, _moe_runner(cfg, inner, policy)
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA training at tp {inner.size} is not ported "
-            f"(the reference's _art_runner skips MLA; its TP split is the "
-            f"sharding rules'): ROADMAP queue 1 item 7.5")
-    if cfg.family in ("vlm", "encdec"):
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.family} training at tp {inner.size} is not "
-            f"ported (the sharding rules and the frontend's TP split): "
-            f"ROADMAP queue 1 item 7.5")
-    if cfg.family != "dense":
-        raise ValueError(
-            f"{cfg.name}: ART-TP is dense-only (the reference's _art_runner "
-            f"runs the dense block); train the {cfg.family} family at tp 1")
-    if policy.tp == "xla" or not cfg.use_art:
-        raise NotImplementedError(
-            f"TransportPolicy.tp={policy.tp!r} with use_art={cfg.use_art}: "
-            f"the reference leaves TP to GSPMD there, whose sharding rules "
-            f"are not ported: ROADMAP queue 1 item 7.5")
-    if not artblock.supports_art_tp(cfg, inner.size):
-        raise ValueError(f"{cfg.name} cannot run the ART-TP block at "
-                         f"tp={inner.size}")
-    return _art_runner(cfg, policy, inner), None
+            f"ported under tp={policy.tp!r}: {ROADMAP_TP_FAMILIES}")
+    return tp_scheme(cfg, scfg, inner.size), None
 
 
 def build_init(cfg: ModelConfig, grid, scfg: StepConfig
@@ -362,16 +378,18 @@ def build_init(cfg: ModelConfig, grid, scfg: StepConfig
     every leaf drawn as ``models.model.init_params(cfg, seed)`` draws it
     (so every rank and every grid sees the same full model), then, on an
     inner line of two or more ranks, cut to this rank's shard
-    (``dist/sharding.py``, on the :func:`group_axis` placement) layer by
+    (``dist/sharding.py``, on the :func:`group_axis` placement under the
+    :func:`tp_scheme`) layer by
     layer, the embedding and head as soon as each is drawn.  Every data
     rank holds the same copy of its model line's shard."""
     grid = step_grid(cfg, grid)
     axis, inner = group_axis(cfg), grid.inner
+    scheme = tp_scheme(cfg, scfg, inner.size)
 
     def init_fn(seed: int = 0):
         layer_fn = None if inner.size == 1 else (
             lambda layer: sharding.shard_tree(layer, inner.rank, inner.size,
-                                              axis))
+                                              axis, scheme=scheme))
         params = init_params(cfg, seed, grid.device, layer_fn=layer_fn)
         return params, init_opt(params, scfg)
 
@@ -402,35 +420,43 @@ def build_train_step(cfg: ModelConfig, grid, scfg: StepConfig) -> Callable:
     ``data × model`` or ``data × expert`` ranks, ``launch/mesh.py``; a
     plain group is the ``1 × n`` grid of :func:`group_axis`).
 
-    ``batch`` is the global batch (tokens and labels (B, S); on a model
-    line of tp ≥ 2 S a multiple of tp; B a multiple of microbatches × the
-    ranks its rows split over; a frontend arch's ``frontend_embeds`` (B,
-    N, frontend_dim) at tp 1), the same on every rank.  The step cuts it
+    ``batch`` is the global batch (tokens and labels (B, S); on the ART
+    path the line's sequence, a VLM's N patch rows counted, a multiple of
+    tp; B a multiple of microbatches × the ranks its rows split over; a
+    frontend arch's ``frontend_embeds`` (B, N, frontend_dim)), the same
+    on every rank.  The step cuts it
     into ``scfg.microbatches`` microbatches, m taking rows ``[m·B/M,
     (m+1)·B/M)``, and each microbatch's rows over the data line (data
     rank d rows ``[d·b, (d+1)·b)``, as the reference's ``batch_pspecs``
     shards rows over its data axis), or on an expert grid over every rank
     in world order (the reference's EP region shards rows over every mesh
     axis).  For each microbatch it (1) embeds the rank's part: on a model
-    line its rows' sequence shard, positions ``r·S/tp + arange(S/tp)``
-    (where the line divides the vocab by the vocab-parallel embedding,
-    ``models/vocab_parallel.py``: the rank looks up the line's whole
-    sequence in its vocab rows and a reduce-scatter over the sequence
-    leaves it its shard; else by the replicated lookup of its shard),
-    else its rows whole (a VLM's patch rows before them); (2) runs the
-    blocks, the dense ones through the ART-TP runner at tp ≥ 2, the MoE
-    layers through the expert-parallel runner on an expert line, every
-    attention through blockwise attention but the ART-TP block's;
+    line (``models/tp_block.py`` ``SeqLine``) the line's sequence of its
+    rows, a VLM's projected patch rows first, then its sequence shard,
+    rows ``[r·S/tp, (r+1)·S/tp)``, or, where ``sequence_parallel`` is off
+    or tp does not divide S on the ``xla`` path, the whole sequence on
+    every rank; positions ``arange(S)`` (where the line divides the
+    vocab by the vocab-parallel embedding, ``models/vocab_parallel.py``:
+    the rank looks up the line's whole sequence in its vocab rows and a
+    reduce-scatter over the sequence, or an all-reduce, leaves it its
+    rows; else by the replicated lookup), else its rows whole (a VLM's
+    patch rows before them); (2) runs the blocks, the dense ones through
+    the TP path's block at tp ≥ 2 (:func:`tp_scheme`: the ART block, or
+    ``tp_block.TPBlock``), the MoE layers through the expert-parallel
+    runner on an expert line, every attention through blockwise
+    attention but the ART block's;
     (3) applies the final norm and the chunked CE over its part, plus
     ``moe_aux_weight`` × a MoE model's load-balancing loss: the token
     count and the experts' choice counts are summed over the whole world,
     so each rank's loss is its share of the reference's global-batch
     loss, and the shares sum to it whatever the masked labels' spread (a
-    vocab-parallel line takes the head as the AG ring edge over its vocab
-    columns, each chunk's rows gathered over the line, and combines the
-    ranks' log-sum-exps a token, ``dist/loss.py``: each token counts once
-    in the sums, and each rank's backward covers the line's tokens on its
-    columns);
+    VLM's patch rows carry masked labels; a rank whose line holds the
+    residual whole counts its cut of the sequence; a vocab-parallel line
+    takes the head over its vocab columns, each chunk's rows gathered
+    over the line by the AG ring edge or, under ``xla``, gloo's gather,
+    and combines the ranks' log-sum-exps a token, ``dist/loss.py``: each
+    token counts once in the sums, and each rank's backward covers the
+    line's tokens on its columns);
     (4) runs backward on its share times the data extent D, and sums the
     gradients in fp32, leaf by leaf in place.  Then it divides the sums
     by the microbatch count (in the flat buckets of ``dist/bucketing.py``
@@ -443,17 +469,20 @@ def build_train_step(cfg: ModelConfig, grid, scfg: StepConfig) -> Callable:
     by D and the division by it are exact, so they add no rounding; any
     other D (``launch/mesh.py`` takes one) rounds the scaled cotangent in
     every bf16 op of backward and the fp32 division, so the gradient is
-    the global loss's to that rounding, not bit for bit (ROADMAP §3); (6) sums the replicated
-    leaves' gradients over the inner line (``wk``/``wv`` and the norms;
-    ``embed`` and ``lm_head`` too where the vocab does not split, else
-    their shards' gradients are complete: the embedding's from its
-    scatter, the head's from its edge's weight gradient; the all-reduce's
-    bytes are ``step_fn.rep_wire``), (7) clips by the global norm
+    the global loss's to that rounding, not bit for bit (ROADMAP §3); (6)
+    sums the replicated leaves' gradients over the inner line (the
+    norms, ``frontend_proj``, ``wk``/``wv`` on the ART path, any leaf
+    ``fit_axis`` keeps whole; ``embed`` and ``lm_head`` too where the
+    vocab does not split), a sharded leaf's gradient being complete on
+    its rank (the embedding's from its scatter, the head's from its
+    edge's or product's weight gradient, a gathered weight's from the
+    gather's reduce-scatter; the all-reduce's bytes are
+    ``step_fn.rep_wire``), (7) clips by the global norm
     over the inner line and (8) takes an AdamW step at
     ``warmup_cosine(step)``, the same on every data rank.  Parameters and
     optimizer state are the model line's shards, the same on every data
     rank (DDP over the data axis; the reference
-    shards them over its data axis, ZeRO/FSDP: ROADMAP queue 1 item 7.5)
+    shards them over its data axis, ZeRO/FSDP: ROADMAP queue 1 item 7.5c)
     and updated in place.  ``metrics``: the microbatches' mean loss, ce,
     z_loss and moe_aux and their summed token count (the world's), the
     pre-clip grad norm and the learning rate.
@@ -463,26 +492,32 @@ def build_train_step(cfg: ModelConfig, grid, scfg: StepConfig) -> Callable:
     leaves`` order, divided by the microbatch count; the metrics): the
     per-rank gradients a data-axis sync takes."""
     grid = step_grid(cfg, grid)
-    runner, moe_runner = _check_path(cfg, grid, scfg)
-    core = None if runner is not None else L.blockwise_core(cfg)
+    scheme, moe_runner = _check_path(cfg, grid, scfg)
+    core = L.blockwise_core(cfg)
     acfg = _adamw_config(scfg)
     policy = scfg.resolved_transport()
     inner, data, world = grid.inner, grid.data, grid.world
-    tp, rank = inner.size, inner.rank
+    runner = _art_runner(cfg, policy, inner) if scheme == "art" else None
+    tp = inner.size
     n_data = data.size
     n_micro = int(scfg.microbatches)
     sum_group = world if world.size > 1 else None
     norm_group = inner if tp > 1 else None
     row_group = world if moe_runner is not None else data
     axis = group_axis(cfg)
-    # the TP line shards the sequence; the data line and EP the rows
-    seq_shards = tp if runner is not None else 1
-    places = param_places(cfg, tp, axis) if tp > 1 else {}
+    places = param_places(cfg, tp, axis, scheme) if tp > 1 else {}
+    # the model line's conduit: the policy's under ART, gloo's plain
+    # collectives under the reference's GSPMD layout
+    conduit = (None if scheme is None else policy.tp_conduit(inner)
+               if scheme == "art" else Conduit(axis=inner, transport="xla"))
     # the TP line's vocab split, where the placement rule makes one (else
     # the lookup and the head stay replicated)
-    vocab = (VocabParallel(policy.tp_conduit(inner), cfg.vocab_size)
-             if runner is not None and places.get(("embed",), "rep") != "rep"
+    vocab = (VocabParallel(conduit, cfg.vocab_size)
+             if scheme is not None and places[("embed",)] != "rep"
              else None)
+    block = (TPBlock(cfg, inner, {p[2:]: v for p, v in places.items()
+                                  if p[:2] == ("layers", 0)})
+             if scheme == "xla" else None)
     #: the last step's `rep` all-reduce over the inner line: the payload
     #: bytes it carried and the bytes it staged through the host
     rep_wire = {"bytes": 0, "staged_bytes": 0}
@@ -494,32 +529,37 @@ def build_train_step(cfg: ModelConfig, grid, scfg: StepConfig) -> Callable:
         soon as it is added, so at full width no second list of gradients
         is held beside the sums."""
         tokens, labels = micro["tokens"], micro["labels"]
-        s = tokens.shape[1]
-        if s % seq_shards:
-            raise ValueError(f"sequence {s} does not split over {tp} ranks")
-        s_loc = s // seq_shards
-        # the vocab-parallel embedding and head take the line's whole
-        # sequence of the rank's rows
-        cols = (slice(rank * s_loc, (rank + 1) * s_loc)
-                if runner is not None and vocab is None else slice(None))
+        fe = micro.get("frontend_embeds")
         rows = split_rows(tokens.shape[0], row_group)
-        local = {"tokens": tokens[rows, cols].to(grid.device),
-                 "labels": labels[rows, cols].to(grid.device)}
-        if micro.get("frontend_embeds") is not None:
-            local["frontend_embeds"] = micro["frontend_embeds"][rows].to(
-                grid.device)
+        local = {"tokens": tokens[rows].to(grid.device),
+                 "labels": labels[rows].to(grid.device)}
+        if fe is not None:
+            local["frontend_embeds"] = fe[rows].to(grid.device)
         # whole rows rope at their own index (a VLM's text after its
-        # patch rows); the TP runner ropes the gathered sequence
-        positions = (torch.arange(s, device=grid.device)
-                     if runner is not None else None)
+        # patch rows); on a model line the line's sequence, its patch
+        # rows first, is embedded through the line and the blocks rope
+        # the gathered sequence
+        line = positions = None
+        run = runner
+        if scheme is not None:
+            s = tokens.shape[1] + (fe.shape[1] if cfg.family == "vlm"
+                                   else 0)
+            sp = scheme == "art" or (scfg.sequence_parallel and s % tp == 0)
+            if s % tp and sp:
+                raise ValueError(f"sequence {s} does not split over {tp} "
+                                 f"ranks (the ART block shards it)")
+            line = SeqLine(conduit, sp, vocab)
+            positions = torch.arange(s, device=grid.device)
+            if block is not None:
+                run = block.runner(line)
         for t in leaves:
             t.requires_grad_(True)
         try:
             loss, metrics = chunked_ce_loss(
                 cfg, params, local, seq_chunk=scfg.seq_chunk,
                 z_loss=scfg.z_loss, moe_aux_weight=scfg.moe_aux_weight,
-                group=sum_group, positions=positions, runner=runner,
-                core=core, moe_ffn=moe_runner, vocab=vocab)
+                group=sum_group, positions=positions, runner=run,
+                core=core, moe_ffn=moe_runner, line=line)
             (loss * n_data if n_data > 1 else loss).backward()
             for i, t in enumerate(leaves):
                 g, t.grad = t.grad, None

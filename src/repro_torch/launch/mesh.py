@@ -26,15 +26,15 @@ def check_axes(data: int = 1, model: int = 1, expert: int = 1) -> None:
     """Raise unless the port takes a grid of these extents.  A grid with
     both a model and an expert axis raises: the reference runs its EP
     region over the whole mesh and regathers the experts from their data
-    × model placement, which is ROADMAP queue 1 item 7.5 (sharding
-    rules)."""
+    × model placement, which is ROADMAP queue 1 item 7.5d (the other
+    grids)."""
     if min(data, model, expert) < 1:
         raise ValueError(f"axis extents must be >= 1: data {data}, model "
                          f"{model}, expert {expert}")
     if model > 1 and expert > 1:
         raise NotImplementedError(
             f"a grid with model {model} and expert {expert} > 1 is not "
-            f"ported: ROADMAP queue 1 item 7.5 (sharding rules)")
+            f"ported: ROADMAP queue 1 item 7.5d (the other grids)")
 
 
 def make_host_mesh(world: Group, data: int = 1, model: int = 1,

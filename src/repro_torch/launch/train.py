@@ -20,14 +20,17 @@ reference's flags, ``launch.mesh.make_host_mesh``'s order).  When their
 product is above 1 the launcher spawns that many rank processes (a
 ``RankPool``: on the one card, or on the CPU with ``--device cpu``), and
 each runs the Trainer on its place in the grid
-(``dist/rank_tasks.py::train_grid``): a dense model's TP edges on the
-fused ring inside each model line, a MoE model's experts split over its
+(``dist/rank_tasks.py::train_grid``): a dense model's model line under
+the reference's default ``TransportPolicy.tp="xla"`` (its GSPMD layout
+written out, ``models/tp_block.py``), a MoE model's experts split over its
 expert line with ``--moe-transport`` (``ring``, ``bidir``, ``xla`` or
 ``auto``) in ``--moe-stream-chunks`` chunks, and the gradients averaged over each
 data line (``--grad-bucket-kb`` sets the buckets that sync ships).  The
 axes default to 1, where the reference's launcher takes a 2 × 2 host
 mesh: its four host devices are free, while four rank processes here
 time-slice the one card (or the CPU's cores), so a grid is asked for.
+The reference launcher's default job, ``smollm-360m`` on data 2 × model
+2 under ``xla``, is ``--data-axis 2 --model-axis 2``.
 
 The default is the arch's ``reduced()`` config, as in the reference
 launcher; ``--full`` trains the full-width config (bf16 parameters), and
@@ -68,16 +71,19 @@ def optimizer_state(published) -> dict:
 
 def rank_params(cfg, axis: str = "model", n: int = 1) -> int:
     """Parameters one rank holds when an inner line of ``n`` ranks splits
-    ``cfg`` on ``axis``: rank 0's part under ``dist/sharding.py``'s
-    placement of ``init_params``' leaves on the ``meta`` device (shapes
-    alone, nothing drawn or allocated); every data rank holds the same.
-    With nothing split (``n == 1``) it is the model's count."""
+    ``cfg`` on ``axis`` (a model line on the launcher's TP path, the
+    reference's default ``xla``): rank 0's part under
+    ``dist/sharding.py``'s placement of ``init_params``' leaves on the
+    ``meta`` device (shapes alone, nothing drawn or allocated); every
+    data rank holds the same.  With nothing split (``n == 1``) it is the
+    model's count."""
     from repro_torch.dist import sharding
     from repro_torch.models.model import count_params_analytic, init_params
 
     if n == 1:
         return count_params_analytic(cfg)
-    part = sharding.shard_tree(init_params(cfg, 0, "meta"), 0, n, axis)
+    part = sharding.shard_tree(init_params(cfg, 0, "meta"), 0, n, axis,
+                               scheme="xla")
     return sum(t.numel() for _, t in sharding.leaves(part))
 
 
@@ -188,7 +194,7 @@ def main(argv=None):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) splits over the {axis} axis; "
             f"{'--expert-axis' if axis == 'model' else '--model-axis'} > 1 "
-            f"is not ported: ROADMAP queue 1 item 7.5 (sharding rules)")
+            f"is not ported: ROADMAP queue 1 item 7.5b")
     if not args.reduced:
         check_fits(cfg, device, **opt_state, axis=axis, inner=inner,
                    ranks=ranks)

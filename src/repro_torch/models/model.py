@@ -18,7 +18,8 @@ shared applications, the encoder's, the decoder's self- and
 cross-attention) goes through the attention core the step passes in
 (``layers.blockwise_core``); each ssm block's SSD scan is the kernel with
 its backward.  At tp ≥ 2 each dense block runs through the block runner
-the step passes in (the ART-TP block).  Every block goes
+the step passes in (the ART-TP block, or the reference's GSPMD layout
+written out, ``models/tp_block.py``).  Every block goes
 through the config's ``remat`` policy: ``"full"`` recomputes the block,
 and with it the scan's forward, in backward; ``"dots"`` keeps the
 products with no batch dimension and recomputes the rest.
@@ -481,13 +482,14 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     tp-1 train step passes ``layers.blockwise_core``, since flash has no
     backward).  A block runner (``runner(cfg, layer_params, x,
     positions)``, the TP train step) runs each dense block in place of
-    :func:`dense_block`: ``tokens`` is then this rank's sequence shard and
-    ``positions`` the whole sequence's: rank r holds rows ``r·S_loc +
-    arange(S_loc)``, and the runner ropes after gathering.  ``embed``
-    (``embed(embed_leaf, tokens)``) embeds in place of the lookup: the
-    TP step's vocab-parallel embedding
-    (``models/vocab_parallel.py``), to which ``tokens`` is the line's
-    whole sequence and which returns this rank's rows.
+    :func:`dense_block`: the residual is then this rank's rows of the
+    sequence (or all of them) and ``positions`` the whole sequence's:
+    rank r holds rows ``r·S_loc + arange(S_loc)``, and the runner ropes
+    after gathering.  ``embed``
+    (``embed(params, tokens, frontend_embeds)``) embeds in place of the
+    lookup: the TP step's line (``models/tp_block.py`` ``SeqLine``), to
+    which ``tokens`` is the line's whole sequence and which returns this
+    rank's rows (a VLM's patch rows first in the sequence).
     Each block goes through :func:`_maybe_remat` (the per-layer
     ``remat`` policy of the reference's scan bodies).  A hybrid runs its
     Mamba-2 layers and shared applications in :func:`hybrid_order`, each
@@ -497,8 +499,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     its shared application as one body, and each Mamba-2 layer inside it
     again; checkpointing each block alone recomputes the same ops from the
     same saved values, so the values and gradients are the same.  A MoE
-    model runs :func:`moe_block`s (a runner, ART-TP, is dense-only; its
-    group trains by expert parallelism): ``moe_ffn`` is the
+    model runs :func:`moe_block`s (a block runner is the dense block's; a
+    MoE group trains by expert parallelism): ``moe_ffn`` is the
     expert-parallel MoE runner (``models/moe_ep.py``, the reference's
     ``shardctx.moe_ffn_runner()``), and ``aux_group`` the group whose
     rows the load-balancing loss is over.  ``return_aux`` returns
@@ -512,7 +514,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             else x
     if cfg.family == "vlm" and frontend_embeds is None:
         raise ValueError(f"{cfg.name} needs patch embeddings")
-    x = (embed(params["embed"], tokens) if embed is not None
+    x = (embed(params, tokens, frontend_embeds) if embed is not None
          else _embed(cfg, params, tokens, frontend_embeds))
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)

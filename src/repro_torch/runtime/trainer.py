@@ -65,6 +65,7 @@ from repro_torch.dist.steps import (
     group_axis,
     param_places,
     step_grid,
+    tp_scheme,
 )
 
 ROADMAP_ELASTIC = ("ROADMAP queue 1 item 8 (the elastic runtime: "
@@ -130,9 +131,12 @@ class Trainer:
         """Each leaf of the checkpoint tree ``(params, opt)`` by its
         placement on the inner line: an optimizer leaf (``mu``, ``nu``,
         ``master``: one a parameter, in ``sharding.leaves`` order) takes
-        its parameter's, AdamW's ``step`` is replicated."""
-        logical = param_places(self.cfg, self.grid.inner.size,
-                               group_axis(self.cfg))
+        its parameter's, AdamW's ``step`` is replicated.  The placements
+        are the step's TP path's (``dist.steps.tp_scheme``); the
+        checkpoint holds the logical leaves whichever it is."""
+        size = self.grid.inner.size
+        logical = param_places(self.cfg, size, group_axis(self.cfg),
+                               tp_scheme(self.cfg, self.scfg, size))
         paths = [p for p, _ in sharding.leaves(params)]
         places = {(0,) + p: logical[p] for p in paths}
         for key in ("mu", "nu", "master"):

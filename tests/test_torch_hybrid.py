@@ -295,8 +295,9 @@ def test_three_applications_match_reference(three_apps):
 
 def test_train_step_runs_at_tp1_and_refuses_tp():
     """The hybrid trains at tp 1 (its shared applications through the
-    dense-block runner) and raises at tp 2: ART-TP runs the dense block
-    only, as the reference's runner does."""
+    dense-block runner) and raises at tp 2: the hybrid over a model line
+    is ROADMAP queue 1 item 7.5b (the reference trains it through
+    GSPMD)."""
     from repro_torch.dist.group import Group
     from repro_torch.dist.steps import StepConfig, build_train_step
 
@@ -304,6 +305,6 @@ def test_train_step_runs_at_tp1_and_refuses_tp():
     scfg = StepConfig(seq_chunk=8, warmup_steps=1)
     assert callable(build_train_step(
         cfg, Group(rank=0, size=1, device=torch.device("cpu")), scfg))
-    with pytest.raises(ValueError, match="dense-only"):
+    with pytest.raises(NotImplementedError, match="item 7.5b"):
         build_train_step(cfg, Group(rank=0, size=2,
                                     device=torch.device("cpu")), scfg)

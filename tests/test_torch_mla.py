@@ -308,15 +308,26 @@ def test_paged_raises(served):
 def test_train_step_raises_naming_the_roadmap():
     """MLA trains at tp 1 (its attention through blockwise attention; the
     parity with the reference's step is ``test_torch_train_families.py``)
-    and raises at tp 2 before it builds anything, naming ROADMAP queue 1
-    item 7 (the reference's ART-TP runner skips MLA)."""
+    and at tp 2 on the reference's GSPMD path, whatever the policy names
+    (the reference's ART runner skips MLA): ``models/tp_block.py``, held
+    to the reference's step in ``test_torch_tp_xla.py``.  The name is
+    kept from when tp 2 raised."""
     from repro_torch.dist.group import Group
-    from repro_torch.dist.steps import StepConfig, build_train_step
+    from repro_torch.dist.steps import (
+        StepConfig,
+        TransportPolicy,
+        build_train_step,
+        tp_scheme,
+    )
 
-    scfg = StepConfig(seq_chunk=8, warmup_steps=1)
-    for cfg in (get_config(ARCH).reduced(), get_config(ARCH)):
-        assert callable(build_train_step(
-            cfg, Group(rank=0, size=1, device=torch.device("cpu")), scfg))
-        with pytest.raises(NotImplementedError, match="MLA.*item 7"):
-            build_train_step(cfg, Group(rank=0, size=2,
-                                        device=torch.device("cpu")), scfg)
+    for tp in ("xla", "fused"):
+        scfg = StepConfig(seq_chunk=8, warmup_steps=1,
+                          transport=TransportPolicy(tp=tp))
+        for cfg in (get_config(ARCH).reduced(), get_config(ARCH)):
+            assert callable(build_train_step(
+                cfg, Group(rank=0, size=1, device=torch.device("cpu")),
+                scfg))
+            assert tp_scheme(cfg, scfg, 2) == "xla"
+            assert callable(build_train_step(
+                cfg, Group(rank=0, size=2, device=torch.device("cpu")),
+                scfg))

@@ -89,7 +89,8 @@ def _check_rule(ref_params, res, axis):
     for r in res:
         inner, n = r["coords"][1], r["shape"][1]
         want = {"/".join(map(str, p)): v.numpy() for p, v in sharding.leaves(
-            shard_params(ref_params, inner, n, axis=axis))}
+            shard_params(ref_params, inner, n, axis=axis,
+                         scheme=r["scheme"]))}
         assert set(r["params"]) == set(want)
         for name, w in want.items():
             d = np.abs(r["params"][name] - w)

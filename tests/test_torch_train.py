@@ -148,7 +148,7 @@ def _check_parameter_rule(ref, res, tp):
     t = 1e-5
     for rank, rank_res in enumerate(res):
         want = {"/".join(map(str, p)): v.numpy() for p, v in sharding.leaves(
-            shard_params(ref["params"], rank, tp))}
+            shard_params(ref["params"], rank, tp, scheme="art"))}
         assert set(rank_res["params"]) == set(want)
         for name, w in want.items():
             g = rank_res["params"][name]
@@ -350,12 +350,14 @@ def test_vocab_placement_matches_reference_param_pspecs(vocab, tp):
     specs = param_pspecs(cfg, make_host_mesh(data=1, model=tp), full)
     for name, dim in sharding.VOCAB_PARALLEL.items():
         shape = tuple(full[name].shape)
-        place = sharding.placement((name,), "model", shape, tp)
+        place = sharding.placement((name,), "model", shape, tp,
+                                   scheme="art")
         split = specs[name][dim] == "model"
         assert place == (("row" if dim == 0 else "col") if split
                          else "rep"), (name, specs[name])
         assert split == (vocab % tp == 0)
-        part = shard_params({name: np.zeros(shape, np.float32)}, 1, tp)
+        part = shard_params({name: np.zeros(shape, np.float32)}, 1, tp,
+                            scheme="art")
         assert part[name].shape[dim] == (vocab // tp if split else vocab)
 
 
@@ -415,17 +417,14 @@ def _cpu_group(size):
 
 
 @pytest.mark.parametrize("size,scfg,kw,match", [
-    (2, StepConfig(transport=TransportPolicy(tp="xla")), {}, "item 7.5"),
-    (2, StepConfig(transport=TransportPolicy(tp="fused")),
-     {"use_art": False}, "item 7.5"),
     (2, StepConfig(transport=TransportPolicy(tp="fused",
                                              compress_cross_pod=True)),
      {}, "data axis"),
 ])
 def test_unported_paths_raise(size, scfg, kw, match):
-    """The reference's GSPMD fallback (``tp="xla"``, ``use_art=False``)
-    waits for the sharding rules (item 7.5); compression inside the step
-    is not wired, as in the reference."""
+    """Compression inside the step is not wired, as in the reference.
+    (The reference's GSPMD path, ``tp="xla"`` and ``use_art=False``,
+    trains: ``tests/test_torch_tp_xla.py``.)"""
     cfg = dataclasses.replace(get_config(ARCH).reduced(), **kw)
     with pytest.raises(NotImplementedError, match=match):
         build_train_step(cfg, _cpu_group(size), scfg)
@@ -606,7 +605,7 @@ def test_shard_params_follow_the_placement_rules():
     full = _tree_np(ref_init_params(cfg, jax.random.PRNGKey(0)))
     tp = 4
     for rank in range(tp):
-        shard = shard_params(full, rank, tp)
+        shard = shard_params(full, rank, tp, scheme="art")
         for i in range(cfg.n_layers):
             lp = shard["layers"][i]
             f = cfg.d_ff // tp
@@ -631,16 +630,19 @@ def test_shard_params_follow_the_placement_rules():
         np.testing.assert_array_equal(
             shard["lm_head"].numpy(),
             full["lm_head"][:, rank * v:(rank + 1) * v])
-    assert [sharding.placement((n,)) for n in
+    d = cfg.d_model
+    assert [sharding.placement((n,), "model", (d,) * (n != "scale") + (d,),
+                               tp, scheme="art") for n in
             ("wq", "w_up", "w_gate", "wo", "w_down", "wk", "wv",
              "scale")] == ["col"] * 3 + ["row"] * 2 + ["rep"] * 3
-    v, d = cfg.vocab_size, cfg.d_model
-    assert [sharding.placement(("embed",), "model", (v, d), tp),
-            sharding.placement(("lm_head",), "model", (d, v), tp),
-            sharding.placement(("embed",), "model", (250, d), tp),
-            sharding.placement(("lm_head",), "model", (d, 250), tp),
-            sharding.placement(("embed",), "model", (v, d), 1),
-            sharding.placement(("lm_head",), "model", (d, v), 1),
+    v = cfg.vocab_size
+    kw = dict(scheme="art")
+    assert [sharding.placement(("embed",), "model", (v, d), tp, **kw),
+            sharding.placement(("lm_head",), "model", (d, v), tp, **kw),
+            sharding.placement(("embed",), "model", (250, d), tp, **kw),
+            sharding.placement(("lm_head",), "model", (d, 250), tp, **kw),
+            sharding.placement(("embed",), "model", (v, d), 1, **kw),
+            sharding.placement(("lm_head",), "model", (d, v), 1, **kw),
             sharding.placement(("embed",), "expert", (v, d), tp)] == \
         ["row", "col", "rep", "rep", "rep", "rep", "rep"]
     with pytest.raises(ValueError, match="logical leaf's shape"):

@@ -19,7 +19,8 @@ against the reference's on a host mesh.
   ``load_checkpoint`` and restored onto a one-rank port run; a SIGTERM
   on one rank stopping every rank at the same checkpoint;
 * ``python -m repro_torch.launch.train --device cpu --data-axis 2
-  --model-axis 2`` trains at ``reduced()`` and writes a checkpoint;
+  --model-axis 2`` trains at ``reduced()`` under ``tp="xla"`` (the
+  reference launcher's default job) and writes a checkpoint;
 * what the grid does not take raises.
 
 One 4-rank gloo world for the module.
@@ -131,7 +132,8 @@ def _check_rule(ref_params, res, axis="model"):
     for r in res:
         inner, n = r["coords"][1], r["shape"][1]
         want = {"/".join(map(str, p)): v.numpy() for p, v in sharding.leaves(
-            shard_params(ref_params, inner, n, axis=axis))}
+            shard_params(ref_params, inner, n, axis=axis,
+                         scheme=r["scheme"]))}
         assert set(r["params"]) == set(want)
         for name, w in want.items():
             d = np.abs(r["params"][name] - w)
@@ -276,7 +278,7 @@ def test_trainer_grid_resumes_and_matches_reference(pool, tmp_path):
                                       err_msg=str(path))
     for r in res:
         m = r["coords"][1]
-        cut = sharding.shard_tree(back[0], m, 2)
+        cut = sharding.shard_tree(back[0], m, 2, scheme="xla")
         assert r["digests"] == {"/".join(map(str, p)): rank_tasks._digest(t)
                                 for p, t in sharding.leaves(cut)}
 
@@ -318,6 +320,9 @@ def test_launcher_trains_over_a_grid(tmp_path):
     assert [s for s, _ in list_checkpoints(ckpt)] == [2]
     assert len(out["history"]) == 2
     assert all(np.isfinite(h["loss"]) for h in out["history"])
+    # the reference launcher's default job at reduced(): smollm-360m on
+    # data 2 × model 2 under the reference's default tp="xla"
+    assert out["scheme"] == "xla"
 
 
 def test_launcher_memory_refusal_counts_a_rank_per_process():
@@ -332,7 +337,7 @@ def test_launcher_memory_refusal_counts_a_rank_per_process():
         full = init_params(cfg, 0, "cpu")
         for n in (1, 2):
             held = sum(t.numel() for _, t in sharding.leaves(
-                sharding.shard_tree(full, 0, n, axis)))
+                sharding.shard_tree(full, 0, n, axis, scheme="xla")))
             assert launch_train.rank_params(cfg, axis, n) == held
     with pytest.raises(SystemExit, match=r"4 ranks of 36\.6 GB each"):
         launch_train.main(["--device", "cpu", "--full", "--arch", DENSE,

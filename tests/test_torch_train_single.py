@@ -16,7 +16,7 @@
   bucketed accumulation gives the bits of leaf-by-leaf accumulation;
 * ``dist.bucketing`` against ``repro.dist.bucketing``;
 * the training forward never reaches the flash kernel's wrapper, the
-  ssm family raises at tp ≥ 2 (ART-TP is dense-only), and the launcher
+  ssm family raises at tp ≥ 2 (ROADMAP item 7.5b), and the launcher
   and the example run on the CPU (smollm and mamba2; the launcher also
   reduced zamba2, and refuses full-width zamba2 at its published depth on
   memory).
@@ -326,7 +326,7 @@ def test_ssm_step_runs_the_model_block_and_refuses_tp():
     _, _, m = build_train_step(cfg, CPU, scfg)(params, opt, batch, 0)
     np.testing.assert_allclose(m["loss"], want.item(), rtol=1e-5)
     np.testing.assert_allclose(m["grad_norm"], norm, rtol=1e-5)
-    with pytest.raises(ValueError, match="dense-only"):
+    with pytest.raises(NotImplementedError, match="item 7.5b"):
         build_train_step(cfg, Group(rank=0, size=2,
                                     device=torch.device("cpu")), scfg)
 
